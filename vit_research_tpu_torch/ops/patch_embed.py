@@ -1,0 +1,155 @@
+"""Fused normalise + patchify + project: CUDA kernel and plain version.
+
+Port of vit_research_tpu/ops/patch_embed.py. The embedding engine ships
+uint8 NHWC frames to the device; this op turns them into (B, N, D) patch
+tokens in one pass,
+
+    uint8/float image -> (x * a - b)   per-channel affine (rescale+normalise)
+                      -> patch rows    (B*N, P*P*C), (py, px, c) fastest-last
+                      -> rows @ W + c  patch projection
+
+with the affine folded into two K-length vectors by :func:`fold_affine`.
+On a CUDA tensor :func:`fused_patch_embed` launches the hand-written kernel
+in ``csrc/patch_embed.cu``, whose tile loader does the patchify and the
+affine, so the normalised f32 image never exists in device memory. On a
+CPU tensor it runs :func:`patch_embed_plain`.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, N, P*P*C) patch rows, (py, px, c) fastest-last
+    (an HWIO conv kernel reshaped to (P*P*C, D) uses the same order).
+    Trailing rows/columns that do not fill a patch are cropped (VALID)."""
+    b, h, w, c = images.shape
+    p = patch_size
+    gh, gw = h // p, w // p
+    x = images[:, : gh * p, : gw * p, :]
+    x = x.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, gh * gw, p * p * c)
+
+
+def fold_affine(patch_size: int, channels: int = 3, *, rescale: float = 1.0,
+                mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0)):
+    """Fold rescale+normalise into K-length float32 (a, b) numpy vectors:
+    ``a[k] = rescale / std[c(k)]``, ``b[k] = mean[c(k)] / std[c(k)]``."""
+    k = patch_size * patch_size * channels
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+    a = np.tile(rescale / std, k // channels).astype(np.float32)
+    b = np.tile(mean / std, k // channels).astype(np.float32)
+    return a, b
+
+
+@functools.lru_cache(maxsize=32)
+def _affine_on(device: torch.device, patch_size: int, channels: int,
+               rescale: float, mean: tuple, std: tuple):
+    a, b = fold_affine(patch_size, channels, rescale=rescale, mean=mean,
+                       std=std)
+    return (torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
+
+
+def patch_embed_plain(images, w, bias, a_vec, b_vec, *, patch_size: int,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version: patchify, affine and matmul in f32.
+    Returns (B*N, D)."""
+    rows = patchify(images, patch_size)
+    rows = rows.reshape(-1, rows.shape[-1]).to(torch.float32)
+    x = rows * a_vec - b_vec
+    return (x @ w + bias).to(out_dtype)
+
+
+def _check(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
+    if images.dim() != 4:
+        raise ValueError(f"images must be (B, H, W, C), got "
+                         f"{tuple(images.shape)}")
+    if images.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"images must be uint8 or float32, got "
+                        f"{images.dtype}")
+    b, h, wd, c = images.shape
+    k = patch_size * patch_size * c
+    if h < patch_size or wd < patch_size:
+        raise ValueError(f"image {h}x{wd} is smaller than one "
+                         f"{patch_size}x{patch_size} patch")
+    if w.dim() != 2 or w.shape[0] != k:
+        raise ValueError(f"w must be (P*P*C = {k}, D), got {tuple(w.shape)}")
+    d = w.shape[1]
+    for name, t, shape in (("bias", bias, (d,)), ("a_vec", a_vec, (k,)),
+                           ("b_vec", b_vec, (k,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+
+
+def _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
+    from vit_research_tpu_torch.ops import _build
+
+    dev = images.device
+    for name, t in (("w", w), ("bias", bias), ("a_vec", a_vec),
+                    ("b_vec", b_vec)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, images on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not images.is_contiguous():
+        raise ValueError("images must be contiguous NHWC")
+    b, h, wd, c = images.shape
+    p = patch_size
+    d = w.shape[1]
+    out = torch.empty(((h // p) * (wd // p) * b, d), dtype=out_dtype,
+                      device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.vrt_patch_embed(
+            images.data_ptr(), w.data_ptr(), a_vec.data_ptr(),
+            b_vec.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd, c, p,
+            d, int(images.dtype == torch.uint8),
+            int(out_dtype == torch.bfloat16), stream)
+    _build.check(code, "patch_embed kernel")
+    fused_patch_embed.launches += 1
+    return out
+
+
+def fused_patch_embed(images: torch.Tensor, w: torch.Tensor,
+                      bias: torch.Tensor, *, patch_size: int,
+                      rescale: float = 1.0, mean=(0.0, 0.0, 0.0),
+                      std=(1.0, 1.0, 1.0),
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """Normalise + patchify + project in one pass.
+
+    Args:
+      images: (B, H, W, C) uint8 or float32, NHWC.
+      w: (P*P*C, D) float32 projection (HWIO conv kernel reshaped).
+      bias: (D,) float32.
+    Returns (B, N, D) in ``out_dtype`` (float32 or bfloat16). A CUDA input
+    launches the kernel (and counts it in ``fused_patch_embed.launches``);
+    a CPU input runs the plain version."""
+    c = images.shape[-1]
+    a_vec, b_vec = _affine_on(images.device, patch_size, c, float(rescale),
+                              tuple(float(x) for x in mean),
+                              tuple(float(x) for x in std))
+    _check(images, w, bias, a_vec, b_vec, patch_size, out_dtype)
+    if images.device.type == "cpu":
+        out = patch_embed_plain(images, w, bias, a_vec, b_vec,
+                                patch_size=patch_size, out_dtype=out_dtype)
+    elif images.device.type == "cuda":
+        out = _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype)
+    else:
+        raise ValueError(f"unsupported device {images.device}")
+    return out.reshape(images.shape[0], -1, w.shape[1])
+
+
+fused_patch_embed.launches = 0

@@ -1,0 +1,110 @@
+"""kNN vote classification for possession-side labelling.
+
+Port of the kNN+HMM parts of vit_research_tpu/segment/knn.py (that module
+cannot be imported here: its package imports JAX). Neighbour search is one
+masked matmul + top-k on the device (ops/topk.py); the vote arithmetic is
+the reference's numpy, carried over unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vit_research_tpu_torch.device import resolve_device
+from vit_research_tpu_torch.ops.topk import l2_normalize, masked_topk
+
+SIDES = ("left", "right", "none")
+
+
+def corpus_from_collection(col) -> dict:
+    """Read a labelled frame collection (write-frame-db / write-backs) into
+    the kNN corpus dict ``{'embeddings' (M, D), 'labels' (M,) int ids,
+    'probs' (M, 3)}``. Raises ValueError for empty or unlabelled
+    collections."""
+    got = col.get(include=("embeddings", "metadatas"))
+    if not got["ids"]:
+        raise ValueError(f"collection {col.name!r} is empty — build it "
+                         "with write-frame-db first")
+    labels, probs = [], []
+    for m in got["metadatas"]:
+        label = m.get("label")
+        if label is None:
+            raise ValueError(
+                f"collection {col.name!r} rows carry no 'label' metadata "
+                "— not a labeled frame collection (frame RAG collections "
+                "store side/t_norm only; build a corpus with "
+                "write-frame-db)")
+        label = str(label)
+        if label not in SIDES:
+            raise ValueError(f"collection {col.name!r} has non-side label "
+                             f"{label!r}; not a labeled frame collection")
+        labels.append(SIDES.index(label))
+        probs.append([float(m.get(f"{s}_prob", 0.0)) for s in SIDES])
+    return {"embeddings": np.asarray(got["embeddings"], np.float32),
+            "labels": np.asarray(labels, np.int64),
+            "probs": np.asarray(probs, np.float32)}
+
+
+def knn_labels(query_embs, corpus_embs, corpus_labels, k: int, *, device,
+               metric: str = "l2", mask=None):
+    """Batched k-NN on ``device``: returns (neighbour label ids (Q, k),
+    neighbour indices (Q, k), valid (Q, k)) as numpy, label -1 where a
+    neighbour was masked out. ``corpus_labels``: (N,) ints, 0=left,
+    1=right, 2=none. ``metric='cosine'`` L2-normalises both sides."""
+    dev = resolve_device(device)
+    q = torch.as_tensor(np.asarray(query_embs, np.float32), device=dev)
+    c = torch.as_tensor(np.asarray(corpus_embs, np.float32), device=dev)
+    if metric == "cosine":
+        q, c = l2_normalize(q), l2_normalize(c)
+    scores, idx = masked_topk(q, c, mask, k=k, metric=metric)
+    idx = idx.cpu().numpy()
+    valid = scores.cpu().numpy() > -1e29
+    labels = np.where(valid, np.asarray(corpus_labels)[idx], -1)
+    return labels, idx, valid
+
+
+def vote_counts(neighbor_labels) -> np.ndarray:
+    """(Q, k) label ids -> (Q, 3) votes (ignores -1 padding)."""
+    return np.stack([(neighbor_labels == c).sum(axis=1) for c in range(3)],
+                    axis=1)
+
+
+def fused_confidence(neighbor_labels, neighbor_probs, *, top_n: int,
+                     confidence_threshold: float = 0.7):
+    """Streaming-classifier confidence fusion
+    (reference: nba_proj/generate_clips_hmm.py:179-310).
+
+    Args:
+      neighbor_labels: (Q, k) label ids (-1 = padding).
+      neighbor_probs: (Q, k, 3) stored per-neighbour probabilities.
+      top_n: the k used for the unanimity check.
+    Returns dict with 'emissions' (Q, 3) mean stored probabilities (the
+    HMM emissions), 'fused' (Q, 3) = (vote fraction + mean prob) / 2,
+    'decision' (Q,) argmax of fused, 'confident' (Q,) mean prob of the
+    decision >= threshold, 'upsert_probs' (Q, 3) (0.999998 one-hot when
+    the vote is unanimous, else the class means)."""
+    q, k = neighbor_labels.shape
+    valid = (neighbor_labels >= 0)[..., None].astype(np.float64)
+    denom = np.maximum(valid.sum(axis=1), 1.0)
+    mean_probs = (np.asarray(neighbor_probs, np.float64) * valid).sum(axis=1) \
+        / denom
+    counts = vote_counts(neighbor_labels).astype(np.float64)
+    frac = counts / max(k, 1)
+    fused = (mean_probs + frac) / 2.0
+    decision = fused.argmax(axis=1)
+
+    dec_mean = np.take_along_axis(mean_probs, decision[:, None], axis=1)[:, 0]
+    confident = dec_mean >= confidence_threshold
+    unanimous = np.take_along_axis(counts, decision[:, None], axis=1)[:, 0] \
+        == top_n
+    one_hot = np.full((q, 3), 1e-6)
+    np.put_along_axis(one_hot, decision[:, None], 0.999998, axis=1)
+    upsert_probs = np.where(unanimous[:, None], one_hot, mean_probs)
+    return {
+        "emissions": mean_probs,
+        "fused": fused,
+        "decision": decision,
+        "confident": confident,
+        "upsert_probs": upsert_probs,
+    }
