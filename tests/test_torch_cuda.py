@@ -9,7 +9,12 @@ Tolerances. f32: the kernels and the plain versions sum the same products
 in other orders, ~1e-6 on outputs of order 1. bf16 patch embed: one bf16
 rounding of outputs < 8 (2^-5). bf16 attention: the kernel keeps f32
 scores and probabilities where the plain version rounds them to bf16
-(outputs < 4: 1e-2).
+(outputs < 4: 1e-2). Fused LN + projection: f32 1e-5 relative to the
+output's scale; with bf16 weights or output 2^-6 of it (a bf16 rounding of
+the LN output or the result can fall apart between two summation
+orders). The int8 store query: exact integer scores on both devices; the
+L2 normalisation before quantizing may differ by an ulp, which moves a
+score by at most ~1e-4 (tie-aware ids, distances to 1e-3).
 """
 
 import dataclasses
@@ -18,12 +23,16 @@ import numpy as np
 import pytest
 import torch
 
-from vit_research_tpu.data.preprocess import PreprocessSpec, to_grayscale_3ch
-from vit_research_tpu.utils.configs import ViTConfig
+from vit_research_tpu_torch.data.preprocess import (PreprocessSpec,
+                                                    to_grayscale_3ch)
 from vit_research_tpu_torch.models.vit import init_vit
 from vit_research_tpu_torch.ops import attention as attn
+from vit_research_tpu_torch.ops import fused_ln
 from vit_research_tpu_torch.ops import patch_embed as pe
+from vit_research_tpu_torch.ops import topk
 from vit_research_tpu_torch.parallel import embed
+from vit_research_tpu_torch.store.vector_store import Collection
+from vit_research_tpu_torch.utils.configs import ViTConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -140,3 +149,81 @@ def test_bf16_engine_on_card_is_close_to_f32(cuda):
                                  spec, device=cuda).embed_batch(frames)
     # bf16 keeps ~3 significant digits through 2 layers: cosine > 0.999
     assert np.min(np.sum(f32 * bf16, axis=1)) > 0.999
+
+
+@pytest.mark.parametrize("m,k,n", [(197, 768, 768), (300, 64, 200),
+                                   (1, 40, 3072)])
+@pytest.mark.parametrize("act", [None, "gelu", "gelu_tanh"])
+@pytest.mark.parametrize("x_dtype,w_dtype,out_dtype", [
+    (torch.float32, torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16, torch.float32)])
+def test_ln_matmul_kernel_matches_plain(cuda, m, k, n, act, x_dtype,
+                                        w_dtype, out_dtype):
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        cuda, x_dtype)
+    gamma, beta = (torch.from_numpy(rng.normal(mu, 0.1, size=k).astype(
+        np.float32)).to(cuda) for mu in (1.0, 0.0))
+    w = torch.from_numpy((rng.normal(size=(k, n)) * k ** -0.5).astype(
+        np.float32)).to(cuda, w_dtype)
+    bias = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
+    before = fused_ln.ln_matmul.launches
+    got = fused_ln.ln_matmul(x, gamma, beta, w, bias, activation=act,
+                             out_dtype=out_dtype)
+    assert fused_ln.ln_matmul.launches == before + 1
+    want = fused_ln.ln_matmul_plain(x, gamma, beta, w, bias, eps=1e-6,
+                                    activation=act, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    scale = want.float().abs().max().item()
+    exact = (x_dtype, w_dtype, out_dtype) == (torch.float32,) * 3
+    atol = (1e-5 if exact else 2 ** -6) * scale
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def test_ln_matmul_kernel_gradients_are_the_plain_vjp(cuda):
+    rng = np.random.default_rng(7)
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda).requires_grad_()
+            for a in (rng.normal(size=(2, 9, 64)), rng.normal(1, .1, 64),
+                      rng.normal(0, .1, 64), rng.normal(size=(64, 48)) / 8,
+                      rng.normal(size=48))]
+    fused_ln.ln_matmul(*args, activation="gelu").square().sum().backward()
+    got = [a.grad.clone() for a in args]
+    for a in args:
+        a.grad = None
+    fused_ln.ln_matmul_plain(args[0].reshape(-1, 64), *args[1:], eps=1e-6,
+                             activation="gelu", out_dtype=torch.float32) \
+        .square().sum().backward()
+    for g, a in zip(got, args):
+        torch.testing.assert_close(g, a.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,q", [(517, 40), (4096, 5)])
+def test_int8_device_query_matches_cpu(cuda, n, q):
+    rng = np.random.default_rng(n)
+    embs = rng.standard_normal((n, 64)).astype(np.float32)
+    queries = rng.standard_normal((q, 64)).astype(np.float32)
+    ids = [str(i) for i in range(n)]
+    answers = []
+    for device in (cuda, "cpu"):
+        col = Collection("c", space="cosine", device=device,
+                         device_quant="int8")
+        col.upsert(ids, embs)
+        assert n * q >= 1 << 14  # the device route
+        answers.append(col.query(queries, n_results=10,
+                                 include=("distances",)))
+    got, want = answers
+    for gi, gd, wi, wd in zip(got["ids"], got["distances"], want["ids"],
+                              want["distances"]):
+        np.testing.assert_allclose(gd, wd, rtol=0, atol=1e-3)
+        for i in set(gi) ^ set(wi):
+            d = gd[gi.index(i)] if i in gi else wd[wi.index(i)]
+            assert abs(d - wd[-1]) <= 1e-3
+
+
+def test_int8_dot_pads_to_int_mm_shapes(cuda):
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(rng.integers(-127, 128, (3, 20), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (13, 20), dtype=np.int8))
+    got = topk._int8_dot(a.to(cuda), b.to(cuda)).cpu()
+    torch.testing.assert_close(got, topk._int8_dot(a, b), rtol=0, atol=0)

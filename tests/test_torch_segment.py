@@ -29,6 +29,7 @@ from vit_research_tpu.segment import pipeline as jax_pipeline
 from vit_research_tpu.store.vector_store import PersistentClient
 from vit_research_tpu_torch.ops import topk, viterbi
 from vit_research_tpu_torch.segment import clips, hmm, knn, pipeline
+from vit_research_tpu_torch.store import vector_store as torch_store
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -316,8 +317,10 @@ def test_segment_with_knn_hmm_matches_jax_pipeline(tmp_path, metric):
 def test_confident_writeback_matches_jax(tmp_path):
     src, names, embs, corpus = _world(tmp_path, seed=8)
     cols = {}
-    for side in ("jax", "torch"):
-        client = PersistentClient(str(tmp_path / f"db_{side}"))
+    for side, client_cls, kw in (("jax", PersistentClient, {}),
+                                 ("torch", torch_store.PersistentClient,
+                                  {"device": "cpu"})):
+        client = client_cls(str(tmp_path / f"db_{side}"), **kw)
         col = client.get_or_create_collection("corpus")
         col.upsert(names[:5], embs[:5], [{"label": "none"}] * 5)
         cols[side] = col

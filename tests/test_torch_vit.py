@@ -174,7 +174,9 @@ def test_unported_options_are_refused():
 
 
 def test_hf_config_matches_reference():
-    assert tembed.HF_VIT_B16_224 == hf_import.HF_VIT_B16_224
+    # the port keeps its own ViTConfig class, with the reference's fields
+    assert dataclasses.asdict(tembed.HF_VIT_B16_224) == \
+        dataclasses.asdict(hf_import.HF_VIT_B16_224)
 
 
 # ---------------------------------------------------------------- engine

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vit_research_tpu.utils.configs import ViTConfig
+from vit_research_tpu_torch.utils.configs import ViTConfig
 
 
 def _np(x) -> np.ndarray:

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vit_research_tpu.utils.configs import ViTConfig
+from vit_research_tpu_torch.utils.configs import ViTConfig
 from vit_research_tpu_torch.ops import attention as attn_ops
 from vit_research_tpu_torch.ops.patch_embed import patchify
 
@@ -176,7 +176,8 @@ class EncoderBlock(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """ViT backbone configured by the reference's ``ViTConfig``. Parameters
+    """ViT backbone configured by a ``ViTConfig`` (utils/configs.py, the
+    reference's fields). Parameters
     are created in f32 and cast with ``.to(dtype)`` by the caller for bf16
     compute (``config.dtype``); LayerNorms run in the activations' dtype."""
 

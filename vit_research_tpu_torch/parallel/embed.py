@@ -26,13 +26,13 @@ import threading
 import numpy as np
 import torch
 
-from vit_research_tpu.data.preprocess import (
+from vit_research_tpu_torch.data.preprocess import (
     HF_VIT_SPEC,
     LUMA_WEIGHTS,
     PreprocessSpec,
     load_frames,
 )
-from vit_research_tpu.utils.configs import ViTConfig
+from vit_research_tpu_torch.utils.configs import ViTConfig
 from vit_research_tpu_torch.device import resolve_device
 from vit_research_tpu_torch.ops.patch_embed import fused_patch_embed
 
@@ -173,7 +173,6 @@ class EmbeddingEngine:
                            for s in range(0, len(batch_u8), self.batch_size))
 
     def embed_paths(self, paths, num_workers: int = 8,
-                    use_native: bool = False,
                     prefetch: int = 2) -> np.ndarray:
         """Decode -> embed with host/device overlap: a producer thread
         decodes up to ``prefetch`` batches ahead into a bounded queue while
@@ -184,8 +183,7 @@ class EmbeddingEngine:
 
         def load(s):
             return load_frames(paths[s:s + self.batch_size], self.spec,
-                               num_workers=num_workers,
-                               use_native=use_native)
+                               num_workers=num_workers)
 
         starts = range(0, len(paths), self.batch_size)
         if prefetch <= 0:

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from vit_research_tpu.data import naming
+from vit_research_tpu_torch.data import naming
 from vit_research_tpu_torch.segment.hmm import STATES
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from vit_research_tpu.data import naming
+from vit_research_tpu_torch.data import naming
 from vit_research_tpu_torch.segment import clips as clips_mod
 from vit_research_tpu_torch.segment import knn as knn_mod
 from vit_research_tpu_torch.segment.hmm import STATES, smooth_probabilities
