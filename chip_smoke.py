@@ -7,12 +7,15 @@ width and checks the results.
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. the card (nvidia-smi name and power limit, torch and CUDA versions)
-     and the kernel build from vit_research_tpu_torch/csrc/;
+     and the kernel build from vit_research_tpu_torch/csrc/, with ptxas's
+     registers, shared memory and spills of the attention kernels;
   2. the patch-embed kernel against its plain version (uint8 frames,
      B=64 and B=256 @224 P=16, B=16 @432x768 P=32; f32 and bf16 out),
      and the nearest library call, F.conv2d over the normalised batch;
   3. the attention kernel against its plain version (T = 197, 325, 1297,
-     dh = 64; f32 and bf16), and F.scaled_dot_product_attention;
+     dh = 64; f32 and bf16), on contiguous (B, H, T, dh) inputs and on the
+     (B, H, T, dh) views of (B, T, H, dh) tensors that the backbone's
+     projections give, and F.scaled_dot_product_attention;
   3b. the fused LayerNorm + projection kernel, driven through its public
      entry ``ln_matmul`` at ViT-B shapes (M = 256*197, K = 768, N = 768
      and 3072 with exact GELU; x and W f32, and x f32 with W bf16), then
@@ -87,9 +90,10 @@ SPEC = embed.HF_VIT_SPEC
 HF_AFFINE = dict(rescale=SPEC.rescale, mean=SPEC.mean, std=SPEC.std)
 # Tolerances. f32: the kernels and the plain versions sum the same
 # products in other orders, ~1e-6 on outputs of order 1. bf16 patch embed:
-# one bf16 rounding of outputs < 8 (2^-5). bf16 attention: the kernel
-# keeps f32 scores/probabilities where the plain version rounds them to
-# bf16 (outputs < 4: 1e-2).
+# one bf16 rounding of outputs < 8 (2^-5). bf16 attention, against the
+# f32 plain version of the bf16 inputs: the kernel rounds the
+# probabilities to bf16 (as the JAX package's xla_attention does) and the
+# output (outputs < 4: 1e-2).
 PE_BOUND = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5}
 ATTN_BOUND = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # 8 frames through 12 f32 layers on the card vs on the CPU: different
@@ -163,7 +167,23 @@ def phase_card() -> str:
     _build.library()
     log(f"[1] built {len(_build.sources())} kernel sources with nvcc in "
         f"{time.monotonic() - t0:.1f} s")
+    log_ptxas("attention.cu")
     return smi
+
+
+def log_ptxas(source: str) -> None:
+    """One line per kernel of ``source``: ptxas's registers, shared
+    memory (static; dynamic shared memory is set at launch) and spills."""
+    name, spills = "?", ""
+    for line in _build.ptxas_report(source):
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            k = re.search(r"(attn_\w+?)ILi(\d+)E", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+        elif "spill" in line:
+            spills = line
+        elif "registers" in line:
+            log(f"[1] ptxas {source} {name}: "
+                f"{line.split(':', 1)[1].strip()}; {spills}")
 
 
 def phase_patch_embed(smi: str) -> dict:
@@ -240,30 +260,46 @@ def _conv_patch_embed_ms(images, wt, bias, a_vec, b_vec, p, want,
 
 
 def phase_attention(smi: str) -> dict:
+    """Kernel B at the backbone's shapes, in f32 and bf16: on contiguous
+    (B, H, T, dh) inputs and on the views of (B, T, H, dh) tensors that the
+    projections give, each held against the plain version of the same
+    values; timed against the plain version and SDPA (contiguous inputs).
+    Returns the f32 summary at T = 197 with the bf16 one under "bf16"."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
-    summary = None
+    summary = {}
     for b, t in ((BATCH, 197), (BATCH, 325), (32, 1297)):
-        q32, k32, v32 = (torch.randn(b, 12, t, 64, generator=g).to(dev)
+        # projection order (B, T, H, dh), as the backbone's q/k/v
+        q32, k32, v32 = (torch.randn(b, t, 12, 64, generator=g).to(dev)
                          for _ in range(3))
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
-            got = attn.multi_head_attention(q, k, v)
-            want = attn.attention_plain(q.float(), k.float(), v.float())
-            torch.cuda.synchronize()
-            err = (got.float() - want).abs().max().item()
-            del want
-            bound_err = ATTN_BOUND[dtype]
-            ms = cuda_ms(lambda: attn.multi_head_attention(q, k, v))
-            plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v))
+            views = [x.to(dtype).transpose(1, 2) for x in (q32, k32, v32)]
+            contig = [x.contiguous() for x in views]
+            want = attn.attention_plain(*(x.float() for x in contig))
             name = str(dtype).split(".")[-1]
-            log(f"[3] attention B={b} H=12 T={t} dh=64 {name}: max|err| "
-                f"{err:.3e} (bound {bound_err:.1e}) | kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms | {smi}")
-            if not err <= bound_err:
-                raise AssertionError(f"attention kernel disagrees: {err}")
+            bound_err = ATTN_BOUND[dtype]
+            row = {}
+            for layout, (q, k, v) in (("contiguous", contig),
+                                      ("projection order", views)):
+                got = attn.multi_head_attention(q, k, v)
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs().max().item()
+                ms = cuda_ms(lambda: attn.multi_head_attention(q, k, v))
+                log(f"[3] attention B={b} H=12 T={t} dh=64 {name} {layout}: "
+                    f"max|err| {err:.3e} (bound {bound_err:.1e}) | kernel "
+                    f"{ms:.4f} ms | {smi}")
+                if not err <= bound_err:
+                    raise AssertionError(f"attention kernel disagrees "
+                                         f"({layout}): {err}")
+                row[layout] = (err, ms)
+                del got
+            del want
+            q, k, v = contig
+            plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v))
+            log(f"[3] attention B={b} H=12 T={t} dh=64 {name}: plain "
+                f"{plain_ms:.4f} ms | {smi}")
             if t == 197:
                 sdpa_ms = cuda_ms(
                     lambda: F.scaled_dot_product_attention(q, k, v))
@@ -273,12 +309,15 @@ def phase_attention(smi: str) -> dict:
                 log(f"[3] library: F.scaled_dot_product_attention B={b} "
                     f"T={t} {name}: {sdpa_ms:.4f} ms; bound "
                     f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}) | {smi}")
-                if dtype == torch.float32:
-                    summary = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   library_ms=sdpa_ms, **lim)
-        del q32, k32, v32, q, k, v
+                summary[name] = dict(
+                    max_abs_err=max(e for e, _ in row.values()),
+                    ms=row["contiguous"][1],
+                    ms_projection_order=row["projection order"][1],
+                    plain_ms=plain_ms, library_ms=sdpa_ms, **lim)
+            del views, contig, q, k, v
+        del q32, k32, v32
         torch.cuda.empty_cache()
-    return summary
+    return dict(summary["float32"], bf16=summary["bfloat16"])
 
 
 LN_CASES = [(768, None, torch.float32), (3072, "gelu", torch.float32),

@@ -7,9 +7,9 @@ so it also runs there without the JAX test harness:
 
 Tolerances. f32: the kernels and the plain versions sum the same products
 in other orders, ~1e-6 on outputs of order 1. bf16 patch embed: one bf16
-rounding of outputs < 8 (2^-5). bf16 attention: the kernel keeps f32
-scores and probabilities where the plain version rounds them to bf16
-(outputs < 4: 1e-2). Fused LN + projection: f32 1e-5 relative to the
+rounding of outputs < 8 (2^-5). bf16 attention, against the f32 plain
+version of the bf16-rounded inputs: the kernel rounds the probabilities
+and the output to bf16 (outputs < 4: 1e-2). Fused LN + projection: f32 1e-5 relative to the
 output's scale; with bf16 weights or output 2^-6 of it (a bf16 rounding of
 the LN output or the result can fall apart between two summation
 orders). The int8 store query: exact integer scores on both devices; the
@@ -82,29 +82,67 @@ def test_patch_embed_kernel_matches_plain(cuda, in_dtype, shape, patch, dim,
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("t,dh", [(17, 16), (65, 32), (197, 64), (325, 64),
-                                  (1297, 64)])
+def _attention_inputs(b, h, t, dh, dtype, layout, device, seed):
+    """q, k, v as (B, H, T, dh): contiguous, or the (B, H, T, dh) views of
+    (B, T, H, dh) tensors that the backbone's projections give."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (b, h, t, dh) if layout == "contiguous" else (b, t, h, dh)
+    xs = [torch.randn(*shape, generator=g).to(device, dtype)
+          for _ in range(3)]
+    return xs if layout == "contiguous" else [x.transpose(1, 2) for x in xs]
+
+
+@pytest.mark.parametrize("t", [1, 16, 17, 63, 64, 65, 197, 325, 1297])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("layout", ["contiguous", "projection_order"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_kernel_matches_plain(cuda, t, dh, dtype):
-    g = torch.Generator().manual_seed(t)
-    q, k, v = (torch.randn(2, 12, t, dh, generator=g).to(cuda, dtype)
-               for _ in range(3))
+def test_attention_kernel_matches_plain(cuda, t, dh, layout, dtype):
+    q, k, v = _attention_inputs(2, 12, t, dh, dtype, layout, cuda, t + dh)
     before = attn.multi_head_attention.launches
     got = attn.multi_head_attention(q, k, v)
     assert attn.multi_head_attention.launches == before + 1
     want = attn.attention_plain(q.float(), k.float(), v.float())
-    assert got.dtype == dtype
+    assert got.dtype == dtype and got.shape == (2, 12, t, dh)
+    # written in projection order: (B, T, H, dh) contiguous underneath
+    assert got.transpose(1, 2).is_contiguous()
     atol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 2.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_takes_any_scale(cuda, scale, dtype):
+    q, k, v = _attention_inputs(2, 3, 65, 32, dtype, "projection_order",
+                                cuda, 5)
+    got = attn.multi_head_attention(q, k, v, scale=scale)
+    want = attn.attention_plain(q.float(), k.float(), v.float(), scale=scale)
+    atol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+
+
+def test_attention_kernel_takes_a_transposed_view(cuda):
+    # (B, T, H, dh) storage seen as (B, H, T, dh), as the backbone passes it
+    q = torch.randn(1, 8, 2, 64, device=cuda).transpose(1, 2)
+    got = attn.multi_head_attention(q, q, q)
+    torch.testing.assert_close(got, attn.attention_plain(q, q, q), rtol=0,
+                               atol=1e-5)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 128, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         attn.multi_head_attention(q, q, q)
-    q = torch.zeros(1, 8, 2, 64, device=cuda).transpose(1, 2)
-    with pytest.raises(ValueError, match="contiguous"):
+    q = torch.zeros(1, 2, 64, 8, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="stride 1 on its last dim"):
         attn.multi_head_attention(q, q, q)
+    q = torch.zeros(1 * 2 * 8 * 64 + 1, device=cuda)[1:].view(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attn.multi_head_attention(q, q, q)
+    before = attn.multi_head_attention.launches
+    q = torch.zeros(1, 2, 8, 66, device=cuda)[..., :64]  # 264-byte rows
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        attn.multi_head_attention(q, q, q)
+    assert attn.multi_head_attention.launches == before
     images = torch.zeros(1, 32, 32, 3, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="images on"):
         pe.fused_patch_embed(images, torch.zeros(192, 8), torch.zeros(8),

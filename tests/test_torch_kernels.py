@@ -123,6 +123,67 @@ def test_attention_matches_pallas_interpret(t, dh):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("t,dh", [(17, 16), (65, 32), (197, 64)])
+def test_attention_projection_order_views_match_pallas_interpret(t, dh):
+    # The backbone passes q/k/v as (B, H, T, dh) views of the projections'
+    # (B, T, H, dh) tensors; the JAX side gets the same values contiguous.
+    rng = np.random.default_rng(t + 1)
+    q, k, v = (rng.standard_normal((2, t, 3, dh)).astype(np.float32)
+               for _ in range(3))
+    want = jax_attn.multi_head_attention(
+        *(jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v)),
+        use_pallas=True, interpret=True)
+    views = [torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)]
+    assert not any(x.is_contiguous() for x in views)
+    got = attn.multi_head_attention(*views)
+    assert got.shape == (2, 3, t, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _flat_view(shape, dtype, offset=0, order=(0, 1, 2, 3)):
+    """A (B, H, T, dh) view starting ``offset`` elements into a flat
+    buffer laid out in ``order`` (the dims from slowest to fastest)."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + 64, dtype=dtype)
+    base = flat[(-flat.data_ptr() // flat.element_size()) % 16:]  # aligned
+    laid = base[offset:offset + n].reshape([shape[i] for i in order])
+    return laid.permute([order.index(i) for i in range(4)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_strides_take_contiguous_and_projection_order(dtype):
+    x = _flat_view((2, 3, 5, 16), dtype)
+    assert attn._kernel_strides(x) == (3 * 5 * 16, 5 * 16, 16)
+    # (B, T, H, dh) storage seen as (B, H, T, dh): the backbone's views
+    x = _flat_view((2, 3, 5, 16), dtype, order=(0, 2, 1, 3))
+    assert attn._kernel_strides(x) == (5 * 3 * 16, 16, 3 * 16)
+    # a dim of size 1 is never stepped over: its stride does not matter
+    x = _flat_view((1, 1, 1, 32), dtype).as_strided((1, 1, 1, 32),
+                                                    (7, 3, 5, 1))
+    assert attn._kernel_strides(x) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,match", [
+    ("last_dim_stride", "stride 1 on its last dim"),
+    ("misaligned_base", "16-byte aligned"),
+    ("token_stride", "multiples of 16 bytes"),
+    ("not_4d", "must be"),
+])
+def test_kernel_strides_refuse_what_16_byte_loads_cannot_take(dtype, case,
+                                                              match):
+    if case == "last_dim_stride":  # (B, H, dh, T) storage: dh strided
+        x = _flat_view((2, 3, 8, 16), dtype, order=(0, 1, 3, 2))
+    elif case == "misaligned_base":  # one element into an aligned buffer
+        x = _flat_view((2, 3, 8, 16), dtype, offset=1)
+    elif case == "token_stride":  # rows of 17 elements, 16 of them used
+        x = _flat_view((2, 3, 8, 17), dtype)[..., :16]
+    else:
+        x = _flat_view((2, 3, 8, 16), dtype)[0]
+    with pytest.raises(ValueError, match=match):
+        attn._kernel_strides(x, "q")
+
+
 def test_attention_plain_matches_xla_reference_bf16():
     # bf16 inputs: scores and the product with v round to bf16 at the same
     # places on both sides; the bound is two bf16 ulps of values < 4.

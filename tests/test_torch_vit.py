@@ -111,6 +111,66 @@ def test_endpoints_match_jax(cfg):
                                    err_msg=key, **TOL)
 
 
+def _record_attention_inputs(monkeypatch):
+    """Wraps the backbone's attention call; returns the list of the
+    (q, k, v) it was handed."""
+    seen = []
+    real = tvit.attn_ops.multi_head_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((q, k, v))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tvit.attn_ops, "multi_head_attention", spy)
+    return seen
+
+
+def test_attention_without_copies_matches_jax(monkeypatch):
+    """MultiHeadSelfAttention hands the attention op the projections'
+    (B, T, H, dh) tensors as (B, H, T, dh) views, no copy, and still
+    equals the JAX module (its Pallas kernel in interpret mode)."""
+    d, h, t = 64, 4, 17
+    jm = jax_vit.MultiHeadSelfAttention(num_heads=h, use_pallas=True,
+                                        interpret_pallas=True)
+    x = np.random.default_rng(6).standard_normal((3, t, d)).astype(
+        np.float32)
+    params = jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.PRNGKey(1), jnp.asarray(x)))["params"]
+    want, _ = jm.apply({"params": params}, jnp.asarray(x))
+    tm = tvit.MultiHeadSelfAttention(d, h).eval()
+    sd = {}
+    for name in ("query", "key", "value"):
+        sd[f"{name}.weight"] = params[name]["kernel"].reshape(d, d).T
+        sd[f"{name}.bias"] = params[name]["bias"].reshape(d)
+    sd["out.weight"] = params["out"]["kernel"].reshape(d, d).T
+    sd["out.bias"] = params["out"]["bias"]
+    tm.load_state_dict({k: torch.from_numpy(np.array(v))
+                        for k, v in sd.items()})
+    seen = _record_attention_inputs(monkeypatch)
+    with torch.no_grad():
+        got, _ = tm(torch.from_numpy(x))
+    (q, k, v), = seen
+    for a in (q, k, v):
+        assert a.shape == (3, h, t, d // h) and not a.is_contiguous()
+        assert a.transpose(1, 2).is_contiguous()  # projection order
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("cfg", [TINY_1, TINY_2])
+def test_encoder_block_without_copies_matches_jax(monkeypatch, cfg):
+    model, params, tm = _pair(cfg)
+    x = np.random.default_rng(7).standard_normal(
+        (2, cfg.num_patches + 1, cfg.hidden_size)).astype(np.float32)
+    want, _ = model.apply(params, jnp.asarray(x),
+                          method=lambda m, y: m.blocks[0](y))
+    seen = _record_attention_inputs(monkeypatch)
+    with torch.no_grad():
+        got, _ = tm.blocks[0](torch.from_numpy(x))
+    assert len(seen) == 1
+    assert all(a.transpose(1, 2).is_contiguous() for a in seen[0])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_other_resolution_interpolates_pos_embedding():
     # trained grid 4x4 -> 5x9 (40x72 input, VALID crop of the remainder)
     model, params, tm = _pair(TINY_1)

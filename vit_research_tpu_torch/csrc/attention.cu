@@ -3,166 +3,648 @@
 // Replaces: vit_research_tpu/ops/attention.py::_attn_kernel (driven by
 // _pallas_attention_fwd_impl, public entry multi_head_attention).
 //
-// Computes o = softmax(q k^T * scale) v per (batch*head), with f32 scores,
-// f32 softmax and f32 accumulation; o is written in the input dtype
-// (f32 or bf16). q, k, v, o are (BH, T, dh) contiguous.
+// Computes o = softmax(q k^T * scale) v per (batch, head) with f32 scores,
+// an f32 online softmax and f32 accumulation; o is written in the input
+// dtype. q, k and v are (B, H, T, dh) views with any batch, head and token
+// strides (the last dim has stride 1), so the backbone passes the q/k/v
+// projections in their (B, T, H, dh) order without a copy; o is written
+// through its own strides (the wrapper allocates it (B, T, H, dh)). Any T;
+// dh in {16, 32, 64}.
 //
-// What bounds it on the H100: at ViT sequence lengths (T = 197..1297,
-// dh = 64) attention is a small share of the encoder's FLOPs, and what a
-// naive version pays is memory: the (T, T) score matrix per head would be
-// written and read back from device memory. This version is bound by the
-// f32 FMA rate of the CUDA cores (4*T*T*dh FLOPs per head), since it keeps
-// the TPU kernel's f32 arithmetic and uses no tensor cores yet.
+// What bounds it on the H100 at ViT-B/16 (T = 197, dh = 64): in bf16 the
+// bytes (q, k, v read once, o written once: 0.09 ms at B = 256) against
+// 0.03 ms of tensor-core operations; in f32 the operations (4*T*T*dh per
+// head on the CUDA cores at 67 TFLOP/s: 0.46 ms), since the parity setting
+// keeps full f32 products (no TF32).
 //
-// What the design does about it: the TPU kernel kept all of K/V for one
-// head in VMEM (T <= 4096). Shared memory is far smaller, so each block
-// instead streams K/V through shared memory in tiles of 32 keys with an
-// online softmax (running max and sum in f32), which removes any limit on
-// T and keeps scores out of device memory. One thread owns one query row:
-// its q row and its output accumulator live in registers, and every K/V
-// element is read from shared memory as a broadcast float4, so each
-// shared-memory load feeds four FMAs. mma.sync/wgmma are left for later.
+// What the design does about it. Both kernels: one block owns 64 query
+// rows of one (b, h); K/V stream through shared memory in tiles of 64 keys,
+// double-buffered by 16-byte cp.async copies (zero fill past T), so the
+// next tile loads while this one is computed; the score matrix never
+// leaves the chip and T has no limit (the TPU kernel kept all of K/V in
+// VMEM). The grid runs the query blocks of one (b, h) next to each other,
+// so their K/V re-reads hit L2. A key tile that runs past T computes only
+// its live key groups.
+//
+// - bf16 (attn_bf16): FlashAttention-2 on the tensor cores. 4 warps x 16
+//   query rows; each warp keeps its Q fragment in registers for the whole
+//   key loop, forms S = Q K^T with mma.sync m16n8k16 (bf16 in, f32
+//   accumulate; K fragments by ldmatrix), runs the online softmax in f32
+//   with the scale folded into exp2, rounds P to bf16 in registers and
+//   reuses the S accumulator layout as the A fragment of P V (V fragments
+//   by ldmatrix.trans). Rounding P to bf16 is what the JAX package does off
+//   the TPU (xla_attention casts the probabilities to the input dtype); its
+//   Pallas kernel keeps P in f32. O is divided by the row sum once, staged
+//   through the warp's own Q rows in shared memory and written with
+//   16-byte stores. A warp whose 16 rows all lie past T skips the math but
+//   takes part in the copies and barriers. Rows are padded by 16 bytes in
+//   shared memory so that ldmatrix reads are free of bank conflicts.
+// - f32 (attn_f32): register-tiled on the CUDA cores. 128 threads; thread
+//   (ty, tx) owns rows ty + 16i (i < 4) and keys tx + 8j (j < 8) of the
+//   64 x 64 score tile, and the same rows x dh/8 columns of O. Q and K sit
+//   in shared memory in their natural (row, dh) layout (cp.async copies 16
+//   bytes as they lie, it cannot transpose), padded by 16 bytes a row, and
+//   the products run 4 deep along dh: per 4 dh steps a thread reads 4 Q and
+//   8 K float4 for 128 FMAs, the ratio of a dh x rows transposed staging.
+//   Row max and sum come from shuffles across the 8 threads of a row; P
+//   goes through a 64 x 72 f32 tile in shared memory (written and read
+//   only by the warp that owns its rows) into the P V micro-GEMM, which
+//   reads 4 P and dh/8 V float4 per 4 keys for another 128 FMAs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;   // queries (= threads) per block
-constexpr int BKV = 32;  // keys per shared-memory tile
+constexpr int BQ = 64;        // query rows per block
+constexpr int BK = 64;        // keys per shared-memory tile
+constexpr int THREADS = 128;  // 4 warps
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+struct Strides {
+  long long b, h, t;
+};
+
+template <typename T>
+struct Params {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
+  Strides sq, sk, sv, so;
+  int heads, seq, n_qblocks;
+  float scale_log2;  // scale * log2(e)
+};
+
+// 2^x in one SFU instruction (ex2.approx: relative error ~2^-22; 2^-inf =
+// 0; results below 2^-126 flush to 0, which a softmax sum >= 1 cannot
+// feel).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_bytes = 0 fills the 16 bytes with 0.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copies 64 rows of DH elements of (b, h)'s tensor, from token `row0` on,
+// into shared memory with row pitch `ld`; rows past `seq` are zeroed.
 template <typename T, int DH>
-__global__ void __launch_bounds__(BQ)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int seq,
-                 float scale) {
-  __shared__ __align__(16) float Ks[BKV][DH];
-  __shared__ __align__(16) float Vs[BKV][DH];
-
-  const int tid = threadIdx.x;
-  const long long head = blockIdx.x;
-  const int row = blockIdx.y * BQ + tid;
-  const bool row_ok = row < seq;
-  const long long head_off = head * (long long)seq * DH;
-
-  float qr[DH];
-  float acc[DH];
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
+                                          long long st, int row0, int seq,
+                                          int tid) {
+  constexpr int CH = DH * (int)sizeof(T) / 16;  // 16-byte chunks per row
+  constexpr int PER = 16 / (int)sizeof(T);     // elements per chunk
+  static_assert(64 * CH % THREADS == 0, "whole copies per thread");
 #pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    qr[d] = row_ok ? to_f32(q[head_off + (long long)row * DH + d]) : 0.f;
-    acc[d] = 0.f;
-  }
-  float m_run = -CUDART_INF_F;
-  float l_run = 0.f;
-
-  for (int j0 = 0; j0 < seq; j0 += BKV) {
-    __syncthreads();  // the previous tile is no longer being read
-#pragma unroll
-    for (int i = 0; i < BKV * DH / BQ; ++i) {
-      const int idx = tid + i * BQ;
-      const int kj = idx / DH;
-      const int d = idx - kj * DH;
-      const int key = j0 + kj;
-      const bool ok = key < seq;
-      const long long off = head_off + (long long)key * DH + d;
-      Ks[kj][d] = ok ? to_f32(k[off]) : 0.f;
-      Vs[kj][d] = ok ? to_f32(v[off]) : 0.f;
-    }
-    __syncthreads();
-
-    const int n_valid = min(BKV, seq - j0);
-    float s[BKV];
-    float m_tile = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(&Ks[j][0]);
-      float dot = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 kv = kr[d4];
-        dot = fmaf(qr[4 * d4 + 0], kv.x, dot);
-        dot = fmaf(qr[4 * d4 + 1], kv.y, dot);
-        dot = fmaf(qr[4 * d4 + 2], kv.z, dot);
-        dot = fmaf(qr[4 * d4 + 3], kv.w, dot);
-      }
-      // Keys past the end of the sequence take no probability mass.
-      s[j] = j < n_valid ? dot * scale : -CUDART_INF_F;
-      m_tile = fmaxf(m_tile, s[j]);
-    }
-    // Every tile holds at least one valid key, so m_new is finite and the
-    // first tile's correction expf(-inf) is exactly 0.
-    const float m_new = fmaxf(m_run, m_tile);
-    const float corr = expf(m_run - m_new);
-    l_run *= corr;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      const float p = expf(s[j] - m_new);
-      l_run += p;
-      const float4* vr = reinterpret_cast<const float4*>(&Vs[j][0]);
-#pragma unroll
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 vv = vr[d4];
-        acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-        acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-      }
-    }
-    m_run = m_new;
-  }
-
-  if (row_ok) {
-    const float inv = 1.f / l_run;
-#pragma unroll
-    for (int d = 0; d < DH; ++d)
-      store(&o[head_off + (long long)row * DH + d], acc[d] * inv);
+  for (int it = 0; it < 64 * CH / THREADS; ++it) {
+    const int i = tid + it * THREADS;
+    const int r = i / CH, c = i % CH;
+    const int row = row0 + r;
+    const bool ok = row < seq;
+    cp_async16(dst + r * ld + c * PER,
+               src + (ok ? (long long)row * st + c * PER : 0), ok ? 16 : 0);
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int seq, int dh, float scale, cudaStream_t stream) {
-  dim3 grid((unsigned)bh, (unsigned)((seq + BQ - 1) / BQ));
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
-  switch (dh) {
-    case 16:
-      attention_kernel<T, 16><<<grid, BQ, 0, stream>>>(qp, kp, vp, op, seq, scale);
-      break;
-    case 32:
-      attention_kernel<T, 32><<<grid, BQ, 0, stream>>>(qp, kp, vp, op, seq, scale);
-      break;
-    case 64:
-      attention_kernel<T, 64><<<grid, BQ, 0, stream>>>(qp, kp, vp, op, seq, scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+__device__ __forceinline__ void head_ptrs(const Params<T>& p, int& q0,
+                                          const T*& qg, const T*& kg,
+                                          const T*& vg, T*& og) {
+  const long long bh = blockIdx.x / p.n_qblocks;
+  q0 = (int)(blockIdx.x - bh * p.n_qblocks) * BQ;
+  const long long b = bh / p.heads, h = bh - (bh / p.heads) * p.heads;
+  qg = p.q + b * p.sq.b + h * p.sq.h;
+  kg = p.k + b * p.sk.b + h * p.sk.h;
+  vg = p.v + b * p.sv.b + h * p.sv.h;
+  og = p.o + b * p.so.b + h * p.so.h;
+}
+
+// ---------------------------------------------------------------- bf16
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// d += a * b for one 16x8x16 tile: bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int DH>
+struct Bf16Layout {
+  static constexpr int LD = DH + 8;  // padded row pitch (elements)
+  static constexpr int K = BQ * LD;          // Q tile, then 2 K tiles
+  static constexpr int V = K + 2 * BK * LD;  // 2 V tiles
+  static constexpr int BYTES = (V + 2 * BK * LD) * 2;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+attn_bf16(const Params<__nv_bfloat16> p) {
+  using bf16 = __nv_bfloat16;
+  using L = Bf16Layout<DH>;
+  constexpr int LD = L::LD;
+  constexpr int KSTEPS = DH / 16;
+  extern __shared__ float4 smem_f4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_f4);
+  auto Ks = [&](int buf) { return Qs + L::K + buf * BK * LD; };
+  auto Vs = [&](int buf) { return Qs + L::V + buf * BK * LD; };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int q0;
+  const bf16 *qg, *kg, *vg;
+  bf16* og;
+  head_ptrs(p, q0, qg, kg, vg, og);
+  const int seq = p.seq;
+
+  load_rows<bf16, DH>(Qs, LD, qg, p.sq.t, q0, seq, tid);
+  load_rows<bf16, DH>(Ks(0), LD, kg, p.sk.t, 0, seq, tid);
+  load_rows<bf16, DH>(Vs(0), LD, vg, p.sv.t, 0, seq, tid);
+  cp_async_commit();
+
+  const bool active = q0 + warp * 16 < seq;
+  uint32_t qf[KSTEPS][4];
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // Row g = lane / 4 and row g + 8 of the warp's 16; running max in log2
+  // units, partial sums over this thread's columns.
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  const float sl = p.scale_log2;
+  const int n_tiles = (seq + BK - 1) / BK;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < n_tiles) {
+      load_rows<bf16, DH>(Ks(buf ^ 1), LD, kg, p.sk.t, (tile + 1) * BK, seq,
+                          tid);
+      load_rows<bf16, DH>(Vs(buf ^ 1), LD, vg, p.sv.t, (tile + 1) * BK, seq,
+                          tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      if (tile == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          ldmatrix_x4(qf[kk], &Qs[(warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                  (lane >> 4) * 8]);
+      }
+      const int j0 = tile * BK;
+      const bf16* kt = Ks(buf);
+      const bf16* vt = Vs(buf);
+
+      // S = Q K^T over 8 key groups of 8; groups of 16 keys wholly past T
+      // are skipped and take -inf.
+      float s[8][4];
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[2 * np][e] = s[2 * np + 1][e] = 0.f;
+        if (j0 + np * 16 < seq) {
+#pragma unroll
+          for (int kk = 0; kk < KSTEPS; ++kk) {
+            uint32_t b[4];
+            ldmatrix_x4(b, &kt[(np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
+                               kk * 16 + ((lane >> 3) & 1) * 8]);
+            mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+            mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+          }
+        }
+      }
+      // Scores in log2 units (scale * log2 e folded in); keys >= T: -inf.
+      if (j0 + BK <= seq) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] *= sl;
+      } else {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = j0 + n * 8 + (lane & 3) * 2 + (e & 1) < seq
+                          ? s[n][e] * sl
+                          : -CUDART_INF_F;
+      }
+
+      // Online softmax in f32. Every tile holds a key < T, so the new max
+      // is finite and the first tile's correction 2^-inf is 0.
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = exp2_approx(m0 - mn0), c1 = exp2_approx(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= c0;
+      l1 *= c1;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {
+        o[n][0] *= c0;
+        o[n][1] *= c0;
+        o[n][2] *= c1;
+        o[n][3] *= c1;
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        s[n][0] = exp2_approx(s[n][0] - mn0);
+        s[n][1] = exp2_approx(s[n][1] - mn0);
+        s[n][2] = exp2_approx(s[n][2] - mn1);
+        s[n][3] = exp2_approx(s[n][3] - mn1);
+        l0 += s[n][0] + s[n][1];
+        l1 += s[n][2] + s[n][3];
+      }
+
+      // O += P V: P in bf16, the S accumulators of two key groups form
+      // the A fragment of one 16-key step.
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (j0 + kk * 16 < seq) {
+          const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                 pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                 pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                 pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+          for (int dp = 0; dp < DH / 16; ++dp) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(
+                b, &vt[(kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                       dp * 16 + (lane >> 4) * 8]);
+            mma_bf16(o[2 * dp], a, b[0], b[1]);
+            mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this buffer is refilled next iteration
   }
+
+  if (!active) return;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  // The warp's own Q rows in shared memory are free now: stage O there,
+  // then write 16-byte chunks.
+  bf16* stage = &Qs[warp * 16 * LD];
+  const int g = lane >> 2;
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) {
+    const int col = n * 8 + (lane & 3) * 2;
+    *reinterpret_cast<uint32_t*>(&stage[g * LD + col]) =
+        pack_bf16(o[n][0] * i0, o[n][1] * i0);
+    *reinterpret_cast<uint32_t*>(&stage[(g + 8) * LD + col]) =
+        pack_bf16(o[n][2] * i1, o[n][3] * i1);
+  }
+  __syncwarp();
+  constexpr int CH = DH / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = i - (i / CH) * CH;
+    const int row = q0 + warp * 16 + r;
+    if (row < seq)
+      *reinterpret_cast<uint4*>(og + (long long)row * p.so.t + c * 8) =
+          *reinterpret_cast<const uint4*>(&stage[r * LD + c * 8]);
+  }
+}
+
+// ----------------------------------------------------------------- f32
+
+template <int DH>
+struct F32Layout {
+  static constexpr int LDQ = DH + 4, LDK = DH + 4, LDV = DH, LDP = BK + 8;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BQ * LDQ;         // 2 buffers
+  static constexpr int V = K + 2 * BK * LDK;     // 2 buffers
+  static constexpr int P = V + 2 * BK * LDV;
+  static constexpr int FLOATS = P + BQ * LDP;
+  static constexpr int BYTES = FLOATS * 4;
+};
+
+// O columns of thread tx: dh/8 of them, as float4 groups 32 apart (dh >=
+// 32) or one float2 (dh = 16).
+template <int DH>
+__device__ __forceinline__ int o_col(int tx, int n) {
+  if constexpr (DH >= 32)
+    return (n / 4) * 32 + tx * 4 + (n % 4);
+  else
+    return tx * 2 + n;
+}
+
+// One key tile: S for the live key groups, online softmax, P to shared
+// memory, O += P V. FULL: all 64 keys are < T.
+template <int DH, bool FULL>
+__device__ __forceinline__ void f32_tile(const float* Qs, const float* kt,
+                                         const float* vt, float* Ps,
+                                         int n_valid, int ty, int tx,
+                                         float sl, float (&m)[4],
+                                         float (&l)[4],
+                                         float (&o)[4][DH / 8]) {
+  using L = F32Layout<DH>;
+  constexpr int OC = DH / 8;
+  const int jmax = FULL ? 8 : (n_valid + 7) / 8;
+
+  float s[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+  // Not unrolled: each step already holds 128 independent FMAs, and
+  // unrolling spills (ptxas, dh = 64).
+#pragma unroll 1
+  for (int d = 0; d < DH; d += 4) {
+    float4 qv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * L::LDQ + d]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (FULL || j < jmax) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(&kt[(tx + 8 * j) * L::LDK + d]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+        }
+      }
+    }
+  }
+
+  // Scores in log2 units (scale * log2 e folded in); keys >= T: -inf.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[i][j] = (FULL || tx + 8 * j < n_valid) ? s[i][j] * sl : -CUDART_INF_F;
+      mx = fmaxf(mx, s[i][j]);
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    // Every tile holds a key < T: the new max is finite.
+    const float mn = fmaxf(m[i], mx);
+    const float corr = exp2_approx(m[i] - mn);
+    m[i] = mn;
+    l[i] *= corr;
+#pragma unroll
+    for (int n = 0; n < OC; ++n) o[i][n] *= corr;
+    float* prow = &Ps[(ty + 16 * i) * L::LDP];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (FULL || j < jmax) {
+        const float pv = exp2_approx(s[i][j] - mn);  // 2^-inf = 0
+        l[i] += pv;
+        prow[tx + 8 * j] = pv;
+      }
+    }
+  }
+  __syncwarp();  // a P row is written and read by the 8 threads of its warp
+
+  const int n_c4 = FULL ? BK / 4 : (n_valid + 3) / 4;
+#pragma unroll 2
+  for (int c4 = 0; c4 < n_c4; ++c4) {
+    float4 pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(
+          &Ps[(ty + 16 * i) * L::LDP + c4 * 4]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* vrow = &vt[(c4 * 4 + e) * L::LDV];
+      float vv[OC];
+      if constexpr (DH >= 32) {
+#pragma unroll
+        for (int g = 0; g < OC / 4; ++g) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(&vrow[g * 32 + tx * 4]);
+          vv[4 * g] = x.x;
+          vv[4 * g + 1] = x.y;
+          vv[4 * g + 2] = x.z;
+          vv[4 * g + 3] = x.w;
+        }
+      } else {
+        const float2 x = *reinterpret_cast<const float2*>(&vrow[tx * 2]);
+        vv[0] = x.x;
+        vv[1] = x.y;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pe = e == 0 ? pv[i].x : e == 1 ? pv[i].y
+                       : e == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+        for (int n = 0; n < OC; ++n) o[i][n] = fmaf(pe, vv[n], o[i][n]);
+      }
+    }
+  }
+  __syncwarp();  // P is overwritten by the next tile
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS) attn_f32(const Params<float> p) {
+  using L = F32Layout<DH>;
+  constexpr int OC = DH / 8;
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  float* Qs = smem + L::Q;
+  float* Ps = smem + L::P;
+
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  int q0;
+  const float *qg, *kg, *vg;
+  float* og;
+  head_ptrs(p, q0, qg, kg, vg, og);
+  const int seq = p.seq;
+
+  load_rows<float, DH>(Qs, L::LDQ, qg, p.sq.t, q0, seq, tid);
+  load_rows<float, DH>(smem + L::K, L::LDK, kg, p.sk.t, 0, seq, tid);
+  load_rows<float, DH>(smem + L::V, L::LDV, vg, p.sv.t, 0, seq, tid);
+  cp_async_commit();
+
+  float m[4], l[4], o[4][OC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < OC; ++n) o[i][n] = 0.f;
+  }
+  const float sl = p.scale_log2;
+  const int n_tiles = (seq + BK - 1) / BK;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < n_tiles) {
+      load_rows<float, DH>(smem + L::K + (buf ^ 1) * BK * L::LDK, L::LDK, kg,
+                           p.sk.t, (tile + 1) * BK, seq, tid);
+      load_rows<float, DH>(smem + L::V + (buf ^ 1) * BK * L::LDV, L::LDV, vg,
+                           p.sv.t, (tile + 1) * BK, seq, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = smem + L::K + buf * BK * L::LDK;
+    const float* vt = smem + L::V + buf * BK * L::LDV;
+    const int n_valid = min(BK, seq - tile * BK);
+    if (n_valid == BK)
+      f32_tile<DH, true>(Qs, kt, vt, Ps, n_valid, ty, tx, sl, m, l, o);
+    else
+      f32_tile<DH, false>(Qs, kt, vt, Ps, n_valid, ty, tx, sl, m, l, o);
+    __syncthreads();  // this buffer is refilled next iteration
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + ty + 16 * i;
+    if (row >= seq) continue;
+    const float inv = 1.f / l[i];
+    float* orow = og + (long long)row * p.so.t;
+    if constexpr (DH >= 32) {
+#pragma unroll
+      for (int g = 0; g < OC / 4; ++g)
+        *reinterpret_cast<float4*>(&orow[o_col<DH>(tx, 4 * g)]) =
+            make_float4(o[i][4 * g] * inv, o[i][4 * g + 1] * inv,
+                        o[i][4 * g + 2] * inv, o[i][4 * g + 3] * inv);
+    } else {
+      *reinterpret_cast<float2*>(&orow[o_col<DH>(tx, 0)]) =
+          make_float2(o[i][0] * inv, o[i][1] * inv);
+    }
+  }
+}
+
+template <typename T>
+Params<T> make_params(const void* q, const void* k, const void* v, void* o,
+                      int heads, int seq, const long long* st, float scale) {
+  Params<T> p;
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.o = static_cast<T*>(o);
+  Strides* dst[4] = {&p.sq, &p.sk, &p.sv, &p.so};
+  for (int i = 0; i < 4; ++i) *dst[i] = {st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  p.heads = heads;
+  p.seq = seq;
+  p.n_qblocks = (seq + BQ - 1) / BQ;
+  p.scale_log2 = scale * LOG2E;
+  return p;
+}
+
+// One block per (b, h, query block), the query blocks of one (b, h)
+// adjacent. Above 48 KB of dynamic shared memory only after
+// cudaFuncSetAttribute (for the current device).
+template <typename T, typename Kernel>
+int launch(Kernel kernel, const Params<T>& p, int batch, int bytes,
+           cudaStream_t s) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const unsigned blocks =
+      (unsigned)((long long)batch * p.heads * p.n_qblocks);
+  kernel<<<blocks, THREADS, bytes, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_f32(const Params<float>& p, int batch, cudaStream_t s) {
+  return launch(attn_f32<DH>, p, batch, F32Layout<DH>::BYTES, s);
+}
+
+template <int DH>
+int launch_bf16(const Params<__nv_bfloat16>& p, int batch, cudaStream_t s) {
+  return launch(attn_bf16<DH>, p, batch, Bf16Layout<DH>::BYTES, s);
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, seq, dh) contiguous, f32 (is_bf16 = 0) or bf16;
-// dh in {16, 32, 64}. Returns cudaGetLastError() after the launch.
+// q, k, v: (batch, heads, seq, dh) views, f32 (is_bf16 = 0) or bf16, with
+// element strides strides[0..2] (q), [3..5] (k), [6..8] (v) for batch,
+// head and token; o is written through strides[9..11]. The last dim has
+// stride 1; base pointers and strides are multiples of 16 bytes. dh in
+// {16, 32, 64}. Returns cudaGetLastError() after the launch.
 extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
-                                 void* o, int bh, int seq, int dh, float scale,
-                                 int is_bf16, void* stream) {
+                                 void* o, int batch, int heads, int seq,
+                                 int dh, const long long* strides,
+                                 float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, bh, seq, dh, scale, s)
-                 : launch<float>(q, k, v, o, bh, seq, dh, scale, s);
+  if (seq <= 0 || batch <= 0 || heads <= 0) return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    const auto p = make_params<__nv_bfloat16>(q, k, v, o, heads, seq,
+                                              strides, scale);
+    switch (dh) {
+      case 16: return launch_bf16<16>(p, batch, s);
+      case 32: return launch_bf16<32>(p, batch, s);
+      case 64: return launch_bf16<64>(p, batch, s);
+    }
+  } else {
+    const auto p = make_params<float>(q, k, v, o, heads, seq, strides, scale);
+    switch (dh) {
+      case 16: return launch_f32<16>(p, batch, s);
+      case 32: return launch_f32<32>(p, batch, s);
+      case 64: return launch_f32<64>(p, batch, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }

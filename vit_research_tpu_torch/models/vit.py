@@ -130,8 +130,11 @@ class MultiHeadSelfAttention(nn.Module):
         h = self.num_heads
         dh = d // h
 
-        def heads(lin):  # (B, T, D) -> (B, H, T, dh)
-            return lin(x).reshape(b, t, h, dh).transpose(1, 2).contiguous()
+        # (B, T, D) -> (B, H, T, dh) as a view of the projection's
+        # (B, T, H, dh) order: the kernel reads it through its strides and
+        # writes its output in that order, so no layout copy is made.
+        def heads(lin):
+            return lin(x).reshape(b, t, h, dh).transpose(1, 2)
 
         q, k, v = heads(self.query), heads(self.key), heads(self.value)
         scores = None

@@ -29,7 +29,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 LIB_NAME = "libvrt_kernels.so"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills; build() keeps that report beside the library (ptxas_report).
+COMPILE_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
 LINK_FLAGS = (*_ARCH, "-shared")
 
 _P = ctypes.c_void_p
@@ -37,7 +40,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype)
     "vrt_patch_embed": ([_P] * 6 + [_I] * 8 + [_P], _I),
-    "vrt_attention_fwd": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _I, _P], _I),
+    # q, k, v, o, batch, heads, seq, dh, 12 strides (q, k, v, o x batch,
+    # head, token), scale, is_bf16, stream
+    "vrt_attention_fwd": ([_P] * 4 + [_I] * 4
+                          + [ctypes.POINTER(ctypes.c_longlong),
+                             ctypes.c_float, _I, _P], _I),
     "vrt_ln_matmul": ([_P] * 6 + [ctypes.c_longlong, _I, _I, ctypes.c_float]
                       + [_I] * 4 + [_P], _I),
     "vrt_error_string": ([_I], ctypes.c_char_p),
@@ -89,16 +96,31 @@ def build() -> str:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         failed = []
-        for cmd, _, proc in jobs:
+        for cmd, obj, proc in jobs:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{' '.join(cmd)}\n{log}")
+            with open(os.path.join(out_dir, _log_name(obj)), "w") as fh:
+                fh.write(log)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp = os.path.join(tmp_dir, LIB_NAME)
         _run([nvcc, *LINK_FLAGS, "-o", tmp, *(obj for _, obj, _ in jobs)])
         os.replace(tmp, lib)
     return lib
+
+
+def _log_name(path: str) -> str:
+    return os.path.basename(path).split(".")[0] + ".ptxas.log"
+
+
+def ptxas_report(source: str) -> list[str]:
+    """ptxas's lines (registers, shared memory, spills per kernel) from
+    the build of ``csrc/<source>``; builds first if needed."""
+    path = os.path.join(os.path.dirname(build()), _log_name(source))
+    with open(path) as fh:
+        return [line.strip() for line in fh
+                if "ptxas info" in line or "spill" in line]
 
 
 def _run(cmd) -> None:
