@@ -8,10 +8,11 @@ width and checks the results.
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. the card (nvidia-smi name and power limit, torch and CUDA versions)
      and the kernel build from vit_research_tpu_torch/csrc/, with ptxas's
-     registers, shared memory and spills of the attention kernels;
+     registers, shared memory and spills of every kernel;
   2. the patch-embed kernel against its plain version (uint8 frames,
-     B=64 and B=256 @224 P=16, B=16 @432x768 P=32; f32 and bf16 out),
-     and the nearest library call, F.conv2d over the normalised batch;
+     B=64 and B=256 @224 P=16, B=16 @432x768 P=32, f32 and bf16 out; and
+     the bf16 engine's shape, B=512 @224 with bf16 out), and the nearest
+     library call, F.conv2d over the normalised f32 batch;
   3. the attention kernel against its plain version (T = 197, 325, 1297,
      dh = 64; f32 and bf16), on contiguous (B, H, T, dh) inputs and on the
      (B, H, T, dh) views of (B, T, H, dh) tensors that the backbone's
@@ -20,7 +21,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      entry ``ln_matmul`` at ViT-B shapes (M = 256*197, K = 768, N = 768
      and 3072 with exact GELU; x and W f32, and x f32 with W bf16), then
      against its plain version and the library pair F.layer_norm +
-     F.linear (+ F.gelu);
+     F.linear (+ F.gelu), with TF32 off;
   4. the main path: two synthetic games of 224x224 JPEG frames, one
      labelled corpus (write-frame-db) and one query (segment --method
      knn-hmm), through ``vit_research_tpu_torch.cli`` on the card, with
@@ -39,8 +40,14 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
 
 Bounds (``bound_ms``) are the larger of the bytes a kernel must move
 over the H100 SXM's 3.35 TB/s and its operations over the peak of the
-units the work may use (67 TFLOP/s f32 on the CUDA cores, 989 TFLOP/s
-bf16 on the tensor cores): NVIDIA's data-sheet figures, not measured.
+units the work may use: the tensor cores (989 TFLOP/s bf16, 495 TF32)
+for kernels A and C, whose split operands reach f32 accuracy there, and
+for B in bf16; the CUDA cores (67 TFLOP/s f32) for B in f32. NVIDIA's
+data-sheet figures, not measured. Beside A's and C's bounds:
+``design_floor_ms`` (the same with the operations times the design's
+tensor-core passes: 3 for A, 3 for C with f32 W) and
+``f32_cuda_core_bound_ms`` (the operations at 67 TFLOP/s, the bound of
+earlier versions, kept for comparison).
 
     python3 chip_smoke.py --profile
 
@@ -110,7 +117,7 @@ LN_BOUND = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 STORE_BOUND = {"f32": 1e-4, "int8": 1e-3}
 # H100 SXM data-sheet peaks (not measured).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
 
 CORPUS_SEGMENTS = [("none", 40), ("left", 160), ("none", 40), ("right", 160),
                    ("none", 40), ("left", 60), ("none", 12)]
@@ -145,13 +152,29 @@ def cuda_ms(fn, reps: int = 5, n: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, peak: str) -> dict:
+def bound(nbytes: float, flops: float, peak: str,
+          passes: int | None = None) -> dict:
     """The least time the card could take: bytes over HBM bandwidth
-    against operations over the peak of ``peak``'s units."""
+    against operations over the peak of ``peak``'s units. With
+    ``passes``, also the design's own floor (``passes`` times the
+    operations) and the bound on the f32 CUDA cores."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[peak] * 1e3
-    return dict(bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
+    out = dict(bound_ms=max(by_bytes, by_ops),
+               bound_by="bytes" if by_bytes >= by_ops else "operations")
+    if passes is not None:
+        out.update(design_floor_ms=max(by_bytes, passes * by_ops),
+                   f32_cuda_core_bound_ms=max(
+                       by_bytes, flops / PEAK_FLOPS["f32"] * 1e3))
+    return out
+
+
+def bound_text(lim: dict) -> str:
+    text = f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']})"
+    if "design_floor_ms" in lim:
+        text += (f", design floor {lim['design_floor_ms']:.4f} ms, f32 "
+                 f"CUDA-core bound {lim['f32_cuda_core_bound_ms']:.4f} ms")
+    return text
 
 
 def phase_card() -> str:
@@ -167,31 +190,68 @@ def phase_card() -> str:
     _build.library()
     log(f"[1] built {len(_build.sources())} kernel sources with nvcc in "
         f"{time.monotonic() - t0:.1f} s")
-    log_ptxas("attention.cu")
+    for source in ("attention.cu", "patch_embed.cu", "fused_ln.cu"):
+        log_ptxas(source)
     return smi
+
+
+def _demangle(names: list) -> list:
+    """C++ names through the toolkit's cu++filt, shortened to the kernel
+    and its template arguments; the mangled names if that fails."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    try:
+        out = subprocess.run([tool], input="\n".join(names), text=True,
+                             capture_output=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return names
+    if len(out) != len(names):
+        return names
+    short = []
+    for name in out:
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.removeprefix("void ")
+        depth = 0
+        for i, ch in enumerate(name):
+            depth += {"<": 1, ">": -1}.get(ch, 0)
+            if ch == "(" and depth == 0:
+                name = name[:i]
+                break
+        short.append(name)
+    return short
 
 
 def log_ptxas(source: str) -> None:
     """One line per kernel of ``source``: ptxas's registers, shared
     memory (static; dynamic shared memory is set at launch) and spills."""
-    name, spills = "?", ""
+    rows, name, spills = [], "?", ""
     for line in _build.ptxas_report(source):
         if m := re.search(r"Compiling entry function '(\S+)'", line):
-            k = re.search(r"(attn_\w+?)ILi(\d+)E", m.group(1))
-            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            name = m.group(1)
         elif "spill" in line:
             spills = line
         elif "registers" in line:
-            log(f"[1] ptxas {source} {name}: "
-                f"{line.split(':', 1)[1].strip()}; {spills}")
+            rows.append((name, line.split(":", 1)[1].strip(), spills))
+    for short, (_, used, spill) in zip(_demangle([r[0] for r in rows]),
+                                       rows):
+        log(f"[1] ptxas {source} {short}: {used}; {spill}")
+
+
+# (B, H, W, P, output dtypes): the main path's B=256 and the bf16
+# engine's B=512 (bf16 out) carry the summaries.
+PE_CASES = [(64, 224, 224, 16, (torch.float32, torch.bfloat16)),
+            (BATCH, 224, 224, 16, (torch.float32, torch.bfloat16)),
+            (16, 432, 768, 32, (torch.float32, torch.bfloat16)),
+            (512, 224, 224, 16, (torch.bfloat16,))]
 
 
 def phase_patch_embed(smi: str) -> dict:
+    """Kernel A on uint8 frames against its plain version; the B=256 f32
+    summary with the bf16 engine's (B=512, bf16 out) under "bf16"."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    summary = None
-    for b, h, w, p in ((64, 224, 224, 16), (BATCH, 224, 224, 16),
-                       (16, 432, 768, 32)):
+    summary = {}
+    for b, h, w, p, out_dtypes in PE_CASES:
         k = p * p * 3
         images = torch.from_numpy(rng.integers(
             0, 256, size=(b, h, w, 3), dtype=np.uint8)).to(dev)
@@ -201,7 +261,7 @@ def phase_patch_embed(smi: str) -> dict:
             np.float32)).to(dev)
         a_vec, b_vec = (torch.from_numpy(x).to(dev)
                         for x in pe.fold_affine(p, **HF_AFFINE))
-        for out_dtype in (torch.float32, torch.bfloat16):
+        for out_dtype in out_dtypes:
             def kernel():
                 return pe.fused_patch_embed(images, wt, bias, patch_size=p,
                                             out_dtype=out_dtype, **HF_AFFINE)
@@ -216,31 +276,38 @@ def phase_patch_embed(smi: str) -> dict:
             err = (got.float() - want.float()).abs().max().item()
             bound_err = PE_BOUND[out_dtype]
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            m = got.shape[0] * got.shape[1]
+            lim = bound(images.numel() + wt.numel() * 4 + 768 * 4
+                        + m * 768 * got.element_size(), 2 * m * k * 768,
+                        "bf16", passes=3)
             name = str(out_dtype).split(".")[-1]
             log(f"[2] patch_embed u8 B={b} {h}x{w} P={p} out={name}: "
                 f"max|err| {err:.3e} (bound {bound_err:.1e}) | kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms | {smi}")
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {bound_text(lim)} "
+                f"| {smi}")
             if not err <= bound_err:
                 raise AssertionError(f"patch_embed kernel disagrees: {err}")
-            if (b, p, out_dtype) == (BATCH, 16, torch.float32):
-                m = got.shape[0] * got.shape[1]
-                summary = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    **bound(images.numel() + wt.numel() * 4 + 768 * 4
-                            + m * 768 * 4, 2 * m * k * 768, "f32"),
+            del got, want
+            key = {(BATCH, 16, torch.float32): "f32",
+                   (512, 16, torch.bfloat16): "bf16"}.get((b, p, out_dtype))
+            if key:
+                summary[key] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, **lim,
                     library_ms=_conv_patch_embed_ms(
-                        images, wt, bias, a_vec, b_vec, p, want, smi))
-    return summary
+                        images, wt, bias, a_vec, b_vec, p, smi))
+        del images
+        torch.cuda.empty_cache()
+    return dict(summary["f32"], bf16=summary["bf16"])
 
 
-def _conv_patch_embed_ms(images, wt, bias, a_vec, b_vec, p, want,
-                         smi) -> float:
+def _conv_patch_embed_ms(images, wt, bias, a_vec, b_vec, p, smi) -> float:
     """No single PyTorch call takes uint8 NHWC through the affine and the
     projection; the nearest is F.conv2d (stride = kernel = P, f32, TF32
     off) over the already-normalised f32 NCHW batch, timed here."""
     import torch.nn.functional as F
 
     c = images.shape[-1]
+    want = pe.patch_embed_plain(images, wt, bias, a_vec, b_vec, patch_size=p)
     nchw = (images.float() * a_vec[:c] - b_vec[:c]).permute(0, 3, 1, 2) \
         .contiguous()
     cw = wt.reshape(p, p, c, -1).permute(3, 2, 0, 1).contiguous()
@@ -252,9 +319,11 @@ def _conv_patch_embed_ms(images, wt, bias, a_vec, b_vec, p, want,
         .abs().max().item()
     if not err <= PE_BOUND[torch.float32]:
         raise AssertionError(f"conv2d computes another function: {err}")
+    del want
     ms = cuda_ms(conv)
     log(f"[2] library: F.conv2d over the normalised f32 NCHW batch (no "
-        f"single call takes uint8 NHWC): {ms:.4f} ms | {smi}")
+        f"single call takes uint8 NHWC), B={images.shape[0]}: {ms:.4f} ms "
+        f"| {smi}")
     del nchw
     return ms
 
@@ -356,7 +425,7 @@ def phase_ln_matmul(smi: str) -> dict:
         raise AssertionError(f"ln_matmul launched {launches} times, want "
                              f"{len(cases)}")
 
-    summary = None
+    summary = {}
     for (n, act, w, bias), got in zip(cases, outs):
         def kernel():
             return fused_ln.ln_matmul(x, gamma, beta, w, bias, eps=eps,
@@ -382,25 +451,27 @@ def phase_ln_matmul(smi: str) -> dict:
         ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), \
             cuda_ms(library)
         w_name = str(w.dtype).split(".")[-1]
+        f32_w = w.dtype == torch.float32
         lim = bound(x.numel() * 4 + w.numel() * w.element_size()
                     + (2 * k + n) * 4 + m * n * w.element_size(),
-                    2 * m * k * n,
-                    "f32" if w.dtype == torch.float32 else "bf16")
+                    2 * m * k * n, "tf32" if f32_w else "bf16",
+                    passes=3 if f32_w else 1)
         log(f"[3b] ln_matmul M={m} K={k} N={n} act={act} x=float32 "
             f"W={w_name}: max|err| {err:.3e} (bound {bound_err:.1e}) | "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"layer_norm+linear{'+gelu' if act else ''} {lib_ms:.4f} ms "
-            f"(max|err| {lib_err:.3e}); bound {lim['bound_ms']:.4f} ms "
-            f"({lim['bound_by']}) | {smi}")
+            f"(max|err| {lib_err:.3e}); {bound_text(lim)} | {smi}")
         if not err <= bound_err:
             raise AssertionError(f"ln_matmul kernel disagrees: {err}")
-        if (n, w.dtype) == (3072, torch.float32):
-            summary = dict(launches=launches, max_abs_err=err, ms=ms,
-                           plain_ms=plain_ms, library_ms=lib_ms, **lim)
+        if n == 3072:
+            summary[w_name] = dict(max_abs_err=err, ms=ms,
+                                   plain_ms=plain_ms, library_ms=lib_ms,
+                                   **lim)
         del want
     del x, cases, outs
     torch.cuda.empty_cache()
-    return summary
+    return dict(summary["float32"], launches=launches,
+                bf16=summary["bfloat16"])
 
 
 def synth_frame(side: str, size, rng) -> np.ndarray:

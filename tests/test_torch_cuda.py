@@ -54,7 +54,10 @@ def cuda():
 @pytest.mark.parametrize("in_dtype", ["uint8", "float32"])
 @pytest.mark.parametrize("shape,patch,dim", [
     ((4, 224, 224, 3), 16, 768), ((2, 432, 768, 3), 32, 768),
-    ((2, 40, 72, 3), 16, 48), ((3, 32, 32, 3), 8, 32)])
+    ((2, 40, 72, 3), 16, 48), ((3, 32, 32, 3), 8, 32),
+    # 588 rows (not a multiple of the 128-row tile), D = 200 and 48 (not
+    # multiples of the 128-column tile), K = 3072 (P = 32)
+    ((3, 224, 224, 3), 16, 200), ((1, 64, 96, 3), 32, 48)])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_patch_embed_kernel_matches_plain(cuda, in_dtype, shape, patch, dim,
                                           out_dtype):
@@ -190,12 +193,15 @@ def test_bf16_engine_on_card_is_close_to_f32(cuda):
 
 
 @pytest.mark.parametrize("m,k,n", [(197, 768, 768), (300, 64, 200),
-                                   (1, 40, 3072)])
+                                   (1, 40, 3072), (588, 3072, 48),
+                                   (588, 768, 200)])
 @pytest.mark.parametrize("act", [None, "gelu", "gelu_tanh"])
 @pytest.mark.parametrize("x_dtype,w_dtype,out_dtype", [
     (torch.float32, torch.float32, torch.float32),
     (torch.float32, torch.bfloat16, torch.bfloat16),
-    (torch.bfloat16, torch.bfloat16, torch.float32)])
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.float32, torch.float32, torch.bfloat16)])
 def test_ln_matmul_kernel_matches_plain(cuda, m, k, n, act, x_dtype,
                                         w_dtype, out_dtype):
     rng = np.random.default_rng(m + k + n)
@@ -214,9 +220,42 @@ def test_ln_matmul_kernel_matches_plain(cuda, m, k, n, act, x_dtype,
                                     activation=act, out_dtype=out_dtype)
     assert got.dtype == out_dtype and got.shape == (m, n)
     scale = want.float().abs().max().item()
-    exact = (x_dtype, w_dtype, out_dtype) == (torch.float32,) * 3
+    # bf16 x converts exactly: f32 W and out keep the f32 bound
+    exact = (w_dtype, out_dtype) == (torch.float32,) * 2
     atol = (1e-5 if exact else 2 ** -6) * scale
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_kernels_choose_their_own_precision(cuda, out_dtype):
+    """A and C split their operands for the tensor cores themselves: the
+    results do not depend on torch's TF32 switch."""
+    rng = np.random.default_rng(11)
+    images = torch.from_numpy(rng.integers(0, 256, size=(2, 224, 224, 3),
+                                           dtype=np.uint8)).to(cuda)
+    w_pe = torch.from_numpy((rng.standard_normal((768, 768)) / 28).astype(
+        np.float32)).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(394, 768)).astype(np.float32)) \
+        .to(cuda)
+    gamma, beta = (torch.from_numpy(rng.normal(mu, 0.1, size=768).astype(
+        np.float32)).to(cuda) for mu in (1.0, 0.0))
+    w_ln = torch.from_numpy((rng.normal(size=(768, 3072)) / 28).astype(
+        np.float32)).to(cuda)
+    bias = torch.zeros(3072, device=cuda)
+    results = []
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for allow in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            results.append((
+                pe.fused_patch_embed(images, w_pe, bias[:768], patch_size=16,
+                                     out_dtype=out_dtype, **HF_AFFINE),
+                fused_ln.ln_matmul(x, gamma, beta, w_ln, bias,
+                                   activation="gelu", out_dtype=out_dtype)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    for off, on in zip(*results):
+        assert torch.equal(off, on)
 
 
 def test_ln_matmul_kernel_gradients_are_the_plain_vjp(cuda):

@@ -9,7 +9,10 @@ polynomial has |err| < 1.5e-7, torch's erf is exact to an ulp). bf16
 weights: both sides round the LN output to bf16 before the product, so a
 row whose pre-rounding values differ by an ulp can round apart; the bound
 is 2^-6 relative to the output's scale. Gradients: 1e-4, the reference
-test's own bound. The CUDA kernel is checked on a card by
+test's own bound. The kernel's f32-weight arithmetic, 3xTF32, is emulated
+here (TF32 rounding as cvt.rna.tf32.f32 does it, f32 sums of exact
+products) and held to the f32 bound, 1e-5 of the output's scale, which a
+single TF32 pass misses. The CUDA kernel is checked on a card by
 tests/test_torch_cuda.py.
 """
 
@@ -134,6 +137,61 @@ def test_ln_matmul_rejects_what_it_does_not_take():
         fused_ln.ln_matmul(x.double(), gamma, beta, w, b)
     with pytest.raises(ValueError, match="bias"):
         fused_ln.ln_matmul(x, gamma, beta, w, b[:4])
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    ulp = 2.0 ** -10  # TF32's spacing in [1, 2)
+    vals = [1.0, 1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+            1 + 1.5 * ulp, 2 - ulp / 2, 3.0e-30, 0.0, -0.0]
+    want = [1.0, 1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 2.0]
+    got = fused_ln.tf32_round(torch.tensor(vals, dtype=torch.float32))
+    assert got[:6].tolist() == want
+    # 10 explicit significand bits left at any scale; zeros stay zeros
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert abs(got[6].item() - 3.0e-30) <= 3.0e-30 * 2 ** -11
+    assert got[7].item() == 0.0 and got[8].item() == 0.0
+
+
+def test_tf32_split_holds_the_weight_and_pads():
+    w = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(32, 13)).astype(np.float32))
+    pieces = fused_ln.tf32_split(w, 16)
+    assert pieces.shape == (2, 32, 16) and torch.all(pieces[:, :, 13:] == 0)
+    hi, lo = pieces[0, :, :13], pieces[1, :, :13]
+    assert torch.equal(hi, fused_ln.tf32_round(w))
+    assert torch.equal(lo, fused_ln.tf32_round(w - hi))
+    # 22 significand bits: the pieces' sum is within 2^-21 of W
+    assert torch.all((hi.double() + lo.double() - w.double()).abs()
+                     <= w.double().abs() * 2 ** -21)
+
+
+def _tf32_product(arrays, activation, passes, eps=1e-6):
+    """The kernel's f32-W arithmetic on the CPU: LN in f32, then y and W
+    split into TF32 pieces and y_hi W_lo + y_lo W_hi + y_hi W_hi (3
+    passes) or y_hi W_hi (1 pass), each product exact in f32."""
+    x, gamma, beta, w, b = (torch.from_numpy(a) for a in arrays)
+    y = fused_ln.layer_norm_rows(x, gamma, beta, eps)
+    y_hi = fused_ln.tf32_round(y)
+    y_lo = fused_ln.tf32_round(y - y_hi)
+    w_hi, w_lo = fused_ln.tf32_split(w)
+    out = y_hi @ w_hi
+    if passes == 3:
+        out = (y_hi @ w_lo + y_lo @ w_hi) + out
+    out = out + b
+    if activation == "gelu":
+        out = torch.nn.functional.gelu(out)
+    return out
+
+
+@pytest.mark.parametrize("activation", [None, "gelu"])
+def test_3xtf32_matches_pallas_interpret_and_one_pass_does_not(activation):
+    arrays = _case(64, 768, 3072, seed=10)
+    want = np.asarray(_jax(arrays, "float32", activation=activation))
+    scale = np.abs(want).max()
+    three = _tf32_product(arrays, activation, passes=3).numpy()
+    one = _tf32_product(arrays, activation, passes=1).numpy()
+    np.testing.assert_allclose(three, want, rtol=0, atol=1e-5 * scale)
+    assert np.abs(one - want).max() > 1e-5 * scale
 
 
 def test_cpu_input_never_counts_a_launch():

@@ -1,12 +1,19 @@
 """The port's kernel modules (ops/patch_embed.py, ops/attention.py) against
-the JAX package's Pallas kernels run in interpret mode on the CPU.
+the JAX package's Pallas kernels run in interpret mode on the CPU, and the
+kernel build's cache key.
 
 Inputs are drawn with numpy from fixed seeds and fed to both sides.
 Tolerances: both sides compute in f32 on the CPU and differ only in the
 order of the K-long (patch embed) or T-long (attention) sums, so values of
-order 1 agree to about 1e-6; the bound is 1e-5 (abs and rel). The kernels
-themselves are checked on a card by tests/test_torch_cuda.py.
+order 1 agree to about 1e-6; the bound is 1e-5 (abs and rel). The uint8
+kernel's arithmetic (the affine folded into W, W split into three bf16
+pieces, every pixel x piece product exact, f32 sums) is held to the f32
+kernel's card bound, 1e-4. The kernels themselves are checked on a card by
+tests/test_torch_cuda.py.
 """
+
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -16,6 +23,7 @@ import jax.numpy as jnp
 
 from vit_research_tpu.ops import attention as jax_attn
 from vit_research_tpu.ops import patch_embed as jax_pe
+from vit_research_tpu_torch.ops import _build
 from vit_research_tpu_torch.ops import attention as attn
 from vit_research_tpu_torch.ops import patch_embed as pe
 
@@ -69,6 +77,67 @@ def test_patchify_and_fold_affine_match_reference():
     for got, want in zip(pe.fold_affine(16, **HF_AFFINE),
                          jax_pe.fold_affine(16, **HF_AFFINE)):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape,patch,dim", [
+    ((2, 32, 48, 3), 16, 768),   # K = 768, D = 768 (ViT-B/16's widths)
+    ((1, 64, 64, 3), 32, 768),   # P = 32: K = 3072
+    ((2, 40, 72, 3), 16, 200),   # VALID crop, D not a multiple of 8
+])
+def test_fold_split_weight_matches_pallas_interpret(shape, patch, dim):
+    """What the uint8 kernel computes, in f32 on the CPU: the pixel rows
+    times each bf16 piece of the folded weight, plus the folded bias."""
+    rng = np.random.default_rng(6)
+    images = _images(rng, shape, "uint8")
+    w, bias = _weights(rng, patch * patch * 3, dim)
+    want = jax_pe.fused_patch_embed(
+        jnp.asarray(images), jnp.asarray(w), jnp.asarray(bias),
+        patch_size=patch, use_pallas=True, interpret=True, **HF_AFFINE)
+    a_vec, b_vec = (torch.from_numpy(x)
+                    for x in pe.fold_affine(patch, **HF_AFFINE))
+    pieces, c = pe.fold_split_weight(torch.from_numpy(w),
+                                     torch.from_numpy(bias), a_vec, b_vec)
+    assert pieces.dtype == torch.bfloat16 and c.dtype == torch.float32
+    assert pieces.shape == (3, w.shape[0], -(-dim // 8) * 8)
+    rows = pe.patchify(torch.from_numpy(images), patch)
+    rows = rows.reshape(-1, rows.shape[-1]).to(torch.float32)
+    got = sum(rows @ pieces[i, :, :dim].float() for i in range(3)) + c
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want).reshape(got.shape),
+                               rtol=0, atol=1e-4)
+
+
+def test_fold_split_pieces_hold_the_folded_weight():
+    rng = np.random.default_rng(7)
+    w, bias = _weights(rng, 192, 13)
+    a_vec, b_vec = (torch.from_numpy(x) for x in pe.fold_affine(8, **HF_AFFINE))
+    pieces, c = pe.fold_split_weight(torch.from_numpy(w),
+                                     torch.from_numpy(bias), a_vec, b_vec)
+    folded = a_vec.double()[:, None] * torch.from_numpy(w).double()
+    total = pieces.double().sum(0)
+    assert torch.all(total[:, 13:] == 0)
+    # 24 significand bits: within an f32 rounding of the folded weight
+    assert torch.all((total[:, :13] - folded).abs()
+                     <= folded.abs() * 2 ** -23)
+    # hi carries the bf16 rounding of W'; mid and lo are ever smaller
+    for i in (1, 2):
+        assert torch.all(pieces[i].double().abs()
+                         <= pieces[i - 1].double().abs() * 2 ** -7)
+    want_c = torch.from_numpy(bias).double() - (
+        b_vec.double()[:, None] * torch.from_numpy(w).double()).sum(0)
+    torch.testing.assert_close(c.double(), want_c, rtol=0, atol=1e-6)
+
+
+def test_build_key_covers_sources_and_headers(tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    assert os.path.exists(csrc / "tc_gemm.cuh")
+    assert _build.build_key(str(csrc)) == _build.build_key()
+    for name in ("tc_gemm.cuh", "fused_ln.cu"):
+        before = _build.build_key(str(csrc))
+        with open(csrc / name, "a") as fh:
+            fh.write("\n// edited\n")
+        assert _build.build_key(str(csrc)) != before, name
 
 
 def test_patch_embed_bf16_output_is_rounded_f32():

@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels with nvcc and bind them with ctypes.
 
-Every ``csrc/*.cu`` file compiles (one nvcc process per file, all at once)
-and links into one shared library with a plain C interface, at first
-use, into ``_build/<hash>/`` beside the package (the
-hash covers the sources and the flags, so an edited kernel rebuilds and
-an unchanged one loads at once). Nothing here runs at import time: the
+Every ``csrc/*.cu`` file compiles (one nvcc process per file, all at once,
+with ``-I csrc`` for the shared ``*.cuh`` headers) and links into one
+shared library with a plain C interface, at first use, into
+``_build/<hash>/`` beside the package (the hash covers the sources, the
+headers and the flags, so an edited kernel or header rebuilds and an
+unchanged tree loads at once). Nothing here runs at import time: the
 CPU-only test environment has no nvcc and imports every module.
 
 Each entry point returns ``cudaGetLastError()`` after its launch;
@@ -39,20 +40,35 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "vrt_patch_embed": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    # img, w3, ldw, c, out, B, H, W, C, P, D, out_bf16, stream
+    "vrt_patch_embed_u8": ([_P, _P, _I, _P, _P] + [_I] * 7 + [_P], _I),
+    # img, w, avec, bvec, bias, out, B, H, W, C, P, D, out_bf16, stream
+    "vrt_patch_embed_f32": ([_P] * 6 + [_I] * 7 + [_P], _I),
     # q, k, v, o, batch, heads, seq, dh, 12 strides (q, k, v, o x batch,
     # head, token), scale, is_bf16, stream
     "vrt_attention_fwd": ([_P] * 4 + [_I] * 4
                           + [ctypes.POINTER(ctypes.c_longlong),
                              ctypes.c_float, _I, _P], _I),
-    "vrt_ln_matmul": ([_P] * 6 + [ctypes.c_longlong, _I, _I, ctypes.c_float]
-                      + [_I] * 4 + [_P], _I),
+    # x, gamma, beta, w, bias, out, stats, M, K, N, ldw, eps, act, x_bf16,
+    # w_bf16, out_bf16, stream
+    "vrt_ln_matmul": ([_P] * 7 + [ctypes.c_longlong, _I, _I, _I,
+                                  ctypes.c_float] + [_I] * 4 + [_P], _I),
     "vrt_error_string": ([_I], ctypes.c_char_p),
 }
 
 
-def sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def sources(csrc: str = CSRC) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc, "*.cu")))
+
+
+def headers(csrc: str = CSRC) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc, "*.cuh")))
+
+
+def build_key(csrc: str = CSRC) -> str:
+    """The build directory's name: a hash of the sources and headers in
+    ``csrc`` and of the flags."""
+    return _digest(sources(csrc) + headers(csrc), COMPILE_FLAGS + LINK_FLAGS)
 
 
 def _nvcc() -> str:
@@ -77,8 +93,7 @@ def _digest(srcs, flags) -> str:
 def build() -> str:
     """Compile the kernels if needed; returns the library's path."""
     srcs = sources()
-    out_dir = os.path.join(BUILD_ROOT,
-                           _digest(srcs, COMPILE_FLAGS + LINK_FLAGS))
+    out_dir = os.path.join(BUILD_ROOT, build_key())
     lib = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib):
         return lib
@@ -91,7 +106,7 @@ def build() -> str:
         jobs = []
         for src in srcs:
             obj = os.path.join(tmp_dir, os.path.basename(src) + ".o")
-            cmd = [nvcc, *COMPILE_FLAGS, "-c", src, "-o", obj]
+            cmd = [nvcc, *COMPILE_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

@@ -9,9 +9,13 @@ f32, then no activation, exact GELU or tanh-GELU, and the result cast to
 
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/fused_ln.cu``, whose GEMM tile loader normalises in registers, so
-the normalised (M, K) tensor never exists in device memory; on a CPU
-tensor it runs :func:`ln_matmul_plain`, the explicit composition of the
-reference's ``_ln_matmul_xla``. Gradients come from a
+the normalised (M, K) tensor never exists in device memory. It multiplies
+on the tensor cores: bf16 W in one bf16 pass, f32 W in three TF32 passes
+(3xTF32: the wrapper splits W with :func:`tf32_split`, the kernel splits
+the LN output the same way), which keeps f32 accuracy whatever
+``torch.backends.cuda.matmul.allow_tf32`` says. On a CPU tensor it runs
+:func:`ln_matmul_plain`, the explicit composition of the reference's
+``_ln_matmul_xla``. Gradients come from a
 ``torch.autograd.Function`` whose backward is the plain composition's VJP,
 as the reference's ``custom_vjp`` (there is no backward kernel).
 
@@ -29,22 +33,67 @@ ACTIVATIONS = {None: 0, "gelu": 1, "gelu_tanh": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def layer_norm_rows(x, gamma, beta, eps: float) -> torch.Tensor:
+    """LayerNorm over the last dim in f32: the mean, then the centred
+    variance, then ``(x - mean) * rsqrt(var + eps) * gamma + beta``."""
+    xf = x.to(torch.float32)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    xc = xf - mean
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    return xc * torch.rsqrt(var + eps) * gamma + beta
+
+
 def ln_matmul_plain(x, gamma, beta, w, bias, *, eps: float,
                     activation: str | None, out_dtype) -> torch.Tensor:
     """Plain PyTorch version on (M, K) rows -> (M, N). The product of the
     W-dtype-rounded LN output with W is taken in f32, which is the f32
     accumulation of exact products the reference asks for."""
-    xf = x.to(torch.float32)
-    mean = torch.mean(xf, dim=-1, keepdim=True)
-    xc = xf - mean
-    var = torch.mean(xc * xc, dim=-1, keepdim=True)
-    y = (xc * torch.rsqrt(var + eps) * gamma + beta).to(w.dtype)
+    y = layer_norm_rows(x, gamma, beta, eps).to(w.dtype)
     out = y.to(torch.float32) @ w.to(torch.float32) + bias.to(torch.float32)
     if activation == "gelu":
         out = F.gelu(out, approximate="none")
     elif activation == "gelu_tanh":
         out = F.gelu(out, approximate="tanh")
     return out.to(out_dtype)
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 values (10 explicit significand bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds (finite values)."""
+    bits = t.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(w: torch.Tensor, ldw: int | None = None) -> torch.Tensor:
+    """(K, N) f32 -> (2, K, ldw) f32: ``W_hi = tf32(W)`` and ``W_lo =
+    tf32(W - W_hi)``, the f32 weight's pieces for 3xTF32; columns past N
+    are zero."""
+    k, n = w.shape
+    ldw = ldw or n
+    pieces = torch.zeros((2, k, ldw), dtype=torch.float32, device=w.device)
+    hi = tf32_round(w)
+    pieces[0, :, :n] = hi
+    pieces[1, :, :n] = tf32_round(w - hi)
+    return pieces
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _kernel_weight(w):
+    """W as the kernel reads it: f32 as its two TF32 pieces, bf16 as it
+    is; rows padded to 16 bytes and 16-byte aligned. Returns (w, ldw)."""
+    k, n = w.shape
+    if w.dtype == torch.float32:
+        ldw = _round_up(n, 4)
+        return tf32_split(w, ldw), ldw
+    ldw = _round_up(n, 8)
+    if ldw == n and w.data_ptr() % 16 == 0:
+        return w, ldw
+    padded = torch.zeros((k, ldw), dtype=w.dtype, device=w.device)
+    padded[:, :n] = w
+    return padded, ldw
 
 
 def _launch(x, gamma, beta, w, bias, eps, activation, out_dtype):
@@ -66,16 +115,18 @@ def _launch(x, gamma, beta, w, bias, eps, activation, out_dtype):
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    if m == 0:
+    if m == 0 or n == 0:
         return out
+    wk, ldw = _kernel_weight(w)
+    stats = torch.empty(2 * m, dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.vrt_ln_matmul(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), m, k, n, float(eps),
-            ACTIVATIONS[activation], int(x.dtype == torch.bfloat16),
-            int(w.dtype == torch.bfloat16),
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wk.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), stats.data_ptr(), m, k, n, ldw,
+            float(eps), ACTIVATIONS[activation],
+            int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), stream)
     _build.check(code, "ln_matmul kernel")
     ln_matmul.launches += 1

@@ -10,9 +10,13 @@ tokens in one pass,
 
 with the affine folded into two K-length vectors by :func:`fold_affine`.
 On a CUDA tensor :func:`fused_patch_embed` launches the hand-written kernel
-in ``csrc/patch_embed.cu``, whose tile loader does the patchify and the
-affine, so the normalised f32 image never exists in device memory. On a
-CPU tensor it runs :func:`patch_embed_plain`.
+in ``csrc/patch_embed.cu``, whose tile loader does the patchify, so the
+normalised f32 image never exists in device memory. For uint8 images (the
+engine's) the wrapper first folds the affine into the projection and
+splits it into three bf16 pieces (:func:`fold_split_weight`), so the
+kernel multiplies on the bf16 tensor cores with f32 accuracy; float32
+images take the kernel's f32 CUDA-core version, which applies the affine
+in its loader. On a CPU tensor it runs :func:`patch_embed_plain`.
 """
 
 from __future__ import annotations
@@ -67,6 +71,32 @@ def patch_embed_plain(images, w, bias, a_vec, b_vec, *, patch_size: int,
     return (x @ w + bias).to(out_dtype)
 
 
+def fold_split_weight(w, bias, a_vec, b_vec):
+    """Fold the affine into the projection and split it for the bf16
+    tensor cores.
+
+    ``(rows * a - b) @ W + bias == rows @ W' + c`` with ``W' = a[:, None] *
+    W`` and ``c = bias - b @ W``. Returns ``(pieces, c)``: ``pieces`` (3, K,
+    D') bfloat16 with ``hi + mid + lo == W'`` to f32 precision (24
+    significand bits; columns D..D'-1, D' = D rounded up to a multiple of
+    8 for 16-byte rows, are zero) and ``c`` (D,) float32. A uint8 pixel times a piece is exact in
+    f32, so ``sum_p rows @ pieces[p] + c`` in f32 is the f32 projection."""
+    k, d = w.shape
+    folded = a_vec[:, None] * w
+    d_pad = -(-d // 8) * 8
+    if d_pad != d:
+        folded = torch.nn.functional.pad(folded, (0, d_pad - d))
+    pieces = torch.empty((3, k, d_pad), dtype=torch.bfloat16,
+                         device=w.device)
+    rest = folded
+    for i in range(3):
+        pieces[i].copy_(rest)
+        if i < 2:
+            rest = rest - pieces[i]  # exact in f32
+    c = bias - (b_vec[:, None] * w).sum(0)
+    return pieces, c
+
+
 def _check(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
     if images.dim() != 4:
         raise ValueError(f"images must be (B, H, W, C), got "
@@ -110,14 +140,23 @@ def _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
     d = w.shape[1]
     out = torch.empty(((h // p) * (wd // p) * b, d), dtype=out_dtype,
                       device=dev)
+    if out.numel() == 0:
+        return out
+    out_bf16 = int(out_dtype == torch.bfloat16)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.vrt_patch_embed(
-            images.data_ptr(), w.data_ptr(), a_vec.data_ptr(),
-            b_vec.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd, c, p,
-            d, int(images.dtype == torch.uint8),
-            int(out_dtype == torch.bfloat16), stream)
+        if images.dtype == torch.uint8:
+            pieces, bias_c = fold_split_weight(w, bias, a_vec, b_vec)
+            code = lib.vrt_patch_embed_u8(
+                images.data_ptr(), pieces.data_ptr(), pieces.shape[-1],
+                bias_c.data_ptr(), out.data_ptr(), b, h, wd, c, p, d,
+                out_bf16, stream)
+        else:
+            code = lib.vrt_patch_embed_f32(
+                images.data_ptr(), w.data_ptr(), a_vec.data_ptr(),
+                b_vec.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd,
+                c, p, d, out_bf16, stream)
     _build.check(code, "patch_embed kernel")
     fused_patch_embed.launches += 1
     return out
