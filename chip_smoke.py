@@ -33,6 +33,16 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      32 query frames against the 512-row corpus on the device route (the
      neighbours' labels match the frames' planted sides), with the
      kernels' launch counts;
+  5b. the serve path on phase 4's corpus: ``cli serve --warmup`` on a
+     thread of this process, then embed requests (JSON paths and
+     frames_b64, binary raw_u8 and jpeg; 1, 16 and 256 frames) held to the
+     CPU plain forward, 8 concurrent clients merged by the coalescer, a
+     query, a live segment session in ragged pushes whose clips equal
+     phase 4's offline clips, ``segment --follow --socket`` and the
+     in-process ``segment --follow`` writing phase 4's clip directories,
+     the stats counts, ``serve-ctl reload`` and ``shutdown``; the
+     kernels' launches equal the engine batches the daemon ran, and the
+     request latencies are printed;
   6. a game-sized store: a seeded 200,000 x 768 cosine collection queried
      with 256 queries, k = 50, on the card in f32 and in int8, each held
      against the CPU answer of the same rows, and timed;
@@ -71,18 +81,22 @@ import io
 import json
 import math
 import os
+import base64
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
-from vit_research_tpu_torch import cli
+from vit_research_tpu_torch import cli, serve
 from vit_research_tpu_torch.cli import common
+from vit_research_tpu_torch.data.preprocess import load_frames
 from vit_research_tpu_torch.db.frame_store import FrameStore
 from vit_research_tpu_torch.ops import _build
 from vit_research_tpu_torch.ops import attention as attn
@@ -115,6 +129,8 @@ LN_BOUND = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 # normalisation before quantizing may differ by an ulp and move an int8
 # value by one (1e-3).
 STORE_BOUND = {"f32": 1e-4, "int8": 1e-3}
+# Rounds of the serve phase's embed requests (every form at every size).
+EMBED_ROUNDS = 3
 # H100 SXM data-sheet peaks (not measured).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
@@ -694,6 +710,312 @@ def phase_store_path(smi: str, root: str, main: dict) -> dict:
     return launches
 
 
+# ---- phase 5b: the serve path -------------------------------------------
+
+
+def _socket_path(root: str) -> str:
+    """The daemon's socket under ``root``, as the shorter of its absolute
+    and cwd-relative paths: unix socket paths hold at most 107 bytes."""
+    sock = os.path.join(root, "d.sock")
+    sock = min(sock, os.path.relpath(sock), key=len)
+    if len(sock) > 100:
+        raise RuntimeError(f"socket path {sock!r} is too long for AF_UNIX")
+    return sock
+
+
+def _launch_counts() -> dict:
+    return {"patch_embed": pe.fused_patch_embed.launches,
+            "attention": attn.multi_head_attention.launches}
+
+
+def _check_launches(got: dict, batches: int, what: str) -> None:
+    if got != {"patch_embed": batches, "attention": 12 * batches}:
+        raise AssertionError(f"{what}: kernel launches {got}, want "
+                             f"{batches} and {12 * batches}")
+
+
+def _serve_thread(argv: list) -> tuple:
+    """``cli.main(argv)`` on a thread of this process (the kernels'
+    launch counters stay readable); returns (thread, errors list)."""
+    errors: list = []
+
+    def run():
+        try:
+            cli.main(argv)
+        except BaseException as e:  # surfaced by the phase's checks
+            errors.append(e)
+
+    t = threading.Thread(target=run, daemon=True, name="chip-smoke-serve")
+    t.start()
+    return t, errors
+
+
+def _await_ready(sock: str, errors: list, limit_s: float = 600.0) -> float:
+    """Poll ``ping`` until the reply stops reporting warming; returns
+    the seconds waited."""
+    t0 = time.monotonic()
+    while True:
+        if errors:
+            raise RuntimeError(f"serve failed while warming: {errors[0]!r}")
+        try:
+            r = serve.request(sock, {"op": "ping"}, timeout=30.0)
+        except (OSError, ConnectionError):
+            r = None  # not bound yet, or the warming -> ready swap
+        if r and r.get("ok") and not r.get("warming"):
+            return time.monotonic() - t0
+        if time.monotonic() - t0 > limit_s:
+            raise TimeoutError(f"daemon still warming after {limit_s} s")
+        time.sleep(0.2)
+
+
+def _max_err(got, want) -> float:
+    got = np.asarray(got, np.float32)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"reply {got.shape}, want {want.shape} finite")
+    return float(np.abs(got - want).max())
+
+
+def _listing(root: str) -> dict:
+    return {d: sorted(os.listdir(os.path.join(root, d)))
+            for d in sorted(os.listdir(root)) if CLIP_RE.match(d)}
+
+
+def _live_copy(src: str, dst: str) -> str:
+    """A copy of a frames dir ending in the STOP file that tells
+    ``segment --follow`` the producer is done."""
+    os.makedirs(dst)
+    for f in os.listdir(src):
+        shutil.copy(os.path.join(src, f), dst)
+    open(os.path.join(dst, "STOP"), "w").close()
+    return dst
+
+
+def phase_serve_path(smi: str, root: str, main: dict) -> dict:
+    """The daemon on the card (``cli serve ... --warmup``) on phase 4's
+    corpus: embed in every input form, coalescing, query, a live session,
+    ``segment --follow`` through the socket and in-process, serve-ctl."""
+    db, query_dir, n_query = main["db"], main["query_dir"], main["n_query"]
+    paths = [os.path.join(query_dir, f"vid2_frame_{f}.jpg")
+             for f in range(1, n_query + 1)]
+    sock = _socket_path(root)
+    pe.fused_patch_embed.launches = 0
+    attn.multi_head_attention.launches = 0
+    t0 = time.monotonic()
+    thread, errors = _serve_thread(
+        ["serve", "--socket", sock, "--db", db, "--collection", "corpus",
+         "--batch-size", str(BATCH), "--warmup", "--device", "cuda"])
+    _await_ready(sock, errors)
+    log(f"[5b] serve --warmup on the card: ready {time.monotonic() - t0:.2f} "
+        f"s after start (engine init + kernel library, loaded by phase 1, "
+        f"+ one batch of {BATCH})")
+
+    # The CPU plain forward of the same seeded weights on the same frames.
+    frames = load_frames(paths[:BATCH], SPEC)
+    host = embed.make_hf_frame_embedder(device="cpu", batch_size=BATCH)
+    t0 = time.monotonic()
+    want = host.embed_batch(frames)
+    log(f"[5b] CPU plain forward of {BATCH} frames (the reference): "
+        f"{time.monotonic() - t0:.1f} s")
+    del host
+    blobs = [open(p, "rb").read() for p in paths[:BATCH]]
+
+    sizes = (1, 16, BATCH)
+    form_names = ("JSON paths", "JSON frames_b64", "binary raw_u8",
+                  "binary jpeg")
+    lat = {(form, n): [] for form in form_names for n in sizes}
+    worst = 0.0
+    with serve.SessionClient(sock, timeout=120.0) as c:
+        for _ in range(EMBED_ROUNDS):
+            for n in sizes:
+                forms = [
+                    lambda: serve.request(sock, {"op": "embed",
+                                                 "paths": paths[:n]},
+                                          timeout=120.0)["embeddings"],
+                    lambda: serve.request(sock, {
+                        "op": "embed", "frames_b64": [
+                            base64.b64encode(b).decode()
+                            for b in blobs[:n]]},
+                        timeout=120.0)["embeddings"],
+                    lambda: c.request_binary({"op": "embed"},
+                                             frames=frames[:n])["embeddings"],
+                    lambda: c.request_binary({"op": "embed"},
+                                             jpegs=blobs[:n])["embeddings"]]
+                for name, form in zip(form_names, forms):
+                    t1 = time.perf_counter()
+                    got = form()
+                    lat[name, n].append((time.perf_counter() - t1) * 1e3)
+                    worst = max(worst, _max_err(got, want[:n]))
+    log(f"[5b] embed replies ({', '.join(form_names)}; 1, 16 and {BATCH} "
+        f"frames, {EMBED_ROUNDS} rounds): max|err| {worst:.3e} against the "
+        f"CPU plain forward (bound {EMBED_BOUND:.0e})")
+    if worst > EMBED_BOUND:
+        raise AssertionError(f"daemon embeddings disagree: {worst}")
+    for n in sizes:
+        every = [t for form in form_names for t in lat[form, n]]
+        log(f"[5b] embed request latency, {n} frame(s): median "
+            f"{statistics.median(every):.2f} ms over {len(every)} requests; "
+            "by form " + ", ".join(
+                f"{form} {statistics.median(lat[form, n]):.2f}"
+                for form in form_names)
+            + f" ms (host clock, client in this process) | {smi}")
+
+    before = serve.request(sock, {"op": "stats"}, timeout=60.0)
+    t1 = time.perf_counter()
+    res = _concurrent([(lambda i=i: serve.request_binary(
+        sock, {"op": "embed"}, frames=frames[16 * i:16 * i + 16],
+        timeout=120.0)["embeddings"]) for i in range(8)])
+    wall = (time.perf_counter() - t1) * 1e3
+    after = serve.request(sock, {"op": "stats"}, timeout=60.0)
+    merged = after["device_batches"] - before["device_batches"]
+    err = max(_max_err(res[i], want[16 * i:16 * i + 16]) for i in range(8))
+    log(f"[5b] 8 concurrent clients x 16 frames: {merged} device batches, "
+        f"max|err| {err:.3e}; wall {wall:.2f} ms (host clock) | {smi}")
+    if merged >= 8 or err > EMBED_BOUND:
+        raise AssertionError(f"coalescer did not merge ({merged} batches) "
+                             f"or rows disagree ({err})")
+
+    sides = _query_sides()
+    picks = [int(f) for f in np.linspace(1, n_query, 32)]
+    q = serve.request(sock, {"op": "query", "paths": [paths[f - 1]
+                                                      for f in picks],
+                             "n_results": 10}, timeout=120.0)
+    agree = [m["label"] == sides[f - 1]
+             for f, row in zip(picks, q["metadatas"]) for m in row]
+    share = sum(agree) / max(1, len(agree))
+    log(f"[5b] query 32 frames, k=10: {100 * share:.1f}% of neighbours "
+        "carry the frame's planted side")
+    if not q["ok"] or len(agree) != 320 or share < 0.8:
+        raise AssertionError(f"query neighbours disagree: {share}")
+
+    offline = _clip_ranges(main["out"])
+    clips, pushes, mid, push_ms = [], [37, 64, 128], False, []
+    with serve.SessionClient(sock, timeout=120.0) as c:
+        r = c.request({"op": "segment_start", "k": 50, "min_len": MIN_LEN,
+                       "pad": PAD})
+        if not r.get("ok"):
+            raise AssertionError(f"segment_start refused: {r}")
+        i = j = 0
+        while i < n_query:
+            chunk = paths[i:i + pushes[j % 3]]
+            t1 = time.perf_counter()
+            r = c.request({"op": "segment_push", "paths": chunk})
+            if len(chunk) == 64:
+                push_ms.append((time.perf_counter() - t1) * 1e3)
+            if not r.get("ok"):
+                raise AssertionError(f"segment_push failed: {r}")
+            clips += r["clips"]
+            i, j = i + len(chunk), j + 1
+        mid = len(clips)
+        t1 = time.perf_counter()
+        fin = c.request({"op": "segment_finish"})
+        finish_ms = (time.perf_counter() - t1) * 1e3
+        clips += fin["clips"]
+    live = [(c_["side"], c_["start"] + 1, c_["end"] + 1) for c_ in clips]
+    log(f"[5b] live session (pushes of 37, 64, 128 frames): clips {live}, "
+        f"{mid} before segment_finish, forced {fin['forced']}; offline "
+        f"{offline}")
+    if live != offline or mid < 1:
+        raise AssertionError("live session clips differ from the offline "
+                             "clips, or none arrived mid-game")
+    log(f"[5b] segment_push latency, 64 frames: median "
+        f"{statistics.median(push_ms):.2f} ms over {len(push_ms)} pushes; "
+        f"segment_finish {finish_ms:.2f} ms (host clock) | {smi}")
+
+    want_dirs = _listing(main["out"])
+    follow = ["--method", "knn-hmm", "--follow", "--k", "50", "--min-len",
+              str(MIN_LEN), "--pad", str(PAD), "--vid", "2", "--batch-size",
+              str(BATCH), "--idle-timeout", "30", "--poll-interval", "0.05"]
+    out_sock = os.path.join(root, "follow_socket")
+    t1 = time.monotonic()
+    cli.main(["segment", _live_copy(query_dir, os.path.join(
+        root, "live_socket")), "--socket", sock, "--out", out_sock, *follow])
+    log(f"[5b] segment --follow --socket: {time.monotonic() - t1:.1f} s, "
+        f"clip dirs equal the offline ones: "
+        f"{_listing(out_sock) == want_dirs}")
+    stats = serve.request(sock, {"op": "stats"}, timeout=60.0)
+    daemon_before = _launch_counts()
+    out_local = os.path.join(root, "follow_local")
+    t1 = time.monotonic()
+    cli.main(["segment", _live_copy(query_dir, os.path.join(
+        root, "live_local")), "--db", db, "--corpus-collection", "corpus",
+        "--out", out_local, "--device", "cuda", *follow])
+    local = {k: v - daemon_before[k] for k, v in _launch_counts().items()}
+    log(f"[5b] segment --follow (in-process engine): "
+        f"{time.monotonic() - t1:.1f} s, clip dirs equal the offline ones: "
+        f"{_listing(out_local) == want_dirs}; launches {local}")
+    if not (_listing(out_sock) == _listing(out_local) == want_dirs):
+        raise AssertionError("--follow clip dirs differ from the offline "
+                             "segment's")
+    _check_launches(local, math.ceil(n_query / BATCH), "segment --follow")
+
+    seg = stats["segment"]
+    embedded = EMBED_ROUNDS * 4 * sum(sizes) + 8 * 16 + 32 + 2 * n_query
+    got = (stats["frames_embedded"], seg["sessions_finished"],
+           seg["frames_pushed"], seg["clips_emitted"], seg["sessions_active"])
+    log(f"[5b] stats: frames_embedded {got[0]}, sessions finished {got[1]}, "
+        f"frames pushed {got[2]}, clips emitted {got[3]}, device batches "
+        f"{stats['device_batches']}, errors {stats['errors']}")
+    if got != (embedded, 2, 2 * n_query, 2 * len(offline), 0) \
+            or stats["errors"]:
+        raise AssertionError(f"stats do not add up: {got}, want "
+                             f"{(embedded, 2, 2 * n_query, 2 * len(offline))}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["serve-ctl", "reload", "--socket", sock])
+    rows = json.loads(buf.getvalue())["rows"]
+    n_corpus = sum(n for _, n in CORPUS_SEGMENTS)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["serve-ctl", "shutdown", "--socket", sock])
+    thread.join(timeout=60.0)
+    log(f"[5b] serve-ctl reload: {rows} rows; shutdown ended the serve "
+        f"thread: {not thread.is_alive()}")
+    if rows != n_corpus or thread.is_alive() or errors:
+        raise AssertionError(f"reload rows {rows} (want {n_corpus}), serve "
+                             f"thread alive {thread.is_alive()}, {errors}")
+    daemon = {k: v - local[k] for k, v in _launch_counts().items()}
+    # one warm-up batch, then one engine batch per coalescer batch: no
+    # request of this phase exceeds one engine batch, merged or not
+    _check_launches(daemon, 1 + stats["device_batches"], "serve")
+    log(f"[5b] launches on the serve path {daemon} for "
+        f"{1 + stats['device_batches']} engine batches (warm-up included)")
+    # The device's share of a request: the engine's forward alone on a
+    # batch already on the card, at the request sizes above.
+    eng = embed.make_hf_frame_embedder(device="cuda", batch_size=BATCH)
+    on_card = torch.from_numpy(frames).to(eng.device)
+    fwd = {n: cuda_ms(lambda n=n: eng._forward(on_card[:n]), reps=3, n=5)
+           for n in (1, 16, 64, BATCH)}
+    log("[5b] engine forward alone on the card (CUDA events): "
+        + ", ".join(f"{n} frame(s) {ms:.2f} ms" for n, ms in fwd.items())
+        + f" | {smi}")
+    del eng, on_card
+    torch.cuda.empty_cache()
+    return dict(launches=daemon, follow_launches=local)
+
+
+def _concurrent(fns: list) -> list:
+    """Run the callables on one thread each; results in order, the first
+    error raised."""
+    out, threads = [None] * len(fns), []
+
+    def run(i):
+        try:
+            out[i] = fns[i]()
+        except BaseException as e:
+            out[i] = e
+
+    for i in range(len(fns)):
+        threads.append(threading.Thread(target=run, args=(i,)))
+        threads[-1].start()
+    for t in threads:
+        t.join(timeout=300.0)
+        if t.is_alive():
+            raise TimeoutError("a concurrent client did not finish")
+    for r in out:
+        if isinstance(r, BaseException):
+            raise r
+    return out
+
+
 def _same_neighbours(got_ids, got_s, want_ids, want_s, tol) -> int:
     """Rank-by-rank scores within ``tol`` and any id in one answer but not
     the other within ``tol`` of the last kept score; returns how many
@@ -865,6 +1187,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="vrt_chip_smoke_") as root:
         main_path = phase_main_path(smi, root)
         store_launches = phase_store_path(smi, root, main_path)
+        serve_path = phase_serve_path(smi, root, main_path)
     phase_game_store(smi)
     launches = main_path["launches"]
     kernels = [
@@ -872,16 +1195,22 @@ def main() -> int:
              source="vit_research_tpu_torch/csrc/patch_embed.cu",
              replaces="vit_research_tpu/ops/patch_embed.py:65",
              launches=launches["patch_embed"],
-             launches_by_path={"segment": launches["patch_embed"],
-                               "store": store_launches["patch_embed"]},
+             launches_by_path={
+                 "segment": launches["patch_embed"],
+                 "store": store_launches["patch_embed"],
+                 "serve": serve_path["launches"]["patch_embed"],
+                 "follow": serve_path["follow_launches"]["patch_embed"]},
              library_call="none; nearest F.conv2d over the normalised "
                           "f32 NCHW batch", **pe_summary),
         dict(name="attention", route="cuda",
              source="vit_research_tpu_torch/csrc/attention.cu",
              replaces="vit_research_tpu/ops/attention.py:51",
              launches=launches["attention"],
-             launches_by_path={"segment": launches["attention"],
-                               "store": store_launches["attention"]},
+             launches_by_path={
+                 "segment": launches["attention"],
+                 "store": store_launches["attention"],
+                 "serve": serve_path["launches"]["attention"],
+                 "follow": serve_path["follow_launches"]["attention"]},
              library_call="F.scaled_dot_product_attention", **attn_summary),
         dict(name="ln_matmul", route="cuda",
              source="vit_research_tpu_torch/csrc/fused_ln.cu",

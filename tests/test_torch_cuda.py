@@ -304,3 +304,88 @@ def test_int8_dot_pads_to_int_mm_shapes(cuda):
     b = torch.from_numpy(rng.integers(-127, 128, (13, 20), dtype=np.int8))
     got = topk._int8_dot(a.to(cuda), b.to(cuda)).cpu()
     torch.testing.assert_close(got, topk._int8_dot(a, b), rtol=0, atol=0)
+
+
+def _session_world(seed=0, d=64, n_corpus=600, noise=0.4):
+    """A labelled corpus around three class centres and a game of
+    possessions drawn the same way, with an ambiguous stretch."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((3, d)).astype(np.float32) * 2.0
+    labels = np.repeat(np.arange(3), n_corpus // 3)
+    corpus = centers[labels] + noise * rng.standard_normal((len(labels), d))
+    probs = np.full((len(labels), 3), 0.05, np.float32)
+    probs[np.arange(len(labels)), labels] = 0.9
+    sides = np.repeat([2, 0, 2, 1, 2, 0, 2], [40, 200, 40, 180, 30, 150, 60])
+    frames = centers[sides] + noise * rng.standard_normal((len(sides), d))
+    frames[470:500] = (centers[1] + centers[2]) / 2  # near the 2/1 line
+    return ({"embeddings": corpus.astype(np.float32), "labels": labels,
+             "probs": probs}, frames.astype(np.float32),
+            [f"vid4_frame_{i + 1}.jpg" for i in range(len(sides))])
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+def test_stream_session_on_card_matches_cpu(cuda, metric):
+    """The live session ranks on the card; its clips, forced commits and
+    write-backs equal the CPU session's (no near-ties in this world)."""
+    from vit_research_tpu_torch.segment.pipeline import KnnHmmStreamSession
+
+    corpus, frames, names = _session_world()
+    runs = []
+    for device in (cuda, "cpu"):
+        col = Collection("c", space=metric, device=device)
+        s = KnnHmmStreamSession(corpus, device=device, k=25, min_len=60,
+                                pad=10, max_lag=24, drain_every=8,
+                                collection=col, vid=4, metric=metric)
+        clips, i, j = [], 0, 0
+        while i < len(frames):  # ragged pushes
+            n = (37, 64, 128, 1)[j % 4]
+            clips += s.push_batch(names[i:i + n], frames[i:i + n])
+            i, j = i + n, j + 1
+        clips += s.finish()
+        runs.append((clips, s.forced, col.get(limit=10 ** 6)))
+    (got, g_forced, g_col), (want, w_forced, w_col) = runs
+    assert got == want and len(got) == 3
+    assert g_forced == w_forced
+    assert g_col["ids"] == w_col["ids"] and len(g_col["ids"]) > 400
+    assert g_col["metadatas"] == w_col["metadatas"]
+
+
+def test_coalescer_on_card(cuda):
+    """Concurrent requests merge into one ragged engine batch on the card;
+    each request's rows match the CPU engine within 1e-4, and the kernels
+    launch once (A) and once per layer (B) per engine batch."""
+    import threading
+
+    from vit_research_tpu_torch.serve import EmbedServer
+
+    model = init_vit(TINY, seed=0, device="cpu")
+    spec = PreprocessSpec(size=(32, 32))
+    host = embed.EmbeddingEngine(model, spec, device="cpu", batch_size=8)
+    frames = np.random.default_rng(3).integers(0, 256, (6, 32, 32, 3),
+                                               dtype=np.uint8)
+    want = host.embed_batch(frames)
+    eng = embed.EmbeddingEngine(init_vit(TINY, seed=0, device="cpu"), spec,
+                                device=cuda, batch_size=8)
+    eng.warmup()
+    srv = EmbedServer(eng, coalesce_ms=300.0)
+    before = (pe.fused_patch_embed.launches,
+              attn.multi_head_attention.launches)
+    out, threads = {}, []
+    try:
+        for i in range(3):
+            threads.append(threading.Thread(target=lambda i=i: out.update(
+                {i: srv._coalescer.embed(frames[2 * i:2 * i + 2])})))
+            threads[-1].start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        batches = srv._coalescer.batches_run
+        assert batches < 3  # merged
+        assert (pe.fused_patch_embed.launches - before[0],
+                attn.multi_head_attention.launches - before[1]) == \
+            (batches, TINY.num_layers * batches)
+        for i in range(3):
+            np.testing.assert_allclose(out[i], want[2 * i:2 * i + 2],
+                                       rtol=0, atol=1e-4)
+    finally:
+        srv.stop()

@@ -4,7 +4,17 @@
         --manual-csv M.csv --db DB --collection C [--device cuda]
     python -m vit_research_tpu_torch.cli segment FRAMES --method knn-hmm \\
         --db DB --corpus-collection C --out OUT --vid N [--write-back] \\
-        [--transitions T.json] [--device cuda]
+        [--transitions T.json] [--follow] [--device cuda]
+    python -m vit_research_tpu_torch.cli segment FRAMES --method knn-hmm \\
+        --follow --socket S --out OUT --vid N
+    python -m vit_research_tpu_torch.cli segment FRAMES --method streaks \\
+        --db DB --corpus-collection C --out OUT --vid N [--device cuda]
+    python -m vit_research_tpu_torch.cli tune-segment FRAMES \\
+        --manual-csv M.csv --db DB --corpus-collection C [--out T.json]
+    python -m vit_research_tpu_torch.cli serve --socket S [--db DB \\
+        --collection C] [--warmup] [--device cuda]
+    python -m vit_research_tpu_torch.cli serve-ctl ping|stats|reload|\\
+        shutdown --socket S
     python -m vit_research_tpu_torch.cli build-frame-store \\
         --clip-root 'clips_{vid}' --vids N [N ...] [--clip-labels L.csv] \\
         --out STORE [--device cuda]
@@ -17,8 +27,8 @@ and write the same vector-store and frame-store formats; ``--device``
 picks the torch device (default ``cuda``). ``VRT_TINY=1`` swaps the
 ViT-B/16 for the reference's tiny test ViT and ``VRT_GRAYSCALE=1`` embeds
 luminance frames, as in the reference. The arcs follow the reference's
-layout: :mod:`.ingest`, :mod:`.segment_cmds`, :mod:`.db_cmds`, with the
-shared helpers in :mod:`.common`.
+layout: :mod:`.ingest`, :mod:`.segment_cmds`, :mod:`.db_cmds`,
+:mod:`.serve_cmds`, with the shared helpers in :mod:`.common`.
 """
 
 from vit_research_tpu_torch.cli.parser import main  # noqa: F401

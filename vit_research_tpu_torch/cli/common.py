@@ -94,8 +94,9 @@ def check_embedding_profile(col, what: str = "collection") -> None:
         print(
             f"WARNING: {what} {getattr(col, 'name', '?')!r} was built "
             f"with embedding profile {stored!r} but this command runs "
-            f"{current!r} — distances across profiles are not "
-            "comparable; rebuild the collection or match the settings",
+            f"{current!r} (VRT_TOME_R/VRT_GEMM_QUANT/VRT_GRAYSCALE) — "
+            "distances across profiles are not comparable; rebuild the "
+            "collection or match the settings",
             file=sys.stderr, flush=True)
 
 

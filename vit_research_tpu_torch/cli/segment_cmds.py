@@ -1,7 +1,13 @@
-"""Segmentation command: segment --method knn-hmm (offline).
+"""Segmentation arc: segment (offline / --follow / --socket) and
+tune-segment, plus the follow backends (local engine vs serve daemon).
 
-Port of the offline kNN+HMM branch of vit_research_tpu/cli/segment_cmds.py
-with the reference's arguments plus ``--device``.
+Port of vit_research_tpu/cli/segment_cmds.py with the reference's
+arguments plus ``--device``. Not ported yet, and so not flags of this
+parser (argparse refuses them): ``--method temporal`` and live event
+scoring (``--score-events`` and its ``--score-*``, ``--stage*-run-id``,
+``--chunk-*`` and ``--k-*`` flags), which need the heads (ROADMAP items
+8-9); the fast profile's ``--frame-stride``, ``--stride-refine*``,
+``--event-template`` and ``--force-stride`` (item 7).
 """
 
 from __future__ import annotations
@@ -13,6 +19,9 @@ from vit_research_tpu_torch.cli import common
 
 
 def _load_transitions(path):
+    """Read a (3, 3) HMM transition matrix from JSON: either a bare
+    nested list, or a ``tune-segment`` output dict (uses its
+    ``best_transition_matrix``)."""
     from vit_research_tpu_torch.segment.hmm import validate_transition_matrix
 
     with open(path) as fh:
@@ -30,49 +39,653 @@ def _load_transitions(path):
 
 
 def cmd_segment(args):
-    """Frames -> possession clips by kNN votes against a labelled corpus
-    collection, Viterbi smoothing and padded clip extraction, with
-    optional confident write-back."""
+    """Frames -> possession clips against a labelled frame collection
+    (--db/--corpus-collection, built by write-frame-db). ``--method
+    knn-hmm`` is the kNN-vote + Viterbi path
+    (nba_proj/generate_clips_hmm.py:367-490), offline or live
+    (``--follow``, in this process or through a serve daemon with
+    ``--socket``); ``--method streaks`` the pre-HMM sliding-window
+    classifier (nba_proj/generate_clips.py:99-368, also writes
+    clip_intervals.csv). Both take optional confident write-back."""
     from vit_research_tpu_torch.data import naming
-    from vit_research_tpu_torch.segment.pipeline import segment_with_knn_hmm
+    from vit_research_tpu_torch.segment.pipeline import (
+        segment_with_knn_hmm, segment_with_knn_streaks)
 
-    # Validate before the engine spins up and the frames are embedded.
+    # Validate method arguments BEFORE the engine spins up: embedding a
+    # whole frames dir only to fail on a missing flag is hostile.
+    if args.socket:
+        if not args.follow:
+            raise SystemExit("--socket is the daemon-routed live mode: "
+                             "it requires --follow (for offline scoring "
+                             "against a daemon, use the daemon's query/"
+                             "embed ops or run segment locally)")
+        if args.method != "knn-hmm":
+            raise SystemExit("--socket supports --method knn-hmm only "
+                             "(the daemon's segment sessions)")
+        if args.db or args.corpus_collection:
+            raise SystemExit("--socket ranks against the DAEMON's "
+                             "collection (cli serve --collection); drop "
+                             "--db/--corpus-collection")
+    if args.follow and args.method != "knn-hmm":
+        raise SystemExit("--follow supports --method knn-hmm only")
+    if args.transitions and args.method != "knn-hmm":
+        raise SystemExit("--transitions applies to --method knn-hmm only "
+                         "(the streaks path doesn't take an HMM "
+                         "transition override)")
+    if not args.socket:
+        if not (args.db and args.corpus_collection):
+            raise SystemExit(f"--method {args.method} needs --db and "
+                             "--corpus-collection (see write-frame-db)")
+        client, col, corpus = common.load_corpus(
+            args.db, args.corpus_collection, args.device)
+        # rank with the collection's own metric on every surface (the
+        # daemon's segment sessions already do)
+        space = getattr(col, "space", "l2")
     transitions = (_load_transitions(args.transitions)
                    if args.transitions else None)
-    client, col, corpus = common.load_corpus(args.db, args.corpus_collection,
-                                             args.device)
-    space = getattr(col, "space", "l2")
+
+    if args.follow:
+        if args.socket:
+            backend = _DaemonFollowBackend(args,
+                                           transition_matrix=transitions)
+        else:
+            backend = _LocalFollowBackend(
+                args, corpus, col if args.write_back else None,
+                client if args.write_back else None,
+                metric=space, transition_matrix=transitions)
+        return _segment_follow(args, backend)
 
     os.makedirs(args.out, exist_ok=True)
     frames = naming.list_frames(args.frames)
     eng = common._engine(args.batch_size, args.device)
     embs = eng.embed_paths([os.path.join(args.frames, f) for f in frames])
     if args.write_back:
-        # write-back upserts this engine's embeddings into the corpus
+        # write-back upserts this engine's embeddings into the corpus: a
+        # cross-profile write permanently mixes embedding spaces
         common._stamp_profile(col)
-    decoded, clip_dirs, _ = segment_with_knn_hmm(
-        frames, embs, corpus, device=eng.device, out_root=args.out,
-        src_dir=args.frames, vid=args.vid, k=args.k,
-        confidence_threshold=args.confidence_threshold,
-        min_len=args.min_len, pad=args.pad, metric=space,
-        collection=col if args.write_back else None,
-        transition_matrix=transitions)
+    if args.method == "streaks":
+        decoded, clip_dirs, _ = segment_with_knn_streaks(
+            frames, embs, corpus, device=eng.device, out_root=args.out,
+            src_dir=args.frames, vid=args.vid, k=args.k,
+            confidence_threshold=args.confidence_threshold,
+            window=args.window, min_len=args.min_len, pad=args.pad,
+            collection=col if args.write_back else None, metric=space,
+            intervals_csv=os.path.join(args.out, "clip_intervals.csv"))
+    else:
+        decoded, clip_dirs, _ = segment_with_knn_hmm(
+            frames, embs, corpus, device=eng.device, out_root=args.out,
+            src_dir=args.frames, vid=args.vid, k=args.k,
+            confidence_threshold=args.confidence_threshold,
+            min_len=args.min_len, pad=args.pad, metric=space,
+            collection=col if args.write_back else None,
+            transition_matrix=transitions)
     if args.write_back:
         client.flush()
     print(f"decoded {len(decoded)} frames -> {len(clip_dirs)} clips")
 
 
+class _LocalFollowBackend:
+    """--follow in-process: own engine + KnnHmmStreamSession."""
+
+    def __init__(self, args, corpus, collection, client, *,
+                 metric: str = "l2", transition_matrix=None):
+        from vit_research_tpu_torch.segment.pipeline import \
+            KnnHmmStreamSession
+
+        self.eng = common._engine(args.batch_size, args.device)
+        if collection is not None:
+            # --write-back: refuse cross-profile corpus writes outright
+            # (reads already warned in common.load_corpus)
+            common._stamp_profile(collection)
+        self._client = client
+        self.session = KnnHmmStreamSession(
+            corpus, device=self.eng.device, k=args.k,
+            confidence_threshold=args.confidence_threshold,
+            min_len=args.min_len, pad=args.pad, max_lag=args.max_lag,
+            drain_every=8, collection=collection, vid=args.vid,
+            metric=metric, transition_matrix=transition_matrix)
+
+    def push(self, names, paths):
+        """Clip intervals that became final with this chunk."""
+        # prefetch=0: each call is a single <=batch_size chunk, so a
+        # producer thread can't overlap anything — it would just add
+        # a thread spawn + queue per poll on a 200k-frame session
+        embs = self.eng.embed_paths(paths, prefetch=0)
+        return self.session.push_batch(names, embs)
+
+    def finish(self):
+        clips = self.session.finish()
+        if self._client is not None:
+            self._client.flush()
+        return clips, self.session.forced
+
+
+class _DaemonFollowBackend:
+    """--follow --socket: a running ``cli serve`` daemon owns the warm
+    engine and the corpus collection; this process only tails the frames
+    dir, pushes paths over the unix socket and writes clip dirs from the
+    replies. N games can follow concurrently against ONE card — the
+    daemon serializes device work and micro-batches concurrent embeds
+    (serve.py), where N local --follow loops would each need their own
+    engine.
+
+    Resilience: daemon session state is CONNECTION-scoped, so a dropped
+    connection (or a daemon restart) loses the lattice — but this
+    backend records every successful push and, on ConnectionError,
+    reconnects (waiting up to ``RECONNECT_DEADLINE_S`` for the socket
+    to come back), opens a fresh session and REPLAYS the history. The
+    replay is deterministic, so already-returned clips re-emerge
+    identically and are skipped by count; the game continues mid-stream
+    instead of dying with the connection. --write-back sessions cannot
+    replay (their corpus grew mid-game, shifting the decode) and a
+    failure DURING replay poisons the backend — both fail loudly rather
+    than continue on misaligned state."""
+
+    RECONNECT_DEADLINE_S = 120.0
+    #: how long a FIRST connect waits out a warming daemon (serve.py
+    #: WarmingServer: engine build, and with --warmup the kernel build
+    #: and one batch); reconnects mid-game keep the 120 s budget.
+    WARMING_DEADLINE_S = 2400.0
+
+    def __init__(self, args, transition_matrix=None):
+        self._args = args
+        self._transitions = (None if transition_matrix is None else
+                             [[float(x) for x in row]
+                              for row in transition_matrix])
+        self._history: list[list[str]] = []  # successful pushes (paths)
+        self._clips_returned = 0
+        self._poisoned: str | None = None
+        self.client = None
+        self._connect(first=True)
+
+    def _connect(self, *, first: bool) -> None:
+        from vit_research_tpu_torch.serve import SessionClient
+
+        args = self._args
+        try:
+            # generous timeout: a push of a full batch waits behind other
+            # clients' device work on a shared daemon
+            self.client = SessionClient(args.socket, timeout=600.0)
+        except FileNotFoundError as e:
+            if first:  # operator error, not a flap: clean exit
+                raise SystemExit(str(e))
+            raise
+        req = {"op": "segment_start", "k": args.k,
+               "confidence_threshold": args.confidence_threshold,
+               "min_len": args.min_len, "pad": args.pad,
+               "max_lag": args.max_lag,
+               "write_back": bool(args.write_back), "vid": args.vid}
+        if self._transitions is not None:
+            req["transitions"] = self._transitions
+        wait_s = (self.WARMING_DEADLINE_S if first
+                  else self.RECONNECT_DEADLINE_S)
+        try:
+            try:
+                resp = self.client.request(req)
+            except (OSError, ConnectionError):
+                # the warming->ready swap severs established connections
+                # (WarmingServer.close) — possibly mid-first-request;
+                # ride through it like any other warming signal
+                resp = self._await_ready_and_retry(req, wait_s)
+            if not resp.get("ok") and resp.get("warming"):
+                # The daemon answered from its warming placeholder: that
+                # is patience, not refusal — poll until the real server
+                # takes over instead of failing the session.
+                resp = self._await_ready_and_retry(req, wait_s)
+        except TimeoutError as e:
+            if first:
+                raise SystemExit(str(e))
+            raise  # TimeoutError is an OSError: reconnect loops retry it
+        if not resp.get("ok"):
+            # only the FIRST connect turns a refusal into a clean exit
+            # (bad user config); a refusal after a reconnect is a
+            # changed daemon — surface it loudly
+            err = f"daemon refused the segment session: {resp.get('error')}"
+            if first:
+                raise SystemExit(err)
+            raise RuntimeError(err)
+
+    def _await_ready_and_retry(self, req, deadline_s: float) -> dict:
+        """Poll a WARMING daemon until the real server takes over, then
+        retry the session start. The warming->ready swap severs
+        established connections (serve.py WarmingServer.close), so a
+        dropped connection here means progress, not failure — reopen
+        and retry immediately. Two independent bounds raise
+        :class:`TimeoutError` (an OSError, so reconnect loops treat it
+        as a flap): ``deadline_s`` on total warming patience, and the
+        reconnect deadline on time WITHOUT any answer at all — a daemon
+        that died mid-warming must not consume the full warming budget
+        before the caller hears about it."""
+        import time as time_mod
+
+        from vit_research_tpu_torch.serve import SessionClient
+
+        t0 = time_mod.monotonic()
+        deadline = t0 + deadline_s
+        last_alive = t0
+        while True:
+            try:
+                resp = self.client.request(req)
+            except (OSError, ConnectionError):
+                try:
+                    self.client.close()
+                except Exception:  # noqa: BLE001 - already broken
+                    pass
+                try:
+                    self.client = SessionClient(self._args.socket,
+                                                timeout=600.0)
+                except (OSError, ConnectionError):
+                    pass  # rebind gap, or the daemon died — bounded below
+                else:
+                    last_alive = time_mod.monotonic()
+                    continue  # fresh connection: retry the request NOW
+            else:
+                last_alive = time_mod.monotonic()
+                if resp.get("ok") or not resp.get("warming"):
+                    return resp
+            now = time_mod.monotonic()
+            if now > deadline:
+                raise TimeoutError(
+                    f"daemon still warming up after {deadline_s:.0f}s; "
+                    "retry once serve-ctl ping stops reporting warming")
+            if now - last_alive > self.RECONNECT_DEADLINE_S:
+                raise TimeoutError(
+                    "daemon stopped answering while warming (no live "
+                    f"socket for {self.RECONNECT_DEADLINE_S:.0f}s)")
+            time_mod.sleep(1.0)
+
+    @staticmethod
+    def _ivs(clips):
+        from vit_research_tpu_torch.segment.clips import ClipInterval
+
+        return [ClipInterval(side=c["side"], start=int(c["start"]),
+                             end=int(c["end"])) for c in clips]
+
+    def _poison(self, why: str):
+        """Refuse every further push: continuing on a partially-replayed
+        session would silently misalign every later clip's global frame
+        indices against the wrong frames."""
+        self._poisoned = why
+        return RuntimeError(f"daemon follow backend unrecoverable: {why} "
+                            "— restart the follower")
+
+    def _reconnect_and_replay(self, pending_paths):
+        """New connection + session, replay the push history (and the
+        interrupted push, when given); returns only the clips BEYOND
+        those already returned to the follow loop. Any failure DURING
+        the replay poisons the backend — a half-replayed session must
+        never accept more pushes."""
+        import time
+
+        try:
+            self.client.close()
+        except Exception:  # noqa: BLE001 - already broken
+            pass
+        if self._args.write_back:
+            # replay is only deterministic against the session's
+            # start-time corpus; a write-back session grew the corpus
+            # mid-game, so the reconnected decode could shift clip
+            # boundaries and break the skip-by-count dedupe — refuse
+            raise self._poison(
+                "connection lost on a --write-back session (replay "
+                "against the grown corpus is not deterministic)")
+        print(f"WARNING: daemon connection lost after "
+              f"{len(self._history)} pushes; reconnecting and replaying "
+              "(session state is connection-scoped)", flush=True)
+        deadline = time.monotonic() + self.RECONNECT_DEADLINE_S
+        while True:
+            try:
+                self._connect(first=False)
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise self._poison(
+                        "daemon did not come back within "
+                        f"{self.RECONNECT_DEADLINE_S:.0f}s")
+                time.sleep(2.0)
+        replay = self._history + (
+            [pending_paths] if pending_paths is not None else [])
+        all_clips = []
+        for paths in replay:
+            try:
+                r = self.client.request({"op": "segment_push",
+                                         "paths": paths})
+            except Exception as e:  # noqa: BLE001 - poison, don't nest
+                raise self._poison(f"replay failed mid-history: {e}")
+            if not r.get("ok"):
+                raise self._poison(
+                    f"replay failed mid-history: {r.get('error')}")
+            all_clips.extend(r["clips"])
+        new_clips = all_clips[self._clips_returned:]
+        self._clips_returned = len(all_clips)
+        print(f"reconnected: replayed {len(replay)} pushes, "
+              f"{len(new_clips)} new clip(s)", flush=True)
+        return self._ivs(new_clips)
+
+    def push(self, names, paths):
+        if self._poisoned:
+            raise RuntimeError(
+                f"daemon follow backend unrecoverable: {self._poisoned}")
+        paths = [os.path.abspath(p) for p in paths]
+        try:
+            resp = self.client.request(
+                {"op": "segment_push", "paths": paths})
+        except OSError:
+            # ConnectionError AND timeouts (a busy daemon past the 600s
+            # recv window poisons the SessionClient the same way)
+            clips = self._reconnect_and_replay(paths)
+            self._history.append(paths)
+            return clips
+        if not resp.get("ok"):
+            # surfaced like a local embed failure so the follow loop's
+            # isolate/decode-retry logic applies unchanged (the daemon
+            # embeds BEFORE advancing session state, so a failed push
+            # consumed nothing)
+            raise RuntimeError(f"daemon segment_push failed: "
+                               f"{resp.get('error')}")
+        self._history.append(paths)
+        self._clips_returned += len(resp["clips"])
+        return self._ivs(resp["clips"])
+
+    def finish(self):
+        if self._poisoned:
+            raise RuntimeError(
+                f"daemon follow backend unrecoverable: {self._poisoned}")
+        pre_clips = []
+        try:
+            resp = self.client.request({"op": "segment_finish"})
+        except OSError:
+            pre_clips = self._reconnect_and_replay(None)
+            resp = self.client.request({"op": "segment_finish"})
+        if not resp.get("ok"):
+            raise SystemExit(
+                f"daemon segment_finish failed: {resp.get('error')}")
+        self.client.close()
+        return pre_clips + self._ivs(resp["clips"]), int(
+            resp.get("forced", 0))
+
+
+def _segment_follow(args, backend):
+    """Live mode: tail --frames for newly arriving frames (increasing
+    frame-number order — e.g. an ffmpeg dump in progress), feed them
+    through the streaming kNN+HMM session, and write/announce each
+    possession clip the moment its padded extent is final — mid-game,
+    not after it. Stops after --idle-timeout seconds with no new
+    frames, or when a file named STOP appears (drains everything on
+    disk first). Robust to non-atomic writers: the highest-numbered
+    frame is held back until a newer one appears (it may still be
+    mid-write), a frame whose decode fails is retried on later polls
+    (then skipped with a warning), and a frame that surfaces AFTER a
+    higher-numbered one was consumed is dropped with a warning rather
+    than corrupting the stream order the clip indices depend on. The
+    reference's incremental loop (nba_proj/generate_clips_hmm.py:367-490)
+    could only decode at the end.
+
+    ``backend`` owns the embed+segment stack: in this process
+    (:class:`_LocalFollowBackend`) or a shared daemon
+    (:class:`_DaemonFollowBackend`)."""
+    import shutil
+    import time
+
+    from vit_research_tpu_torch.data import naming
+
+    os.makedirs(args.out, exist_ok=True)
+    consumed: list = []  # frame names in stream order
+    seen: set = set()    # consumed or permanently skipped
+    retries: dict = {}   # name -> failed decode attempts
+    clip_count = 0
+    last_num = -1        # highest consumed frame number
+
+    def emit(clips):
+        nonlocal clip_count
+        for iv in clips:
+            clip_count += 1
+            cdir = os.path.join(
+                args.out, naming.clip_dir_name(args.vid, clip_count,
+                                               iv.side))
+            os.makedirs(cdir, exist_ok=True)
+            for f in consumed[iv.start: iv.end + 1]:
+                src = os.path.join(args.frames, f)
+                if os.path.exists(src):
+                    shutil.copy(src, os.path.join(cdir, f))
+            print(f"clip {clip_count}: {iv.side} frames "
+                  f"{iv.start}..{iv.end} -> {cdir}", flush=True)
+
+    def scan_fresh():
+        # os.scandir + seen-check BEFORE parsing: a 2-hour game leaves
+        # ~200k consumed names; regex-parsing and sorting all of them
+        # every poll would turn quadratic on the host.
+        # is_canonical_frame_name (strict), NOT is_frame_name: the
+        # tolerant parser accepts 'vid1_frame_5.jpg.part', so a lax
+        # filter would race an atomic copy-then-rename writer (consume
+        # the .part name, then drop the real frame as out-of-order).
+        # Same-vid only: a dump dir shared across games must not leak
+        # another video's frames into this stream's clip indices.
+        fresh = []
+        with os.scandir(args.frames) as it:
+            for entry in it:
+                f = entry.name
+                if f in seen or not naming.is_canonical_frame_name(f):
+                    continue
+                if naming.parse_frame_name(f)[0] != args.vid:
+                    continue
+                fresh.append(f)
+        fresh.sort(key=naming.frame_sort_key)
+        return fresh
+
+    def consume(chunk) -> bool:
+        """Returns False when the stream must STALL at a not-yet-
+        decodable frame — the caller must stop consuming this poll's
+        later chunks too, or the held frame would come back
+        'out-of-order' next poll and be dropped."""
+        nonlocal last_num
+        try:
+            clips = backend.push(
+                chunk, [os.path.join(args.frames, f) for f in chunk])
+        except Exception:
+            if len(chunk) > 1:  # isolate the bad frame, preserve order
+                for f in chunk:
+                    if not consume([f]):
+                        return False
+                return True
+            f = chunk[0]
+            # Decode the frame alone to tell a bad FILE from a broken
+            # ENGINE: if the bytes decode fine, the embed failure is
+            # systemic (device down, out of memory) — re-raise instead of
+            # silently skipping every frame and exiting 0 with
+            # 'followed N frames -> 0 clips'.
+            from vit_research_tpu_torch.data.preprocess import decode_image
+            decoded_ok = False
+            try:
+                decode_image(os.path.join(args.frames, f))
+                decoded_ok = True
+            except Exception:
+                pass
+            if decoded_ok:
+                raise
+            retries[f] = retries.get(f, 0) + 1
+            if retries[f] >= 3:
+                seen.add(f)
+                print(f"WARNING: skipping undecodable frame {f} "
+                      f"after {retries[f]} attempts", flush=True)
+                return True  # permanently skipped; stream continues
+            return False  # likely still being written; retry next poll
+        consumed.extend(chunk)
+        seen.update(chunk)
+        last_num = naming.frame_num(chunk[-1])
+        emit(clips)
+        return True
+
+    last_new = time.monotonic()
+    while True:
+        # STOP means "the producer is done": drain everything already
+        # on disk, then finish — never abandon arrived frames.
+        stopping = os.path.exists(os.path.join(args.frames, "STOP"))
+        fresh = scan_fresh()
+        late = [f for f in fresh if naming.frame_num(f) <= last_num]
+        if late:
+            seen.update(late)
+            # remove by membership, not a prefix slice: robustness if
+            # sort order and lateness ever disagree
+            dropped = set(late)
+            fresh = [f for f in fresh if f not in dropped]
+            print(f"WARNING: dropping {len(late)} out-of-order "
+                  f"frame(s) (<= already-consumed #{last_num}): "
+                  f"{late[:3]}...", flush=True)
+        idle = time.monotonic() - last_new > args.idle_timeout
+        if fresh and not (stopping or idle):
+            # the newest frame may still be mid-write; hold it back
+            # until a newer name appears — on STOP or idle expiry it is
+            # consumed rather than stranded (idle means it has been
+            # stable on disk for the whole timeout)
+            fresh = fresh[:-1]
+        if not fresh:
+            if stopping or idle:
+                break
+            time.sleep(args.poll_interval)
+            continue
+        last_new = time.monotonic()
+        stalled = False
+        for i in range(0, len(fresh), args.batch_size):
+            if not consume(fresh[i: i + args.batch_size]):
+                stalled = True
+                break  # stalled at a mid-write frame; re-poll
+        if stalled:
+            # give the writer a real poll interval before the next
+            # attempt — without this, the STOP-drain re-scans immediately
+            # and burns all 3 decode retries back-to-back within
+            # milliseconds, permanently skipping a frame that was merely
+            # mid-write
+            time.sleep(args.poll_interval)
+    clips, forced = backend.finish()
+    emit(clips)
+    print(f"followed {len(consumed)} frames -> {clip_count} clips "
+          f"({forced} forced commits)", flush=True)
+
+
+def cmd_tune_segment(args):
+    """Calibrate the kNN+HMM segmentation grid against manual intervals.
+
+    The reference hand-tuned its HMM transitions, vote thresholds and
+    streak/pad rules to one specific random-ViT feature space
+    (nba_proj/hmm.py:10, nba_proj/generate_clips_hmm.py:58,155-165,262);
+    any backbone change silently invalidates them. This embeds the
+    frames once, runs ONE device top-k at the largest k, sweeps the
+    cheap host stages over the whole grid, and reports clip-level F1 +
+    frame accuracy per combo (segment/tune.py). The JSON output plugs
+    straight back in via ``segment --transitions``."""
+    from vit_research_tpu_torch.data import naming
+    from vit_research_tpu_torch.data.labels import ManualIntervals
+    from vit_research_tpu_torch.segment import tune as tune_mod
+    from vit_research_tpu_torch.segment.knn import fused_confidence
+
+    def grid(name, text):
+        vals = [int(x) for x in str(text).split(",") if x != ""]
+        if not vals:  # fail BEFORE the engine spins up / frames embed
+            raise SystemExit(f"{name} is empty — pass a comma-separated "
+                             f"list of integers (got {text!r})")
+        return vals
+
+    ks = grid("--k-grid", args.k_grid)
+    min_lens = grid("--min-len-grid", args.min_len_grid)
+    pads = grid("--pad-grid", args.pad_grid)
+    _, col, corpus = common.load_corpus(args.db, args.corpus_collection,
+                                        args.device)
+    space = getattr(col, "space", "l2")
+    manual = ManualIntervals.from_csv(args.manual_csv)
+    frames = naming.list_frames(args.frames)
+    if not frames:
+        raise SystemExit(f"no frames found under {args.frames}")
+    eng = common._engine(args.batch_size, args.device)
+    embs = eng.embed_paths([os.path.join(args.frames, f) for f in frames])
+
+    results, trans, knn = tune_mod.tune_knn_hmm(
+        frames, embs, corpus, manual, device=eng.device, ks=ks,
+        min_lens=min_lens, pads=pads,
+        fit_transitions=not args.no_fit_transitions, metric=space,
+        iou=args.iou)
+    if not results:
+        raise SystemExit("empty sweep — check the grids against the "
+                         f"corpus size ({len(corpus['labels'])} rows)")
+
+    best = results[0]
+    # write-back threshold at the winning k: the sweep's k_max top-k is
+    # score-sorted, so its k-prefix IS the k-NN result — no second
+    # device top-k
+    k = best.params["k"]
+    fused = fused_confidence(knn["neighbor_labels"][:, :k],
+                             knn["neighbor_probs"][:, :k], top_n=k)
+    wb = tune_mod.writeback_threshold(
+        fused["emissions"], fused["decision"],
+        tune_mod.truth_states(manual, frames),
+        target_precision=args.target_precision)
+
+    print(f"swept {len(results)} combos over {len(frames)} frames "
+          f"(corpus {len(corpus['labels'])} rows, metric {space})")
+    print(f"{'f1':>6} {'P':>6} {'R':>6} {'frame_acc':>9}  params")
+    for r in results[: args.top]:
+        print(f"{r.f1:6.3f} {r.precision:6.3f} {r.recall:6.3f} "
+              f"{r.frame_accuracy:9.4f}  {r.params}")
+    if wb["threshold"] is not None:
+        print(f"write-back threshold >= {wb['threshold']:.2f} gives "
+              f"precision {wb['precision']:.4f} at coverage "
+              f"{wb['coverage']:.2f} (target {args.target_precision})")
+    else:
+        best_seen = (f" (best observed: {wb['precision']:.4f} at "
+                     f">= {wb['best_threshold']:.2f}, coverage "
+                     f"{wb['coverage']:.2f})"
+                     if wb.get("best_threshold") is not None else "")
+        print("write-back: no threshold on the grid reaches precision "
+              f"{args.target_precision} — leave --write-back off"
+              f"{best_seen}")
+
+    if args.out:
+        payload = {
+            "best": best.to_json(),
+            "best_transition_matrix":
+                trans[best.params["transitions"]].tolist(),
+            "transition_matrices":
+                {n: m.tolist() for n, m in trans.items()},
+            "writeback": wb,
+            "metric": space,
+            "results": [r.to_json() for r in results],
+        }
+        with open(args.out, "w") as fh:
+            json.dump(payload, fh, indent=1)
+        print(f"wrote {args.out} — apply with: segment --method knn-hmm "
+              f"--k {k} --min-len {best.params['min_len']} "
+              f"--pad {best.params['pad']} --transitions {args.out}")
+
+
 def register(sub):
     sg = sub.add_parser("segment", help="frames -> possession clips")
     sg.add_argument("frames")
-    sg.add_argument("--method", choices=["knn-hmm"], required=True)
-    sg.add_argument("--db", required=True, help="vector-store root")
-    sg.add_argument("--corpus-collection", required=True,
+    sg.add_argument("--method", choices=["knn-hmm", "streaks"],
+                    required=True)
+    sg.add_argument("--window", type=int, default=50,
+                    help="sliding window (streaks method)")
+    sg.add_argument("--db", default=None, help="vector-store root")
+    sg.add_argument("--corpus-collection", default=None,
                     help="labeled frame collection (write-frame-db)")
     sg.add_argument("--k", type=int, default=50, help="kNN neighbors")
     sg.add_argument("--confidence-threshold", type=float, default=0.7)
     sg.add_argument("--write-back", action="store_true",
                     help="upsert confident frames back into the corpus")
+    sg.add_argument("--follow", action="store_true",
+                    help="live mode (knn-hmm): tail the frames dir and "
+                    "emit clips as they finalize, mid-game")
+    sg.add_argument("--socket", default=None,
+                    help="--follow through a running `cli serve` daemon "
+                    "(unix socket): the daemon's warm engine embeds and "
+                    "its collection is the kNN corpus — N games can "
+                    "follow concurrently on one card, no engine spin-up "
+                    "here")
+    sg.add_argument("--idle-timeout", type=float, default=30.0,
+                    help="--follow: stop after this many seconds with "
+                    "no new frames (or on a STOP file)")
+    sg.add_argument("--poll-interval", type=float, default=0.5)
+    sg.add_argument("--max-lag", type=int, default=512,
+                    help="--follow: fixed-lag Viterbi window")
     sg.add_argument("--out", required=True)
     sg.add_argument("--vid", type=int, required=True)
     sg.add_argument("--batch-size", type=int, default=256)
@@ -80,6 +693,32 @@ def register(sub):
     sg.add_argument("--pad", type=int, default=100)
     sg.add_argument("--transitions", default=None,
                     help="JSON with a 3x3 HMM transition matrix (bare "
-                    "list or tune-segment output)")
+                    "list or tune-segment output); default is the "
+                    "reference's hand-tuned matrix (knn-hmm method)")
     common.device_arg(sg)
     sg.set_defaults(fn=cmd_segment)
+
+    tn = sub.add_parser(
+        "tune-segment",
+        help="calibrate segmentation thresholds against manual intervals")
+    tn.add_argument("frames")
+    tn.add_argument("--manual-csv", required=True)
+    tn.add_argument("--db", required=True)
+    tn.add_argument("--corpus-collection", required=True)
+    tn.add_argument("--k-grid", default="5,10,25,50")
+    tn.add_argument("--min-len-grid", default="50,100,150")
+    tn.add_argument("--pad-grid", default="0,50,100")
+    tn.add_argument("--iou", type=float, default=0.5,
+                    help="IoU for clip-interval matching")
+    tn.add_argument("--target-precision", type=float, default=0.99,
+                    help="required write-back precision when suggesting "
+                    "a confidence threshold")
+    tn.add_argument("--no-fit-transitions", action="store_true",
+                    help="sweep only the reference transition matrix "
+                    "(skip the counting fit from the manual labels)")
+    tn.add_argument("--top", type=int, default=10)
+    tn.add_argument("--out", default=None, help="JSON report path "
+                    "(feed back via segment --transitions)")
+    tn.add_argument("--batch-size", type=int, default=256)
+    common.device_arg(tn)
+    tn.set_defaults(fn=cmd_tune_segment)

@@ -1,7 +1,7 @@
 """Label sources: manual side intervals, clip labels, frame-event intervals.
 
 Port of the readers of vit_research_tpu/data/labels.py that the port's
-verbs use (write-frame-db, build-frame-store):
+verbs use (write-frame-db, build-frame-store, tune-segment):
 1. ``manual_intervals.csv`` — columns ``{left,right,none}_{start,end}``
    holding ``vid{N}_{frame}`` tokens; rows may be ragged/NaN
    (reference: nba_proj/write_per_video_embeddings.py:15-56).
@@ -76,6 +76,13 @@ class ManualIntervals:
                 if vid == ivid and s <= num <= e:
                     return side
         return "ignore"
+
+    def label_array(self, frames, mapping=None):
+        """Vectorized labels for a frame list: -1 ignore, 0 left, 1 right,
+        2 none (TemporalHead convention,
+        reference: nba_proj/smarter_generate_clips.py:102-140)."""
+        mapping = mapping or {"left": 0, "right": 1, "none": 2, "ignore": -1}
+        return [mapping[self.class_from_frame(f)] for f in frames]
 
 
 def load_clip_labels(path: str) -> dict:

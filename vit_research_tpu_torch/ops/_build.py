@@ -147,7 +147,10 @@ def _run(cmd) -> None:
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call. The cache takes
+    no lock: a multi-threaded caller loads it first or from one thread
+    at a time (the serve daemon: ``serve --warmup``, or its first
+    forward under the device lock)."""
     lib = ctypes.CDLL(build())
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -83,6 +83,8 @@ def _launch(q, k, v, scale):
             d, (ctypes.c_longlong * 12)(*strides), float(scale),
             int(q.dtype == torch.bfloat16), stream)
     _build.check(code, "attention kernel")
+    # a plain increment: exact because device work is serialized (the
+    # serve daemon runs every forward under its one device lock)
     multi_head_attention.launches += 1
     return o
 

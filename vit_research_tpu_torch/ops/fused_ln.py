@@ -129,6 +129,8 @@ def _launch(x, gamma, beta, w, bias, eps, activation, out_dtype):
             int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), stream)
     _build.check(code, "ln_matmul kernel")
+    # a plain increment: exact because device work is serialized (the
+    # serve daemon runs every forward under its one device lock)
     ln_matmul.launches += 1
     return out
 

@@ -158,6 +158,8 @@ def _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
                 b_vec.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd,
                 c, p, d, out_bf16, stream)
     _build.check(code, "patch_embed kernel")
+    # a plain increment: exact because device work is serialized (the
+    # serve daemon runs every forward under its one device lock)
     fused_patch_embed.launches += 1
     return out
 

@@ -155,6 +155,7 @@ class Collection:
         # per-row scales) when device_quant == "int8".
         self._device_cache = None
         self._dirty = False
+        self._mutations = 0  # bumped by _invalidate; snapshot cache key
         self._lock = threading.RLock()
         # Serializes flush/compact against each other WITHOUT blocking
         # readers: the disk write runs outside self._lock (see flush).
@@ -335,6 +336,47 @@ class Collection:
                 f"collection {self.name!r} at {self._path!r} has log "
                 "segments this object never replayed (another writer "
                 "appended concurrently); reopen before writing")
+
+    def pending_mutations(self):
+        """Unflushed mutations as plain data — ``{'ids', 'embeddings',
+        'metadatas', 'deleted'}`` — or ``None`` when clean. Lets a holder
+        carry acked-but-unflushed rows into a REOPENED generation of the
+        same collection (serve.py hot reload) instead of flushing a stale
+        view over a directory another process has since rewritten."""
+        with self._lock:
+            if not self._dirty:
+                return None
+            ids = sorted(self._pending_dirty)
+            embs = (np.stack([self._embeddings[self._id_to_idx[i]]
+                              for i in ids])
+                    if ids else np.zeros((0, self._dim or 0), np.float32))
+            metas = [None if self._metadatas[self._id_to_idx[i]] is None
+                     else dict(self._metadatas[self._id_to_idx[i]])
+                     for i in ids]
+            return {"ids": ids, "embeddings": embs.astype(np.float32),
+                    "metadatas": metas,
+                    "deleted": sorted(self._pending_deleted)}
+
+    def detach(self) -> None:
+        """Disconnect this object from its directory: ``flush``/``compact``
+        become no-ops and the device corpus cache is dropped (device
+        memory freed once in-flight queries release their references).
+        For swapped-out generations (serve.py hot reload): the old
+        object's view is stale the moment a reload re-opens the directory,
+        so any later flush — including a client's atexit autoflush — must
+        never reach disk. Host arrays stay intact for readers mid-query.
+
+        Serializes on the writer lock: a flush/compact whose disk write
+        is already in flight completes before the detach takes effect
+        (otherwise its post-detach os.replace could clobber whatever a
+        reload wrote into the directory meanwhile)."""
+        with self._flush_serial, self._lock:
+            self._path = None
+            self._dirty = False
+            self._pending_dirty.clear()
+            self._pending_deleted.clear()
+            self._device_cache = None
+            self._ivf = None
 
     def flush(self) -> None:
         """Persist pending mutations: appends one log segment, or
@@ -684,6 +726,10 @@ class Collection:
         self._columns = {}
         self._device_cache = None
         self._dirty = True
+        # Monotone mutation counter: snapshot consumers (the daemon's
+        # shared corpus, serve.py) key their caches on this, NOT on
+        # (count, array id) — an in-place same-id upsert changes neither.
+        self._mutations += 1
 
     # --------------------------------------------------------------- reads
 
