@@ -43,10 +43,25 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      the stats counts, ``serve-ctl reload`` and ``shutdown``; the
      kernels' launches equal the engine batches the daemon ran, and the
      request latencies are printed;
+  5c. the labelling path on phase 4's world, through the CLI on the card:
+     self-label (labels and probabilities against a float64 numpy
+     two-pass on the same card embeddings, tie-aware; --upsert adds only
+     the pass-1 frames), finalize-clips on phase 4's clips (each kept mask
+     against a host sequential decode of the card's 5-NN votes; the
+     decodes' routes), merge-clips (the merged ranges against
+     merge_clip_ranges and the planted possessions), write-embeddings
+     (every row against the engine's), clustering and fresh-test (the
+     buckets against a CPU classification with the saved npz, tie-aware;
+     the k-means route), with the kernels' launch counts; then a
+     ViTModel-shaped state dict through the HF import at full width (card
+     vs the CPU plain forward), and the native JPEG decoder (whether it
+     built, against PIL, and both decoders' frames/s at 1080p -> 224);
   6. a game-sized store: a seeded 200,000 x 768 cosine collection queried
      with 256 queries, k = 50, on the card in f32 and in int8, each held
      against the CPU answer of the same rows, and timed;
-  7. one JSON line of kernel summaries, then the result line.
+  7. one JSON line of kernel summaries (``launches`` sums the kernel's
+     launches over the paths of phases 4-5c, ``launches_by_path`` lists
+     them), then the result line.
 
 Bounds (``bound_ms``) are the larger of the bytes a kernel must move
 over the H100 SXM's 3.35 TB/s and its operations over the peak of the
@@ -63,8 +78,9 @@ earlier versions, kept for comparison).
 
 builds the kernels, then profiles the engine's forward (torch.profiler
 over steady batches of ViT-B/16 @224: f32 B=256 and bf16 B=512; device
-time by kernel and the device's idle share) and times the sequential
-against the log-depth Viterbi decode on the card at several game lengths.
+time by kernel and the device's idle share) and times the offline Viterbi
+decoders at several game lengths: the host numpy loop, the log-depth scan
+on the card, and a per-frame torch loop on the card.
 
 Times are CUDA-event medians on this card unless a line says otherwise;
 the nvidia-smi line says which card and power limit they belong to. The
@@ -94,18 +110,23 @@ import time
 import numpy as np
 import torch
 
-from vit_research_tpu_torch import cli, serve
+from vit_research_tpu_torch import cli, native, serve
 from vit_research_tpu_torch.cli import common
 from vit_research_tpu_torch.data.preprocess import load_frames
 from vit_research_tpu_torch.db.frame_store import FrameStore
+from vit_research_tpu_torch.models import convert, hf_import
 from vit_research_tpu_torch.ops import _build
 from vit_research_tpu_torch.ops import attention as attn
 from vit_research_tpu_torch.ops import fused_ln
 from vit_research_tpu_torch.ops import patch_embed as pe
 from vit_research_tpu_torch.ops import topk
+from vit_research_tpu_torch.ops import viterbi as viterbi_ops
 from vit_research_tpu_torch.parallel import embed
-from vit_research_tpu_torch.segment import hmm
-from vit_research_tpu_torch.store.vector_store import Collection
+from vit_research_tpu_torch.segment import clips as clips_mod
+from vit_research_tpu_torch.segment import clustering, hmm, knn
+from vit_research_tpu_torch.store.vector_store import (Collection,
+                                                       PersistentClient)
+from vit_research_tpu_torch.train import checkpoint
 
 SPEC = embed.HF_VIT_SPEC
 HF_AFFINE = dict(rescale=SPEC.rescale, mean=SPEC.mean, std=SPEC.std)
@@ -642,7 +663,8 @@ def phase_main_path(smi: str, root: str) -> dict:
             f"frames/s | {smi}")
         torch.cuda.empty_cache()
     return dict(launches=launches, db=db, out=out, query_dir=query_dir,
-                n_query=n_query)
+                n_query=n_query, corpus_dir=corpus_dir,
+                corpus_csv=corpus_csv, planted=planted)
 
 
 def _query_sides() -> list:
@@ -992,6 +1014,340 @@ def phase_serve_path(smi: str, root: str, main: dict) -> dict:
     return dict(launches=daemon, follow_launches=local)
 
 
+# ---- phase 5c: the labelling and clip-curation path ----------------------
+
+
+def _numpy_two_pass(q, c, lab, k, min_votes, temperature):
+    """Two-pass self-labelling in float64 numpy (segment/knn.py's rule:
+    pass 1 accepts >= min_votes of k, pass 2 ranks the rest against the
+    corpus plus the accepted frames). Returns (labels, probs, accepted,
+    near) where ``near`` marks the queries whose k-th and (k+1)-th
+    neighbours lie within 1e-4 of each other (a card ranking may swap
+    them)."""
+    def knn(qs, cs, ls):
+        d = ((qs[:, None, :].astype(np.float64) - cs[None]) ** 2).sum(-1)
+        order = np.argsort(d, axis=1, kind="stable")
+        srt = np.take_along_axis(d, order, axis=1)
+        near = (srt[:, k] - srt[:, k - 1] <= 1e-4) if cs.shape[0] > k \
+            else np.zeros(len(qs), bool)
+        votes = np.stack([(ls[order[:, :k]] == s).sum(1) for s in range(3)],
+                         axis=1)
+        return votes, near
+
+    def softmax(v):
+        x = v.astype(np.float64) / temperature
+        e = np.exp(x - x.max(axis=-1, keepdims=True))
+        return e / e.sum(axis=-1, keepdims=True)
+
+    votes, near = knn(q, c, lab)
+    accepted = votes.max(1) >= min_votes
+    labels = np.where(accepted, votes.argmax(1), -1)
+    probs = softmax(votes)
+    if (~accepted).any():
+        big_c = np.concatenate([c, q[accepted]])
+        big_l = np.concatenate([lab, labels[accepted]])
+        v2, near2 = knn(q[~accepted], big_c, big_l)
+        labels[~accepted] = v2.argmax(1)
+        probs[~accepted] = softmax(v2)
+        near[~accepted] |= near2
+    return labels, probs, accepted, near
+
+
+def _write_1080p(root: str, n: int) -> list:
+    """``n`` synthetic 1920x1080 JPEG frames (PIL, 8 threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    os.makedirs(root)
+
+    def one(i):
+        rng = np.random.default_rng(1000 + i)
+        p = os.path.join(root, f"vid9_frame_{i + 1}.jpg")
+        Image.fromarray(synth_frame(SIDES[i % 3], (1080, 1920), rng)).save(
+            p, quality=90)
+        return p
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, range(n)))
+
+
+def _hf_state_dict(seed: int = 0) -> dict:
+    """A seeded numpy state dict with ``transformers.ViTModel``'s key names
+    and shapes for ViT-B/16 @224 (the card's machine has no transformers)."""
+    rng = np.random.default_rng(seed)
+    d, m, p = 768, 3072, 16
+
+    def w(*shape, scale=0.02):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    sd = {"embeddings.cls_token": w(1, 1, d),
+          "embeddings.position_embeddings": w(1, 197, d),
+          "embeddings.patch_embeddings.projection.weight": w(d, 3, p, p),
+          "embeddings.patch_embeddings.projection.bias": w(d),
+          "layernorm.weight": 1 + w(d, scale=0.1),
+          "layernorm.bias": w(d, scale=0.1)}
+    for i in range(12):
+        pre = f"encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            sd[pre + f"attention.attention.{name}.weight"] = w(d, d)
+            sd[pre + f"attention.attention.{name}.bias"] = w(d)
+        sd[pre + "attention.output.dense.weight"] = w(d, d)
+        sd[pre + "attention.output.dense.bias"] = w(d)
+        sd[pre + "intermediate.dense.weight"] = w(m, d)
+        sd[pre + "intermediate.dense.bias"] = w(m)
+        sd[pre + "output.dense.weight"] = w(d, m)
+        sd[pre + "output.dense.bias"] = w(d)
+        for ln in ("layernorm_before", "layernorm_after"):
+            sd[pre + f"{ln}.weight"] = 1 + w(d, scale=0.1)
+            sd[pre + f"{ln}.bias"] = w(d, scale=0.1)
+    return sd
+
+
+def phase_label_path(smi: str, root: str, main: dict) -> dict:
+    """self-label, finalize-clips, merge-clips, write-embeddings,
+    clustering and fresh-test through the CLI on the card on phase 4's
+    world, each checked against a host computation on the same card
+    embeddings; then the HF import at full width and the native decoder."""
+    t_phase = time.monotonic()
+    db, query_dir, n_query = main["db"], main["query_dir"], main["n_query"]
+    q_names = [f"vid2_frame_{f}.jpg" for f in range(1, n_query + 1)]
+    q_paths = [os.path.join(query_dir, f) for f in q_names]
+    sides = _query_sides()
+    # The card embeddings of the query game, before the counted run (a
+    # fresh engine of the same seeded weights: the kernels are
+    # deterministic, so the verbs' engines compute the same rows).
+    q_embs = embed.make_hf_frame_embedder(
+        device="cuda", batch_size=BATCH).embed_paths(q_paths)
+    _, _, corpus = common.load_corpus(db, "corpus", "cuda")
+    n_corpus = len(corpus["labels"])
+    fin_out = os.path.join(root, "clips_final")
+    clip_dirs = [os.path.join(main["out"], d)
+                 for d in sorted(os.listdir(main["out"])) if CLIP_RE.match(d)]
+    clip_frames = [sorted(os.listdir(d), key=lambda f: int(
+        FRAME_RE.match(f).group(1))) for d in clip_dirs]
+
+    pe.fused_patch_embed.launches = 0
+    attn.multi_head_attention.launches = 0
+    db_label = os.path.join(root, "db_label")
+    shutil.copytree(db, db_label)
+    labels_csv = os.path.join(root, "labels.csv")
+    emb_tpl = os.path.join(root, "emb_{cls}.npz")
+    side_npz = os.path.join(root, "side.npz")
+    fresh_out = os.path.join(root, "fresh")
+    merged_out = os.path.join(root, "clips_merged")
+    t0 = time.monotonic()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["self-label", query_dir, "--db", db_label, "--collection",
+                  "corpus", "--out", labels_csv, "--upsert", "--batch-size",
+                  str(BATCH), "--device", "cuda"])
+        cli.main(["finalize-clips", "--clips", main["out"], "--db", db,
+                  "--collection", "corpus", "--out", fin_out,
+                  "--batch-size", str(BATCH), "--device", "cuda"])
+        cli.main(["merge-clips", "--clips", fin_out, "--frame-pool",
+                  query_dir, "--out", merged_out])
+        cli.main(["write-embeddings", main["corpus_dir"], "--manual-csv",
+                  main["corpus_csv"], "--out-template", emb_tpl,
+                  "--batch-size", str(BATCH), "--device", "cuda"])
+        cli.main(["clustering", "--db", db, "--collection", "corpus",
+                  "--out", side_npz, "--device", "cuda"])
+        cli.main(["fresh-test", query_dir, "--params", side_npz, "--out",
+                  fresh_out, "--batch-size", str(BATCH), "--device",
+                  "cuda"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    by_class = {s: sum(n for side, n in CORPUS_SEGMENTS if side == s)
+                for s in SIDES}
+    batches = (2 * math.ceil(n_query / BATCH)
+               + sum(math.ceil(len(f) / BATCH) for f in clip_frames)
+               + sum(math.ceil(n / BATCH) for n in by_class.values()))
+    for line in buf.getvalue().splitlines():
+        log(f"[5c]   | {line}")
+    log(f"[5c] CLI self-label, finalize-clips, merge-clips, "
+        f"write-embeddings, clustering, fresh-test on the card: {wall:.1f} "
+        f"s wall; launches {launches} for {batches} engine batches")
+    _check_launches(launches, batches, "label path")
+
+    # self-label: the CSV against a float64 numpy two-pass on the same
+    # card embeddings and corpus rows (tie-aware), and the planted sides
+    with open(labels_csv) as fh:
+        rows = list(csv.DictReader(fh))
+    got_lab = np.array([SIDES.index(r["label"]) for r in rows])
+    got_p = np.array([[float(r[f"{s}_prob"]) for s in SIDES] for r in rows])
+    got_acc = np.array([r["pass"] == "1" for r in rows])
+    w_lab, w_p, w_acc, near = _numpy_two_pass(
+        q_embs, corpus["embeddings"], corpus["labels"], 25, 20, 7.0)
+    if [r["frame"] for r in rows] != q_names:
+        raise AssertionError("self-label wrote other frames than the game's")
+    bad = ((got_lab != w_lab) | (got_acc != w_acc)
+           | (np.abs(got_p - w_p).max(1) > 1e-6))
+    planted = np.array([SIDES.index(s) for s in sides])
+    agree = float((got_lab == planted).mean())
+    log(f"[5c] self-label: {int(got_acc.sum())} pass-1 + "
+        f"{int((~got_acc).sum())} pass-2 frames; labels and probabilities "
+        f"equal the numpy two-pass on {n_query - int(bad.sum())} of "
+        f"{n_query} frames ({int(bad.sum())} differ, all near-ties: "
+        f"{bool(not (bad & ~near).any())}); {100 * agree:.1f}% carry the "
+        f"planted side")
+    if (bad & ~near).any() or agree < 0.9:
+        raise AssertionError(f"self-label disagrees: {int(bad.sum())} rows "
+                             f"off the numpy two-pass, planted {agree:.3f}")
+    client = PersistentClient(db_label, device="cpu")
+    col = client.get_collection("corpus")
+    added = set(col.get()["ids"]) - set(f"vid1_frame_{i}.jpg"
+                                         for i in range(1, n_corpus + 1))
+    want_added = {n for n, a in zip(q_names, got_acc) if a}
+    if added != want_added or col.count() != n_corpus + len(want_added):
+        raise AssertionError(f"--upsert added {len(added)} rows, want the "
+                             f"{len(want_added)} pass-1 frames")
+    log(f"[5c] self-label --upsert: {len(added)} new ids (the pass-1 "
+        f"frames), {n_corpus} seed rows kept, profile "
+        f"{col.embedding_profile!r}")
+
+    # finalize-clips: each kept mask against a host sequential decode of
+    # the same card probabilities (5-NN votes on the card)
+    routes = {"host sequential": 0, "card log-depth": 0}
+    kept_ranges = []
+    eng = embed.make_hf_frame_embedder(device="cuda", batch_size=BATCH)
+    for cdir, frames in zip(clip_dirs, clip_frames):
+        side = CLIP_RE.match(os.path.basename(cdir)).group(2)
+        embs = eng.embed_paths([os.path.join(cdir, f) for f in frames])
+        nl, _, _ = knn.knn_labels(embs, corpus["embeddings"],
+                                  corpus["labels"], 5, device="cuda")
+        probs = np.maximum(knn.vote_counts(nl) / 5, 1e-6).astype(np.float32)
+        routes["host sequential" if len(frames) < hmm._PARALLEL_THRESHOLD
+               else "card log-depth"] += 1
+        path, _ = viterbi_ops.viterbi(
+            np.log(probs), viterbi_ops.log_transition_matrix(
+                hmm.DEFAULT_TRANSITIONS).numpy(), np.log(hmm.UNIFORM_PRIOR))
+        want = [f for f, s in zip(frames, path) if s == SIDES.index(side)]
+        got = sorted(os.listdir(os.path.join(fin_out, os.path.basename(cdir))),
+                     key=lambda f: int(FRAME_RE.match(f).group(1)))
+        if got != want:
+            raise AssertionError(f"finalize-clips kept {len(got)} frames of "
+                                 f"{cdir}, the host decode {len(want)}")
+        nums = [int(FRAME_RE.match(f).group(1)) for f in got]
+        kept_ranges.append((side, min(nums), max(nums)))
+    log(f"[5c] finalize-clips: {len(clip_dirs)} clips, kept "
+        f"{[r[2] - r[1] + 1 for r in kept_ranges]} of "
+        f"{[len(f) for f in clip_frames]} frames, each mask equal to the "
+        f"host sequential decode of the card's 5-NN votes; decodes by route "
+        f"{routes}")
+    if routes["card log-depth"]:
+        raise AssertionError("a short clip took the log-depth route")
+    merged = _clip_ranges(merged_out)
+    planted_m = clips_mod.merge_clip_ranges(main["planted"])
+    log(f"[5c] merge-clips: {merged}; merge_clip_ranges of the planted "
+        f"possessions {planted_m}")
+    if merged != clips_mod.merge_clip_ranges(kept_ranges) or \
+            len(merged) != len(planted_m) or any(
+                g[0] != w[0] or abs(g[1] - w[1]) > PAD + BOUNDARY_SLACK
+                or abs(g[2] - w[2]) > PAD + BOUNDARY_SLACK
+                for g, w in zip(merged, planted_m)):
+        raise AssertionError("merged clips miss the planted possessions")
+
+    # write-embeddings: every row against the engine's row of that frame
+    # (the corpus collection that write-frame-db wrote in phase 4)
+    ids = {f"vid1_frame_{i}.jpg": i - 1 for i in range(1, n_corpus + 1)}
+    rows_by_id = PersistentClient(db, device="cpu").get_collection(
+        "corpus").get(include=("embeddings",))
+    by_id = dict(zip(rows_by_id["ids"],
+                     np.asarray(rows_by_id["embeddings"], np.float32)))
+    err, n_rows = 0.0, 0
+    for cls in SIDES:
+        with np.load(emb_tpl.format(cls=cls)) as z:
+            e, fids = z["embeddings"], list(z["frame_ids"])
+        if e.shape != (by_class[cls], 1, 768) or not set(fids) <= set(ids):
+            raise AssertionError(f"{cls} npz holds {e.shape}")
+        err = max(err, float(np.abs(
+            e[:, 0] - np.stack([by_id[f] for f in fids])).max()))
+        n_rows += len(fids)
+    log(f"[5c] write-embeddings: {n_rows} rows in 3 npz, max|err| "
+        f"{err:.3e} against the engine's rows (bound {EMBED_BOUND:.0e})")
+    if err > EMBED_BOUND:
+        raise AssertionError(f"write-embeddings rows off by {err}")
+
+    # clustering + fresh-test: buckets against a CPU classification of the
+    # card embeddings with the saved npz (tie-aware)
+    try:
+        import sklearn  # noqa: F401
+        km = "sklearn KMeans"
+    except ImportError:
+        km = "numpy Lloyd (sklearn is not installed)"
+    model = clustering.SideMLP(768, 3)
+    model.load_state_dict(convert.side_mlp_to_state_dict(
+        checkpoint.load_params_npz(None, side_npz)))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(q_embs)).numpy()
+    top2 = np.sort(logits, axis=1)[:, -2:]
+    tie = top2[:, 1] - top2[:, 0] <= 1e-5
+    pred = logits.argmax(1)
+    got_pred = np.full(n_query, -1)
+    for s, side in enumerate(SIDES):
+        for f in os.listdir(os.path.join(fresh_out, side)):
+            got_pred[q_names.index(f)] = s
+    differ = got_pred != pred
+    acc = float((got_pred == planted).mean())
+    log(f"[5c] clustering: kmeans route {km}; fresh-test buckets equal the "
+        f"CPU classification on {n_query - int(differ.sum())} of {n_query} "
+        f"frames (the rest top-two ties: {bool(not (differ & ~tie).any())});"
+        f" side accuracy against the planted sides {100 * acc:.1f}%")
+    if (got_pred < 0).any() or (differ & ~tie).any():
+        raise AssertionError("fresh-test buckets differ from the CPU "
+                             "classification")
+
+    # HF import at full width: a ViTModel-shaped state dict through the
+    # port's mapping, card engine vs the CPU plain forward
+    sd = hf_import.hf_state_dict_to_state_dict(_hf_state_dict(),
+                                               hf_import.HF_VIT_B16_224)
+    card = embed.make_hf_frame_embedder(sd, device="cuda", batch_size=BATCH)
+    paths8 = q_paths[::n_query // 8][:8]
+    got = card.embed_paths(paths8)
+    host = embed.EmbeddingEngine(card.model.to("cpu"), card.spec,
+                                 device="cpu", batch_size=8)
+    want = host.embed_paths(paths8)
+    err = float(np.abs(got - want).max())
+    log(f"[5c] HF import (ViTModel keys and shapes, ViT-B/16 @224, seeded): "
+        f"8 frames card vs CPU plain forward max|err| {err:.3e} (bound "
+        f"{EMBED_BOUND:.0e})")
+    if not (np.isfinite(got).all() and err <= EMBED_BOUND):
+        raise AssertionError(f"HF-imported engine disagrees: {err}")
+    del card, host, eng
+    torch.cuda.empty_cache()
+
+    # the native JPEG decoder against PIL, and both rates at 1080p -> 224
+    reason = native.unavailable_reason()
+    log(f"[5c] native JPEG decoder built: {reason is None}"
+        + ("" if reason is None else f" ({reason}); the reference's PIL "
+           "route decodes (load_frames(use_native=True) falls back)"))
+    if reason is None:
+        a = native.decode_batch(q_paths[:64], (224, 224), num_workers=8)
+        b = load_frames(q_paths[:64], SPEC, num_workers=8)
+        mad = float(np.abs(a.astype(int) - b.astype(int)).mean())
+        log(f"[5c] native vs PIL on 64 phase-4 frames: mean |diff| "
+            f"{mad:.3f} (bound 12)")
+        if mad >= 12.0:
+            raise AssertionError(f"native decode differs from PIL: {mad}")
+    big = _write_1080p(os.path.join(root, "frames_1080p"), 256)
+    rates = {}
+    for name, fn in (("PIL", lambda: load_frames(big, SPEC, num_workers=8)),
+                     ("native", lambda: native.decode_batch(
+                         big, (224, 224), num_workers=8))):
+        if name == "native" and reason is not None:
+            continue
+        fn()
+        t0 = time.perf_counter()
+        fn()
+        rates[name] = len(big) / (time.perf_counter() - t0)
+    log("[5c] JPEG decode 1920x1080 -> 224x224, 8 threads, 256 frames: "
+        + ", ".join(f"{k} {v:.1f} frames/s" for k, v in rates.items())
+        + f" | {smi}")
+    log(f"[5c] phase 5c: {time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 def _concurrent(fns: list) -> list:
     """Run the callables on one thread each; results in order, the first
     error raised."""
@@ -1144,23 +1500,75 @@ def profile_forward(smi: str, dtype: str, batch: int, steps: int = 3,
     torch.cuda.empty_cache()
 
 
-def time_viterbi(smi: str, lengths=(512, 2048, 8192, 32768, 131072)) -> None:
-    """Sequential vs log-depth Viterbi through smooth_probabilities on the
-    card (host clock, upload and readback included), one warm-up and one
-    timed call each, and whether the two paths agree."""
-    rng = np.random.default_rng(0)
+def _vote_emissions(t: int, seed: int = 0, k: int = 10) -> np.ndarray:
+    """k-neighbour vote fractions over runs of 80-400 frames of one side:
+    the emissions a write-frame-db corpus gives the HMM (many exact
+    ties)."""
+    rng = np.random.default_rng(seed)
+    lab = []
+    while len(lab) < t:
+        lab += [int(rng.integers(0, 3))] * int(rng.integers(80, 401))
+    p = np.full((t, 3), 0.15)
+    p[np.arange(t), lab[:t]] = 0.7
+    return (np.stack([rng.multinomial(k, row) for row in p]) / k).astype(
+        np.float32)
+
+
+def _torch_loop_viterbi(log_emit, log_trans, log_prior):
+    """A per-frame torch loop on the card (the port's sequential decoder
+    before it moved to the host): timed for comparison only."""
+    dp = log_prior + log_emit[0]
+    bps = []
+    for i in range(1, log_emit.shape[0]):
+        m = dp[:, None] + log_trans
+        bps.append(torch.argmax(m, dim=0))
+        dp = torch.amax(m, dim=0) + log_emit[i]
+    state = torch.argmax(dp)
+    path = [state]
+    for bp in reversed(bps):
+        state = bp[state]
+        path.append(state)
+    return torch.stack(path[::-1]).to(torch.int32).cpu().numpy()
+
+
+def time_viterbi(smi: str, lengths=(512, 2048, 8191, 8192, 32768)) -> None:
+    """The three offline Viterbi decoders on vote-fraction emissions (host
+    clock, upload and readback included; one warm-up and the median of 3
+    timed calls each): the host numpy loop (``smooth_probabilities``
+    below 8192 frames), the log-depth scan on the card (from 8192), and a
+    per-frame torch loop on the card; which one the default routing takes
+    and whether the paths agree."""
+    trans = viterbi_ops.log_transition_matrix(hmm.DEFAULT_TRANSITIONS)
+    prior = np.log(hmm.UNIFORM_PRIOR)
     for t in lengths:
-        probs = rng.dirichlet(np.full(3, 0.3), size=t).astype(np.float32)
-        row, paths = [], []
-        for parallel in (False, True):
-            hmm.smooth_probabilities(probs, parallel=parallel, device="cuda")
-            t0 = time.perf_counter()
-            paths.append(hmm.smooth_probabilities(probs, parallel=parallel,
-                                                  device="cuda"))
-            row.append((time.perf_counter() - t0) * 1e3)
-        log(f"[viterbi] T={t}: sequential {row[0]:.1f} ms, log-depth "
-            f"{row[1]:.1f} ms, paths equal "
-            f"{bool(np.array_equal(*paths))} | {smi}")
+        probs = _vote_emissions(t)
+        le = np.log(np.maximum(probs, 1e-6))
+        le_dev = torch.from_numpy(le).cuda()
+        decoders = {
+            "host loop": lambda: hmm.smooth_probabilities(
+                probs, parallel=False, device="cuda"),
+            "card log-depth": lambda: hmm.smooth_probabilities(
+                probs, parallel=True, device="cuda"),
+            "card torch loop": lambda: _torch_loop_viterbi(
+                le_dev, trans.cuda(), torch.from_numpy(prior).cuda()),
+        }
+        ms, paths = {}, {}
+        for name, fn in decoders.items():
+            fn()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                paths[name] = fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = statistics.median(times)
+        default = ("card log-depth" if t >= hmm._PARALLEL_THRESHOLD
+                   else "host loop")
+        same = np.array_equal(paths["host loop"], paths["card log-depth"])
+        log(f"[viterbi] T={t}: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in ms.items())
+            + f"; default route {default}; host loop = torch loop "
+            f"{np.array_equal(paths['host loop'], paths['card torch loop'])}"
+            f", host loop = log-depth {same} | {smi}")
 
 
 def main() -> int:
@@ -1188,29 +1596,30 @@ def main() -> int:
         main_path = phase_main_path(smi, root)
         store_launches = phase_store_path(smi, root, main_path)
         serve_path = phase_serve_path(smi, root, main_path)
+        label_path = phase_label_path(smi, root, main_path)
     phase_game_store(smi)
-    launches = main_path["launches"]
+    # each main path's launches, counted from 0 just before it ran; a
+    # kernel's "launches" is their sum
+    by_path = {"segment": main_path["launches"], "store": store_launches,
+               "serve": serve_path["launches"],
+               "follow": serve_path["follow_launches"],
+               "label": label_path["launches"]}
+
+    def launches(kernel: str) -> dict:
+        per = {path: counts[kernel] for path, counts in by_path.items()}
+        return dict(launches=sum(per.values()), launches_by_path=per)
+
     kernels = [
         dict(name="patch_embed", route="cuda",
              source="vit_research_tpu_torch/csrc/patch_embed.cu",
              replaces="vit_research_tpu/ops/patch_embed.py:65",
-             launches=launches["patch_embed"],
-             launches_by_path={
-                 "segment": launches["patch_embed"],
-                 "store": store_launches["patch_embed"],
-                 "serve": serve_path["launches"]["patch_embed"],
-                 "follow": serve_path["follow_launches"]["patch_embed"]},
+             **launches("patch_embed"),
              library_call="none; nearest F.conv2d over the normalised "
                           "f32 NCHW batch", **pe_summary),
         dict(name="attention", route="cuda",
              source="vit_research_tpu_torch/csrc/attention.cu",
              replaces="vit_research_tpu/ops/attention.py:51",
-             launches=launches["attention"],
-             launches_by_path={
-                 "segment": launches["attention"],
-                 "store": store_launches["attention"],
-                 "serve": serve_path["launches"]["attention"],
-                 "follow": serve_path["follow_launches"]["attention"]},
+             **launches("attention"),
              library_call="F.scaled_dot_product_attention", **attn_summary),
         dict(name="ln_matmul", route="cuda",
              source="vit_research_tpu_torch/csrc/fused_ln.cu",

@@ -105,7 +105,10 @@ def test_port_imports_no_jax():
         vit_research_tpu_torch.__path__, "vit_research_tpu_torch."))
     assert "vit_research_tpu_torch.parallel.embed" in mods
     assert "vit_research_tpu_torch.store.vector_store" in mods
-    for m in ("serve", "cli.serve_cmds", "segment.streaks", "segment.tune"):
+    for m in ("serve", "cli.serve_cmds", "segment.streaks", "segment.tune",
+              "segment.changepoint", "segment.clustering",
+              "train.checkpoint", "evaluate.fresh_test", "utils.fileops",
+              "data.video", "native", "native.jpeg", "models.hf_import"):
         assert f"vit_research_tpu_torch.{m}" in mods
     # chip_smoke.py is imported as a module: its top-level imports run.
     mods.append("chip_smoke")

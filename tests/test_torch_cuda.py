@@ -18,6 +18,7 @@ score by at most ~1e-4 (tie-aware ids, distances to 1e-3).
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -389,3 +390,156 @@ def test_coalescer_on_card(cuda):
                                        rtol=0, atol=1e-4)
     finally:
         srv.stop()
+
+
+# ---- the labelling and clip-curation path (self-label, finalize,
+# clustering, fresh-test, write-embeddings, the native decoder) ----------
+
+
+def test_two_pass_self_label_on_card_matches_cpu(cuda):
+    """Both passes rank on the card (the enlarged corpus is built there);
+    labels, probabilities and pass-1 acceptance equal the CPU run's (no
+    near-ties in this world)."""
+    from vit_research_tpu_torch.segment.knn import two_pass_self_label
+
+    corpus, frames, _ = _session_world(seed=1)
+    runs = [two_pass_self_label(frames, corpus["embeddings"],
+                                corpus["labels"], device=device, k=25,
+                                min_votes=20)
+            for device in (cuda, "cpu")]
+    for g, w in zip(*runs):
+        np.testing.assert_array_equal(g, w)
+    assert runs[0][2].any() and (~runs[0][2]).any()
+
+
+@pytest.mark.parametrize("t", [300, 8192])
+def test_finalize_clip_routes_on_card(cuda, t):
+    """Below 8192 frames the decode is the host's (equal to the CPU run),
+    from there the log-depth scan on the card (equal on these votes)."""
+    from vit_research_tpu_torch.segment import hmm
+    from vit_research_tpu_torch.segment.clips import finalize_clip
+
+    rng = np.random.default_rng(t)
+    probs = rng.multinomial(5, [0.6, 0.2, 0.2], size=t) / 5
+    got = finalize_clip(probs, "left", device=cuda)
+    np.testing.assert_array_equal(got,
+                                  finalize_clip(probs, "left", device="cpu"))
+    assert (t >= hmm._PARALLEL_THRESHOLD) == (t == 8192)
+
+
+def test_side_classifier_trains_on_card_like_cpu(cuda):
+    from vit_research_tpu_torch.segment.clustering import (
+        SideMLP, classify_sides, train_side_classifier)
+
+    rng = np.random.default_rng(5)
+    y = np.arange(192) % 3
+    x = rng.normal(size=(192, 32)).astype(np.float32)
+    x[:, :3] += 3.0 * np.eye(3, dtype=np.float32)[y]
+    runs = []
+    for device in (cuda, "cpu"):
+        model, hist = train_side_classifier(x, y, num_epochs=3,
+                                            batch_size=64, seed=0,
+                                            device=device)
+        assert isinstance(model, SideMLP)
+        runs.append((model.to("cpu").state_dict(), hist,
+                     classify_sides(model, x, device=device)))
+    (g_sd, g_hist, g_pred), (w_sd, w_hist, w_pred) = runs
+    for k in w_sd:
+        torch.testing.assert_close(g_sd[k], w_sd[k], rtol=1e-4, atol=1e-5)
+    for g, w in zip(g_hist, w_hist):
+        assert abs(g["loss"] - w["loss"]) < 1e-4
+    np.testing.assert_array_equal(g_pred, w_pred)
+
+
+def _jpeg_game(root, n=24, size=(32, 32)):
+    """``vid1_frame_{i}.jpg`` frames: left halves bright for the first
+    half of the game, right halves for the rest."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(6)
+    paths = []
+    for i in range(1, n + 1):
+        img = rng.integers(60, 120, size=(*size, 3)).astype(np.int32)
+        half = slice(0, size[1] // 2) if i <= n // 2 else \
+            slice(size[1] // 2, None)
+        img[:, half] += 100
+        p = os.path.join(root, f"vid1_frame_{i}.jpg")
+        Image.fromarray(np.minimum(img, 255).astype(np.uint8)).save(p)
+        paths.append(p)
+    return paths
+
+
+def test_engine_use_native_on_card_matches_cpu(cuda, tmp_path):
+    from vit_research_tpu_torch import native
+
+    if not native.is_available():
+        pytest.skip(f"native decoder unavailable: "
+                    f"{native.unavailable_reason()}")
+    paths = _jpeg_game(str(tmp_path / "f"), n=11)
+    spec = PreprocessSpec(size=(32, 32))
+    runs = [embed.EmbeddingEngine(init_vit(TINY, seed=0, device="cpu"),
+                                  spec, device=device, batch_size=4)
+            .embed_paths(paths, use_native=True) for device in (cuda, "cpu")]
+    np.testing.assert_allclose(runs[0], runs[1], rtol=0, atol=1e-5)
+
+
+def test_curation_verbs_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """write-frame-db, self-label, finalize-clips, write-embeddings,
+    clustering and fresh-test through the port's CLI with the tiny engine
+    on the card, against the same verbs with --device cpu."""
+    import contextlib
+    import io
+    import shutil
+
+    from vit_research_tpu_torch import cli
+
+    monkeypatch.setenv("VRT_TINY", "1")
+    for key in ("VRT_TOME_R", "VRT_GEMM_QUANT", "VRT_GRAYSCALE"):
+        monkeypatch.delenv(key, raising=False)
+    frames = os.path.dirname(_jpeg_game(str(tmp_path / "frames"))[0])
+    with open(tmp_path / "manual.csv", "w") as f:
+        f.write("left_start,left_end,right_start,right_end,none_start,"
+                "none_end\nvid1_1,vid1_12,vid1_13,vid1_24,,\n")
+    clip = tmp_path / "clips" / "vid1_clip_1_left"
+    clip.mkdir(parents=True)
+    for i in range(1, 16):
+        shutil.copy(os.path.join(frames, f"vid1_frame_{i}.jpg"), clip)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        d = tmp_path / device
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            for argv in (
+                    ["write-frame-db", frames, "--manual-csv",
+                     str(tmp_path / "manual.csv"), "--db", str(d / "db"),
+                     "--collection", "c", "--batch-size", "8"],
+                    ["self-label", frames, "--db", str(d / "db"),
+                     "--collection", "c", "--out", str(d / "labels.csv"),
+                     "--k", "5", "--min-votes", "5"],
+                    ["finalize-clips", "--clips", str(tmp_path / "clips"),
+                     "--db", str(d / "db"), "--collection", "c", "--out",
+                     str(d / "fin")],
+                    ["write-embeddings", frames, "--manual-csv",
+                     str(tmp_path / "manual.csv"), "--out-template",
+                     str(d / "{cls}.npz")],
+                    ["clustering", "--db", str(d / "db"), "--collection",
+                     "c", "--out", str(d / "side.npz"), "--epochs", "3",
+                     "--batch-size", "8"],
+                    ["fresh-test", frames, "--params", str(d / "side.npz"),
+                     "--out", str(d / "fresh")]):
+                cli.main(argv + ["--device", device])
+        with open(d / "labels.csv") as f:
+            labels_csv = f.read()
+        with np.load(d / "left.npz") as z:
+            left = z["embeddings"]
+        outs[device] = dict(
+            labels=labels_csv, left=left,
+            fin=sorted(os.listdir(d / "fin" / "vid1_clip_1_left")),
+            fresh={s: sorted(os.listdir(d / "fresh" / s))
+                   for s in ("left", "right", "none")})
+    got, want = outs["cuda"], outs["cpu"]
+    assert got["labels"] == want["labels"]
+    np.testing.assert_allclose(got["left"], want["left"], rtol=0, atol=1e-4)
+    assert got["fin"] == want["fin"] and got["fin"]
+    assert got["fresh"] == want["fresh"]

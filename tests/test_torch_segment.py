@@ -133,14 +133,17 @@ def _brute_force(log_emit, log_trans, log_prior):
 @pytest.mark.parametrize("t", [1, 2, 5, 6])
 def test_viterbi_matches_brute_force(fn, t):
     log_emit, log_trans, log_prior = _hmm_inputs(t, t)
-    path, score = getattr(viterbi, fn)(torch.from_numpy(log_emit),
-                                       torch.from_numpy(log_trans),
-                                       torch.from_numpy(log_prior))
+    # the sequential decoder runs on the host (numpy in and out), the
+    # log-depth one on torch tensors
+    conv = np.asarray if fn == "viterbi" else torch.from_numpy
+    path, score = getattr(viterbi, fn)(conv(log_emit), conv(log_trans),
+                                       conv(log_prior))
     want_path, want_score = _brute_force(log_emit.astype(np.float64),
                                          log_trans.astype(np.float64),
                                          log_prior.astype(np.float64))
-    assert path.dtype == torch.int32
-    np.testing.assert_array_equal(path.numpy(), want_path)
+    path = np.asarray(path)
+    assert path.dtype == np.int32
+    np.testing.assert_array_equal(path, want_path)
     np.testing.assert_allclose(float(score), want_score, rtol=1e-5)
 
 
@@ -150,7 +153,7 @@ def test_viterbi_matches_jax(fn, t):
     log_emit, log_trans, log_prior = _hmm_inputs(100 + t, t)
     wp, ws = getattr(jax_vit, fn)(log_emit, log_trans, log_prior)
     gp, gs = getattr(viterbi, fn)(log_emit, log_trans, log_prior)
-    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    np.testing.assert_array_equal(np.asarray(gp), np.asarray(wp))
     np.testing.assert_allclose(float(gs), float(ws), rtol=1e-6)
 
 
@@ -160,8 +163,9 @@ def test_viterbi_batch_matches_jax():
     _, log_trans, log_prior = _hmm_inputs(3, 1)
     wp, ws = jax_vit.viterbi_batch(log_emit, log_trans, log_prior)
     gp, gs = viterbi.viterbi_batch(log_emit, log_trans, log_prior)
-    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
-    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-6)
+    assert gp.dtype == np.int32 and gs.dtype == np.float32
+    np.testing.assert_array_equal(gp, np.asarray(wp))
+    np.testing.assert_allclose(gs, np.asarray(ws), rtol=1e-6)
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 16, 37])
@@ -207,18 +211,124 @@ def test_smooth_probabilities_matches_jax(parallel, batched):
         np.testing.assert_array_equal(got, want)
 
 
+def _vote_probs(seed, t, k=10):
+    """Emissions as ``write-frame-db`` corpora give them: k-neighbour vote
+    fractions (multiples of 1/k, many exact ties) over runs of 80-400
+    frames of one side."""
+    rng = np.random.default_rng(seed)
+    lab = []
+    while len(lab) < t:
+        lab += [int(rng.integers(0, 3))] * int(rng.integers(80, 401))
+    lab = np.asarray(lab[:t])
+    p = np.full((t, 3), 0.15)
+    p[np.arange(t), lab] = 0.7
+    return (np.stack([rng.multinomial(k, row) for row in p]) / k).astype(
+        np.float32)
+
+
+# (T, seed): games on which the log-depth scan breaks a tie otherwise than
+# the sequential decoder, so a port that decodes them in log depth fails
+F1_GAMES = [(2048, 29), (4096, 1), (6000, 1), (8191, 6)]
+
+
+@pytest.mark.parametrize("t,seed", F1_GAMES)
+@pytest.mark.parametrize("batched", [False, True])
+def test_smooth_probabilities_default_routing_matches_jax(t, seed, batched):
+    # the reference decodes below 8192 frames sequentially: the port's
+    # default must too, tie for tie (exact equality)
+    probs = _vote_probs(seed, t)
+    if batched:
+        probs = np.stack([probs, _vote_probs(seed + 100, t), probs[::-1]])
+    want = jax_hmm.smooth_probabilities(probs)
+    got = hmm.smooth_probabilities(probs, device="cpu")
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    # these games are ones where the routing decides the path
+    log_depth = hmm.smooth_probabilities(probs, parallel=True, device="cpu")
+    assert not np.array_equal(log_depth, want)
+
+
+def test_smooth_probabilities_log_depth_from_8192_frames():
+    probs = _vote_probs(3, 8192)
+    want = jax_hmm.smooth_probabilities(probs)
+    np.testing.assert_array_equal(
+        hmm.smooth_probabilities(probs, device="cpu"), want)
+    np.testing.assert_array_equal(
+        hmm.smooth_probabilities(probs, parallel=True, device="cpu"), want)
+    with pytest.raises(RuntimeError, match="is_available"):
+        if not torch.cuda.is_available():
+            hmm.smooth_probabilities(probs[:10], device="cuda")
+        else:
+            raise RuntimeError("is_available: a card is present")
+
+
+def _vote_world(probs, k=10, seed=0):
+    """Embeddings and a one-hot corpus whose k-NN votes are ``probs``: one
+    anchor per vote mix, k corpus rows around it with that mix's labels,
+    each frame next to the anchor of its row's mix."""
+    rng = np.random.default_rng(seed)
+    counts = np.rint(probs * k).astype(np.int64)
+    mixes = sorted({tuple(c) for c in counts})
+    d = len(mixes)
+    embs, labels = [], []
+    for a, mix in enumerate(mixes):
+        anchor = np.zeros(d, np.float32)
+        anchor[a] = 10.0
+        for side, n in enumerate(mix):
+            for _ in range(n):
+                embs.append(anchor + rng.normal(0, 0.01, d))
+                labels.append(side)
+    labels = np.asarray(labels, np.int64)
+    corpus = {"embeddings": np.asarray(embs, np.float32), "labels": labels,
+              "probs": np.eye(3, dtype=np.float32)[labels]}
+    where = {mix: a for a, mix in enumerate(mixes)}
+    queries = np.zeros((len(counts), d), np.float32)
+    queries[np.arange(len(counts)), [where[tuple(c)] for c in counts]] = 10.0
+    queries += rng.normal(0, 0.001, queries.shape).astype(np.float32)
+    return queries, corpus
+
+
+@pytest.mark.parametrize("t,seed", F1_GAMES[1:3])
+def test_segment_with_knn_hmm_vote_ties_match_jax_and_live(tmp_path, t,
+                                                           seed):
+    probs = _vote_probs(seed, t)
+    queries, corpus = _vote_world(probs)
+    names = [naming.frame_name(1, i + 1) for i in range(t)]
+    kw = dict(k=10, min_len=100, pad=10, vid=1)
+    want, want_dirs, want_fused = jax_pipeline.segment_with_knn_hmm(
+        names, queries, corpus, out_root=str(tmp_path / "jax"),
+        src_dir=str(tmp_path), **kw)
+    got, got_dirs, fused = pipeline.segment_with_knn_hmm(
+        names, queries, corpus, out_root=str(tmp_path / "torch"),
+        src_dir=str(tmp_path), device="cpu", **kw)
+    # the emissions are the planted vote fractions
+    np.testing.assert_array_equal(fused["emissions"].astype(np.float32),
+                                  probs)
+    np.testing.assert_array_equal(fused["emissions"],
+                                  want_fused["emissions"])
+    assert got == want
+    assert [os.path.basename(d) for d in got_dirs] == \
+        [os.path.basename(d) for d in want_dirs]
+    # the live session (sequential, unbounded lag) cuts the same clips
+    offline = clips.clip_intervals_from_decoded(got, min_len=100, pad=10)
+    live = list(pipeline.segment_knn_hmm_stream(
+        ((names[s:s + 256], queries[s:s + 256]) for s in range(0, t, 256)),
+        corpus, device="cpu", k=10, min_len=100, pad=10, max_lag=10 ** 9))
+    assert live == offline
+
+
 def test_hmm_constants_and_validation_match_jax():
     np.testing.assert_array_equal(hmm.DEFAULT_TRANSITIONS,
                                   jax_hmm.DEFAULT_TRANSITIONS)
     np.testing.assert_array_equal(hmm.UNIFORM_PRIOR, jax_hmm.UNIFORM_PRIOR)
     assert hmm.STATES == jax_hmm.STATES and knn.SIDES == jax_knn.SIDES
-    # the default decode is the log-depth one at every length (the
-    # reference switches to it at 8192 frames)
+    # the default routing is the reference's: sequential below 8192 frames
+    assert hmm._PARALLEL_THRESHOLD == jax_hmm._PARALLEL_THRESHOLD == 8192
     probs = np.random.default_rng(5).dirichlet(
         np.full(3, 0.3), size=300).astype(np.float32)
     np.testing.assert_array_equal(
         hmm.smooth_probabilities(probs, device="cpu"),
-        jax_hmm.smooth_probabilities(probs, parallel=True))
+        jax_hmm.smooth_probabilities(probs))
     for bad in (np.ones((2, 3)), np.full((3, 3), 0.5), -np.eye(3)):
         with pytest.raises(ValueError):
             hmm.validate_transition_matrix(bad)

@@ -139,20 +139,42 @@ def _labeled_frames(frames_dir: str, manual_csv: str):
     return frames, [mi.class_from_frame(f) for f in frames]
 
 
-def load_corpus(db: str, collection: str, device):
+def load_corpus(db: str, collection: str, device, *,
+                check_profile: bool = True):
     """Open a labelled frame collection of the vector store at ``db``:
     (client, collection, kNN corpus dict of segment/knn.py). Warns when
-    the collection was built under another embedding profile."""
+    the collection was built under another embedding profile, unless
+    ``check_profile`` is False (surfaces that rank nothing new against
+    the corpus, such as clustering)."""
     from vit_research_tpu_torch.segment.knn import corpus_from_collection
     from vit_research_tpu_torch.store.vector_store import PersistentClient
 
     client = PersistentClient(db, device=device)
     col = client.get_collection(collection)
-    check_embedding_profile(col, what="corpus collection")
+    if check_profile:
+        check_embedding_profile(col, what="corpus collection")
     try:
         return client, col, corpus_from_collection(col)
     except ValueError as e:
         raise SystemExit(str(e))
+
+
+def _list_clip_dirs(root: str) -> list:
+    """The ``vid*_clip_*`` directories under ``root``, sorted by name."""
+    from vit_research_tpu_torch.data import naming
+
+    dirs = []
+    for d in sorted(os.listdir(root)):
+        if not os.path.isdir(os.path.join(root, d)):
+            continue
+        try:
+            naming.parse_clip_dir(d)
+        except (IndexError, ValueError):
+            continue
+        dirs.append(os.path.join(root, d))
+    if not dirs:
+        raise SystemExit(f"no vid*_clip_* directories under {root}")
+    return dirs
 
 
 def world_args(sp):

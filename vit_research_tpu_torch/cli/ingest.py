@@ -1,7 +1,9 @@
-"""Data production commands: write-frame-db, build-frame-store.
+"""Data production commands: extract-frames, write-frame-db,
+write-embeddings, build-frame-store.
 
-Port of the two verbs of vit_research_tpu/cli/ingest.py, with the
-reference's arguments and outputs plus ``--device``.
+Port of vit_research_tpu/cli/ingest.py, with the reference's arguments and
+outputs plus ``--device`` where a verb embeds. ``calibrate-int8`` comes
+with the fast profile.
 """
 
 from __future__ import annotations
@@ -9,6 +11,22 @@ from __future__ import annotations
 import os
 
 from vit_research_tpu_torch.cli import common
+
+
+def cmd_extract_frames(args):
+    """Video -> ``vid{N}_frame_{i}.jpg`` frames (OpenCV; without it the
+    verb exits with the reference's RuntimeError)."""
+    from vit_research_tpu_torch.data.video import extract_frames
+
+    frame_range = None
+    if args.start is not None or args.end is not None:
+        if args.start is None or args.end is None:
+            raise SystemExit("--start and --end go together")
+        frame_range = (args.start, args.end)
+    paths = extract_frames(args.video, args.out, args.vid,
+                           size=(args.height, args.width), every=args.every,
+                           frame_range=frame_range)
+    print(f"wrote {len(paths)} frames to {args.out}")
 
 
 def cmd_write_frame_db(args):
@@ -37,6 +55,25 @@ def cmd_write_frame_db(args):
     print(f"wrote {n} labeled frame embeddings into {args.collection}")
 
 
+def cmd_write_embeddings(args):
+    """Per-class npz artifacts ({cls}_embeddings.npz)
+    (reference: nba_proj/write_embeddings.py:177-243,
+    nba_proj/write_per_video_embeddings.py:167-232)."""
+    from vit_research_tpu_torch.db.builders import write_class_npz
+
+    frames, sides = common._labeled_frames(args.frames, args.manual_csv)
+    by_class: dict = {}
+    for f, s in zip(frames, sides):
+        if s != "ignore":
+            by_class.setdefault(s, []).append(os.path.join(args.frames, f))
+    if not by_class:
+        raise SystemExit("no frames fall inside the manual intervals")
+    eng = common._engine(args.batch_size, args.device)
+    out = write_class_npz(by_class, eng.embed_paths, args.out_template)
+    for cls, path in sorted(out.items()):
+        print(f"{cls}: {len(by_class[cls])} frames -> {path}")
+
+
 def cmd_build_frame_store(args):
     """Clip directories -> memmap frame-embedding store + chunk index."""
     from vit_research_tpu_torch.db.frame_store import (FrameStore,
@@ -62,6 +99,20 @@ def cmd_build_frame_store(args):
 
 
 def register(sub):
+    ef = sub.add_parser("extract-frames")
+    ef.add_argument("video")
+    ef.add_argument("--out", required=True)
+    ef.add_argument("--vid", type=int, required=True)
+    ef.add_argument("--height", type=int, default=1080)
+    ef.add_argument("--width", type=int, default=1920)
+    ef.add_argument("--every", type=int, default=1)
+    ef.add_argument("--start", type=int, default=None,
+                    help="inclusive first frame index (the reference "
+                         "hardcoded per-game windows)")
+    ef.add_argument("--end", type=int, default=None,
+                    help="inclusive last frame index")
+    ef.set_defaults(fn=cmd_extract_frames)
+
     wf = sub.add_parser(
         "write-frame-db",
         help="manually-labeled frames -> labeled frame collection")
@@ -72,6 +123,17 @@ def register(sub):
     wf.add_argument("--batch-size", type=int, default=128)
     common.device_arg(wf)
     wf.set_defaults(fn=cmd_write_frame_db)
+
+    we = sub.add_parser(
+        "write-embeddings",
+        help="per-class npz artifacts ({cls}_embeddings.npz)")
+    we.add_argument("frames")
+    we.add_argument("--manual-csv", required=True)
+    we.add_argument("--out-template", required=True,
+                    help="e.g. 'out/{cls}_embeddings.npz'")
+    we.add_argument("--batch-size", type=int, default=256)
+    common.device_arg(we)
+    we.set_defaults(fn=cmd_write_embeddings)
 
     bs = sub.add_parser(
         "build-frame-store",

@@ -1,5 +1,7 @@
-"""Segmentation arc: segment (offline / --follow / --socket) and
-tune-segment, plus the follow backends (local engine vs serve daemon).
+"""Segmentation arc: segment (offline / --follow / --socket),
+tune-segment, the follow backends (local engine vs serve daemon), and the
+labelling and clip-curation verbs self-label, finalize-clips, merge-clips,
+clustering and fresh-test.
 
 Port of vit_research_tpu/cli/segment_cmds.py with the reference's
 arguments plus ``--device``. Not ported yet, and so not flags of this
@@ -657,6 +659,158 @@ def cmd_tune_segment(args):
               f"--pad {best.params['pad']} --transitions {args.out}")
 
 
+def cmd_self_label(args):
+    """Two-pass kNN self-labelling against a labelled seed collection
+    (reference: nba_proj/chroma.py:36-134,196-309). Writes a labels CSV;
+    --upsert also writes accepted pass-1 frames back into the collection,
+    enlarging the corpus like the reference's re-upserts."""
+    import csv
+
+    import numpy as np
+
+    from vit_research_tpu_torch.data import naming
+    from vit_research_tpu_torch.segment.knn import SIDES, two_pass_self_label
+
+    frames = naming.list_frames(args.frames)
+    if not frames:
+        raise SystemExit(f"no frames under {args.frames}")
+    client, col, corpus = common.load_corpus(args.db, args.collection,
+                                             args.device)
+    eng = common._engine(args.batch_size, args.device)
+    embs = eng.embed_paths([os.path.join(args.frames, f) for f in frames])
+    labels, probs, accepted = two_pass_self_label(
+        embs, corpus["embeddings"], corpus["labels"], device=args.device,
+        k=args.k, min_votes=args.min_votes, temperature=args.temperature)
+    with open(args.out, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["frame", "label", "pass", "left_prob", "right_prob",
+                    "none_prob"])
+        for i, frame in enumerate(frames):
+            w.writerow([frame, SIDES[int(labels[i])],
+                        1 if accepted[i] else 2] +
+                       [f"{p:.6f}" for p in probs[i]])
+    if args.upsert and accepted.any():
+        # Writing engine embeddings into the corpus: a profile mismatch is
+        # refused outright (reads only warn).
+        common._stamp_profile(col)
+        # New frames only: ids are frame names, and overwriting a seed row
+        # would replace manual labels with a kNN guess.
+        existing = set(col.get(ids=frames)["ids"])
+        sel = [i for i in np.nonzero(accepted)[0]
+               if frames[i] not in existing]
+        if sel:
+            col.upsert([frames[i] for i in sel], embs[sel],
+                       [{"label": SIDES[int(labels[i])],
+                         **{f"{s}_prob": float(probs[i][j])
+                            for j, s in enumerate(SIDES)}} for i in sel])
+            client.flush()
+        skipped = int(accepted.sum()) - len(sel)
+        if skipped:
+            print(f"kept {skipped} existing corpus rows (not overwritten)")
+    print(f"labeled {len(frames)} frames ({int(accepted.sum())} pass-1, "
+          f"{len(frames) - int(accepted.sum())} pass-2) -> {args.out}")
+
+
+def cmd_finalize_clips(args):
+    """Per-clip refinement: re-embed each clip's frames, k-NN vote, a
+    fresh HMM per clip, keep frames whose decoded state matches the clip
+    label (reference: nba_proj/finalize_clips.py:134-192)."""
+    from vit_research_tpu_torch.segment import knn as knn_mod
+    from vit_research_tpu_torch.segment.clips import finalize_clip_dirs
+
+    clip_dirs = common._list_clip_dirs(args.clips)
+    _, _, corpus = common.load_corpus(args.db, args.collection, args.device)
+    eng = common._engine(args.batch_size, args.device)
+
+    def frame_probs(paths):
+        nl, _, _ = knn_mod.knn_labels(eng.embed_paths(paths),
+                                      corpus["embeddings"], corpus["labels"],
+                                      args.k, device=args.device)
+        return knn_mod.vote_counts(nl) / args.k
+
+    out = finalize_clip_dirs(clip_dirs, frame_probs, args.out,
+                             device=args.device)
+    print(f"finalized {len(out)} clips -> {args.out}")
+
+
+def cmd_merge_clips(args):
+    """Merge adjacent same-side clips with gap <= --max-gap, rebuilding
+    merged dirs from the full frame pool
+    (reference: nba_proj/merge_clips.py:17-113)."""
+    from vit_research_tpu_torch.segment.clips import merge_clip_dirs
+
+    clip_dirs = common._list_clip_dirs(args.clips)
+    out = merge_clip_dirs(clip_dirs, args.frame_pool, args.out,
+                          max_gap=args.max_gap)
+    print(f"merged {len(clip_dirs)} clips -> {len(out)} under {args.out}")
+
+
+def cmd_clustering(args):
+    """Embedding-space study + side classifier: class-mean separation
+    distances, KMeans seeded at class means (host), and the SideMLP
+    trained on --device, saved in the JAX package's npz format
+    (reference: nba_proj/clustering.py:43-160 saved side_nn.keras)."""
+    from vit_research_tpu_torch.models.convert import side_mlp_to_params
+    from vit_research_tpu_torch.segment.clustering import (
+        SIDES, class_mean_separation, kmeans_with_class_means,
+        train_side_classifier)
+    from vit_research_tpu_torch.train.checkpoint import save_params_npz
+
+    # no new embeddings rank against this corpus (training only): the
+    # cross-profile warning would be noise here
+    _, _, corpus = common.load_corpus(args.db, args.collection, args.device,
+                                      check_profile=False)
+    embs, labels = corpus["embeddings"], corpus["labels"]
+    sep = class_mean_separation(embs, labels)
+    for (a, b), d in sorted(sep.items()):
+        print(f"class-mean L2 {SIDES[a]}<->{SIDES[b]}: {d:.3f}")
+    _, assign = kmeans_with_class_means(embs, labels)
+    agree = float((assign == labels).mean())
+    print(f"kmeans(class-mean init) label agreement: {agree:.3f}")
+    model, history = train_side_classifier(
+        embs, labels, device=args.device, num_epochs=args.epochs,
+        batch_size=args.batch_size, seed=args.seed)
+    if history:
+        print(f"side MLP final train acc {history[-1]['acc']:.3f}")
+    save_params_npz(side_mlp_to_params(model.state_dict()), args.out)
+    print(f"saved side classifier params -> {args.out}")
+
+
+def cmd_fresh_test(args):
+    """Qualitative eval: classify unseen frames with the saved side
+    classifier (an npz of either package) and copy them into
+    left/right/none dirs (reference: nba_proj/fresh_test.py:64-101)."""
+    import numpy as np
+
+    from vit_research_tpu_torch.data import naming
+    from vit_research_tpu_torch.evaluate.fresh_test import (
+        dump_classified_frames)
+    from vit_research_tpu_torch.models.convert import side_mlp_to_state_dict
+    from vit_research_tpu_torch.segment.clustering import (SideMLP,
+                                                           classify_sides)
+    from vit_research_tpu_torch.train.checkpoint import load_params_npz
+
+    eng = common._engine(args.batch_size, args.device)
+    # Size the model from the npz itself: `clustering` builds it as
+    # max(label)+1 classes over the embeddings' width.
+    with np.load(args.params) as saved:
+        in_dim, _ = saved["params/fc1/kernel"].shape
+        _, n_classes = saved["params/out/kernel"].shape
+    if in_dim != eng.out_dim:
+        raise SystemExit(
+            f"{args.params} was trained on {in_dim}-d embeddings but the "
+            f"engine produces {eng.out_dim}-d (check VRT_TINY)")
+    model = SideMLP(in_dim, n_classes)
+    model.load_state_dict(side_mlp_to_state_dict(
+        load_params_npz(None, args.params)))
+    frames = naming.list_frames(args.frames)
+    buckets = dump_classified_frames(
+        [os.path.join(args.frames, f) for f in frames], eng.embed_paths,
+        lambda e: classify_sides(model, e, device=args.device), args.out)
+    counts = " ".join(f"{s}={len(v)}" for s, v in sorted(buckets.items()))
+    print(f"classified {len(frames)} frames -> {args.out} ({counts})")
+
+
 def register(sub):
     sg = sub.add_parser("segment", help="frames -> possession clips")
     sg.add_argument("frames")
@@ -722,3 +876,62 @@ def register(sub):
     tn.add_argument("--batch-size", type=int, default=256)
     common.device_arg(tn)
     tn.set_defaults(fn=cmd_tune_segment)
+
+    sl = sub.add_parser(
+        "self-label", help="two-pass kNN self-labeling vs a seed corpus")
+    sl.add_argument("frames")
+    sl.add_argument("--db", required=True)
+    sl.add_argument("--collection", required=True)
+    sl.add_argument("--out", required=True, help="labels CSV")
+    sl.add_argument("--k", type=int, default=25)
+    sl.add_argument("--min-votes", type=int, default=20)
+    sl.add_argument("--temperature", type=float, default=7.0)
+    sl.add_argument("--upsert", action="store_true",
+                    help="write accepted pass-1 frames back to the corpus")
+    sl.add_argument("--batch-size", type=int, default=256)
+    common.device_arg(sl)
+    sl.set_defaults(fn=cmd_self_label)
+
+    fc = sub.add_parser(
+        "finalize-clips", help="per-clip kNN+HMM refinement")
+    fc.add_argument("--clips", required=True, help="clip-dirs root")
+    fc.add_argument("--db", required=True)
+    fc.add_argument("--collection", required=True,
+                    help="labeled frame collection for the kNN vote")
+    fc.add_argument("--out", required=True)
+    fc.add_argument("--k", type=int, default=5)
+    fc.add_argument("--batch-size", type=int, default=256)
+    common.device_arg(fc)
+    fc.set_defaults(fn=cmd_finalize_clips)
+
+    mc = sub.add_parser(
+        "merge-clips", help="merge adjacent same-side clips")
+    mc.add_argument("--clips", required=True, help="clip-dirs root")
+    mc.add_argument("--frame-pool", required=True,
+                    help="full frame dir to rebuild merged clips from")
+    mc.add_argument("--out", required=True)
+    mc.add_argument("--max-gap", type=int, default=30)
+    mc.set_defaults(fn=cmd_merge_clips)
+
+    cl = sub.add_parser(
+        "clustering",
+        help="class-mean separation + kmeans + side-MLP training")
+    cl.add_argument("--db", required=True)
+    cl.add_argument("--collection", required=True)
+    cl.add_argument("--out", required=True, help="side classifier npz")
+    cl.add_argument("--epochs", type=int, default=50)
+    cl.add_argument("--batch-size", type=int, default=64)
+    cl.add_argument("--seed", type=int, default=0)
+    common.device_arg(cl)
+    cl.set_defaults(fn=cmd_clustering)
+
+    ft = sub.add_parser(
+        "fresh-test",
+        help="classify unseen frames into left/right/none dirs")
+    ft.add_argument("frames")
+    ft.add_argument("--params", required=True,
+                    help="side classifier npz from 'clustering'")
+    ft.add_argument("--out", required=True)
+    ft.add_argument("--batch-size", type=int, default=256)
+    common.device_arg(ft)
+    ft.set_defaults(fn=cmd_fresh_test)

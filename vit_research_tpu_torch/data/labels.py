@@ -1,7 +1,7 @@
 """Label sources: manual side intervals, clip labels, frame-event intervals.
 
-Port of the readers of vit_research_tpu/data/labels.py that the port's
-verbs use (write-frame-db, build-frame-store, tune-segment):
+Port of vit_research_tpu/data/labels.py, readers and writers, for the
+three label artifacts (the writers emit the reference's bytes):
 1. ``manual_intervals.csv`` — columns ``{left,right,none}_{start,end}``
    holding ``vid{N}_{frame}`` tokens; rows may be ragged/NaN
    (reference: nba_proj/write_per_video_embeddings.py:15-56).
@@ -64,6 +64,21 @@ class ManualIntervals:
                     out.intervals[side].append((vid, s, e))
         return out
 
+    def to_csv(self, path: str) -> None:
+        rows = max((len(v) for v in self.intervals.values()), default=0)
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow([f"{s}_{k}" for s in SIDES for k in ("start", "end")])
+            for i in range(rows):
+                row = []
+                for side in SIDES:
+                    if i < len(self.intervals[side]):
+                        vid, s, e = self.intervals[side][i]
+                        row += [f"vid{vid}_{s}", f"vid{vid}_{e}"]
+                    else:
+                        row += ["", ""]
+                w.writerow(row)
+
     def class_from_frame(self, frame: str) -> str:
         """Side label for a frame filename; 'ignore' when unlabeled
         (priority order left -> right -> none, inclusive ranges)."""
@@ -101,6 +116,14 @@ def load_clip_labels(path: str) -> dict:
     return out
 
 
+def save_clip_labels(labels: dict, path: str) -> None:
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["clip_path", "label"])
+        for k, v in labels.items():
+            w.writerow([k, "" if v == -1 else v])
+
+
 def load_event_template(path: str) -> dict:
     """clip_path -> {'event_make': [[s,e],...], 'event_miss': ...,
     'event_none': ...}."""
@@ -108,6 +131,11 @@ def load_event_template(path: str) -> dict:
         return {}
     with open(path) as f:
         return json.load(f)
+
+
+def save_event_template(template: dict, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(template, f, indent=1)
 
 
 def frame_event_status(fnum: int, events: dict) -> tuple[str, int]:

@@ -1,10 +1,12 @@
-"""Frame preprocessing on the host: decode, resize, grayscale.
+"""Frame preprocessing on the host: decode, resize, grayscale, normalise.
 
-Port of the host parts of vit_research_tpu/data/preprocess.py that the
-port's engine uses. Frames are decoded with PIL and resized to the
-model's input size as uint8; the affine normalise is folded into the
-patch-embed kernel on the device (ops/patch_embed.py), so normalised f32
-frames never exist in host memory.
+Port of vit_research_tpu/data/preprocess.py. Frames are decoded with PIL
+(or, with ``use_native``, the libjpeg decoder of native/jpeg.py) and
+resized to the model's input size as uint8; the affine normalise is
+folded into the patch-embed kernel on the device (ops/patch_embed.py), so
+normalised f32 frames never exist in host memory on the embedding path
+(:func:`normalize_host` is the reference-exact host version, for parity
+checks).
 
 Two regimes, as in the reference:
 
@@ -14,9 +16,6 @@ Two regimes, as in the reference:
 2. **Random-ViT regime** (p32 @ 432x768): resize INTER_AREA
    (reference: nba_proj/loader.py:4-8); cv2 is used when installed, else
    the exact area-averaging arithmetic below.
-
-The reference's libjpeg decoder (``load_frames(use_native=True)``,
-native/jpeg_fast.c) is not ported yet.
 """
 
 from __future__ import annotations
@@ -55,6 +54,17 @@ class PreprocessSpec:
 
 
 HF_VIT_SPEC = PreprocessSpec()
+# do_rescale=False variant (reference: nba_proj/train/training.py:38 feeds
+# 0..1 floats and disables the processor's own rescale).
+HF_VIT_SPEC_NO_RESCALE = PreprocessSpec(rescale=1.0)
+# Random-ViT regime: no normalization; raw 0..255 (writer scripts) or 0..1
+# (tf.data path).
+RANDOM_VIT_SPEC_RAW = PreprocessSpec(
+    size=FRAME_SIZE, rescale=1.0, mean=(0, 0, 0), std=(1, 1, 1),
+    interpolation="area")
+RANDOM_VIT_SPEC_UNIT = PreprocessSpec(
+    size=FRAME_SIZE, rescale=1.0 / 255.0, mean=(0, 0, 0), std=(1, 1, 1),
+    interpolation="area")
 
 
 def decode_image(path: str) -> np.ndarray:
@@ -132,9 +142,21 @@ def preprocess_frame(path_or_img, size: tuple = FRAME_SIZE,
 
 
 def load_frames(paths, spec: PreprocessSpec = HF_VIT_SPEC,
-                num_workers: int = 8) -> np.ndarray:
+                num_workers: int = 8, use_native: bool = False) -> np.ndarray:
     """Parallel decode+resize -> (N, H, W, 3) uint8 batch, on a thread
-    pool (PIL releases the GIL while it decodes)."""
+    pool (PIL releases the GIL while it decodes).
+
+    ``use_native=True`` routes JPEG files through the C decoder
+    (native/jpeg_fast.c: libjpeg DCT-scaled decode fused with the resize)
+    when it is available, as the reference does; its bilinear sampling is
+    not antialiased, so the default (PIL) stays the HF-parity path."""
+    if use_native:
+        from vit_research_tpu_torch import native
+
+        if native.is_available() and all(
+                str(p).lower().endswith((".jpg", ".jpeg")) for p in paths):
+            return native.decode_batch(list(paths), spec.size,
+                                       num_workers=num_workers)
     out = np.empty((len(paths), spec.size[0], spec.size[1], 3), np.uint8)
 
     def work(i_path):
@@ -175,3 +197,13 @@ def to_grayscale_3ch(frames: np.ndarray) -> np.ndarray:
         # astype truncates, exactly like the reference's clip+astype.
         gray = np.clip(gray, 0, 255).astype(np.uint8)
     return np.stack([gray, gray, gray], axis=-1)
+
+
+def normalize_host(batch_u8: np.ndarray, spec: PreprocessSpec) -> np.ndarray:
+    """Reference-exact host normalisation (the parity path; the embedding
+    path folds it into ops/patch_embed.py::fused_patch_embed)."""
+    if spec.grayscale:
+        batch_u8 = to_grayscale_3ch(batch_u8)
+    x = batch_u8.astype(np.float32) * spec.rescale
+    return (x - np.asarray(spec.mean, np.float32)) / np.asarray(
+        spec.std, np.float32)

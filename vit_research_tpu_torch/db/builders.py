@@ -1,10 +1,11 @@
 """Vector-store builders.
 
-Port of the builder of vit_research_tpu/db/builders.py that the port's
+Port of the builders of vit_research_tpu/db/builders.py that the port's
 verbs call: :func:`write_labeled_frame_collection` (write-frame-db),
 manually labelled frame embeddings with one-hot probability metadata
-(reference: nba_proj/write_per_vid_embeddings_chroma.py:203-278). The
-builders of the RAG/RATT databases come with the heads.
+(reference: nba_proj/write_per_vid_embeddings_chroma.py:203-278), and
+:func:`write_class_npz` (write-embeddings). The builders of the RAG/RATT
+databases come with the heads.
 """
 
 from __future__ import annotations
@@ -35,3 +36,18 @@ def write_labeled_frame_collection(frames, labels, probs, embed_fn,
         collection.upsert([p.rsplit("/", 1)[-1] for p in paths], embs, metas)
         total += len(batch_idx)
     return total
+
+
+def write_class_npz(frames_by_class, embed_fn, out_template: str) -> dict:
+    """Per-class npz artifacts: ``embeddings`` (N, 1, D) and ``frame_ids``
+    (reference: nba_proj/write_embeddings.py:177-243 wrote
+    {left,right,none}_embeddings.npz). Returns {class: path}."""
+    out = {}
+    for cls, paths in frames_by_class.items():
+        embs = np.asarray(embed_fn(paths), np.float32)
+        path = out_template.format(cls=cls)
+        np.savez(path, embeddings=embs[:, None, :],
+                 frame_ids=np.asarray([p.rsplit("/", 1)[-1] for p in paths],
+                                      dtype=str))
+        out[cls] = path
+    return out

@@ -11,6 +11,10 @@ into a ``state_dict`` for models/vit.py::VisionTransformer, and
   (H, dh) -> (H*dh,);
 - the ``out`` kernel (H, dh, D) -> (D, H*dh);
 - Dense kernels (in, out) -> (out, in); LayerNorm ``scale`` -> ``weight``.
+
+``side_mlp_to_state_dict`` / ``side_mlp_to_params`` do the same for the
+side classifier (segment/clustering.py::SideMLP), whose Flax tree is also
+the format of its ``.npz`` files (train/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -116,3 +120,29 @@ def state_dict_to_params(state_dict, config: ViTConfig) -> dict:
     if config.representation_size is not None:
         p["pre_logits"] = dense("pre_logits")
     return {"params": p}
+
+
+_SIDE_MLP_LAYERS = ("fc1", "fc2", "out")
+
+
+def side_mlp_to_state_dict(params) -> dict:
+    """The JAX package's Flax ``SideMLP`` params (numpy, with or without
+    the outer ``{"params": ...}``) -> ``state_dict`` of
+    segment/clustering.py::SideMLP (Dense kernels (in, out) -> (out, in))."""
+    p = params.get("params", params)
+    return {f"{name}.{k}": torch.from_numpy(np.array(v, np.float32))
+            for name in _SIDE_MLP_LAYERS
+            for k, v in _dense(p[name]).items()}
+
+
+def side_mlp_to_params(state_dict) -> dict:
+    """``SideMLP`` ``state_dict`` -> the Flax tree ``{"params": {"fc1":
+    {"kernel", "bias"}, ...}}`` of float32 numpy arrays (the inverse of
+    :func:`side_mlp_to_state_dict`)."""
+    def t(name):
+        return state_dict[name].detach().to("cpu", torch.float32).numpy()
+
+    return {"params": {
+        name: {"kernel": t(f"{name}.weight").T.copy(),
+               "bias": t(f"{name}.bias").copy()}
+        for name in _SIDE_MLP_LAYERS}}

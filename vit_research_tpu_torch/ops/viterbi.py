@@ -1,8 +1,11 @@
-"""Viterbi decoding as max-plus recurrences on torch tensors.
+"""Viterbi decoding as max-plus recurrences: sequential on the host,
+log-depth on torch tensors.
 
-Port of vit_research_tpu/ops/viterbi.py. The sequential decoder is a loop
-over time carrying the (S,) max-plus scores and emitting backpointer
-columns; :func:`viterbi_parallel` is the log-depth variant: a max-plus
+Port of vit_research_tpu/ops/viterbi.py. The sequential decoder is a numpy
+loop on the host over time, carrying the (S,) max-plus scores and emitting
+backpointer columns (:func:`viterbi_step` is its one step, shared with the
+live decoder, segment/hmm.py::StreamingViterbi); :func:`viterbi_parallel`
+is the log-depth variant on torch tensors: a max-plus
 associative scan over the per-step (S, S) matrices, backpointers straight
 from the forward scores, and a second associative scan composing the
 backpointer maps. :func:`associative_scan` is the same odd/even recursion
@@ -16,6 +19,7 @@ The path is the true argmax path; the reference's backtrace off-by-one
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -27,44 +31,55 @@ def _f32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def viterbi_batch(log_emit, log_trans, log_prior):
-    """Sequential Viterbi over (B, T, S) emissions with shared (S, S)
-    transitions (rows = from-state) and (S,) prior.
+def viterbi_step(dp: np.ndarray, log_emit_t: np.ndarray,
+                 log_trans: np.ndarray):
+    """One max-plus forward step of the sequential decoder, in the JAX
+    package's f32 order (``dp[..., :, None] + log_trans``, first argmax,
+    max, then ``+ log_emit_t``): (..., S) scores -> (backpointers (..., S)
+    int32, next scores (..., S) f32)."""
+    m = dp[..., :, None] + log_trans
+    return m.argmax(axis=-2).astype(np.int32), m.max(axis=-2) + log_emit_t
 
-    Returns (paths (B, T) int32, scores (B,) float32)."""
-    log_emit = _f32(log_emit)
-    dev = log_emit.device
-    log_trans = _f32(log_trans, dev)
-    log_prior = _f32(log_prior, dev)
-    b, t, _ = log_emit.shape
-    dp = log_prior[None, :] + log_emit[:, 0]
-    backptrs = []
+
+def viterbi_batch(log_emit, log_trans, log_prior):
+    """Sequential Viterbi on the host over (B, T, S) emissions with shared
+    (S, S) transitions (rows = from-state) and (S,) prior, in numpy f32.
+
+    The forward loop steps every row at once through :func:`viterbi_step`;
+    each row's states are those of the JAX package's ``viterbi`` bit for
+    bit (elementwise f32 adds and maxes, first-argmax ties).
+    Returns (paths (B, T) int32, scores (B,) float32) as numpy."""
+    log_emit = np.asarray(log_emit, np.float32)
+    log_trans = np.asarray(log_trans, np.float32)
+    log_prior = np.asarray(log_prior, np.float32)
+    b, t, s = log_emit.shape
+    dp = log_prior + log_emit[:, 0]
+    backptrs = np.empty((max(t - 1, 0), b, s), np.int32)
     for i in range(1, t):
-        # scores[b, i, j] = dp[b, i] + log_trans[i, j]
-        scores = dp[:, :, None] + log_trans[None]
-        backptrs.append(torch.argmax(scores, dim=1))
-        dp = torch.amax(scores, dim=1) + log_emit[:, i]
-    last = torch.argmax(dp, dim=1)
-    score = torch.gather(dp, 1, last[:, None])[:, 0]
-    path = torch.empty((b, t), dtype=torch.int64, device=dev)
+        backptrs[i - 1], dp = viterbi_step(dp, log_emit[:, i], log_trans)
+    rows = np.arange(b)
+    last = dp.argmax(axis=1)
+    score = dp[rows, last]
+    path = np.empty((b, t), np.int32)
     path[:, t - 1] = last
     state = last
     for i in range(t - 2, -1, -1):
-        state = torch.gather(backptrs[i], 1, state[:, None])[:, 0]
+        state = backptrs[i, rows, state]
         path[:, i] = state
-    return path.to(torch.int32), score
+    return path, score.astype(np.float32)
 
 
 def viterbi(log_emit, log_trans, log_prior):
-    """Most-likely state path.
+    """Most-likely state path, sequential, on the host.
 
     Args:
       log_emit: (T, S) log emission scores.
       log_trans: (S, S) log transitions, rows = from-state; forbidden
         transitions are ``NEG_INF`` (not -inf).
       log_prior: (S,) log initial distribution.
-    Returns (path (T,) int32, score () float32), on log_emit's device."""
-    paths, scores = viterbi_batch(_f32(log_emit)[None], log_trans, log_prior)
+    Returns (path (T,) int32, score () float32) as numpy."""
+    paths, scores = viterbi_batch(np.asarray(log_emit, np.float32)[None],
+                                  log_trans, log_prior)
     return paths[0], scores[0]
 
 

@@ -7,7 +7,9 @@ path: :class:`HMM` (the reference's streaming-API lattice, decoded in one
 call) and :class:`StreamingViterbi` (fixed-lag online Viterbi). The host
 decoders are numpy, on the port's ``ops/viterbi.py`` constants, and do
 the JAX package's f32 operations in its order, so they emit the same
-states bit for bit.
+states bit for bit. :func:`smooth_probabilities` routes as the reference
+does: below 8192 frames the host sequential decoder, from there the
+log-depth scan on the device.
 """
 
 from __future__ import annotations
@@ -129,10 +131,9 @@ class HMM:
         if self.count == 0:
             return np.zeros((0,), dtype=np.int32)
         log_emit = np.log(self._probs[: self.count])
-        path, _ = viterbi_ops.viterbi(torch.from_numpy(log_emit),
-                                      torch.from_numpy(self._log_trans),
-                                      torch.from_numpy(np.log(self.prior)))
-        return path.numpy()
+        path, _ = viterbi_ops.viterbi(log_emit, self._log_trans,
+                                      np.log(self.prior))
+        return path
 
     def decode_sequence(self) -> list:
         path = self.decode_indices()
@@ -235,10 +236,9 @@ class StreamingViterbi:
     # -- internals -----------------------------------------------------------
 
     def _step(self, dp: np.ndarray, le: np.ndarray):
-        """One max-plus forward step (ops/viterbi.py's math and
-        tie-breaking): returns (backpointers, next dp)."""
-        m = dp[:, None] + self._log_trans
-        return m.argmax(axis=0).astype(np.int32), m.max(axis=0) + le
+        """One max-plus forward step (ops/viterbi.py::viterbi_step, the
+        offline sequential decoder's): returns (backpointers, next dp)."""
+        return viterbi_ops.viterbi_step(dp, le, self._log_trans)
 
     def _backtrace(self, state: int, upto: int) -> list[int]:
         """States at pending times 0..upto along the survivor path that
@@ -302,37 +302,51 @@ class StreamingViterbi:
         return out
 
 
-def smooth_probabilities(probs, transition_matrix=None, prior=None,
-                         parallel: bool = True, *,
-                         device) -> np.ndarray:
-    """One-shot decode on ``device``: (T, 3) or (B, T, 3) probabilities ->
-    int32 state path(s) as numpy.
+#: From this many frames on, :func:`smooth_probabilities` decodes with the
+#: log-depth scan; below it, sequentially on the host (the reference's
+#: threshold and routing, vit_research_tpu/segment/hmm.py:310).
+_PARALLEL_THRESHOLD = 8192
 
-    The log-depth decoder is the default at every length, where the
-    reference switches to it only from 8192 frames (a TPU tuning). On an
-    H100 the sequential loop is launch-bound, one small kernel after
-    another per frame: 39.8 ms against 3.6 ms at T=512 and 631.1 ms
-    against 2.9 ms at T=8192 (NVIDIA H100 80GB HBM3, 700 W). The two
-    decoders sum scores in other orders, so past ~30k frames they may
-    break a near-tie differently, as the reference's two do.
-    ``parallel=False`` runs the sequential loop."""
+
+def smooth_probabilities(probs, transition_matrix=None, prior=None,
+                         parallel: bool | None = None, *,
+                         device) -> np.ndarray:
+    """One-shot decode: (T, 3) or (B, T, 3) probabilities -> int32 state
+    path(s) as numpy.
+
+    The routing is the reference's: below ``_PARALLEL_THRESHOLD`` frames
+    the sequential decoder (ops/viterbi.py::viterbi_batch, numpy on the
+    host; ``device`` is only checked), from there the log-depth scan on
+    ``device``; ``parallel`` forces one of them. The two sum scores in
+    other orders and break exact ties differently, and vote-fraction
+    emissions tie often, so the routing decides clips. Host-clock times
+    on vote-fraction emissions (``chip_smoke.py --profile``, NVIDIA H100
+    80GB HBM3, 700 W): the host loop 5.48 / 26.86 / 62.89 ms at T = 512 /
+    2048 / 8191; the log-depth scan on the card 2.03 / 2.93 / 3.29 ms,
+    and 5.68 ms at 32,768; a per-frame torch loop on the card (not used)
+    32.86 / 125.65 / 588.10 ms."""
     dev = resolve_device(device)
     probs = np.maximum(np.asarray(probs, dtype=np.float32), _PROB_FLOOR)
     trans = (DEFAULT_TRANSITIONS if transition_matrix is None
              else np.asarray(transition_matrix, np.float32))
     prior = UNIFORM_PRIOR if prior is None else np.asarray(prior, np.float32)
-    log_trans = viterbi_ops.log_transition_matrix(trans).to(dev)
-    log_prior = torch.from_numpy(np.log(prior)).to(dev)
-    log_emit = torch.from_numpy(np.log(probs)).to(dev)
+    log_trans = viterbi_ops.log_transition_matrix(trans)
+    log_prior = np.log(prior)
+    log_emit = np.log(probs)
+    use_parallel = (probs.shape[-2] >= _PARALLEL_THRESHOLD
+                    if parallel is None else parallel)
+    if not use_parallel:
+        if probs.ndim == 2:
+            return viterbi_ops.viterbi(log_emit, log_trans.numpy(),
+                                       log_prior)[0]
+        return viterbi_ops.viterbi_batch(log_emit, log_trans.numpy(),
+                                         log_prior)[0]
+    log_trans = log_trans.to(dev)
+    log_prior = torch.from_numpy(log_prior).to(dev)
+    log_emit = torch.from_numpy(log_emit).to(dev)
     if probs.ndim == 2:
-        fn = (viterbi_ops.viterbi_parallel if parallel
-              else viterbi_ops.viterbi)
-        path, _ = fn(log_emit, log_trans, log_prior)
-        return path.cpu().numpy()
-    if parallel:
-        paths = torch.stack([
-            viterbi_ops.viterbi_parallel(e, log_trans, log_prior)[0]
-            for e in log_emit])
-    else:
-        paths, _ = viterbi_ops.viterbi_batch(log_emit, log_trans, log_prior)
-    return paths.cpu().numpy()
+        return viterbi_ops.viterbi_parallel(
+            log_emit, log_trans, log_prior)[0].cpu().numpy()
+    return torch.stack([
+        viterbi_ops.viterbi_parallel(e, log_trans, log_prior)[0]
+        for e in log_emit]).cpu().numpy()
