@@ -56,12 +56,29 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      ViTModel-shaped state dict through the HF import at full width (card
      vs the CPU plain forward), and the native JPEG decoder (whether it
      built, against PIL, and both decoders' frames/s at 1080p -> 224);
+  5d. the fast profile on phase 4's world: the attention kernel with
+     ToMe's key bias at every ToMe T of ViT-B/16 at r = 16 (197 ... 21;
+     f32 and bf16, B = 256) against its plain version, timed against the
+     plain version and SDPA with the bias as a float mask;
+     bipartite_merge on the card against the CPU; the ToMe r=16, int8 and
+     int8-static engines against the CPU forward of the same model (8
+     frames; token sizes, and the merge-score margin wherever the card
+     merged otherwise); calibrate-int8, then write-frame-db and ``segment
+     --frame-stride 4 --stride-refine auto`` under ``VRT_TOME_R=16
+     VRT_GEMM_QUANT=int8-static`` through the CLI (the clips against the
+     planted possessions, the kernels' launches, the collection's
+     profile); the profile fence and the stride refusals; ``serve
+     --warmup`` under the fast env (a binary embed and a live session);
+     and the embed rates of the parity, ToMe, int8, ToMe + int8-static
+     and ToMe bf16 engines side by side;
   6. a game-sized store: a seeded 200,000 x 768 cosine collection queried
      with 256 queries, k = 50, on the card in f32 and in int8, each held
      against the CPU answer of the same rows, and timed;
   7. one JSON line of kernel summaries (``launches`` sums the kernel's
-     launches over the paths of phases 4-5c, ``launches_by_path`` lists
-     them), then the result line.
+     launches over the paths of phases 4-5d, ``launches_by_path`` lists
+     them, ``fast`` being phase 5d's write-frame-db and segment; the
+     attention entry's ``key_bias`` holds phase 5d's rows), then the
+     result line.
 
 Bounds (``bound_ms``) are the larger of the bytes a kernel must move
 over the H100 SXM's 3.35 TB/s and its operations over the peak of the
@@ -77,8 +94,10 @@ earlier versions, kept for comparison).
     python3 chip_smoke.py --profile
 
 builds the kernels, then profiles the engine's forward (torch.profiler
-over steady batches of ViT-B/16 @224: f32 B=256 and bf16 B=512; device
-time by kernel and the device's idle share) and times the offline Viterbi
+over steady batches of ViT-B/16 @224: f32 B=256, bf16 B=512, and the
+fast profile's ToMe r=16 + int8-static f32 B=256, calibrated on the
+profiled frames; device time by kernel and the device's idle share) and
+times the offline Viterbi
 decoders at several game lengths: the host numpy loop, the log-depth scan
 on the card, and a per-frame torch loop on the card.
 
@@ -115,10 +134,12 @@ from vit_research_tpu_torch.cli import common
 from vit_research_tpu_torch.data.preprocess import load_frames
 from vit_research_tpu_torch.db.frame_store import FrameStore
 from vit_research_tpu_torch.models import convert, hf_import
+from vit_research_tpu_torch.models import vit as vit_mod
 from vit_research_tpu_torch.ops import _build
 from vit_research_tpu_torch.ops import attention as attn
 from vit_research_tpu_torch.ops import fused_ln
 from vit_research_tpu_torch.ops import patch_embed as pe
+from vit_research_tpu_torch.ops import quant, tome
 from vit_research_tpu_torch.ops import topk
 from vit_research_tpu_torch.ops import viterbi as viterbi_ops
 from vit_research_tpu_torch.parallel import embed
@@ -569,12 +590,13 @@ def _clip_ranges(out_dir):
     return got
 
 
-def _embed_rate(dtype: str, batch: int, iters: int = 16) -> float:
+def _embed_rate(dtype: str, batch: int, iters: int = 16, **kw) -> float:
     """bench.py's method: device-resident random uint8 batches (8 staged
     buffers), the engine's forward per batch, one checksum readback per
-    batch, timed on the host clock after a warm-up batch."""
+    batch, timed on the host clock after a warm-up batch. ``kw`` goes to
+    make_hf_frame_embedder (the fast profile's options)."""
     eng = embed.make_hf_frame_embedder(device="cuda", batch_size=batch,
-                                       dtype=dtype)
+                                       dtype=dtype, **kw)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bufs = [torch.randint(0, 256, (batch, 224, 224, 3), generator=gen,
                           device="cuda", dtype=torch.uint8) for _ in range(8)]
@@ -1348,6 +1370,411 @@ def phase_label_path(smi: str, root: str, main: dict) -> dict:
     return dict(launches=launches)
 
 
+# ---- phase 5d: the fast profile -----------------------------------------
+
+TOME_R = 16
+FAST_ENV = ("VRT_TOME_R", "VRT_GEMM_QUANT", "VRT_GEMM_SCALES")
+# Merge decisions taken on the card and on the CPU may differ only where
+# the CPU's merge scores nearly tie (below this margin).
+TIE_MARGIN = 1e-5
+# int8 engines against the CPU forward of the same model: an ulp in a
+# pre-GEMM activation (cuBLAS against the CPU) can move one int8 value by
+# one step, so frames are held to a cosine, not to EMBED_BOUND.
+INT8_COSINE = 0.999
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set the engine's env toggles for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in FAST_ENV}
+    try:
+        for k in FAST_ENV:
+            os.environ.pop(k, None)
+        os.environ.update({k: str(v) for k, v in values.items()})
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _tome_sizes(b: int, t: int, r: int, layers: int, dev) -> list:
+    """log(sizes) entering each ToMe block, from real merges of random
+    tokens and keys: (T, (B, T) f32 log-size) per block."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    sizes = torch.ones(b, t, device=dev)
+    out = []
+    for _ in range(layers):
+        t = sizes.shape[1]
+        out.append((t, torch.log(sizes)))
+        x = torch.randn(b, t, 8, generator=g, device=dev)
+        metric = torch.randn(b, t, 64, generator=g, device=dev)
+        _, sizes = tome.bipartite_merge(x, metric, sizes, r)
+    return out
+
+
+def phase_attention_bias(smi: str) -> dict:
+    """Kernel B with ToMe's key bias at every ToMe T of ViT-B/16 @224 at
+    r = 16 (B = 256, H = 12, dh = 64), f32 and bf16: against its plain
+    version on the same values (q/k/v in projection order, as the ToMe
+    blocks pass them), timed against the plain version and SDPA with the
+    bias as a float mask (B, 1, 1, T). Returns per-dtype rows and sums."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(7)
+    biases = _tome_sizes(BATCH, 197, TOME_R, 12, dev)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        rows = []
+        for t, bias in biases:
+            q, k, v = (torch.randn(BATCH, t, 12, 64, generator=g).to(
+                dev, dtype).transpose(1, 2) for _ in range(3))
+            got = attn.multi_head_attention(q, k, v, key_bias=bias)
+            qc, kc, vc = (x.contiguous() for x in (q, k, v))
+            want = attn.attention_plain(qc.float(), kc.float(), vc.float(),
+                                        key_bias=bias)
+            err = (got.float() - want).abs().max().item()
+            del got, want
+            if not err <= ATTN_BOUND[dtype]:
+                raise AssertionError(f"attention kernel with key bias "
+                                     f"disagrees at T={t} {name}: {err}")
+            ms = cuda_ms(lambda: attn.multi_head_attention(
+                q, k, v, key_bias=bias), reps=3, n=5)
+            plain_ms = cuda_ms(lambda: attn.attention_plain(
+                qc, kc, vc, key_bias=bias), reps=3, n=5)
+            mask = bias[:, None, None, :].to(dtype)
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, attn_mask=mask), reps=3, n=5)
+            lim = bound(4 * q.numel() * q.element_size() + bias.numel() * 4,
+                        4 * BATCH * 12 * t * t * 64 + BATCH * 12 * t * t,
+                        "f32" if dtype == torch.float32 else "bf16")
+            rows.append(dict(T=t, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=sdpa_ms, **lim))
+            del q, k, v, qc, kc, vc, mask
+        for r in rows:
+            log(f"[5d] attention + key bias B={BATCH} H=12 T={r['T']} dh=64 "
+                f"{name}: max|err| {r['max_abs_err']:.3e} (bound "
+                f"{ATTN_BOUND[dtype]:.0e}) | kernel {r['ms']:.4f} ms | plain "
+                f"{r['plain_ms']:.4f} ms | SDPA+mask {r['library_ms']:.4f} ms"
+                f" | {bound_text(r)}")
+        sums = {key: sum(r[key] for r in rows)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"[5d] attention + key bias {name}, the 12 ToMe blocks of one "
+            f"batch: kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f}"
+            f" ms, SDPA+mask {sums['library_ms']:.4f} ms, bound "
+            f"{sums['bound_ms']:.4f} ms | {smi}")
+        out[name] = dict(
+            T=[r["T"] for r in rows], ms=[r["ms"] for r in rows],
+            plain_ms=[r["plain_ms"] for r in rows],
+            library_ms=[r["library_ms"] for r in rows],
+            bound_ms=[r["bound_ms"] for r in rows],
+            bound_by=[r["bound_by"] for r in rows],
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            **{f"{key}_per_batch": v for key, v in sums.items()})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _merge_margin(metric: torch.Tensor, r: int) -> torch.Tensor:
+    """(B,) smallest margin of one merge's decisions: the gap between each
+    source's best and second-best destination score, and the gap at the
+    r-th place of the sorted best scores (CLS left out)."""
+    m = metric.to(torch.float32)
+    src, dst = m[:, 0::2], m[:, 1::2]
+    src = src / torch.linalg.vector_norm(src, dim=-1, keepdim=True).clamp_min(
+        1e-6)
+    dst = dst / torch.linalg.vector_norm(dst, dim=-1, keepdim=True).clamp_min(
+        1e-6)
+    scores = torch.bmm(src, dst.transpose(1, 2))[:, 1:]
+    top = scores.topk(min(2, scores.shape[2]), dim=-1).values
+    gap = (top[..., 0] - top[..., -1]).amin(dim=1) if top.shape[-1] > 1 \
+        else torch.full((m.shape[0],), math.inf)
+    best = torch.sort(top[..., 0], dim=1, descending=True).values
+    r = min(r, best.shape[1])
+    edge = (best[:, r - 1] - best[:, r]) if r < best.shape[1] \
+        else torch.full_like(gap, math.inf)
+    return torch.minimum(gap, edge)
+
+
+def _tome_engine_check(paths: list, frames: np.ndarray) -> None:
+    """The ToMe r=16 f32 engine (B = 256) on 8 frames on the card against
+    the CPU forward of the same model: token sizes, embeddings, margins."""
+    card = embed.make_hf_frame_embedder(device="cuda", batch_size=BATCH,
+                                        tome_r=TOME_R)
+
+    def endpoints(eng):
+        out = eng.encode(torch.from_numpy(frames).to(eng.device))
+        emb = out["pooled"].float()
+        emb = emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+        return emb.cpu().numpy(), out["token_sizes"].cpu().numpy()
+
+    got, got_sizes = endpoints(card)
+    margins = []
+    merge = vit_mod.bipartite_merge
+
+    def recording(x, metric, sizes, r):
+        margins.append(_merge_margin(metric, r))
+        return merge(x, metric, sizes, r)
+
+    host = embed.EmbeddingEngine(card.model.to("cpu"), card.spec,
+                                 device="cpu", batch_size=8)
+    vit_mod.bipartite_merge = recording
+    try:
+        want, want_sizes = endpoints(host)
+    finally:
+        vit_mod.bipartite_merge = merge
+    margin = torch.stack(margins).amin(dim=0).numpy()  # per frame
+    same = np.all(got_sizes == want_sizes, axis=1)
+    err = float(np.abs(got[same] - want[same]).max()) if same.any() else 0.0
+    log(f"[5d] ToMe r={TOME_R} f32 engine, 8 frames card vs CPU: token sizes "
+        f"{got_sizes.shape[1]} a frame, equal on {int(same.sum())}/8 frames;"
+        f" max|err| {err:.3e} there (bound {EMBED_BOUND:.0e}); smallest "
+        f"merge-score margin {margin.min():.3e}, on frames whose sizes "
+        f"differ {margin[~same].tolist()}")
+    if not (np.isfinite(got).all() and err <= EMBED_BOUND):
+        raise AssertionError(f"ToMe embeddings disagree: {err}")
+    if np.any(margin[~same] >= TIE_MARGIN):
+        raise AssertionError("ToMe merged other tokens on the card than on "
+                             "the CPU away from a tie")
+
+
+def _int8_engine_check(name: str, frames: np.ndarray, f32: np.ndarray,
+                       **kw) -> None:
+    card = embed.make_hf_frame_embedder(device="cuda", batch_size=BATCH,
+                                        **kw)
+    got = card.embed_batch(frames)
+    want = embed.EmbeddingEngine(card.model.to("cpu"), card.spec,
+                                 device="cpu", batch_size=8
+                                 ).embed_batch(frames)
+    cos = np.sum(got * want, axis=1)
+    err = float(np.abs(got - want).max())
+    to_f32 = np.sum(got * f32, axis=1)
+    log(f"[5d] {name} f32 engine, 8 frames card vs CPU: cosine min "
+        f"{cos.min():.7f} (bound {INT8_COSINE}), max|err| {err:.3e}; cosine "
+        f"to the f32 engine's embeddings min {to_f32.min():.5f} mean "
+        f"{to_f32.mean():.5f}")
+    if not (np.isfinite(got).all() and cos.min() >= INT8_COSINE):
+        raise AssertionError(f"{name} embeddings disagree: cosine "
+                             f"{cos.min()}")
+
+
+def _stderr_of(argv: list) -> tuple:
+    """(exit code or None, stderr) of ``cli.main(argv)``."""
+    buf = io.StringIO()
+    code = None
+    with contextlib.redirect_stderr(buf):
+        try:
+            cli.main(argv)
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+            buf.write(str(e.code))
+    return code, buf.getvalue()
+
+
+def phase_fast_path(smi: str, root: str, main: dict) -> dict:
+    """The fast profile on phase 4's world: kernel B with the key bias,
+    bipartite_merge on the card, the ToMe and int8 engines against the CPU,
+    calibrate-int8 -> write-frame-db -> strided segment under the fast env
+    (the clips against the planted possessions), the profile fence and the
+    stride refusals, serve under the fast env, and the engines' rates."""
+    t_phase = time.monotonic()
+    dev = torch.device("cuda")
+    bias_summary = phase_attention_bias(smi)
+
+    # bipartite_merge on identical inputs on the card and the CPU
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(BATCH, 197, 768, generator=g)
+    metric = torch.randn(BATCH, 197, 64, generator=g)
+    sizes = torch.randint(1, 4, (BATCH, 197), generator=g).float()
+    want = tome.bipartite_merge(x, metric, sizes, TOME_R)
+    got = [a.cpu() for a in tome.bipartite_merge(
+        x.to(dev), metric.to(dev), sizes.to(dev), TOME_R)]
+    m_cpu, m_card = tome.match(metric, TOME_R), tome.match(metric.to(dev),
+                                                           TOME_R)
+    same = ((m_cpu[0] == m_card[0].cpu()).all(1)
+            & (m_cpu[1] == m_card[1].cpu()).all(1)).numpy()
+    margin = _merge_margin(metric, TOME_R).numpy()
+    err = max(float((a[same] - b[same]).abs().max()) for a, b in
+              zip(got, want)) if same.any() else 0.0
+    log(f"[5d] bipartite_merge B={BATCH} T=197 D=768 r={TOME_R}, card vs "
+        f"CPU: merged sources and destinations equal on {int(same.sum())}/"
+        f"{BATCH} rows, max|err| {err:.3e} there (bound 1e-6); smallest "
+        f"merge-score margin {margin.min():.3e}")
+    if err > 1e-6 or np.any(margin[~same] >= TIE_MARGIN):
+        raise AssertionError("bipartite_merge differs between the card and "
+                             "the CPU")
+    del x, metric, sizes, want, got
+
+    # the engines against the CPU forward of the same port model
+    query_dir, n_query = main["query_dir"], main["n_query"]
+    paths = [os.path.join(query_dir, f"vid2_frame_{f}.jpg")
+             for f in range(1, n_query + 1, 97)][:8]
+    frames = load_frames(paths, SPEC)
+    _tome_engine_check(paths, frames)
+    f32 = embed.make_hf_frame_embedder(device="cuda", batch_size=BATCH
+                                       ).embed_batch(frames)
+
+    # calibrate-int8, then the fast profile's write-frame-db and segment
+    scales_path = os.path.join(root, "scales.json")
+    t0 = time.monotonic()
+    with _env(VRT_TOME_R=TOME_R), contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["calibrate-int8", main["corpus_dir"], "--out", scales_path,
+                  "--device", "cuda"])
+    scales = json.load(open(scales_path))["scales"]
+    log(f"[5d] calibrate-int8 (bf16 ViT-B/16, ToMe r={TOME_R}, 8 corpus "
+        f"frames) on the card: {len(scales)} scales in "
+        f"{time.monotonic() - t0:.1f} s, range {min(scales):.4g}.."
+        f"{max(scales):.4g}")
+    if len(scales) != 72 or not all(s > 0 for s in scales):
+        raise AssertionError(f"calibrate-int8 wrote {len(scales)} scales")
+    _int8_engine_check("int8 (dynamic)", frames, f32, gemm_quant="int8")
+    _int8_engine_check("int8-static", frames, f32, gemm_quant="int8-static",
+                       gemm_quant_scales=scales)
+    fast = dict(VRT_TOME_R=TOME_R, VRT_GEMM_QUANT="int8-static",
+                VRT_GEMM_SCALES=scales_path)
+    db = os.path.join(root, "db_fast")
+    out = os.path.join(root, "clips_fast")
+    n_corpus = sum(n for _, n in CORPUS_SEGMENTS)
+    pe.fused_patch_embed.launches = 0
+    attn.multi_head_attention.launches = 0
+    t0 = time.monotonic()
+    buf = io.StringIO()
+    with _env(**fast), contextlib.redirect_stdout(buf):
+        profile = common.engine_profile()
+        cli.main(["write-frame-db", main["corpus_dir"], "--manual-csv",
+                  main["corpus_csv"], "--db", db, "--collection", "corpus",
+                  "--batch-size", str(BATCH), "--device", "cuda"])
+        cli.main(["segment", query_dir, "--method", "knn-hmm", "--db", db,
+                  "--corpus-collection", "corpus", "--k", "50", "--out", out,
+                  "--vid", "2", "--min-len", str(MIN_LEN), "--pad", str(PAD),
+                  "--batch-size", str(BATCH), "--frame-stride", "4",
+                  "--stride-refine", "auto", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    text = buf.getvalue()
+    refine = re.search(r"stride-refine: (\d+)/(\d+) gaps hot \((\d+) frames",
+                       text)
+    keys = len(range(0, n_query, 4)) + ((n_query - 1) % 4 != 0)
+    n_refined = int(refine.group(3)) if refine else -1
+    batches = (math.ceil(n_corpus / BATCH) + math.ceil(keys / BATCH)
+               + math.ceil(n_refined / BATCH))
+    log(f"[5d] CLI write-frame-db + segment --frame-stride 4 --stride-refine "
+        f"auto under VRT_TOME_R={TOME_R} VRT_GEMM_QUANT=int8-static: "
+        f"{wall:.1f} s wall; {refine.group(0) if refine else 'no refine line'}"
+        f" of {keys} keys; launches {launches} for {batches} engine batches")
+    for line in text.splitlines():
+        log(f"[5d]   {line}")
+    _check_launches(launches, batches, "fast path")
+    _, col, _ = common.load_corpus(db, "corpus", "cuda", check_profile=False)
+    log(f"[5d] fast collection profile {col.embedding_profile!r}")
+    if col.embedding_profile != profile or not profile.startswith(
+            f"torch|tome{TOME_R}|quant-int8-static:"):
+        raise AssertionError(f"fast collection stamped "
+                             f"{col.embedding_profile!r}")
+    clips, planted = _clip_ranges(out), main["planted"]
+    log(f"[5d] fast-profile clips {clips}; planted possessions {planted}")
+    if len(clips) != len(planted) or any(
+            side != p_side
+            or abs(s - max(1, p_s - PAD)) > BOUNDARY_SLACK
+            or abs(e - min(n_query, p_e + PAD)) > BOUNDARY_SLACK
+            for (side, s, e), (p_side, p_s, p_e) in zip(clips, planted)):
+        raise AssertionError("fast-profile clips miss the planted "
+                             "possessions")
+
+    # the profile fence and the stride refusals
+    code, err = _stderr_of(["write-frame-db", main["corpus_dir"],
+                            "--manual-csv", main["corpus_csv"], "--db", db,
+                            "--collection", "corpus", "--batch-size",
+                            str(BATCH), "--device", "cuda"])
+    refused = code not in (None, 0) and "mixing embedding spaces" in err
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, warn = _stderr_of(["search", paths[0], "--db", db, "--collection",
+                              "corpus", "--k", "3", "--device", "cuda"])
+    warned = "distances across profiles are not comparable" in warn
+    events = os.path.join(root, "events.json")
+    with open(events, "w") as fh:
+        json.dump({"clips/vid2_clip_1_left": {"event_make": [[60, 61]]}}, fh)
+    seg = ["segment", query_dir, "--method", "knn-hmm", "--out",
+           os.path.join(root, "clips_refused"), "--vid", "2",
+           "--frame-stride", "4", "--event-template", events, "--device",
+           "cuda"]
+    code_t, err_t = _stderr_of(seg)
+    # with --force-stride the check warns and the run goes on, to the next
+    # check (no corpus given), before any engine starts
+    code_f, err_f = _stderr_of(seg + ["--force-stride"])
+    log(f"[5d] parity-env write into the fast db refused: {refused}; read "
+        f"warns: {warned}; 2-frame event at stride 4 exits {code_t}; with "
+        f"--force-stride warns: {'WARNING' in err_f}")
+    if not (refused and warned and code_t not in (None, 0)
+            and "shortest labeled event" in err_t
+            and "--force-stride given" in err_f and "needs --db" in err_f):
+        raise AssertionError("a fast-profile refusal did not hold")
+
+    # serve under the fast env: a binary embed and a live session
+    sock = os.path.join(os.path.dirname(_socket_path(root)), "f.sock")
+    with _env(**fast):
+        thread, errors = _serve_thread(
+            ["serve", "--socket", sock, "--db", db, "--collection", "corpus",
+             "--batch-size", str(BATCH), "--warmup", "--device", "cuda"])
+        _await_ready(sock, errors)
+        ref = common._engine(BATCH, "cuda")
+        game = [os.path.join(query_dir, f"vid2_frame_{f}.jpg")
+                for f in range(1, n_query + 1)]
+        frames16 = load_frames(game[:16], SPEC)
+        want = ref.embed_batch(frames16)
+        r = serve.request_binary(sock, {"op": "embed"}, frames=frames16,
+                                 timeout=120.0)
+        err = _max_err(r["embeddings"], want)
+        seen = []
+        with serve.SessionClient(sock, timeout=120.0) as c:
+            ok = c.request({"op": "segment_start", "k": 50,
+                            "min_len": MIN_LEN, "pad": PAD}).get("ok")
+            for i in range(3):
+                rr = c.request({"op": "segment_push",
+                                "paths": game[64 * i:64 * i + 64]})
+                ok = ok and rr.get("ok")
+                seen.append(rr.get("frames_seen"))
+            ok = ok and c.request({"op": "segment_finish"}).get("ok")
+        stats = serve.request(sock, {"op": "stats"}, timeout=60.0)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["serve-ctl", "shutdown", "--socket", sock])
+        thread.join(timeout=60.0)
+    log(f"[5d] serve --warmup under the fast env: 16-frame binary embed "
+        f"max|err| {err:.3e} against the in-process fast engine (bound "
+        f"{EMBED_BOUND:.0e}); live session of 3 pushes ok {bool(ok)}, frames "
+        f"seen {seen}; engine profile {stats.get('engine_profile')!r}")
+    if err > EMBED_BOUND or not ok or seen != [64, 128, 192] \
+            or thread.is_alive() or errors \
+            or stats.get("engine_profile") != profile:
+        raise AssertionError("the daemon under the fast env disagrees")
+    del ref
+
+    # the engines' rates, side by side in this call
+    rates = {}
+    for label, dtype, batch, kw in (
+            ("parity f32", "float32", BATCH, {}),
+            (f"ToMe r={TOME_R} f32", "float32", BATCH, dict(tome_r=TOME_R)),
+            ("int8 f32", "float32", BATCH, dict(gemm_quant="int8")),
+            (f"ToMe r={TOME_R} + int8-static f32", "float32", BATCH,
+             dict(tome_r=TOME_R, gemm_quant="int8-static",
+                  gemm_quant_scales=scales)),
+            (f"ToMe r={TOME_R} bf16", "bfloat16", 512, dict(tome_r=TOME_R))):
+        rates[label] = _embed_rate(dtype, batch, **kw)
+        torch.cuda.empty_cache()
+    log("[5d] embed rate ViT-B/16 @224, frames/s (host clock, 16 batches): "
+        + "; ".join(f"{k} B={b}: {v:.1f}" for (k, v), b in zip(
+            rates.items(), (BATCH, BATCH, BATCH, BATCH, 512)))
+        + f" | {smi}")
+    log(f"[5d] phase 5d: {time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches, attention_key_bias=bias_summary,
+                rates=rates)
+
+
 def _concurrent(fns: list) -> list:
     """Run the callables on one thread each; results in order, the first
     error raised."""
@@ -1462,18 +1889,28 @@ def phase_game_store(smi: str, n: int = 200_000, d: int = 768,
 
 
 def profile_forward(smi: str, dtype: str, batch: int, steps: int = 3,
-                    top: int = 10) -> None:
+                    top: int = 10, **kw) -> None:
     """torch.profiler over ``steps`` steady batches of the engine's forward
     on device-resident uint8 frames: device time per batch by kernel, and
-    the idle share 1 - kernel time / wall time of the window."""
+    the idle share 1 - kernel time / wall time of the window. ``kw`` goes
+    to make_hf_frame_embedder; ``gemm_quant='int8-static'`` without scales
+    calibrates on the profiled frames first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng = embed.make_hf_frame_embedder(device="cuda", batch_size=batch,
-                                       dtype=dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
     frames = torch.randint(0, 256, (batch, 224, 224, 3), generator=gen,
                            device="cuda", dtype=torch.uint8)
+    if kw.get("gemm_quant") == "int8-static" and not kw.get(
+            "gemm_quant_scales"):
+        calib = embed.make_hf_frame_embedder(device="cuda", batch_size=batch,
+                                             dtype=dtype, **kw)
+        with quant.calibration_mode() as scales:
+            calib._forward(frames)
+        kw = dict(kw, gemm_quant_scales=scales)
+        del calib
+    eng = embed.make_hf_frame_embedder(device="cuda", batch_size=batch,
+                                       dtype=dtype, **kw)
     for _ in range(2):
         eng._forward(frames)
     torch.cuda.synchronize()
@@ -1489,7 +1926,10 @@ def profile_forward(smi: str, dtype: str, batch: int, steps: int = 3,
                       and e.self_device_time_total > 0),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    log(f"[profile] ViT-B/16 @224 {dtype} B={batch}: {busy_ms:.1f} ms/batch "
+    what = ", ".join(f"{k}={v}" for k, v in kw.items()
+                     if k != "gemm_quant_scales")
+    log(f"[profile] ViT-B/16 @224 {dtype} B={batch}{' ' + what if what else ''}"
+        f": {busy_ms:.1f} ms/batch "
         f"of kernels, {wall_ms:.1f} ms/batch wall, idle "
         f"{100 * max(0.0, 1 - busy_ms / wall_ms):.1f}% | {smi}")
     for e in kernels[:top]:
@@ -1587,6 +2027,8 @@ def main() -> int:
     if args.profile:
         profile_forward(smi, "float32", BATCH)
         profile_forward(smi, "bfloat16", 512)
+        profile_forward(smi, "float32", BATCH, top=24, tome_r=TOME_R,
+                        gemm_quant="int8-static")
         time_viterbi(smi)
         return 0
     pe_summary = phase_patch_embed(smi)
@@ -1597,13 +2039,15 @@ def main() -> int:
         store_launches = phase_store_path(smi, root, main_path)
         serve_path = phase_serve_path(smi, root, main_path)
         label_path = phase_label_path(smi, root, main_path)
+        fast_path = phase_fast_path(smi, root, main_path)
     phase_game_store(smi)
     # each main path's launches, counted from 0 just before it ran; a
     # kernel's "launches" is their sum
     by_path = {"segment": main_path["launches"], "store": store_launches,
                "serve": serve_path["launches"],
                "follow": serve_path["follow_launches"],
-               "label": label_path["launches"]}
+               "label": label_path["launches"],
+               "fast": fast_path["launches"]}
 
     def launches(kernel: str) -> dict:
         per = {path: counts[kernel] for path, counts in by_path.items()}
@@ -1620,7 +2064,10 @@ def main() -> int:
              source="vit_research_tpu_torch/csrc/attention.cu",
              replaces="vit_research_tpu/ops/attention.py:51",
              **launches("attention"),
-             library_call="F.scaled_dot_product_attention", **attn_summary),
+             library_call="F.scaled_dot_product_attention", **attn_summary,
+             key_bias=dict(fast_path["attention_key_bias"],
+                           library_call="F.scaled_dot_product_attention "
+                                        "with a float attn_mask (B, 1, 1, T)")),
         dict(name="ln_matmul", route="cuda",
              source="vit_research_tpu_torch/csrc/fused_ln.cu",
              replaces="vit_research_tpu/ops/fused_ln.py:62",

@@ -108,7 +108,8 @@ def test_port_imports_no_jax():
     for m in ("serve", "cli.serve_cmds", "segment.streaks", "segment.tune",
               "segment.changepoint", "segment.clustering",
               "train.checkpoint", "evaluate.fresh_test", "utils.fileops",
-              "data.video", "native", "native.jpeg", "models.hf_import"):
+              "data.video", "native", "native.jpeg", "models.hf_import",
+              "ops.quant", "ops.tome", "evaluate.event_scoring"):
         assert f"vit_research_tpu_torch.{m}" in mods
     # chip_smoke.py is imported as a module: its top-level imports run.
     mods.append("chip_smoke")

@@ -31,6 +31,7 @@ from vit_research_tpu_torch.ops import attention as attn
 from vit_research_tpu_torch.ops import fused_ln
 from vit_research_tpu_torch.ops import patch_embed as pe
 from vit_research_tpu_torch.ops import topk
+from vit_research_tpu_torch.ops.tome import merged_token_counts
 from vit_research_tpu_torch.parallel import embed
 from vit_research_tpu_torch.store.vector_store import Collection
 from vit_research_tpu_torch.utils.configs import ViTConfig
@@ -543,3 +544,103 @@ def test_curation_verbs_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     np.testing.assert_allclose(got["left"], want["left"], rtol=0, atol=1e-4)
     assert got["fin"] == want["fin"] and got["fin"]
     assert got["fresh"] == want["fresh"]
+
+
+# ---------------------------------------------------------- fast profile
+
+
+def _key_bias(b, t, seed):
+    """A ToMe-like key bias: log of token sizes in [1, 8]."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.log(torch.randint(1, 9, (b, t), generator=g).float())
+
+
+@pytest.mark.parametrize("t", [21, 197, 325])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_with_key_bias_matches_plain(cuda, t, dh, dtype):
+    q, k, v = _attention_inputs(3, 12, t, dh, dtype, "projection_order",
+                                cuda, t + dh + 1)
+    bias = _key_bias(3, t, t).to(cuda)
+    before = attn.multi_head_attention.launches
+    got = attn.multi_head_attention(q, k, v, key_bias=bias)
+    assert attn.multi_head_attention.launches == before + 1
+    want = attn.attention_plain(q.float(), k.float(), v.float(),
+                                key_bias=bias)
+    atol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    # the bias moves the result: the unbiased kernel is further off
+    plain = attn.multi_head_attention(q, k, v)
+    assert (plain.float() - want).abs().max() > 10 * atol
+    # a row view with a batch stride (rows of a wider tensor)
+    wide = torch.zeros(3, t + 5, device=cuda)
+    wide[:, :t] = bias
+    got = attn.multi_head_attention(q, k, v, key_bias=wide[:, :t])
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+
+
+def test_attention_key_bias_refusals(cuda):
+    q = torch.zeros(2, 3, 8, 64, device=cuda)
+    before = attn.multi_head_attention.launches
+    for bias, msg in ((torch.zeros(2, 7, device=cuda), r"\(B, T\)"),
+                      (torch.zeros(2, 8, device=cuda, dtype=torch.float64),
+                       "float32"),
+                      (torch.zeros(2, 8), "is on cpu"),
+                      (torch.zeros(8, 2, device=cuda).T, "stride 1"),
+                      ([0.0] * 16, "tensor")):
+        with pytest.raises(ValueError, match=msg):
+            attn.multi_head_attention(q, q, q, key_bias=bias)
+    assert attn.multi_head_attention.launches == before
+
+
+@pytest.mark.parametrize("rows", [1, 5, 17])
+def test_int8_gemm_pads_rows_for_int_mm(cuda, rows):
+    from vit_research_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy(rng.standard_normal((rows, 768), np.float32))
+    w = torch.from_numpy(rng.standard_normal((3072, 768), np.float32))
+    want = quant.int8_dot_general(x, w)
+    got = quant.int8_dot_general(x.to(cuda), w.to(cuda)).cpu()
+    # the same int8 values and exact s32 products on both devices
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    static = quant.StaticInt8DotGeneral([0.02])
+    want = static(x, w)
+    static.reset()
+    torch.testing.assert_close(static(x.to(cuda), w.to(cuda)).cpu(), want,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kw", [dict(tome_r=2), dict(gemm_quant="int8"),
+                                dict(tome_r=4, gemm_quant="int8")])
+def test_fast_profile_engine_on_card_matches_cpu(cuda, kw):
+    """The tiny ToMe / int8 engine on the card (kernel B with the key
+    bias, the int8 GEMMs on _int_mm) against the same weights on the CPU:
+    equal token sizes, embeddings within 1e-5 (f32 ToMe) or a per-frame
+    cosine of 0.9999 (int8: an ulp in a pre-GEMM activation can move one
+    int8 value by one step)."""
+    cfg = dataclasses.replace(TINY, **kw)
+    frames = np.random.default_rng(3).integers(0, 256, size=(9, 32, 32, 3),
+                                               dtype=np.uint8)
+    spec = PreprocessSpec(size=(32, 32))
+    host = embed.EmbeddingEngine(init_vit(cfg, seed=0, device="cpu"), spec,
+                                 device="cpu", batch_size=4,
+                                 endpoint="encoded_tokens",
+                                 l2_normalize=False)
+    card = embed.EmbeddingEngine(init_vit(cfg, seed=0, device="cpu"), spec,
+                                 device=cuda, batch_size=4)
+    before = attn.multi_head_attention.launches
+    got = card.embed_batch(frames)
+    assert attn.multi_head_attention.launches - before == 6  # 3 batches
+    want = embed.EmbeddingEngine(host.model, spec, device="cpu",
+                                 batch_size=4).embed_batch(frames)
+    if "gemm_quant" in kw:
+        assert np.sum(got * want, axis=1).min() >= 0.9999
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    if "tome_r" in kw:
+        t = merged_token_counts(17, kw["tome_r"], 2)[-1]
+        sizes = card.model.encode_patch_tokens(
+            torch.zeros(2, 16, 32, device=cuda), (4, 4))["token_sizes"]
+        assert sizes.shape == (2, t) and host.out_trailing == (t, 32)
+        assert torch.all(sizes.sum(dim=1) == 17)

@@ -815,6 +815,8 @@ def test_segment_flags_validated_before_the_engine(tiny_world, capsys):
     base = ["segment", "frames", "--out", "o", "--vid", "1"]
     cases = [
         (["--method", "knn-hmm", "--socket", "s"], "requires --follow"),
+        (["--method", "knn-hmm", "--follow", "--frame-stride", "2"],
+         "offline runs only"),
         (["--method", "streaks", "--follow", "--socket", "s"],
          "--method knn-hmm only"),
         (["--method", "knn-hmm", "--follow", "--socket", "s", "--db", "db"],
@@ -832,8 +834,7 @@ def test_segment_flags_validated_before_the_engine(tiny_world, capsys):
             cli.main(base + extra)
     assert not os.path.exists("o")  # nothing ran
     for unported in (["--method", "temporal"], ["--score-events"],
-                     ["--frame-stride", "2"], ["--method", "knn-hmm",
-                                               "--stage1-run-id", "r"]):
+                     ["--method", "knn-hmm", "--stage1-run-id", "r"]):
         with pytest.raises(SystemExit) as e:  # argparse refuses them
             cli.main(base + unported)
         assert e.value.code == 2

@@ -227,8 +227,8 @@ def test_seeded_init_is_deterministic_with_reference_initialisers():
 
 
 def test_unported_options_are_refused():
-    for kw in (dict(tome_r=2), dict(remat=True), dict(attn_layout="bthd"),
-               dict(gemm_quant="int8")):
+    # ToMe and the int8 GEMMs are ported (tests/test_torch_fast_profile.py)
+    for kw in (dict(remat=True), dict(attn_layout="bthd")):
         with pytest.raises(NotImplementedError):
             tvit.VisionTransformer(dataclasses.replace(TINY_1, **kw))
 

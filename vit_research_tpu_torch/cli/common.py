@@ -12,18 +12,22 @@ two warn.
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 import sys
 
 PROFILE_PREFIX = "torch|"
 
 
-def _engine_env() -> dict:
-    """Parse the embedding env toggles once for every consumer: tome_r
-    (int, ``VRT_TOME_R``), gemm_quant (``VRT_GEMM_QUANT``), grayscale
-    (``VRT_GRAYSCALE``). ToMe and the int8 GEMMs are not ported yet:
-    :func:`_engine` refuses them, so the calibration scales of
-    ``int8-static`` are not read."""
+def _engine_env(require_scales: bool = True) -> dict:
+    """Parse the embedding env toggles once for every consumer (the
+    engine, calibrate-int8, engine_profile): tome_r (int,
+    ``VRT_TOME_R``), gemm_quant (``VRT_GEMM_QUANT``), gemm_scales (read
+    and checked from the JSON file ``VRT_GEMM_SCALES`` when gemm_quant is
+    ``int8-static``), grayscale (``VRT_GRAYSCALE``).
+    ``require_scales=False`` skips the scales file: calibrate-int8 runs
+    before it exists (it writes it)."""
     raw_tome = os.environ.get("VRT_TOME_R", "").strip()
     try:
         tome_r = int(raw_tome) if raw_tome else 0
@@ -35,41 +39,71 @@ def _engine_env() -> dict:
         raise SystemExit(
             f"VRT_GEMM_QUANT must be 'int8', 'int8-static' or unset, "
             f"got {gemm_quant!r}")
+    gemm_scales: tuple = ()
+    if gemm_quant == "int8-static" and require_scales:
+        # static scales come from an offline calibration (calibrate-int8);
+        # the engine never calibrates on whatever batch comes first
+        scales_path = os.environ.get("VRT_GEMM_SCALES", "").strip()
+        if not scales_path:
+            raise SystemExit(
+                "VRT_GEMM_QUANT=int8-static needs VRT_GEMM_SCALES="
+                "<scales.json> (produce it with cli calibrate-int8)")
+        try:
+            with open(scales_path) as f:
+                loaded = json.load(f)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"VRT_GEMM_SCALES {scales_path!r}: {e}")
+        raw_scales = (loaded.get("scales")
+                      if isinstance(loaded, dict) else loaded)
+        try:
+            gemm_scales = tuple(float(s) for s in raw_scales)
+        except (TypeError, ValueError):
+            raise SystemExit(
+                f"VRT_GEMM_SCALES {scales_path!r} must hold a list of "
+                "floats (or an object with a 'scales' list)")
+        if not gemm_scales:
+            raise SystemExit(f"VRT_GEMM_SCALES {scales_path!r} is empty")
     grayscale = os.environ.get("VRT_GRAYSCALE", "").strip() not in ("", "0")
     return {"tome_r": tome_r, "gemm_quant": gemm_quant,
-            "grayscale": grayscale}
+            "gemm_scales": gemm_scales, "grayscale": grayscale}
 
 
 def _tiny_vit_config(env: dict):
     """The one tiny test-ViT configuration (``VRT_TINY``), the
-    reference's."""
+    reference's, shared by the engine and calibrate-int8."""
     from vit_research_tpu_torch.utils.configs import ViTConfig
 
     return ViTConfig(image_size=(32, 32), patch_size=8, hidden_size=32,
                      num_layers=1, num_heads=2, mlp_dim=64,
                      use_flash_attention=False, tome_r=env["tome_r"],
-                     gemm_quant=env["gemm_quant"])
+                     gemm_quant=env["gemm_quant"],
+                     gemm_quant_scales=env["gemm_scales"])
 
 
 def _engine(batch_size: int, device):
     """The frame embedder for the current env on ``device``: the
-    ViT-B/16 @224 engine, or the tiny test ViT under ``VRT_TINY=1``."""
+    ViT-B/16 @224 engine, or the tiny test ViT under ``VRT_TINY=1``.
+    ``VRT_TOME_R=<r>`` merges r tokens a layer (ops/tome.py),
+    ``VRT_GEMM_QUANT=int8`` runs the encoder GEMMs in dynamic int8 and
+    ``int8-static`` with the scales of ``VRT_GEMM_SCALES``
+    (ops/quant.py); they compose. Every embedding a pipeline compares
+    must come from the same settings (engine_profile fences them)."""
     from vit_research_tpu_torch.data.preprocess import PreprocessSpec
     from vit_research_tpu_torch.models.vit import init_vit
     from vit_research_tpu_torch.parallel.embed import (EmbeddingEngine,
                                                        make_hf_frame_embedder)
 
     env = _engine_env()
-    if env["tome_r"] or env["gemm_quant"]:
-        raise SystemExit("VRT_TOME_R / VRT_GEMM_QUANT are not ported to the "
-                         "torch engine yet; unset them")
     if os.environ.get("VRT_TINY"):
         model = init_vit(_tiny_vit_config(env), seed=0, device="cpu")
         return EmbeddingEngine(
             model, PreprocessSpec(size=(32, 32), grayscale=env["grayscale"]),
             device=device, batch_size=min(batch_size, 16))
     return make_hf_frame_embedder(device=device, batch_size=batch_size,
-                                  grayscale=env["grayscale"])
+                                  grayscale=env["grayscale"],
+                                  tome_r=env["tome_r"],
+                                  gemm_quant=env["gemm_quant"],
+                                  gemm_quant_scales=env["gemm_scales"])
 
 
 def engine_profile() -> str:
@@ -79,6 +113,13 @@ def engine_profile() -> str:
     when querying across profiles."""
     env = _engine_env()
     quant = env["gemm_quant"] or "none"
+    if env["gemm_quant"] == "int8-static":
+        # two calibrations are two embedding spaces: the scale values go
+        # into the profile, so the fence sees them
+        digest = hashlib.sha256(
+            ",".join(f"{s:.9e}" for s in env["gemm_scales"])
+            .encode()).hexdigest()[:8]
+        quant = f"int8-static:{digest}"
     gray = "1" if env["grayscale"] else "0"
     tiny = "tiny|" if os.environ.get("VRT_TINY") else ""
     return (f"{PROFILE_PREFIX}{tiny}tome{env['tome_r']}|quant-{quant}"

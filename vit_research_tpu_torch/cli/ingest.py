@@ -1,9 +1,8 @@
 """Data production commands: extract-frames, write-frame-db,
-write-embeddings, build-frame-store.
+write-embeddings, build-frame-store, calibrate-int8.
 
 Port of vit_research_tpu/cli/ingest.py, with the reference's arguments and
-outputs plus ``--device`` where a verb embeds. ``calibrate-int8`` comes
-with the fast profile.
+outputs plus ``--device`` where a verb embeds.
 """
 
 from __future__ import annotations
@@ -27,6 +26,76 @@ def cmd_extract_frames(args):
                            size=(args.height, args.width), every=args.every,
                            frame_range=frame_range)
     print(f"wrote {len(paths)} frames to {args.out}")
+
+
+def cmd_calibrate_int8(args):
+    """Static-int8 activation scales for ``VRT_GEMM_QUANT=int8-static``
+    (ops/quant.py): forwards over representative frames record one scale
+    per dense call site. Pass frames drawn from the footage you will
+    embed: the scales describe their activation ranges.
+
+    As the reference: a bf16 ViT-B/16 (the port's seeded init, seed 0),
+    or the tiny test ViT under ``VRT_TINY``, on an even spread of
+    ``--n-frames`` frames, with ToMe at ``--tome-r`` (default
+    ``VRT_TOME_R``) and the env's grayscale setting; the same JSON keys.
+    Unlike the reference, whose verb feeds the decoded uint8 pixels
+    straight into the model's forward, the frames go through the
+    engine's own forward (grayscale, normalisation and patch projection
+    in kernel A, then the encoder), so the scales describe the
+    activations the engine quantizes."""
+    import dataclasses
+    import json
+
+    from vit_research_tpu_torch.data import naming
+    from vit_research_tpu_torch.data.preprocess import load_frames
+    from vit_research_tpu_torch.models.vit import init_vit
+    from vit_research_tpu_torch.ops.quant import calibration_mode
+    from vit_research_tpu_torch.parallel.embed import EmbeddingEngine
+
+    frames = naming.list_frames(args.frames)
+    if not frames:
+        raise SystemExit(f"no frames found under {args.frames}")
+    step = max(len(frames) // max(args.n_frames, 1), 1)
+    picked = [os.path.join(args.frames, f) for f in frames[::step]]
+    picked = picked[: args.n_frames]
+
+    # calibrate the engine the env describes: ToMe and grayscale change
+    # the activation ranges
+    env = common._engine_env(require_scales=False)  # this verb writes them
+    tome_r = env["tome_r"] if args.tome_r is None else args.tome_r
+    if os.environ.get("VRT_TINY"):
+        from vit_research_tpu_torch.data.preprocess import PreprocessSpec
+
+        cfg = dataclasses.replace(
+            common._tiny_vit_config(env), tome_r=tome_r,
+            gemm_quant="int8-static", gemm_quant_scales=())
+        spec = PreprocessSpec(size=(32, 32), grayscale=env["grayscale"])
+    else:
+        from vit_research_tpu_torch.data.preprocess import HF_VIT_SPEC
+        from vit_research_tpu_torch.models.hf_import import HF_VIT_B16_224
+
+        cfg = dataclasses.replace(HF_VIT_B16_224, dtype="bfloat16",
+                                  tome_r=tome_r, gemm_quant="int8-static",
+                                  gemm_quant_scales=())
+        spec = (dataclasses.replace(HF_VIT_SPEC, grayscale=True)
+                if env["grayscale"] else HF_VIT_SPEC)
+    model = init_vit(cfg, seed=0, device="cpu")
+    eng = EmbeddingEngine(model, spec, device=args.device,
+                          batch_size=max(len(picked), 1))
+    imgs = load_frames(picked, spec)
+    print(f"calibrating on {len(imgs)} frames (tome_r={tome_r}, "
+          f"grayscale={env['grayscale']}, {eng.device} forward)...",
+          flush=True)
+    with calibration_mode() as scales:
+        eng.embed_batch(imgs)
+    with open(args.out, "w") as f:
+        json.dump({"scales": [float(s) for s in scales],
+                   "tome_r": tome_r, "grayscale": env["grayscale"],
+                   "n_frames": len(imgs),
+                   "frames_dir": os.path.abspath(args.frames)}, f)
+    print(f"wrote {len(scales)} site scales -> {args.out}\n"
+          f"use: VRT_GEMM_QUANT=int8-static VRT_GEMM_SCALES={args.out} "
+          "python -m vit_research_tpu_torch.cli <command>")
 
 
 def cmd_write_frame_db(args):
@@ -134,6 +203,22 @@ def register(sub):
     we.add_argument("--batch-size", type=int, default=256)
     common.device_arg(we)
     we.set_defaults(fn=cmd_write_embeddings)
+
+    ci = sub.add_parser(
+        "calibrate-int8",
+        help="record static-int8 activation scales from representative "
+             "frames (VRT_GEMM_QUANT=int8-static + VRT_GEMM_SCALES)")
+    ci.add_argument("frames", help="frames dir; an even spread of "
+                                   "--n-frames is sampled")
+    ci.add_argument("--out", required=True, help="scales JSON path")
+    ci.add_argument("--n-frames", type=int, default=8)
+    ci.add_argument("--tome-r", type=int, default=None,
+                    help="calibrate with token merging active (merged-"
+                         "token activations have their own ranges); "
+                         "defaults to VRT_TOME_R so calibration matches "
+                         "the engine the env describes")
+    common.device_arg(ci)
+    ci.set_defaults(fn=cmd_calibrate_int8)
 
     bs = sub.add_parser(
         "build-frame-store",

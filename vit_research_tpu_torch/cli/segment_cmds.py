@@ -4,18 +4,20 @@ labelling and clip-curation verbs self-label, finalize-clips, merge-clips,
 clustering and fresh-test.
 
 Port of vit_research_tpu/cli/segment_cmds.py with the reference's
-arguments plus ``--device``. Not ported yet, and so not flags of this
+arguments plus ``--device``, the fast profile's strided embedding
+(``--frame-stride``, ``--stride-refine[-radius]``, ``--event-template``,
+``--force-stride``) included. Not ported yet, and so not flags of this
 parser (argparse refuses them): ``--method temporal`` and live event
 scoring (``--score-events`` and its ``--score-*``, ``--stage*-run-id``,
-``--chunk-*`` and ``--k-*`` flags), which need the heads (ROADMAP items
-8-9); the fast profile's ``--frame-stride``, ``--stride-refine*``,
-``--event-template`` and ``--force-stride`` (item 7).
+``--chunk-*`` and ``--k-*`` flags), which need the heads (ROADMAP
+item 2).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 
 from vit_research_tpu_torch.cli import common
 
@@ -55,6 +57,7 @@ def cmd_segment(args):
 
     # Validate method arguments BEFORE the engine spins up: embedding a
     # whole frames dir only to fail on a missing flag is hostile.
+    refine_threshold = _check_stride_args(args)
     if args.socket:
         if not args.follow:
             raise SystemExit("--socket is the daemon-routed live mode: "
@@ -100,7 +103,11 @@ def cmd_segment(args):
     os.makedirs(args.out, exist_ok=True)
     frames = naming.list_frames(args.frames)
     eng = common._engine(args.batch_size, args.device)
-    embs = eng.embed_paths([os.path.join(args.frames, f) for f in frames])
+    frame_paths = [os.path.join(args.frames, f) for f in frames]
+    if args.frame_stride > 1:
+        embs = _embed_strided(args, eng, frame_paths, refine_threshold)
+    else:
+        embs = eng.embed_paths(frame_paths)
     if args.write_back:
         # write-back upserts this engine's embeddings into the corpus: a
         # cross-profile write permanently mixes embedding spaces
@@ -124,6 +131,106 @@ def cmd_segment(args):
     if args.write_back:
         client.flush()
     print(f"decoded {len(decoded)} frames -> {len(clip_dirs)} clips")
+
+
+def _check_stride_args(args):
+    """The strided-embedding flags' checks, before any engine starts;
+    returns the refine threshold (None: no refinement)."""
+    if args.frame_stride < 1:
+        raise SystemExit("--frame-stride must be >= 1")
+    if args.frame_stride > 1 and args.follow:
+        # the follow loop embeds incrementally as frames appear; a
+        # silent ignore would report full-rate cost as strided
+        raise SystemExit("--frame-stride applies to offline runs only "
+                         "(--follow embeds incrementally)")
+    if args.frame_stride > 1 and args.write_back:
+        # interpolated rows are not embeddings: upserting them as
+        # confident corpus rows would contaminate every later run
+        raise SystemExit(
+            "--frame-stride cannot combine with --write-back: N-1 of "
+            "every N rows are interpolations, not embeddings, and "
+            "write-back would persist them into the corpus")
+    refine_threshold = None
+    if args.stride_refine_radius < 0:
+        raise SystemExit("--stride-refine-radius must be >= 0")
+    if args.stride_refine_radius > 0 and args.stride_refine is None:
+        # a silent ignore would report unrefined numbers as refined
+        raise SystemExit("--stride-refine-radius only applies with "
+                         "--stride-refine")
+    if args.stride_refine is not None:
+        if args.frame_stride <= 1:
+            raise SystemExit("--stride-refine only applies with "
+                             "--frame-stride > 1")
+        if args.stride_refine == "auto":
+            from vit_research_tpu_torch.parallel.embed import \
+                REFINE_THRESHOLD_DEFAULT
+            refine_threshold = REFINE_THRESHOLD_DEFAULT
+        else:
+            try:
+                refine_threshold = float(args.stride_refine)
+            except ValueError:
+                raise SystemExit("--stride-refine takes 'auto' or a cosine-"
+                                 f"distance float, got {args.stride_refine!r}")
+            if not 0.0 <= refine_threshold <= 2.0:
+                raise SystemExit("--stride-refine threshold must be in "
+                                 "[0, 2] (cosine distance)")
+    if args.event_template and args.frame_stride > 1:
+        # stride <= the shortest event to localize: an event strictly
+        # inside one stride gap touches no keyframe, so interpolation
+        # smears it and the novelty gate cannot see it
+        if not os.path.exists(args.event_template):
+            raise SystemExit(
+                f"--event-template {args.event_template!r}: file not found")
+        from vit_research_tpu_torch.data.labels import load_event_template
+        from vit_research_tpu_torch.evaluate.event_scoring import \
+            min_event_span
+        span = min_event_span(load_event_template(args.event_template))
+        if span is not None and args.frame_stride > span:
+            msg = (f"--frame-stride {args.frame_stride} exceeds the "
+                   f"shortest labeled event in {args.event_template} "
+                   f"({span} frame{'s' if span != 1 else ''}): an event "
+                   "that fits strictly inside one stride gap touches no "
+                   "keyframe, so it is invisible to interpolation AND to "
+                   "--stride-refine; use a stride <= the shortest event")
+            if args.force_stride:
+                print(f"WARNING: {msg} (--force-stride given; "
+                      "sub-stride events WILL be missed)",
+                      file=sys.stderr, flush=True)
+            else:
+                raise SystemExit(
+                    msg + " (or pass --force-stride to run anyway)")
+    return refine_threshold
+
+
+def _embed_strided(args, eng, frame_paths, refine_threshold):
+    """The fast profile's embedding: every ``--frame-stride``-th frame
+    exactly, the rest interpolated (parallel/embed.py::
+    embed_video_strided), with the refinement's cost reported."""
+    from vit_research_tpu_torch.parallel.embed import embed_video_strided
+
+    stats: dict = {}
+    embs = embed_video_strided(eng, frame_paths, stride=args.frame_stride,
+                               refine_threshold=refine_threshold,
+                               refine_radius=args.stride_refine_radius,
+                               stats=stats)
+    if refine_threshold is not None:
+        print(f"stride-refine: {stats.get('refined_gaps', 0)}/"
+              f"{stats.get('gaps', 0)} gaps hot "
+              f"({stats.get('refined_frames', 0)} frames "
+              f"re-embedded exactly; novelty p50 "
+              f"{stats.get('novelty_p50', 0.0):.4f} max "
+              f"{stats.get('novelty_max', 0.0):.4f})")
+        n_exact = stats.get("keys", 0) + stats.get("refined_frames", 0)
+        if n_exact > 0.6 * max(len(frame_paths), 1):
+            # past ~60% exact frames the two passes cost about as much as
+            # embedding every frame once
+            print(f"NOTE: refinement embedded {n_exact}/"
+                  f"{len(frame_paths)} frames exactly — at this "
+                  "hot-gap density the two-pass refined stride costs "
+                  "about as much as (or more than) full-rate "
+                  "embedding; drop --frame-stride for this content",
+                  file=sys.stderr, flush=True)
+    return embs
 
 
 class _LocalFollowBackend:
@@ -845,6 +952,29 @@ def register(sub):
     sg.add_argument("--batch-size", type=int, default=256)
     sg.add_argument("--min-len", type=int, default=100)
     sg.add_argument("--pad", type=int, default=100)
+    sg.add_argument("--frame-stride", type=int, default=1,
+                    help="fast profile: embed every Nth frame and "
+                         "interpolate between; offline methods only")
+    sg.add_argument("--stride-refine", default=None, metavar="THRESH",
+                    help="with --frame-stride > 1: re-embed exactly the "
+                         "frames inside any stride gap whose bounding "
+                         "keyframe embeddings differ by more than THRESH "
+                         "cosine distance ('auto' = 0.05): near-free on "
+                         "static footage, approaching full rate when "
+                         "every frame changes. The gate only sees "
+                         "keyframes: keep the stride <= the shortest "
+                         "event you need localized")
+    sg.add_argument("--stride-refine-radius", type=int, default=0,
+                    help="also refine this many neighbouring gaps on "
+                         "each side of every hot gap (--stride-refine)")
+    sg.add_argument("--event-template", dest="event_template", default=None,
+                    help="event-interval JSON (data/labels "
+                         "save_event_template format): with "
+                         "--frame-stride > 1, the run refuses a stride "
+                         "longer than the template's shortest event")
+    sg.add_argument("--force-stride", action="store_true",
+                    help="downgrade the --event-template sub-stride "
+                         "event check from an error to a warning")
     sg.add_argument("--transitions", default=None,
                     help="JSON with a 3x3 HMM transition matrix (bare "
                     "list or tune-segment output); default is the "

@@ -11,6 +11,15 @@
 // through its own strides (the wrapper allocates it (B, T, H, dh)). Any T;
 // dh in {16, 32, 64}.
 //
+// Optional key bias (ToMe's proportional attention, models/vit.py's
+// ToMeEncoderBlock): a (B, T) f32 row per batch element, with its batch
+// stride, added to every query's scores, softmax(q k^T * scale + bias) v
+// (the JAX package adds log(sizes) to the scores on its XLA path). Each
+// key tile's 64 bias values are staged in shared memory in log2 units
+// beside the K/V tiles, and the score loop adds them with the scale, so
+// the bias costs one FMA a score. The bias must be finite. The kernels
+// are templated on it: without a bias they are the unbiased kernels.
+//
 // What bounds it on the H100 at ViT-B/16 (T = 197, dh = 64): in bf16 the
 // bytes (q, k, v read once, o written once: 0.09 ms at B = 256) against
 // 0.03 ms of tensor-core operations; in f32 the operations (4*T*T*dh per
@@ -74,6 +83,8 @@ struct Params {
   const T* v;
   T* o;
   Strides sq, sk, sv, so;
+  const float* bias;  // (batch, seq) key bias or null
+  long long sbias;    // its batch stride (elements)
   int heads, seq, n_qblocks;
   float scale_log2;  // scale * log2(e)
 };
@@ -129,7 +140,8 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
 template <typename T>
 __device__ __forceinline__ void head_ptrs(const Params<T>& p, int& q0,
                                           const T*& qg, const T*& kg,
-                                          const T*& vg, T*& og) {
+                                          const T*& vg, T*& og,
+                                          const float*& bg) {
   const long long bh = blockIdx.x / p.n_qblocks;
   q0 = (int)(blockIdx.x - bh * p.n_qblocks) * BQ;
   const long long b = bh / p.heads, h = bh - (bh / p.heads) * p.heads;
@@ -137,6 +149,19 @@ __device__ __forceinline__ void head_ptrs(const Params<T>& p, int& q0,
   kg = p.k + b * p.sk.b + h * p.sk.h;
   vg = p.v + b * p.sv.b + h * p.sv.h;
   og = p.o + b * p.so.b + h * p.so.h;
+  bg = p.bias ? p.bias + b * p.sbias : nullptr;  // read by BIAS kernels
+}
+
+// The key bias of keys row0 .. row0 + 63 in log2 units into dst (0 past
+// seq: those scores become -inf). Plain stores by the first 64 threads;
+// the __syncthreads that publishes the tile's cp.async copies publishes
+// them too.
+__device__ __forceinline__ void load_bias(float* dst, const float* bg,
+                                          int row0, int seq, int tid) {
+  if (tid < BK) {
+    const int j = row0 + tid;
+    dst[tid] = j < seq ? bg[j] * LOG2E : 0.f;
+  }
 }
 
 // ---------------------------------------------------------------- bf16
@@ -175,9 +200,11 @@ struct Bf16Layout {
   static constexpr int K = BQ * LD;          // Q tile, then 2 K tiles
   static constexpr int V = K + 2 * BK * LD;  // 2 V tiles
   static constexpr int BYTES = (V + 2 * BK * LD) * 2;
+  // 2 key-bias tiles (f32) after the V tiles, for the BIAS kernel
+  static constexpr int BIAS_BYTES = BYTES + 2 * BK * 4;
 };
 
-template <int DH>
+template <int DH, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
 attn_bf16(const Params<__nv_bfloat16> p) {
   using bf16 = __nv_bfloat16;
@@ -188,18 +215,22 @@ attn_bf16(const Params<__nv_bfloat16> p) {
   bf16* Qs = reinterpret_cast<bf16*>(smem_f4);
   auto Ks = [&](int buf) { return Qs + L::K + buf * BK * LD; };
   auto Vs = [&](int buf) { return Qs + L::V + buf * BK * LD; };
+  float* Bs = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem_f4) + L::BYTES);  // [2][BK] if BIAS
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   int q0;
   const bf16 *qg, *kg, *vg;
   bf16* og;
-  head_ptrs(p, q0, qg, kg, vg, og);
+  const float* bg;
+  head_ptrs(p, q0, qg, kg, vg, og, bg);
   const int seq = p.seq;
 
   load_rows<bf16, DH>(Qs, LD, qg, p.sq.t, q0, seq, tid);
   load_rows<bf16, DH>(Ks(0), LD, kg, p.sk.t, 0, seq, tid);
   load_rows<bf16, DH>(Vs(0), LD, vg, p.sv.t, 0, seq, tid);
   cp_async_commit();
+  if constexpr (BIAS) load_bias(Bs, bg, 0, seq, tid);
 
   const bool active = q0 + warp * 16 < seq;
   uint32_t qf[KSTEPS][4];
@@ -221,6 +252,8 @@ attn_bf16(const Params<__nv_bfloat16> p) {
       load_rows<bf16, DH>(Vs(buf ^ 1), LD, vg, p.sv.t, (tile + 1) * BK, seq,
                           tid);
       cp_async_commit();
+      if constexpr (BIAS)
+        load_bias(Bs + (buf ^ 1) * BK, bg, (tile + 1) * BK, seq, tid);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -256,20 +289,29 @@ attn_bf16(const Params<__nv_bfloat16> p) {
           }
         }
       }
-      // Scores in log2 units (scale * log2 e folded in); keys >= T: -inf.
+      // Scores in log2 units (scale * log2 e folded in), plus the key
+      // bias (already in log2 units); keys >= T: -inf.
+      const float* bt = Bs + buf * BK;
+      auto scaled = [&](float x, int col) {
+        if constexpr (BIAS)
+          return fmaf(x, sl, bt[col]);
+        else
+          return x * sl;
+      };
       if (j0 + BK <= seq) {
 #pragma unroll
         for (int n = 0; n < 8; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] *= sl;
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = scaled(s[n][e], n * 8 + (lane & 3) * 2 + (e & 1));
       } else {
 #pragma unroll
         for (int n = 0; n < 8; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[n][e] = j0 + n * 8 + (lane & 3) * 2 + (e & 1) < seq
-                          ? s[n][e] * sl
-                          : -CUDART_INF_F;
+          for (int e = 0; e < 4; ++e) {
+            const int col = n * 8 + (lane & 3) * 2 + (e & 1);
+            s[n][e] = j0 + col < seq ? scaled(s[n][e], col) : -CUDART_INF_F;
+          }
       }
 
       // Online softmax in f32. Every tile holds a key < T, so the new max
@@ -374,6 +416,8 @@ struct F32Layout {
   static constexpr int P = V + 2 * BK * LDV;
   static constexpr int FLOATS = P + BQ * LDP;
   static constexpr int BYTES = FLOATS * 4;
+  // 2 key-bias tiles after P, for the BIAS kernel
+  static constexpr int BIAS_BYTES = BYTES + 2 * BK * 4;
 };
 
 // O columns of thread tx: dh/8 of them, as float4 groups 32 apart (dh >=
@@ -387,12 +431,13 @@ __device__ __forceinline__ int o_col(int tx, int n) {
 }
 
 // One key tile: S for the live key groups, online softmax, P to shared
-// memory, O += P V. FULL: all 64 keys are < T.
-template <int DH, bool FULL>
+// memory, O += P V. FULL: all 64 keys are < T. BIAS: bt holds the tile's
+// key bias in log2 units.
+template <int DH, bool FULL, bool BIAS>
 __device__ __forceinline__ void f32_tile(const float* Qs, const float* kt,
-                                         const float* vt, float* Ps,
-                                         int n_valid, int ty, int tx,
-                                         float sl, float (&m)[4],
+                                         const float* vt, const float* bt,
+                                         float* Ps, int n_valid, int ty,
+                                         int tx, float sl, float (&m)[4],
                                          float (&l)[4],
                                          float (&o)[4][DH / 8]) {
   using L = F32Layout<DH>;
@@ -428,13 +473,19 @@ __device__ __forceinline__ void f32_tile(const float* Qs, const float* kt,
     }
   }
 
-  // Scores in log2 units (scale * log2 e folded in); keys >= T: -inf.
+  // Scores in log2 units (scale * log2 e folded in), plus the key bias
+  // (already in log2 units); keys >= T: -inf.
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float mx = -CUDART_INF_F;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      s[i][j] = (FULL || tx + 8 * j < n_valid) ? s[i][j] * sl : -CUDART_INF_F;
+      float x;
+      if constexpr (BIAS)
+        x = fmaf(s[i][j], sl, bt[tx + 8 * j]);
+      else
+        x = s[i][j] * sl;
+      s[i][j] = (FULL || tx + 8 * j < n_valid) ? x : -CUDART_INF_F;
       mx = fmaxf(mx, s[i][j]);
     }
 #pragma unroll
@@ -498,7 +549,7 @@ __device__ __forceinline__ void f32_tile(const float* Qs, const float* kt,
   __syncwarp();  // P is overwritten by the next tile
 }
 
-template <int DH>
+template <int DH, bool BIAS>
 __global__ void __launch_bounds__(THREADS) attn_f32(const Params<float> p) {
   using L = F32Layout<DH>;
   constexpr int OC = DH / 8;
@@ -506,18 +557,21 @@ __global__ void __launch_bounds__(THREADS) attn_f32(const Params<float> p) {
   float* smem = reinterpret_cast<float*>(smem_f4);
   float* Qs = smem + L::Q;
   float* Ps = smem + L::P;
+  float* Bs = smem + L::FLOATS;  // [2][BK] if BIAS
 
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   int q0;
   const float *qg, *kg, *vg;
   float* og;
-  head_ptrs(p, q0, qg, kg, vg, og);
+  const float* bg;
+  head_ptrs(p, q0, qg, kg, vg, og, bg);
   const int seq = p.seq;
 
   load_rows<float, DH>(Qs, L::LDQ, qg, p.sq.t, q0, seq, tid);
   load_rows<float, DH>(smem + L::K, L::LDK, kg, p.sk.t, 0, seq, tid);
   load_rows<float, DH>(smem + L::V, L::LDV, vg, p.sv.t, 0, seq, tid);
   cp_async_commit();
+  if constexpr (BIAS) load_bias(Bs, bg, 0, seq, tid);
 
   float m[4], l[4], o[4][OC];
 #pragma unroll
@@ -538,6 +592,8 @@ __global__ void __launch_bounds__(THREADS) attn_f32(const Params<float> p) {
       load_rows<float, DH>(smem + L::V + (buf ^ 1) * BK * L::LDV, L::LDV, vg,
                            p.sv.t, (tile + 1) * BK, seq, tid);
       cp_async_commit();
+      if constexpr (BIAS)
+        load_bias(Bs + (buf ^ 1) * BK, bg, (tile + 1) * BK, seq, tid);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -545,11 +601,14 @@ __global__ void __launch_bounds__(THREADS) attn_f32(const Params<float> p) {
     __syncthreads();
     const float* kt = smem + L::K + buf * BK * L::LDK;
     const float* vt = smem + L::V + buf * BK * L::LDV;
+    const float* bt = Bs + buf * BK;
     const int n_valid = min(BK, seq - tile * BK);
     if (n_valid == BK)
-      f32_tile<DH, true>(Qs, kt, vt, Ps, n_valid, ty, tx, sl, m, l, o);
+      f32_tile<DH, true, BIAS>(Qs, kt, vt, bt, Ps, n_valid, ty, tx, sl, m, l,
+                               o);
     else
-      f32_tile<DH, false>(Qs, kt, vt, Ps, n_valid, ty, tx, sl, m, l, o);
+      f32_tile<DH, false, BIAS>(Qs, kt, vt, bt, Ps, n_valid, ty, tx, sl, m,
+                                l, o);
     __syncthreads();  // this buffer is refilled next iteration
   }
 
@@ -577,7 +636,8 @@ __global__ void __launch_bounds__(THREADS) attn_f32(const Params<float> p) {
 
 template <typename T>
 Params<T> make_params(const void* q, const void* k, const void* v, void* o,
-                      int heads, int seq, const long long* st, float scale) {
+                      int heads, int seq, const long long* st, float scale,
+                      const float* bias, long long bias_stride) {
   Params<T> p;
   p.q = static_cast<const T*>(q);
   p.k = static_cast<const T*>(k);
@@ -585,6 +645,8 @@ Params<T> make_params(const void* q, const void* k, const void* v, void* o,
   p.o = static_cast<T*>(o);
   Strides* dst[4] = {&p.sq, &p.sk, &p.sv, &p.so};
   for (int i = 0; i < 4; ++i) *dst[i] = {st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  p.bias = bias;
+  p.sbias = bias_stride;
   p.heads = heads;
   p.seq = seq;
   p.n_qblocks = (seq + BQ - 1) / BQ;
@@ -609,12 +671,17 @@ int launch(Kernel kernel, const Params<T>& p, int batch, int bytes,
 
 template <int DH>
 int launch_f32(const Params<float>& p, int batch, cudaStream_t s) {
-  return launch(attn_f32<DH>, p, batch, F32Layout<DH>::BYTES, s);
+  if (p.bias)
+    return launch(attn_f32<DH, true>, p, batch, F32Layout<DH>::BIAS_BYTES, s);
+  return launch(attn_f32<DH, false>, p, batch, F32Layout<DH>::BYTES, s);
 }
 
 template <int DH>
 int launch_bf16(const Params<__nv_bfloat16>& p, int batch, cudaStream_t s) {
-  return launch(attn_bf16<DH>, p, batch, Bf16Layout<DH>::BYTES, s);
+  if (p.bias)
+    return launch(attn_bf16<DH, true>, p, batch, Bf16Layout<DH>::BIAS_BYTES,
+                  s);
+  return launch(attn_bf16<DH, false>, p, batch, Bf16Layout<DH>::BYTES, s);
 }
 
 }  // namespace
@@ -623,23 +690,28 @@ int launch_bf16(const Params<__nv_bfloat16>& p, int batch, cudaStream_t s) {
 // element strides strides[0..2] (q), [3..5] (k), [6..8] (v) for batch,
 // head and token; o is written through strides[9..11]. The last dim has
 // stride 1; base pointers and strides are multiples of 16 bytes. dh in
-// {16, 32, 64}. Returns cudaGetLastError() after the launch.
+// {16, 32, 64}. bias: null, or a (batch, seq) f32 key bias whose rows are
+// bias_stride elements apart (stride 1 along seq). Returns
+// cudaGetLastError() after the launch.
 extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
                                  void* o, int batch, int heads, int seq,
                                  int dh, const long long* strides,
-                                 float scale, int is_bf16, void* stream) {
+                                 float scale, int is_bf16, const float* bias,
+                                 long long bias_stride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (seq <= 0 || batch <= 0 || heads <= 0) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     const auto p = make_params<__nv_bfloat16>(q, k, v, o, heads, seq,
-                                              strides, scale);
+                                              strides, scale, bias,
+                                              bias_stride);
     switch (dh) {
       case 16: return launch_bf16<16>(p, batch, s);
       case 32: return launch_bf16<32>(p, batch, s);
       case 64: return launch_bf16<64>(p, batch, s);
     }
   } else {
-    const auto p = make_params<float>(q, k, v, o, heads, seq, strides, scale);
+    const auto p = make_params<float>(q, k, v, o, heads, seq, strides, scale,
+                                      bias, bias_stride);
     switch (dh) {
       case 16: return launch_f32<16>(p, batch, s);
       case 32: return launch_f32<32>(p, batch, s);

@@ -17,9 +17,21 @@ Attention runs through ops/attention.py (the hand-written CUDA kernel on
 a CUDA device) by default; the plain path serves attention-score outputs,
 attention dropout in training and a non-f32 softmax, the same split as
 the reference (vit.py:146-149). The reference's ``use_flash_attention``
-flag is therefore not read. ToMe (``tome_r``), int8 GEMMs
-(``gemm_quant``), ``remat`` and ``attn_layout='bthd'`` are not ported yet
-and are refused.
+flag is therefore not read.
+
+The fast profile's two backbone options, off the parity path:
+
+- ``tome_r``: ``ToMeEncoderBlock``s merge ``r`` tokens a layer
+  (ops/tome.py); their attention takes ``log(sizes)`` as the kernel's key
+  bias (the reference runs that attention on XLA). The ``gap`` pooler
+  weights tokens by size, and a ``token_sizes`` endpoint is returned.
+- ``gemm_quant``: the q/k/v/out and MLP products run as int8 GEMMs
+  (ops/quant.py), dynamic (``'int8'``) or with calibrated static
+  activation scales (``'int8-static'`` + ``gemm_quant_scales``). The
+  layers keep their ``nn.Linear`` parameters, so the ``state_dict`` is
+  the plain model's and the same converted weights load.
+
+``remat`` and ``attn_layout='bthd'`` are not ported and are refused.
 """
 
 from __future__ import annotations
@@ -32,7 +44,9 @@ from torch import nn
 
 from vit_research_tpu_torch.utils.configs import ViTConfig
 from vit_research_tpu_torch.ops import attention as attn_ops
+from vit_research_tpu_torch.ops import quant
 from vit_research_tpu_torch.ops.patch_embed import patchify
+from vit_research_tpu_torch.ops.tome import bipartite_merge
 
 # flax's lecun_normal / variance_scaling draws from a standard normal
 # truncated to [-2, 2], rescaled by this constant so the variance is 1/fan_in.
@@ -51,6 +65,15 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, generator) -> None:
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2 * std, b=2 * std,
                           generator=generator)
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor, qdg) -> torch.Tensor:
+    """``lin(x)``, or its int8 product through ``qdg`` (ops/quant.py) plus
+    the bias: the reference injects its int8 ``dot_general`` into the same
+    Dense layers, which add the bias after the product."""
+    if qdg is None:
+        return lin(x)
+    return qdg(x, lin.weight) + lin.bias
 
 
 def interpolate_pos_embedding(pos: torch.Tensor, grid_from: tuple,
@@ -94,17 +117,19 @@ class PatchEmbed(nn.Module):
 
 class MlpBlock(nn.Module):
     def __init__(self, dim: int, mlp_dim: int, dropout_rate: float = 0.0,
-                 gelu_approximate: bool = False):
+                 gelu_approximate: bool = False, dot_general=None):
         super().__init__()
         self.fc1 = nn.Linear(dim, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, dim)
         self.dropout = nn.Dropout(dropout_rate)
         self.gelu_approximate = "tanh" if gelu_approximate else "none"
+        self.dot_general = dot_general  # None, or an ops/quant.py product
 
     def forward(self, x):
-        x = F.gelu(self.fc1(x), approximate=self.gelu_approximate)
+        x = F.gelu(_dense(self.fc1, x, self.dot_general),
+                   approximate=self.gelu_approximate)
         x = self.dropout(x)
-        return self.dropout(self.fc2(x))
+        return self.dropout(_dense(self.fc2, x, self.dot_general))
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -112,7 +137,8 @@ class MultiHeadSelfAttention(nn.Module):
     (H*dh, D) ``nn.Linear``s, ``out`` maps H*dh back to D."""
 
     def __init__(self, dim: int, num_heads: int, dropout_rate: float = 0.0,
-                 softmax_dtype: torch.dtype = torch.float32):
+                 softmax_dtype: torch.dtype = torch.float32,
+                 dot_general=None):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"width {dim} is not divisible by {num_heads} "
@@ -124,8 +150,14 @@ class MultiHeadSelfAttention(nn.Module):
         self.out = nn.Linear(dim, dim)
         self.dropout = nn.Dropout(dropout_rate)
         self.softmax_dtype = softmax_dtype
+        self.dot_general = dot_general  # None, or an ops/quant.py product
 
-    def forward(self, x, output_scores: bool = False):
+    def forward(self, x, output_scores: bool = False, log_size=None,
+                output_metric: bool = False):
+        """``log_size``: optional (B, T) f32 key bias (ToMe's proportional
+        attention: a merged token keeps its constituents' attention
+        mass). ``output_metric`` also returns the head-averaged keys
+        (B, T, dh), ToMe's matching features, as a third value."""
         b, t, d = x.shape
         h = self.num_heads
         dh = d // h
@@ -134,7 +166,8 @@ class MultiHeadSelfAttention(nn.Module):
         # (B, T, H, dh) order: the kernel reads it through its strides and
         # writes its output in that order, so no layout copy is made.
         def heads(lin):
-            return lin(x).reshape(b, t, h, dh).transpose(1, 2)
+            return _dense(lin, x, self.dot_general).reshape(
+                b, t, h, dh).transpose(1, 2)
 
         q, k, v = heads(self.query), heads(self.key), heads(self.value)
         scores = None
@@ -143,15 +176,20 @@ class MultiHeadSelfAttention(nn.Module):
                        or (self.training and self.dropout.p > 0.0))
         if needs_plain:
             s = torch.einsum("bhqd,bhkd->bhqk", q, k) * (dh ** -0.5)
+            if log_size is not None:
+                s = s + log_size[:, None, None, :].to(s.dtype)
             probs = torch.softmax(s.to(self.softmax_dtype), dim=-1)
             if output_scores:
                 scores = probs.to(torch.float32)
             probs = self.dropout(probs)
             o = torch.einsum("bhqk,bhkd->bhqd", probs.to(q.dtype), v)
         else:
-            o = attn_ops.multi_head_attention(q, k, v)
+            o = attn_ops.multi_head_attention(q, k, v, key_bias=log_size)
         o = o.transpose(1, 2).reshape(b, t, d)
-        return self.out(o), scores
+        out = _dense(self.out, o, self.dot_general)
+        if output_metric:
+            return out, scores, k.mean(dim=1)
+        return out, scores
 
 
 class EncoderBlock(nn.Module):
@@ -162,20 +200,40 @@ class EncoderBlock(nn.Module):
                  attention_dropout_rate: float = 0.0,
                  layer_norm_eps: float = 1e-6,
                  gelu_approximate: bool = False,
-                 softmax_dtype: torch.dtype = torch.float32):
+                 softmax_dtype: torch.dtype = torch.float32,
+                 dot_general=None):
         super().__init__()
         self.ln1 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.attn = MultiHeadSelfAttention(dim, num_heads,
                                            attention_dropout_rate,
-                                           softmax_dtype)
+                                           softmax_dtype, dot_general)
         self.ln2 = nn.LayerNorm(dim, eps=layer_norm_eps)
-        self.mlp = MlpBlock(dim, mlp_dim, dropout_rate, gelu_approximate)
+        self.mlp = MlpBlock(dim, mlp_dim, dropout_rate, gelu_approximate,
+                            dot_general)
         self.dropout = nn.Dropout(dropout_rate)
 
     def forward(self, x, output_scores: bool = False):
         y, scores = self.attn(self.ln1(x), output_scores)
         x = x + self.dropout(y)
         return x + self.mlp(self.ln2(x)), scores
+
+
+class ToMeEncoderBlock(EncoderBlock):
+    """EncoderBlock that merges ``r`` tokens after its attention (ToMe,
+    ops/tome.py). Same submodules as EncoderBlock, so the same weights
+    load into either; only the forward differs."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_dim: int, r: int,
+                 **kwargs):
+        super().__init__(dim, num_heads, mlp_dim, **kwargs)
+        self.r = r
+
+    def forward(self, x, sizes):
+        y, _, metric = self.attn(self.ln1(x), log_size=torch.log(sizes),
+                                 output_metric=True)
+        x = x + self.dropout(y)
+        x, sizes = bipartite_merge(x, metric, sizes, self.r)
+        return x + self.mlp(self.ln2(x)), sizes
 
 
 class VisionTransformer(nn.Module):
@@ -188,9 +246,12 @@ class VisionTransformer(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         c = config
-        for flag, bad in (("tome_r", bool(c.tome_r)),
-                          ("gemm_quant", c.gemm_quant is not None),
-                          ("remat", c.remat),
+        if c.tome_r and (c.remat or c.output_attention_scores):
+            raise ValueError(
+                "tome_r is incompatible with remat (an inference-speed "
+                "knob) and with output_attention_scores (per-layer "
+                "score shapes differ once tokens merge)")
+        for flag, bad in (("remat", c.remat),
                           ("attn_layout", c.attn_layout != "bhtd")):
             if bad:
                 raise NotImplementedError(
@@ -201,17 +262,22 @@ class VisionTransformer(nn.Module):
         self.config = c
         self.compute_dtype = _dtype(c.dtype)
         sm_dtype = _dtype(c.softmax_dtype)
+        #: the int8 product of the dense layers (None: the float ones)
+        self.dot_general = _quant_dot_general(c)
         d = c.hidden_size
         self.patch_embed = PatchEmbed(c.patch_size, 3, d)
         self.cls = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embedding = nn.Parameter(torch.empty(1, c.num_patches + 1, d))
+        block_kw = dict(dropout_rate=c.dropout_rate,
+                        attention_dropout_rate=c.attention_dropout_rate,
+                        layer_norm_eps=c.layer_norm_eps,
+                        gelu_approximate=c.gelu_approximate,
+                        softmax_dtype=sm_dtype,
+                        dot_general=self.dot_general)
         self.blocks = nn.ModuleList(
-            EncoderBlock(d, c.num_heads, c.mlp_dim,
-                         dropout_rate=c.dropout_rate,
-                         attention_dropout_rate=c.attention_dropout_rate,
-                         layer_norm_eps=c.layer_norm_eps,
-                         gelu_approximate=c.gelu_approximate,
-                         softmax_dtype=sm_dtype)
+            ToMeEncoderBlock(d, c.num_heads, c.mlp_dim, c.tome_r, **block_kw)
+            if c.tome_r else EncoderBlock(d, c.num_heads, c.mlp_dim,
+                                          **block_kw)
             for _ in range(c.num_layers))
         self.encoder_norm = nn.LayerNorm(d, eps=c.layer_norm_eps)
         self.pre_logits = (nn.Linear(d, c.representation_size)
@@ -254,6 +320,8 @@ class VisionTransformer(nn.Module):
         c = self.config
         dtype = self.compute_dtype
         b = x.shape[0]
+        if isinstance(self.dot_general, quant.StaticInt8DotGeneral):
+            self.dot_general.reset()  # one scale per site, per forward
         x = x.to(dtype)
         x = torch.cat([self.cls.to(dtype).expand(b, -1, -1), x], dim=1)
         pos = interpolate_pos_embedding(self.pos_embedding, c.grid,
@@ -262,17 +330,30 @@ class VisionTransformer(nn.Module):
 
         endpoints = {"tokens_before_encoder": x}
         all_scores = []
-        for block in self.blocks:
-            x, scores = block(x, c.output_attention_scores)
-            if scores is not None:
-                all_scores.append(scores)
+        sizes = None
+        if c.tome_r:
+            sizes = torch.ones(x.shape[:2], dtype=torch.float32,
+                               device=x.device)
+            for block in self.blocks:
+                x, sizes = block(x, sizes)
+        else:
+            for block in self.blocks:
+                x, scores = block(x, c.output_attention_scores)
+                if scores is not None:
+                    all_scores.append(scores)
         x = self.encoder_norm(x)
         endpoints["encoded_tokens"] = x
+        if sizes is not None:
+            endpoints["token_sizes"] = sizes
 
         if c.pooler == "token":
             pooled = x[:, 0]
         elif c.pooler == "gap":
-            pooled = x[:, 1:].mean(dim=1)
+            if sizes is None:
+                pooled = x[:, 1:].mean(dim=1)
+            else:  # a merged token stands for several: weight by size
+                w = sizes[:, 1:, None].to(x.dtype)
+                pooled = (x[:, 1:] * w).sum(dim=1) / w.sum(dim=1)
         else:
             pooled = x
         endpoints["pooled"] = pooled
@@ -283,6 +364,29 @@ class VisionTransformer(nn.Module):
         if all_scores:
             endpoints["attention_scores"] = torch.stack(all_scores, dim=1)
         return endpoints
+
+
+def _quant_dot_general(c: ViTConfig):
+    """The int8 product for ``c.gemm_quant`` (None for float GEMMs). A
+    static product with no scales is built too: it records under
+    ops/quant.py::calibration_mode and raises outside it."""
+    if c.gemm_quant not in (None, "int8", "int8-static"):
+        raise ValueError(f"unknown gemm_quant {c.gemm_quant!r}")
+    if c.gemm_quant == "int8":
+        return quant.int8_dot_general
+    if c.gemm_quant is None:
+        return None
+    expected = 6 * c.num_layers  # q, k, v, out, fc1, fc2 per block
+    if c.gemm_quant_scales and len(c.gemm_quant_scales) != expected:
+        # too few would run out mid-forward; too many would silently
+        # apply another architecture's calibration
+        raise ValueError(
+            f"gemm_quant_scales has {len(c.gemm_quant_scales)} "
+            f"entries but this {c.num_layers}-layer model has "
+            f"{expected} dense dot sites — the calibration came "
+            "from a different architecture; re-calibrate with "
+            "the same flags")
+    return quant.StaticInt8DotGeneral(c.gemm_quant_scales)
 
 
 def init_vit(config: ViTConfig, *, seed: int = 0,

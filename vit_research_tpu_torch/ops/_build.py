@@ -45,10 +45,12 @@ _SIGNATURES = {
     # img, w, avec, bvec, bias, out, B, H, W, C, P, D, out_bf16, stream
     "vrt_patch_embed_f32": ([_P] * 6 + [_I] * 7 + [_P], _I),
     # q, k, v, o, batch, heads, seq, dh, 12 strides (q, k, v, o x batch,
-    # head, token), scale, is_bf16, stream
+    # head, token), scale, is_bf16, key bias (or null), its batch stride,
+    # stream
     "vrt_attention_fwd": ([_P] * 4 + [_I] * 4
                           + [ctypes.POINTER(ctypes.c_longlong),
-                             ctypes.c_float, _I, _P], _I),
+                             ctypes.c_float, _I, _P, ctypes.c_longlong, _P],
+                          _I),
     # x, gamma, beta, w, bias, out, stats, M, K, N, ldw, eps, act, x_bf16,
     # w_bf16, out_bf16, stream
     "vrt_ln_matmul": ([_P] * 7 + [ctypes.c_longlong, _I, _I, _I,

@@ -11,6 +11,11 @@ through their strides, so the backbone hands it the projections'
 writes the output in that order too. On a CPU tensor it runs
 :func:`attention_plain`, the explicit einsum/softmax of the reference's
 ``xla_attention``.
+
+``key_bias`` is an optional (B, T) f32 additive bias on the keys,
+softmax(q k^T * scale + bias) v: ToMe's proportional attention, where
+the reference adds ``log(sizes)`` to the scores on its einsum path
+(models/vit.py ToMe blocks). The kernel adds it inside its score loop.
 """
 
 from __future__ import annotations
@@ -25,13 +30,17 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _ALIGN = 16  # bytes: the kernel moves q, k, v and o in 16-byte copies
 
 
-def attention_plain(q, k, v, *, scale=None) -> torch.Tensor:
+def attention_plain(q, k, v, *, scale=None, key_bias=None) -> torch.Tensor:
     """Reference implementation: (B, H, T, d) -> (B, H, T, d). Scores
     and the product with v stay in the input dtype; the softmax runs in
-    f32 (as ``xla_attention``)."""
+    f32 (as ``xla_attention``). ``key_bias`` (B, T) is added to the
+    scores in their dtype, as the reference's ToMe path adds
+    ``log_size[:, None, None, :]``."""
     d = q.shape[-1]
     scale = (d ** -0.5) if scale is None else scale
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if key_bias is not None:
+        scores = scores + key_bias[:, None, None, :].to(scores.dtype)
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
@@ -58,7 +67,28 @@ def _kernel_strides(x: torch.Tensor, name: str = "x") -> tuple:
     return strides
 
 
-def _launch(q, k, v, scale):
+def _check_key_bias(key_bias, q) -> None:
+    """Raise ValueError unless ``key_bias`` is a (B, T) f32 tensor on q's
+    device with stride 1 along T (the kernel reads its rows through the
+    batch stride)."""
+    b, _, t, _ = q.shape
+    if not isinstance(key_bias, torch.Tensor):
+        raise ValueError(f"key_bias must be a tensor, got "
+                         f"{type(key_bias).__name__}")
+    if tuple(key_bias.shape) != (b, t):
+        raise ValueError(f"key_bias must be (B, T) = {(b, t)}, got "
+                         f"{tuple(key_bias.shape)}")
+    if key_bias.dtype != torch.float32:
+        raise ValueError(f"key_bias must be float32, got {key_bias.dtype}")
+    if key_bias.device != q.device:
+        raise ValueError(f"key_bias is on {key_bias.device}, q on "
+                         f"{q.device}")
+    if t > 1 and key_bias.stride(1) != 1:
+        raise ValueError(f"key_bias needs stride 1 along T, got strides "
+                         f"{key_bias.stride()}")
+
+
+def _launch(q, k, v, scale, key_bias):
     from vit_research_tpu_torch.ops import _build
 
     b, h, t, d = q.shape
@@ -81,7 +111,9 @@ def _launch(q, k, v, scale):
         code = lib.vrt_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, t,
             d, (ctypes.c_longlong * 12)(*strides), float(scale),
-            int(q.dtype == torch.bfloat16), stream)
+            int(q.dtype == torch.bfloat16),
+            None if key_bias is None else key_bias.data_ptr(),
+            0 if key_bias is None or b == 1 else key_bias.stride(0), stream)
     _build.check(code, "attention kernel")
     # a plain increment: exact because device work is serialized (the
     # serve daemon runs every forward under its one device lock)
@@ -90,9 +122,11 @@ def _launch(q, k, v, scale):
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, scale=None) -> torch.Tensor:
-    """softmax(q k^T * scale) v for (B, H, T, head_dim) f32 or bf16 inputs;
-    ``scale`` defaults to head_dim ** -0.5. The output has the input dtype.
+                         *, scale=None, key_bias=None) -> torch.Tensor:
+    """softmax(q k^T * scale + key_bias) v for (B, H, T, head_dim) f32 or
+    bf16 inputs; ``scale`` defaults to head_dim ** -0.5, ``key_bias`` is
+    None or a finite (B, T) f32 tensor on q's device with stride 1 along T
+    (else ValueError). The output has the input dtype.
 
     A CUDA input launches the kernel (counted in
     ``multi_head_attention.launches``); q, k and v may be any views whose
@@ -107,12 +141,14 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(v.shape)}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"attention takes float32 or bfloat16, got {q.dtype}")
+    if key_bias is not None:
+        _check_key_bias(key_bias, q)
     d = q.shape[-1]
     scale = float(d ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale=scale)
+        return attention_plain(q, k, v, scale=scale, key_bias=key_bias)
     if q.device.type == "cuda":
-        return _launch(q, k, v, scale)
+        return _launch(q, k, v, scale, key_bias)
     raise ValueError(f"unsupported device {q.device}")
 
 

@@ -97,12 +97,12 @@ def _pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def _int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) x (N, K) int8 -> (M, N) int32 exact dot products. On CUDA
-    ``torch._int_mm`` (s8 x s8 -> s32 on the tensor cores), whose shape
-    rules (M > 16, K and N multiples of 8) are met by zero padding; on the
-    CPU an int32 matmul."""
+    """(M, K) x (N, K) int8 -> (M, N) int32 exact dot products:
+    ``torch._int_mm`` (s8 x s8 -> s32). On CUDA it runs on the tensor
+    cores, whose shape rules (M > 16, K and N multiples of 8) are met by
+    zero padding; the CPU's takes any shape."""
     if a.device.type != "cuda":
-        return a.to(torch.int32) @ b.to(torch.int32).T
+        return torch._int_mm(a, b.T)
     m, k = a.shape
     n = b.shape[0]
     m_pad, k_pad, n_pad = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8

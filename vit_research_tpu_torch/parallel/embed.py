@@ -15,6 +15,12 @@ embedding main path:
 Ragged tails run at their true size. The reference pads them to
 power-of-two transfer buckets (``_transfer_bucket``) only to bound jit
 retraces; eager PyTorch traces nothing, so the port has no buckets.
+
+The fast profile's models (ToMe, int8 GEMMs) run through the same
+engine: kernel A, then ``encode_patch_tokens``. :func:`embed_video_strided`
+embeds every Nth frame and interpolates between, with novelty-gated
+refinement; :func:`strided_interp_device` is its interpolation as tensor
+code on any device.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
@@ -36,6 +43,7 @@ from vit_research_tpu_torch.utils.configs import ViTConfig
 from vit_research_tpu_torch.device import resolve_device
 from vit_research_tpu_torch.models.hf_import import HF_VIT_B16_224
 from vit_research_tpu_torch.ops.patch_embed import fused_patch_embed
+from vit_research_tpu_torch.ops.tome import merged_token_counts
 
 
 def grayscale_u8(images: torch.Tensor) -> torch.Tensor:
@@ -88,7 +96,11 @@ class EmbeddingEngine:
         self._slot = 0
 
     def _out_trailing(self, c: ViTConfig) -> tuple:
-        tokens = (self.grid[0] * self.grid[1] + 1, c.hidden_size)
+        n = self.grid[0] * self.grid[1] + 1
+        tokens = (n, c.hidden_size)
+        if self.endpoint == "encoded_tokens" and c.tome_r:
+            tokens = (merged_token_counts(n, c.tome_r, c.num_layers)[-1],
+                      c.hidden_size)
         pooled = tokens if c.pooler == "none" else (c.hidden_size,)
         if self.endpoint in ("tokens_before_encoder", "encoded_tokens"):
             return tokens
@@ -103,8 +115,9 @@ class EmbeddingEngine:
     # ------------------------------------------------------------- forward
 
     @torch.inference_mode()
-    def _forward(self, images_u8: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) uint8 on the engine's device -> (B, ...) f32."""
+    def encode(self, images_u8: torch.Tensor) -> dict:
+        """(B, H, W, 3) uint8 on the engine's device -> the model's
+        endpoints dict (kernel A, then the encoder)."""
         spec = self.spec
         model = self.model
         if spec.grayscale:
@@ -115,8 +128,12 @@ class EmbeddingEngine:
             pe.bias.to(torch.float32), patch_size=model.config.patch_size,
             rescale=spec.rescale, mean=spec.mean, std=spec.std,
             out_dtype=model.compute_dtype)
-        out = model.encode_patch_tokens(tokens, self.grid)
-        emb = out[self.endpoint].to(torch.float32)
+        return model.encode_patch_tokens(tokens, self.grid)
+
+    @torch.inference_mode()
+    def _forward(self, images_u8: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) uint8 on the engine's device -> (B, ...) f32."""
+        emb = self.encode(images_u8)[self.endpoint].to(torch.float32)
         if self.l2_normalize:
             emb = emb / torch.linalg.vector_norm(
                 emb, dim=-1, keepdim=True).clamp_min(1e-12)
@@ -247,24 +264,173 @@ class EmbeddingEngine:
                 else np.zeros((0, *self.out_trailing), np.float32))
 
 
+# Default novelty gate for refined strided embedding: the cosine distance
+# between a gap's two bounding keyframe embeddings above which the gap's
+# interior frames are embedded exactly instead of interpolated (the
+# reference's constant).
+REFINE_THRESHOLD_DEFAULT = 0.05
+
+
+def embed_video_strided(engine: EmbeddingEngine, paths, *, stride: int = 2,
+                        interpolate: bool = True, num_workers: int = 8,
+                        use_native: bool = False,
+                        refine_threshold: float | None = None,
+                        refine_radius: int = 0,
+                        stats: dict | None = None) -> np.ndarray:
+    """Embed every ``stride``-th frame exactly (and the last) and linearly
+    interpolate the frames between: consecutive broadcast frames are
+    nearly identical, and the kNN votes and HMM smoothing downstream are
+    smooth in embedding space.
+
+    ``refine_threshold`` (novelty-gated refinement): every gap whose two
+    bounding keyframe embeddings differ by more than that cosine distance
+    gets its interior frames embedded exactly in one extra pass;
+    ``refine_radius`` also refines that many neighbouring gaps on each
+    side. The gate only sees keyframes: an event shorter than ``stride``
+    that lies strictly inside one gap is invisible to it, so choose
+    ``stride`` <= the shortest event to localize. ``stats``, if given,
+    receives ``gaps`` / ``refined_gaps`` / ``refined_frames`` / ``keys``
+    / ``keys_s`` (and ``refine_embed_s``, ``novelty_p50``,
+    ``novelty_max`` where they apply; times on the host clock).
+
+    Returns (N, D) embeddings aligned with ``paths``, L2-normalised when
+    the engine normalises."""
+    if stride <= 0:
+        raise ValueError(f"stride must be positive, got {stride}")
+    if refine_radius < 0:
+        raise ValueError(f"refine_radius must be >= 0, got {refine_radius}")
+    n = len(paths)
+    if n == 0:
+        return np.zeros((0, engine.out_dim), np.float32)
+    key_idx = list(range(0, n, stride))
+    if key_idx[-1] != n - 1:
+        key_idx.append(n - 1)
+    t0 = time.monotonic()
+    key_embs = engine.embed_paths([paths[i] for i in key_idx],
+                                  num_workers=num_workers,
+                                  use_native=use_native)
+    t_keys = time.monotonic() - t0
+    d = key_embs.shape[1]
+
+    refined: dict[int, np.ndarray] = {}
+    novelty = None
+    refine_idx: list[int] = []
+    hot_gaps = 0
+    if refine_threshold is not None and len(key_idx) > 1:
+        a, b = key_embs[:-1], key_embs[1:]
+        den = np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1)
+        novelty = 1.0 - np.sum(a * b, axis=1) / np.maximum(den, 1e-12)
+        hot = novelty > refine_threshold
+        if refine_radius and hot.any():
+            dilated = hot.copy()
+            for off in range(1, refine_radius + 1):
+                dilated[off:] |= hot[:-off]
+                dilated[:-off] |= hot[off:]
+            hot = dilated
+        hot_gaps = int(hot.sum())
+        refine_idx = [i for j in np.nonzero(hot)[0]
+                      for i in range(key_idx[j] + 1, key_idx[j + 1])]
+        if refine_idx:
+            t0 = time.monotonic()
+            exact = engine.embed_paths([paths[i] for i in refine_idx],
+                                       num_workers=num_workers,
+                                       use_native=use_native)
+            t_refine = time.monotonic() - t0
+            refined = dict(zip(refine_idx, exact))
+    if stats is not None:
+        stats.update(gaps=max(len(key_idx) - 1, 0), refined_gaps=hot_gaps,
+                     refined_frames=len(refine_idx), keys=len(key_idx),
+                     keys_s=round(t_keys, 3))
+        if refined:
+            stats["refine_embed_s"] = round(t_refine, 3)
+        if novelty is not None:
+            stats.update(novelty_p50=float(np.median(novelty)),
+                         novelty_max=float(novelty.max()))
+
+    out = np.empty((n, d), np.float32)
+    if not interpolate:
+        # hold each keyframe's embedding until the next (zero-order hold)
+        for j, i in enumerate(key_idx):
+            end = key_idx[j + 1] if j + 1 < len(key_idx) else n
+            out[i:end] = key_embs[j]
+        for i, e in refined.items():
+            out[i] = e
+        return out
+    for j in range(len(key_idx) - 1):
+        i0, i1 = key_idx[j], key_idx[j + 1]
+        span = i1 - i0
+        w = np.arange(span, dtype=np.float32)[:, None] / span
+        out[i0:i1] = (1.0 - w) * key_embs[j] + w * key_embs[j + 1]
+    out[n - 1] = key_embs[-1]
+    for i, e in refined.items():
+        out[i] = e
+    if engine.l2_normalize:
+        out /= np.maximum(np.linalg.norm(out, axis=1, keepdims=True), 1e-12)
+    return out
+
+
+def strided_interp_device(key_embs: torch.Tensor, stride: int, n: int,
+                          l2_normalize: bool = True) -> torch.Tensor:
+    """:func:`embed_video_strided`'s interpolation as tensor code, on
+    ``key_embs``' device. ``key_embs``: (K, D) embeddings of the key
+    positions ``[0, stride, ..., n - stride, n - 1]`` (the layout
+    embed_video_strided uses when ``stride`` divides ``n``; at
+    ``stride == 1`` every frame, n keys). Returns (n, D) f32."""
+    if n % stride != 0:
+        raise ValueError(f"stride {stride} must divide n {n}")
+
+    def normed(out):
+        if not l2_normalize:
+            return out
+        return out / torch.clamp_min(
+            torch.linalg.vector_norm(out, dim=1, keepdim=True), 1e-12)
+
+    if stride == 1:
+        if key_embs.shape[0] != n:
+            raise ValueError(f"expected {n} keys for n={n} stride=1, "
+                             f"got {key_embs.shape[0]}")
+        return normed(key_embs.to(torch.float32))
+    u = n // stride  # uniform keys; key_embs has u + 1 rows (tail key)
+    if key_embs.shape[0] != u + 1:
+        raise ValueError(f"expected {u + 1} keys for n={n} stride={stride}, "
+                         f"got {key_embs.shape[0]}")
+    dev = key_embs.device
+    uni = key_embs[:u].to(torch.float32)
+    last = key_embs[-1].to(torch.float32)
+    w = torch.arange(stride, dtype=torch.float32, device=dev)[:, None] \
+        / stride
+    body = (uni[:-1, None, :] * (1.0 - w) + uni[1:, None, :] * w)
+    body = body.reshape((u - 1) * stride, key_embs.shape[1])
+    wt = (torch.arange(stride - 1, dtype=torch.float32, device=dev)[:, None]
+          / max(stride - 1, 1))
+    tail = uni[-1] * (1.0 - wt) + last * wt
+    return normed(torch.cat([body, tail, last[None]], dim=0))
+
+
 def make_hf_frame_embedder(state_dict=None, *, device, spec=None,
                            batch_size: int = 256, seed: int = 0,
                            grayscale: bool = False,
-                           dtype: str = "float32") -> EmbeddingEngine:
+                           dtype: str = "float32", tome_r: int = 0,
+                           gemm_quant: str | None = None,
+                           gemm_quant_scales=()) -> EmbeddingEngine:
     """ViT-B/16 @224, CLS token, L2-normalised: the ``hf_vit_embed_batch``
     capability as one engine. Loads ``state_dict`` (e.g. from
     models/convert.py) when given, else the port's seeded init.
     ``grayscale`` embeds luminance-converted frames (ignored when an
     explicit ``spec`` is passed; set it there). ``dtype='bfloat16'`` runs
-    the encoder in bf16, a speed setting, not a parity one. A
+    the encoder in bf16, a speed setting, not a parity one. ``tome_r``
+    merges tokens (ops/tome.py) and ``gemm_quant`` runs int8 encoder
+    GEMMs (ops/quant.py; ``'int8-static'`` with ``gemm_quant_scales``):
+    the fast profile's speed settings, on the same weights. A
     ``transformers.ViTModel`` state dict loads after
     models/hf_import.py::hf_state_dict_to_state_dict."""
     from vit_research_tpu_torch.models.vit import init_vit
 
     if spec is None and grayscale:
         spec = dataclasses.replace(HF_VIT_SPEC, grayscale=True)
-    cfg = (HF_VIT_B16_224 if dtype == "float32"
-           else dataclasses.replace(HF_VIT_B16_224, dtype=dtype))
+    cfg = dataclasses.replace(HF_VIT_B16_224, dtype=dtype, tome_r=tome_r,
+                              gemm_quant=gemm_quant,
+                              gemm_quant_scales=tuple(gemm_quant_scales))
     model = init_vit(cfg, seed=seed, device="cpu")
     if state_dict is not None:
         model.load_state_dict(state_dict)

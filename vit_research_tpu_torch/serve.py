@@ -114,7 +114,10 @@ of frames is pending) and runs them as ONE engine call, splitting the
 outputs back per request. The port's engine runs ragged batches at their
 true size, so a merged batch is just a larger ragged batch: a request's
 rows differ from its rows alone only by the f32 GEMMs' summation order.
-``coalesce_ms=0`` disables it.
+That holds for the fast profile's engines too (``VRT_TOME_R``,
+``VRT_GEMM_QUANT``, read by cli/common.py::_engine like every verb's):
+ToMe merges tokens within a frame, dynamic int8 scales are per token and
+static ones are constants. ``coalesce_ms=0`` disables it.
 """
 
 from __future__ import annotations
@@ -371,7 +374,7 @@ class _Coalescer:
 
 
 _NOT_PORTED = ("{} waits for the port of the retrieval heads and their "
-               "checkpoints (ROADMAP items 8-9); this daemon runs the "
+               "checkpoints (ROADMAP items 2-3); this daemon runs the "
                "torch engine, which has neither yet")
 
 

@@ -3,9 +3,10 @@
 Port of ``ViTConfig`` from vit_research_tpu/utils/configs.py, with the
 same fields and defaults, so a configuration reads the same in both
 packages. The port's backbone refuses the fields it does not implement
-yet (``tome_r``, ``gemm_quant``, ``remat``, ``attn_layout='bthd'``) and
-does not read ``use_flash_attention``: its attention kernel is the
-default (models/vit.py).
+(``remat``, ``attn_layout='bthd'``) and does not read
+``use_flash_attention``: its attention kernel is the default
+(models/vit.py). ``tome_r``, ``gemm_quant`` and ``gemm_quant_scales``
+are the fast profile's (ops/tome.py, ops/quant.py).
 """
 
 from __future__ import annotations
