@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels, holds
-each against its plain PyTorch version, then drives the kNN+HMM main path
-and the vector-store path through the port's CLI at full ViT-B/16 @224
-width and checks the results.
+each against its plain PyTorch version, then drives the kNN+HMM main path,
+the vector-store, serving, labelling and fast-profile paths and stage-1
+training through the port's CLI at full width and checks the results.
 
     python3 chip_smoke.py
 
@@ -17,6 +17,12 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      dh = 64; f32 and bf16), on contiguous (B, H, T, dh) inputs and on the
      (B, H, T, dh) views of (B, T, H, dh) tensors that the backbone's
      projections give, and F.scaled_dot_product_attention;
+  3c. the attention kernel at the stage-1 chunk encoder's shapes (dh = 96,
+     H = 8, B = 256, T = 9 and 25; f32 and bf16, contiguous and
+     projection order) against its plain version, SDPA and its bound; then
+     the kernels' gradients: B's q/k/v and key-bias gradients through its
+     autograd Function on the card (dh = 64 and 96, f32 and bf16) and A's
+     w and bias gradients, against torch.autograd of the plain versions;
   3b. the fused LayerNorm + projection kernel, driven through its public
      entry ``ln_matmul`` at ViT-B shapes (M = 256*197, K = 768, N = 768
      and 3072 with exact GELU; x and W f32, and x f32 with W bf16), then
@@ -71,14 +77,27 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      --warmup`` under the fast env (a binary embed and a live session);
      and the embed rates of the parity, ToMe, int8, ToMe + int8-static
      and ToMe bf16 engines side by side;
+  5e. stage 1 on phase 5's frame store (labelled left 1 / right 0):
+     train-stage1 for 2 epochs and --resume for a third, then
+     write-ratt-db, through the CLI on the card at full width (768, 3
+     layers, 8 heads: dh = 96); the resumed step, every ratt_db row
+     against a CPU plain forward of the restored best encoder (1e-4),
+     search of 8 stored rows (each ranks first), B's launches (3 a
+     validation or encode batch), a dropout-0 trajectory of 20 steps on
+     the card against the CPU from one state (and the same card run with
+     a planted fault, dq zeroed, which the check must catch), the step
+     and eval-batch times, and write_ratt_chunk_db's rows/s on a seeded
+     game-sized store (200,000 frames, ~100,000 chunks);
   6. a game-sized store: a seeded 200,000 x 768 cosine collection queried
      with 256 queries, k = 50, on the card in f32 and in int8, each held
      against the CPU answer of the same rows, and timed;
   7. one JSON line of kernel summaries (``launches`` sums the kernel's
-     launches over the paths of phases 4-5d, ``launches_by_path`` lists
-     them, ``fast`` being phase 5d's write-frame-db and segment; the
-     attention entry's ``key_bias`` holds phase 5d's rows), then the
-     result line.
+     launches over the paths of phases 4-5e, ``launches_by_path`` lists
+     them, ``fast`` being phase 5d's write-frame-db and segment and
+     ``stage1`` phase 5e's verbs; the attention entry's ``key_bias``
+     holds phase 5d's rows, ``stage1_dh96`` phase 3c's, ``grad_rel_err``
+     the gradient checks and ``stage1_path`` phase 5e's numbers), then
+     the result line.
 
 Bounds (``bound_ms``) are the larger of the bytes a kernel must move
 over the H100 SXM's 3.35 TB/s and its operations over the peak of the
@@ -99,7 +118,9 @@ fast profile's ToMe r=16 + int8-static f32 B=256, calibrated on the
 profiled frames; device time by kernel and the device's idle share) and
 times the offline Viterbi
 decoders at several game lengths: the host numpy loop, the log-depth scan
-on the card, and a per-frame torch loop on the card.
+on the card, and a per-frame torch loop on the card; then profiles a
+stage-1 training step of the full-width ChunkEncoder (B = 32, dropout 0.1
+and 0).
 
 Times are CUDA-event medians on this card unless a line says otherwise;
 the nvidia-smi line says which card and power limit they belong to. The
@@ -132,8 +153,10 @@ import torch
 from vit_research_tpu_torch import cli, native, serve
 from vit_research_tpu_torch.cli import common
 from vit_research_tpu_torch.data.preprocess import load_frames
-from vit_research_tpu_torch.db.frame_store import FrameStore
-from vit_research_tpu_torch.models import convert, hf_import
+from vit_research_tpu_torch.db.builders import write_ratt_chunk_db
+from vit_research_tpu_torch.db.frame_store import (
+    FrameStore, gather_chunk_embedding_batch, load_chunk_index)
+from vit_research_tpu_torch.models import convert, heads, hf_import
 from vit_research_tpu_torch.models import vit as vit_mod
 from vit_research_tpu_torch.ops import _build
 from vit_research_tpu_torch.ops import attention as attn
@@ -148,6 +171,9 @@ from vit_research_tpu_torch.segment import clustering, hmm, knn
 from vit_research_tpu_torch.store.vector_store import (Collection,
                                                        PersistentClient)
 from vit_research_tpu_torch.train import checkpoint
+from vit_research_tpu_torch.train import train_chunk_encoder as tce
+from vit_research_tpu_torch.utils.configs import ChunkEncoderConfig
+from vit_research_tpu_torch.utils.metrics import read_metrics
 
 SPEC = embed.HF_VIT_SPEC
 HF_AFFINE = dict(rescale=SPEC.rescale, mean=SPEC.mean, std=SPEC.std)
@@ -447,6 +473,161 @@ def phase_attention(smi: str) -> dict:
     return dict(summary["float32"], bf16=summary["bfloat16"])
 
 
+# Stage 1's chunk encoder (768 wide, 8 heads): B = 256 chunks of 8 frames
+# + CLS (T = 9) and of 24 + CLS (T = 25, max_len).
+STAGE1_HEADS, STAGE1_DH, STAGE1_B = 8, 96, 256
+
+
+def phase_attention_stage1(smi: str) -> dict:
+    """Kernel B at the stage-1 chunk encoder's shapes (dh = 96, H = 8, B =
+    256, T = 9 and 25; f32 and bf16), on contiguous inputs and on
+    projection-order views, each against the plain version of the same
+    values; timed against the plain version and SDPA. The 64-row query
+    tile holds T rows: at T = 9, 86% of it is idle."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1)
+    b, h, dh = STAGE1_B, STAGE1_HEADS, STAGE1_DH
+    rows = {}
+    for t in (9, 25):
+        q32, k32, v32 = (torch.randn(b, t, h, dh, generator=g).to(dev)
+                         for _ in range(3))
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            views = [x.to(dtype).transpose(1, 2) for x in (q32, k32, v32)]
+            contig = [x.contiguous() for x in views]
+            want = attn.attention_plain(*(x.float() for x in contig))
+            # bf16: P and the output rounded to bf16 (relative 2^-9 each),
+            # so |err| <= 2^-9 (|o| + max|v|) <= 2^-8 max|v|: averages of
+            # only 9 values are not small, so the bound scales with v
+            bound_err = ATTN_BOUND[dtype] if dtype == torch.float32 else \
+                2 ** -8 * contig[2].float().abs().max().item()
+            row = {}
+            for layout, (q, k, v) in (("contiguous", contig),
+                                      ("projection order", views)):
+                got = attn.multi_head_attention(q, k, v)
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs().max().item()
+                ms = cuda_ms(lambda: attn.multi_head_attention(q, k, v))
+                if not err <= bound_err:
+                    raise AssertionError(f"attention kernel dh=96 T={t} "
+                                         f"{name} {layout}: {err}")
+                row[layout] = (err, ms)
+            q, k, v = contig
+            plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v))
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            lim = bound(4 * q.numel() * q.element_size(),
+                        4 * b * h * t * t * dh,
+                        "f32" if dtype == torch.float32 else "bf16")
+            idle = 1 - t / 64
+            log(f"[3c] attention B={b} H={h} T={t} dh={dh} {name}: max|err| "
+                f"{max(e for e, _ in row.values()):.3e} (bound "
+                f"{bound_err:.2e}) | kernel {row['contiguous'][1]:.4f} ms "
+                f"(projection order {row['projection order'][1]:.4f}) | "
+                f"plain {plain_ms:.4f} ms | SDPA {sdpa_ms:.4f} ms | "
+                f"{bound_text(lim)} | query tile {100 * idle:.0f}% idle | "
+                f"{smi}")
+            rows[f"T{t}_{name}"] = dict(
+                max_abs_err=max(e for e, _ in row.values()),
+                ms=row["contiguous"][1],
+                ms_projection_order=row["projection order"][1],
+                plain_ms=plain_ms, library_ms=sdpa_ms,
+                query_tile_idle=idle, **lim)
+            del views, contig, want, q, k, v
+        del q32, k32, v32
+    torch.cuda.empty_cache()
+    return rows
+
+
+# Gradients through the kernels' autograd Functions: their backward is the
+# plain version's VJP at the same saved inputs, so they agree with
+# torch.autograd of the plain version to the rounding of reruns of the
+# same library kernels (f32 1e-5 of the gradient's scale; bf16 2^-6).
+GRAD_BOUND = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def phase_kernel_grads(smi: str) -> dict:
+    """B's q/k/v and key-bias gradients through ``_Attention`` on the card
+    (dh = 64 at T = 197 and dh = 96 at T = 25, f32 and bf16), and A's w and
+    bias gradients through ``_PatchEmbed`` (uint8 B=8 @224, f32 out),
+    against torch.autograd of the plain versions on the card. Each call
+    launches its kernel once and returns an output with a grad_fn."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for dh, t, h, b in ((64, 197, 12, 8), (96, 25, 8, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            leaves = [torch.randn(b, h, t, dh, generator=g, device=dev)
+                      .to(dtype).requires_grad_(True) for _ in range(3)]
+            bias = torch.randn(b, t, generator=g, device=dev) \
+                .requires_grad_(True)
+            gout = torch.randn(b, h, t, dh, generator=g, device=dev).to(dtype)
+            before = attn.multi_head_attention.launches
+            got = attn.multi_head_attention(*leaves, key_bias=bias)
+            if attn.multi_head_attention.launches != before + 1 or \
+                    got.grad_fn is None:
+                raise AssertionError(f"attention dh={dh} {name}: no kernel "
+                                     "launch or no grad_fn")
+            grads = torch.autograd.grad(got, [*leaves, bias], gout)
+            ref = [x.detach().clone().requires_grad_(True)
+                   for x in (*leaves, bias)]
+            want = attn.attention_plain(*ref[:3], key_bias=ref[3])
+            want_grads = torch.autograd.grad(want, ref, gout)
+            # the forward against the f32 plain version of the same values
+            # (phase 3c's bounds)
+            with torch.no_grad():
+                want_f32 = attn.attention_plain(
+                    *(x.float() for x in leaves), key_bias=bias)
+            fwd = (got.float() - want_f32).abs().max().item()
+            fwd_bound = ATTN_BOUND[dtype] if dtype == torch.float32 else \
+                2 ** -8 * leaves[2].float().abs().max().item()
+            errs = [_rel_err(x, y) for x, y in zip(grads, want_grads)]
+            log(f"[3c] attention grads dh={dh} T={t} {name}: forward "
+                f"max|err| {fwd:.3e} (bound {fwd_bound:.2e}); relative "
+                f"max|err| dq {errs[0]:.2e} dk {errs[1]:.2e} dv "
+                f"{errs[2]:.2e} dbias {errs[3]:.2e} (bound "
+                f"{GRAD_BOUND[dtype]:.0e})")
+            if not (fwd <= fwd_bound and max(errs) <= GRAD_BOUND[dtype]):
+                raise AssertionError(f"attention gradients dh={dh} {name} "
+                                     f"disagree: {fwd}, {errs}")
+            out[f"attention_dh{dh}_{name}"] = max(errs)
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.integers(0, 256, (8, 224, 224, 3),
+                                           dtype=np.uint8)).to(dev)
+    w = (torch.randn(768, 768, generator=g, device=dev) / 768 ** 0.5) \
+        .requires_grad_(True)
+    bias = torch.randn(768, generator=g, device=dev).requires_grad_(True)
+    gout = torch.randn(8, 196, 768, generator=g, device=dev)
+    before = pe.fused_patch_embed.launches
+    got = pe.fused_patch_embed(images, w, bias, patch_size=16, **HF_AFFINE)
+    if pe.fused_patch_embed.launches != before + 1 or got.grad_fn is None:
+        raise AssertionError("patch embed: no kernel launch or no grad_fn")
+    grads = torch.autograd.grad(got, [w, bias], gout)
+    a_vec, b_vec = (torch.from_numpy(x).to(dev) for x in pe.fold_affine(
+        16, 3, **HF_AFFINE))
+    ref = [x.detach().clone().requires_grad_(True) for x in (w, bias)]
+    want = pe.patch_embed_plain(images, *ref, a_vec, b_vec, patch_size=16)
+    want_grads = torch.autograd.grad(want, ref, gout.reshape(-1, 768))
+    fwd = (got.reshape(-1, 768) - want).abs().max().item()
+    errs = [_rel_err(x, y) for x, y in zip(grads, want_grads)]
+    log(f"[3c] patch embed grads uint8 B=8 @224: forward max|err| {fwd:.3e}; "
+        f"relative max|err| dw {errs[0]:.2e} dbias {errs[1]:.2e} (bound "
+        f"{GRAD_BOUND[torch.float32]:.0e})")
+    if not (fwd <= PE_BOUND[torch.float32]
+            and max(errs) <= GRAD_BOUND[torch.float32]):
+        raise AssertionError(f"patch embed gradients disagree: {fwd}, {errs}")
+    out["patch_embed"] = max(errs)
+    torch.cuda.empty_cache()
+    return out
+
+
 LN_CASES = [(768, None, torch.float32), (3072, "gelu", torch.float32),
             (768, None, torch.bfloat16), (3072, "gelu", torch.bfloat16)]
 
@@ -705,12 +886,23 @@ def phase_store_path(smi: str, root: str, main: dict) -> dict:
     queries = [os.path.join(main["query_dir"], f"vid2_frame_{f}.jpg")
                for f in picks]
 
+    # clip labels for phase 5e's stage-1 training: left possessions 1,
+    # right 0 (the synthetic frames show the side)
+    labels_csv = os.path.join(root, "clip_labels.csv")
+    with open(labels_csv, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["clip_path", "label"])
+        for d in sorted(os.listdir(main["out"])):
+            if m := CLIP_RE.match(d):
+                w.writerow([os.path.join(main["out"], d),
+                            int(m.group(2) == "left")])
+
     pe.fused_patch_embed.launches = 0
     attn.multi_head_attention.launches = 0
     t0 = time.monotonic()
     cli.main(["build-frame-store", "--clip-root", main["out"], "--vids",
-              "2", "--out", store, "--batch-size", str(BATCH), "--device",
-              "cuda"])
+              "2", "--clip-labels", labels_csv, "--out", store,
+              "--batch-size", str(BATCH), "--device", "cuda"])
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         cli.main(["search", *queries, "--db", main["db"], "--collection",
@@ -1831,6 +2023,354 @@ def _timed_query(col, q, k) -> tuple:
     return got, first, statistics.median(times)
 
 
+# ---- phase 5e: stage-1 training and write-ratt-db ------------------------
+
+# The rows of write-ratt-db on the card against a CPU plain forward of the
+# same restored encoder: 3 f32 layers summed in other orders, then L2
+# normalised.
+RATT_ROW_BOUND = 1e-4
+# The dropout-0 trajectory on the card against the CPU, 20 steps from one
+# initial state. Adam divides each gradient by its running RMS, so an
+# element whose gradient is rounding noise (the key projection's bias,
+# whose gradient is zero: the softmax removes a per-query constant; rare
+# elements near zero) takes steps of up to ~lr in either direction.
+# Parameters, as tests/test_torch_train.py holds the port against JAX:
+# every element within lr a step, and of the elements outside the key
+# biases at most TRAJ_OFF_SHARE beyond 1e-5 + 1e-3 relative. Per-epoch
+# losses: relative TRAJ_LOSS_RTOL. The same card run with a planted fault
+# (_Attention's dq zeroed) must fail these checks.
+TRAJ_LOSS_RTOL = 2e-3
+TRAJ_OFF_SHARE = 1e-4
+# The optimizer alone on identical gradients: the same f32 update on both
+# devices, an ulp apart on weights of order 0.1: 1e-6.
+TRAJ_OPT_BOUND = 1e-6
+STAGE1_BATCH = 32
+
+
+def _stage1_encoder(cfg: ChunkEncoderConfig, seed: int | None = None):
+    """A ChunkEncoder of ``cfg`` (seeded when ``seed`` is given); at
+    dropout 0 its class head's dropout is 0 too."""
+    model = heads.ChunkEncoder(cfg, generator=None if seed is None else
+                               torch.Generator().manual_seed(seed))
+    if not cfg.dropout_rate:
+        model.class_head.dropout.p = 0.0
+    return model
+
+
+@contextlib.contextmanager
+def _planted_zero_dq():
+    """A planted fault: _Attention's backward returns a zero dq."""
+    orig = attn._Attention.backward
+
+    def backward(ctx, grad):
+        dq, *rest = orig(ctx, grad)
+        return (None if dq is None else torch.zeros_like(dq), *rest)
+
+    attn._Attention.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        attn._Attention.backward = staticmethod(orig)
+
+
+def _trajectory_errs(h_c, p_c, h_h, p_h) -> dict:
+    """Card run (losses ``h_c``, parameters ``p_c``) against the CPU run:
+    the losses' relative max error, the parameters' max error, and the
+    share (and the worst tensor) of elements outside the key biases beyond
+    1e-5 + 1e-3 relative."""
+    loss = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+               for a, b in zip(h_c, h_h) for k in ("train_loss", "val_loss"))
+    p_err = max(float((p_c[k] - p_h[k]).abs().max()) for k in p_h)
+    off = {k: int(((p_c[k] - p_h[k]).abs() > 1e-5 + 1e-3 * p_h[k].abs())
+                  .sum()) for k in p_h if not k.endswith("attn.key.bias")}
+    share = sum(off.values()) / sum(p_h[k].numel() for k in off)
+    worst = max(off, key=lambda k: off[k] / p_h[k].numel())
+    return dict(loss=loss, param=p_err, off_share=share,
+                worst=f"{worst} {off[worst]}/{p_h[worst].numel()}")
+
+
+def _write_ratt_rate(smi: str, root: str, params: dict,
+                     n_frames: int = 200_000) -> dict:
+    """write_ratt_chunk_db at a game's size: a seeded 200,000 x 768 frame
+    store (a 2-hour game), chunks of 8 frames at stride 2 (~100,000) in
+    possessions of 300 frames, encoded by the stage-1 encoder ``params``
+    on the card into a cosine collection, then flushed. Times the library
+    call and the flush, not the CLI's start-up, store open or restore."""
+    rng = np.random.default_rng(11)
+    store = FrameStore.build(
+        [f"vid9/frame_{i:06d}.jpg" for i in range(n_frames)],
+        lambda ps: rng.standard_normal((len(ps), 768), dtype=np.float32),
+        os.path.join(root, "game_store"), batch_size=8192)
+    start = np.arange(0, n_frames - 7, 2)
+    poss = start // 300
+    idx = {"frame_idx": (start[:, None] + np.arange(8)).astype(np.int32),
+           "label": (poss % 2).astype(np.int32),
+           "status_id": (poss % 2 + 1).astype(np.int32),
+           "vid": np.full(len(start), 9, np.int32),
+           "clip": poss.astype(np.int32),
+           "start_idx": start.astype(np.int32),
+           "end_idx": (start + 7).astype(np.int32),
+           "t_center": ((start % 300 + 4) / 300).astype(np.float32),
+           "t_width": np.full(len(start), 8 / 300, np.float32),
+           "side": np.where(poss % 2, "left", "right")}
+    model = heads.ChunkEncoder(ChunkEncoderConfig(max_len=8)).cuda()
+    encode = tce.make_encode_fn(model, params)
+    enc_s = [0.0]
+
+    def timed_encode(frame_embs):
+        t0 = time.perf_counter()
+        out = encode(frame_embs)  # numpy back: synchronised
+        enc_s[0] += time.perf_counter() - t0
+        return out
+
+    client = PersistentClient(os.path.join(root, "db_game"), device="cuda")
+    col = client.get_or_create_collection(
+        "ratt_db", metadata={"hnsw:space": "cosine"})
+    t0 = time.perf_counter()
+    n = write_ratt_chunk_db(idx, store, timed_encode, col)
+    t1 = time.perf_counter()
+    client.flush()
+    wall = time.perf_counter() - t0
+    if n != len(start) or col.count() != n:
+        raise AssertionError(f"game-size write-ratt-db wrote {n} rows, "
+                             f"{col.count()} stored, want {len(start)}")
+    log(f"[5e] write_ratt_chunk_db at a game's size: {n} chunks of 8 from "
+        f"a {n_frames} x 768 store in {wall:.2f} s ({n / wall:.1f} rows/s; "
+        f"encode on the card {enc_s[0]:.2f} s, {100 * enc_s[0] / wall:.1f}%"
+        f" of it, {math.ceil(n / 256)} batches of 256; the flush "
+        f"{wall - (t1 - t0):.2f} s) | {smi}")
+    del col, client, model
+    torch.cuda.empty_cache()
+    return dict(write_ratt_rows_per_s=n / wall,
+                write_ratt_encode_share=enc_s[0] / wall,
+                write_ratt_flush_share=(wall - (t1 - t0)) / wall,
+                write_ratt_rows=n)
+
+
+def _stage1_step_fn(model, opt, x, y):
+    def step():
+        _, logits = model(x)
+        loss = 0.5 * tce.losses.bce_with_logits(y * 0.9 + 0.05, logits)
+        opt.step(torch.autograd.grad(loss, opt.params))
+    return step
+
+
+def _stage1_times(smi: str) -> dict:
+    """ms per train step (B = 32, dropout 0.1: attention on the plain path;
+    dropout 0: kernel B and its Function's backward) and per eval batch
+    (B = 32, kernel B), ChunkEncoder at full width on seeded inputs."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(STAGE1_BATCH, 8, 768, generator=g, device=dev)
+    y = (torch.rand(STAGE1_BATCH, generator=g, device=dev) > 0.5).float()
+    out = {}
+    for rate in (0.1, 0.0):
+        model = _stage1_encoder(
+            ChunkEncoderConfig(max_len=8, dropout_rate=rate), 0) \
+            .to(dev).train()
+        vit_mod.set_dropout_generator(
+            model, tce.dropout_generator(0, 0, dev))
+        opt = tce.stage1_optimizer(list(model.parameters()), 5e-5, 1.0, 5e-4)
+        out[f"train_step_ms_dropout_{rate}"] = cuda_ms(
+            _stage1_step_fn(model, opt, x, y), reps=3, n=10)
+    model.eval()
+    with torch.no_grad():
+        out["eval_batch_ms"] = cuda_ms(lambda: model(x))
+    log(f"[5e] ChunkEncoder 768x3, 8 heads, B={STAGE1_BATCH} x 8 frames: "
+        f"train step {out['train_step_ms_dropout_0.1']:.3f} ms (dropout 0.1,"
+        f" plain attention), {out['train_step_ms_dropout_0.0']:.3f} ms "
+        f"(dropout 0, kernel B + its Function); eval batch "
+        f"{out['eval_batch_ms']:.3f} ms | {smi}")
+    return out
+
+
+def phase_stage1_path(smi: str, root: str) -> dict:
+    """Stage 1 on phase 5's frame store (ViT-B/16 card embeddings, chunk
+    8, stride 2, labelled left 1 / right 0): train-stage1 for 2 epochs,
+    then --resume for a third, then write-ratt-db, through the CLI on the
+    card at full width (768, 3 layers, 8 heads: dh = 96). Checks the
+    resumed step, every ratt_db row against a CPU plain forward of the
+    restored best encoder, search of 8 stored rows, kernel B's launches (3
+    a validation or encode batch; training at dropout 0.1 takes the plain
+    path), and a dropout-0 card vs CPU trajectory of 20 steps."""
+    t_phase = time.monotonic()
+    store_dir = os.path.join(root, "store")
+    ck, db = os.path.join(root, "ckpt_s1"), os.path.join(root, "db_s1")
+    fs = FrameStore(store_dir).open()
+    idx = load_chunk_index(store_dir)
+    n = len(idx["label"])
+    if set(np.unique(idx["label"])) != {0, 1} or idx["frame_idx"].shape[1] \
+            != 8:
+        raise AssertionError(f"stage-1 store: labels "
+                             f"{np.unique(idx['label'])}, chunk "
+                             f"{idx['frame_idx'].shape}")
+    n_train = max(int(n * 0.8), 1)
+    n_val = n - n_train
+    per_epoch = n_train // STAGE1_BATCH
+    train_argv = ["train-stage1", "--store", store_dir, "--ckpt", ck,
+                  "--run-id", "s1", "--batch-size", str(STAGE1_BATCH),
+                  "--device", "cuda"]
+
+    pe.fused_patch_embed.launches = 0
+    attn.multi_head_attention.launches = 0
+    t0 = time.monotonic()
+    cli.main(train_argv + ["--epochs", "2"])
+    torch.cuda.synchronize()
+    t_train = time.monotonic() - t0
+    mngr = checkpoint.CheckpointManager(ck, "s1")
+    first = mngr.restore(1)["step"]
+    t0 = time.monotonic()
+    cli.main(train_argv + ["--epochs", "3", "--resume"])
+    torch.cuda.synchronize()
+    t_resume = time.monotonic() - t0
+    resumed = mngr.restore(2)["step"]
+    t0 = time.monotonic()
+    cli.main(["write-ratt-db", "--store", store_dir, "--ckpt", ck, "--db",
+              db, "--run-id", "s1", "--device", "cuda"])
+    torch.cuda.synchronize()
+    t_write = time.monotonic() - t0
+    launches = _launch_counts()
+    val_batches = 3 * math.ceil(n_val / STAGE1_BATCH)
+    enc_batches = math.ceil(n / 256)
+    log(f"[5e] CLI train-stage1 (2 epochs) {t_train:.1f} s, --resume (1 "
+        f"more) {t_resume:.1f} s, write-ratt-db {t_write:.1f} s wall on "
+        f"{n} chunks ({n_train} train, {n_val} val); launches {launches} "
+        f"for {val_batches} validation + {enc_batches} encode batches")
+    if (first, resumed) != (2 * per_epoch, 3 * per_epoch):
+        raise AssertionError(f"steps after 2 epochs {first}, after the "
+                             f"resumed third {resumed}; want "
+                             f"{2 * per_epoch}, {3 * per_epoch}")
+    epochs = [r["step"] for r in read_metrics(
+        os.path.join(mngr.dir, "metrics.jsonl"))]
+    if epochs != [0, 1, 2]:
+        raise AssertionError(f"metrics.jsonl holds epochs {epochs}")
+    want_launches = {"patch_embed": 0,
+                     "attention": 3 * (val_batches + enc_batches)}
+    if launches != want_launches:
+        raise AssertionError(f"stage-1 launches {launches}, want "
+                             f"{want_launches}")
+
+    # (a) every row against a CPU plain forward of the restored best
+    col = PersistentClient(db, device="cuda").get_collection("ratt_db")
+    ids = [f"chunk_{i}" for i in range(n)]
+    got = col.get(ids=ids, include=("embeddings", "metadatas"))
+    if got["ids"] != ids or col.embedding_profile != fs.embedding_profile:
+        raise AssertionError("ratt_db rows or profile differ from the store")
+    host = heads.ChunkEncoder(ChunkEncoderConfig(max_len=8))
+    encode = tce.make_encode_fn(host, mngr.restore_best()["params"])
+    embs, logits = encode(gather_chunk_embedding_batch(fs, idx,
+                                                      np.arange(n)))
+    embs = embs / (np.linalg.norm(embs, axis=1, keepdims=True) + 1e-8)
+    row_err = float(np.abs(np.asarray(got["embeddings"]) - embs).max())
+    logit_err = max(abs(m["class_logit"] - float(x))
+                    for m, x in zip(got["metadatas"], logits.reshape(-1)))
+    acc = float(np.mean((logits.reshape(-1) > 0) == (idx["label"] == 1)))
+    log(f"[5e] ratt_db {n} rows vs the CPU plain forward of the best "
+        f"epoch: max|err| {row_err:.3e} (bound {RATT_ROW_BOUND:.0e}), "
+        f"class logits {logit_err:.3e}; profile {col.embedding_profile!r}; "
+        f"the encoder's accuracy on all chunks {acc:.3f}")
+    if not (row_err <= RATT_ROW_BOUND and logit_err <= RATT_ROW_BOUND):
+        raise AssertionError(f"ratt_db rows disagree: {row_err}, "
+                             f"{logit_err}")
+
+    # (b) search of 8 stored rows ranks each row first
+    picks = np.linspace(0, n - 1, 8).astype(int)
+    qpath = os.path.join(root, "s1_queries.npz")
+    np.savez(qpath, rows=np.asarray(got["embeddings"])[picks])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["search", "--npz", qpath, "--db", db, "--collection",
+                  "ratt_db", "--k", "3", "--device", "cuda"])
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    firsts = [r["neighbors"][0] for r in lines]
+    ok = all(nb["id"] == f"chunk_{i}" or nb["distance"] <= 1e-6
+             for nb, i in zip(firsts, picks))
+    log(f"[5e] search 8 stored rows in ratt_db: first neighbours "
+        f"{[nb['id'] for nb in firsts]} at distances "
+        f"{[nb['distance'] for nb in firsts]}")
+    if len(lines) != 8 or not ok:
+        raise AssertionError("search does not rank the stored rows first")
+
+    # (d) dropout-0 trajectory, card vs CPU, 20 steps from one state; the
+    # optimizer alone first, on one seeded gradient sequence
+    cfg0 = ChunkEncoderConfig(max_len=8, dropout_rate=0.0)
+    init = _stage1_encoder(cfg0, 7).state_dict()
+    g = torch.Generator().manual_seed(1)
+    grad_seq = [[torch.randn(v.shape, generator=g) * (1e-3 if i % 3 else 1)
+                 for v in init.values()] for i in range(20)]
+    opt_runs = []
+    for dev in ("cuda", "cpu"):
+        params = [v.clone().to(dev) for v in init.values()]
+        opt = tce.stage1_optimizer(params, 5e-5, 1.0, 5e-4)
+        for grads in grad_seq:
+            opt.step([x.to(dev) for x in grads])
+        opt_runs.append([p.cpu() for p in params])
+    opt_err = max(float((a - b).abs().max()) for a, b in zip(*opt_runs))
+    log(f"[5e] stage-1 optimizer alone, 20 steps of one seeded gradient "
+        f"sequence, card vs CPU: parameters max|err| {opt_err:.2e} (bound "
+        f"{TRAJ_OPT_BOUND:.0e})")
+    if not opt_err <= TRAJ_OPT_BOUND:
+        raise AssertionError(f"the optimizer steps differ: {opt_err}")
+    val16 = list(range(n_train, min(n, n_train + 16)))
+    runs = {}
+    for dev, fault in (("cuda", False), ("cpu", False), ("cuda", True)):
+        model = _stage1_encoder(cfg0)
+        model.load_state_dict(init)
+        before = attn.multi_head_attention.launches
+        t0 = time.monotonic()
+        with _planted_zero_dq() if fault else contextlib.nullcontext():
+            trained, _, hist = tce.train_chunk_encoder(
+                fs, idx, list(range(40)), val16,
+                config=cfg0, num_epochs=4, batch_size=8, device=dev,
+                model=model)
+        runs[dev, fault] = (hist, {k: v.detach().cpu() for k, v in
+                                   trained.state_dict().items()},
+                            attn.multi_head_attention.launches - before,
+                            time.monotonic() - t0)
+    (h_c, p_c, l_c, t_c), (h_h, p_h, _, t_h) = (runs["cuda", False],
+                                                runs["cpu", False])
+    errs = _trajectory_errs(h_c, p_c, h_h, p_h)
+    planted = _trajectory_errs(*runs["cuda", True][:2], h_h, p_h)
+    lr_bound = 5e-5 * 20
+
+    def passes(e: dict) -> bool:
+        return (e["loss"] <= TRAJ_LOSS_RTOL and e["param"] <= lr_bound
+                and e["off_share"] <= TRAJ_OFF_SHARE)
+
+    for epoch, (a, b) in enumerate(zip(h_c, h_h)):
+        log(f"[5e]   epoch {epoch} card / CPU: train_loss "
+            f"{a['train_loss']:.8f} / {b['train_loss']:.8f}, val_loss "
+            f"{a['val_loss']:.8f} / {b['val_loss']:.8f}")
+    for what, e in (("card", errs), ("card, dq zeroed (planted fault)",
+                                     planted)):
+        log(f"[5e] dropout-0 trajectory, 20 steps (B=8) + 4 validations, "
+            f"{what} vs CPU from one state: losses relative max|err| "
+            f"{e['loss']:.3e} (bound {TRAJ_LOSS_RTOL:.0e}); parameters "
+            f"max|err| {e['param']:.3e} (bound lr x steps {lr_bound:.0e}), "
+            f"{e['off_share']:.3e} of the elements outside the key biases "
+            f"beyond 1e-5 + 1e-3 rel (bound {TRAJ_OFF_SHARE:.0e}; worst "
+            f"{e['worst']})")
+    log(f"[5e] kernel B launched {l_c} times in the card run (3 a training "
+        f"step and a validation batch); card {t_c:.1f} s, CPU {t_h:.1f} s")
+    if not (passes(errs) and l_c == 3 * (20 + 4 * math.ceil(len(val16) / 8))):
+        raise AssertionError(f"dropout-0 trajectory: {errs}, {l_c} "
+                             "launches")
+    if passes(planted):
+        raise AssertionError(f"the trajectory check passes a zeroed dq: "
+                             f"{planted}")
+
+    times = _stage1_times(smi)
+    times.update(_write_ratt_rate(smi, root, mngr.restore_best()["params"]))
+    log(f"[5e] phase 5e: {time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches, ratt_row_err=row_err,
+                optimizer_param_err=opt_err,
+                trajectory_loss_rel_err=errs["loss"],
+                trajectory_param_err=errs["param"],
+                trajectory_off_share=errs["off_share"],
+                planted_zero_dq_loss_rel_err=planted["loss"],
+                planted_zero_dq_off_share=planted["off_share"], **times)
+
+
 def phase_game_store(smi: str, n: int = 200_000, d: int = 768,
                      n_q: int = 256, k: int = 50) -> None:
     """A game's worth of frames as a seeded cosine collection, queried on
@@ -1940,6 +2480,53 @@ def profile_forward(smi: str, dtype: str, batch: int, steps: int = 3,
     torch.cuda.empty_cache()
 
 
+def profile_train_step(smi: str, dropout: float, steps: int = 5,
+                       top: int = 14) -> None:
+    """torch.profiler over ``steps`` steady stage-1 training steps of the
+    full-width ChunkEncoder (B = 32 chunks of 8 frames; dropout 0.1, the
+    CLI's, or 0): device time per step by kernel and the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(STAGE1_BATCH, 8, 768, generator=g, device=dev)
+    y = (torch.rand(STAGE1_BATCH, generator=g, device=dev) > 0.5).float()
+    model = _stage1_encoder(
+        ChunkEncoderConfig(max_len=8, dropout_rate=dropout), 0) \
+        .to(dev).train()
+    vit_mod.set_dropout_generator(model, tce.dropout_generator(0, 0, dev))
+    opt = tce.stage1_optimizer(list(model.parameters()), 5e-5, 1.0, 5e-4)
+    step = _stage1_step_fn(model, opt, x, y)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    log(f"[profile] stage-1 train step, ChunkEncoder 768x3 B="
+        f"{STAGE1_BATCH}x8 dropout {dropout}: {busy_ms:.3f} ms/step of "
+        f"kernels, {wall_ms:.3f} ms/step wall, idle "
+        f"{100 * max(0.0, 1 - busy_ms / wall_ms):.1f}%, {launches:.0f} "
+        f"kernel launches a step | {smi}")
+    for e in kernels[:top]:
+        ms = e.self_device_time_total / 1e3 / steps
+        log(f"[profile]   {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% "
+            f"x{e.count // steps:<4d} {e.key[:90]}")
+    del model, opt
+    torch.cuda.empty_cache()
+
+
 def _vote_emissions(t: int, seed: int = 0, k: int = 10) -> np.ndarray:
     """k-neighbour vote fractions over runs of 80-400 frames of one side:
     the emissions a write-frame-db corpus gives the HMM (many exact
@@ -2030,9 +2617,13 @@ def main() -> int:
         profile_forward(smi, "float32", BATCH, top=24, tome_r=TOME_R,
                         gemm_quant="int8-static")
         time_viterbi(smi)
+        for rate in (0.1, 0.0):
+            profile_train_step(smi, rate)
         return 0
     pe_summary = phase_patch_embed(smi)
     attn_summary = phase_attention(smi)
+    attn_stage1 = phase_attention_stage1(smi)
+    grads = phase_kernel_grads(smi)
     ln_summary = phase_ln_matmul(smi)
     with tempfile.TemporaryDirectory(prefix="vrt_chip_smoke_") as root:
         main_path = phase_main_path(smi, root)
@@ -2040,6 +2631,7 @@ def main() -> int:
         serve_path = phase_serve_path(smi, root, main_path)
         label_path = phase_label_path(smi, root, main_path)
         fast_path = phase_fast_path(smi, root, main_path)
+        stage1 = phase_stage1_path(smi, root)
     phase_game_store(smi)
     # each main path's launches, counted from 0 just before it ran; a
     # kernel's "launches" is their sum
@@ -2047,7 +2639,8 @@ def main() -> int:
                "serve": serve_path["launches"],
                "follow": serve_path["follow_launches"],
                "label": label_path["launches"],
-               "fast": fast_path["launches"]}
+               "fast": fast_path["launches"],
+               "stage1": stage1["launches"]}
 
     def launches(kernel: str) -> dict:
         per = {path: counts[kernel] for path, counts in by_path.items()}
@@ -2059,7 +2652,8 @@ def main() -> int:
              replaces="vit_research_tpu/ops/patch_embed.py:65",
              **launches("patch_embed"),
              library_call="none; nearest F.conv2d over the normalised "
-                          "f32 NCHW batch", **pe_summary),
+                          "f32 NCHW batch", **pe_summary,
+             grad_rel_err=grads["patch_embed"]),
         dict(name="attention", route="cuda",
              source="vit_research_tpu_torch/csrc/attention.cu",
              replaces="vit_research_tpu/ops/attention.py:51",
@@ -2067,7 +2661,12 @@ def main() -> int:
              library_call="F.scaled_dot_product_attention", **attn_summary,
              key_bias=dict(fast_path["attention_key_bias"],
                            library_call="F.scaled_dot_product_attention "
-                                        "with a float attn_mask (B, 1, 1, T)")),
+                                        "with a float attn_mask (B, 1, 1, T)"),
+             stage1_dh96=attn_stage1,
+             grad_rel_err={k: v for k, v in grads.items()
+                           if k.startswith("attention")},
+             stage1_path={k: v for k, v in stage1.items()
+                          if k != "launches"}),
         dict(name="ln_matmul", route="cuda",
              source="vit_research_tpu_torch/csrc/fused_ln.cu",
              replaces="vit_research_tpu/ops/fused_ln.py:62",

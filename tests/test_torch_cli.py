@@ -109,7 +109,11 @@ def test_port_imports_no_jax():
               "segment.changepoint", "segment.clustering",
               "train.checkpoint", "evaluate.fresh_test", "utils.fileops",
               "data.video", "native", "native.jpeg", "models.hf_import",
-              "ops.quant", "ops.tome", "evaluate.event_scoring"):
+              "ops.quant", "ops.tome", "evaluate.event_scoring",
+              "train.losses", "train.optim", "train.common",
+              "train.diagnostics", "train.train_chunk_encoder",
+              "models.heads", "evaluate.scoring", "cli.train_cmds",
+              "utils.metrics"):
         assert f"vit_research_tpu_torch.{m}" in mods
     # chip_smoke.py is imported as a module: its top-level imports run.
     mods.append("chip_smoke")

@@ -644,3 +644,135 @@ def test_fast_profile_engine_on_card_matches_cpu(cuda, kw):
             torch.zeros(2, 16, 32, device=cuda), (4, 4))["token_sizes"]
         assert sizes.shape == (2, t) and host.out_trailing == (t, 32)
         assert torch.all(sizes.sum(dim=1) == 17)
+
+
+# ---- stage 1: kernel B at dh = 96, the kernels' gradients, train-stage1
+
+
+@pytest.mark.parametrize("t", [9, 25, 197])
+@pytest.mark.parametrize("layout", ["contiguous", "projection_order"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_attention_kernel_dh96_matches_plain(cuda, t, layout, dtype,
+                                             with_bias):
+    """The stage-1 chunk encoder's head width (768 / 8 heads). bf16: P and
+    the output are rounded to bf16 (relative 2^-9 each), so the error is
+    at most 2^-8 max|v| (averages of 9 values are not small)."""
+    q, k, v = _attention_inputs(4, 8, t, 96, dtype, layout, cuda, t + 96)
+    bias = _key_bias(4, t, t).to(cuda) if with_bias else None
+    before = attn.multi_head_attention.launches
+    got = attn.multi_head_attention(q, k, v, key_bias=bias)
+    assert attn.multi_head_attention.launches == before + 1
+    want = attn.attention_plain(q.float(), k.float(), v.float(),
+                                key_bias=bias)
+    atol = 1e-5 if dtype == torch.float32 else \
+        2 ** -8 * v.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dh,t", [(64, 197), (96, 9), (96, 25)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_function_grads_on_card(cuda, dh, t, dtype):
+    """A CUDA input that requires grad launches the kernel once and gets
+    an output with a grad_fn; the q/k/v and key-bias gradients are
+    torch.autograd's of the plain version (the Function's backward is
+    that VJP at the same inputs: equal to rounding)."""
+    g = torch.Generator(device=cuda).manual_seed(dh + t)
+    leaves = [torch.randn(2, 8, t, dh, generator=g, device=cuda).to(dtype)
+              .requires_grad_(True) for _ in range(3)]
+    bias = torch.randn(2, t, generator=g, device=cuda).requires_grad_(True)
+    gout = torch.randn(2, 8, t, dh, generator=g, device=cuda).to(dtype)
+    before = attn.multi_head_attention.launches
+    got = attn.multi_head_attention(*leaves, key_bias=bias)
+    assert attn.multi_head_attention.launches == before + 1
+    assert got.grad_fn is not None
+    grads = torch.autograd.grad(got, [*leaves, bias], gout)
+    ref = [x.detach().clone().requires_grad_(True) for x in (*leaves, bias)]
+    want = torch.autograd.grad(
+        attn.attention_plain(*ref[:3], key_bias=ref[3]), ref, gout)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -6
+    for x, y in zip(grads, want):
+        assert x is not None
+        scale = y.float().abs().max().item()
+        torch.testing.assert_close(x.float(), y.float(), rtol=0,
+                                   atol=tol * scale)
+
+
+def test_patch_embed_function_grads_on_card(cuda):
+    """w and bias gradients through kernel A's Function equal
+    torch.autograd's of the plain patch embed (uint8 images take none)."""
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.integers(0, 256, (3, 224, 224, 3),
+                                           dtype=np.uint8)).to(cuda)
+    w = (torch.randn(768, 768, device=cuda) / 768 ** 0.5).requires_grad_(True)
+    bias = torch.randn(768, device=cuda).requires_grad_(True)
+    before = pe.fused_patch_embed.launches
+    got = pe.fused_patch_embed(images, w, bias, patch_size=16, **HF_AFFINE)
+    assert pe.fused_patch_embed.launches == before + 1
+    assert got.grad_fn is not None
+    gout = torch.randn_like(got)
+    grads = torch.autograd.grad(got, [w, bias], gout)
+    a_vec, b_vec = (torch.from_numpy(x).to(cuda)
+                    for x in pe.fold_affine(16, 3, **HF_AFFINE))
+    ref = [x.detach().clone().requires_grad_(True) for x in (w, bias)]
+    want = torch.autograd.grad(
+        pe.patch_embed_plain(images, *ref, a_vec, b_vec, patch_size=16),
+        ref, gout.reshape(-1, 768))
+    for x, y in zip(grads, want):
+        torch.testing.assert_close(x, y, rtol=0,
+                                   atol=1e-5 * y.abs().max().item())
+
+
+def test_train_stage1_and_write_ratt_db_on_card(cuda, tmp_path, capsys):
+    """train-stage1 --device cuda for one epoch on a small full-width store
+    (768 wide: kernel B at dh = 96 in every validation batch), then
+    write-ratt-db --device cuda; the rows equal the CPU forward of the
+    restored encoder within 1e-4."""
+    from vit_research_tpu_torch import cli
+    from vit_research_tpu_torch.db.frame_store import (
+        FrameStore, build_chunk_index, gather_chunk_embedding_batch,
+        load_chunk_index)
+    from vit_research_tpu_torch.models.heads import ChunkEncoder
+    from vit_research_tpu_torch.store.vector_store import PersistentClient
+    from vit_research_tpu_torch.train.checkpoint import CheckpointManager
+    from vit_research_tpu_torch.train.train_chunk_encoder import (
+        make_encode_fn)
+    from vit_research_tpu_torch.utils.configs import ChunkEncoderConfig
+
+    rng = np.random.default_rng(6)
+    paths, chunks = [], []
+    for clip in range(4):
+        frames = [f"/c{clip}/f{i}.jpg" for i in range(24)]
+        paths += frames
+        for s in range(0, 17, 2):
+            chunks.append(dict(vid=1 + clip % 2, clip=clip, start_idx=s,
+                               end_idx=s + 7, side="left", label=clip % 2,
+                               status_id=0, t_center=s / 24, t_width=0.2,
+                               frames=frames[s:s + 8]))
+    embs = rng.standard_normal((len(paths), 768)).astype(np.float32)
+    root = str(tmp_path / "store")
+    store = FrameStore.build(paths, lambda ps: embs[[paths.index(p)
+                                                     for p in ps]], root)
+    build_chunk_index(chunks, store, root)
+    n = len(chunks)
+    n_val = n - int(n * 0.8)
+    ck, db = str(tmp_path / "ckpt"), str(tmp_path / "db")
+    before = attn.multi_head_attention.launches
+    cli.main(["train-stage1", "--store", root, "--ckpt", ck, "--epochs",
+              "1", "--batch-size", "8", "--run-id", "s1", "--device",
+              "cuda"])
+    assert attn.multi_head_attention.launches - before == \
+        3 * -(-n_val // 8)
+    cli.main(["write-ratt-db", "--store", root, "--ckpt", ck, "--db", db,
+              "--run-id", "s1", "--device", "cuda"])
+    assert f"wrote {n} chunk embeddings" in capsys.readouterr().out
+    got = PersistentClient(db, device="cpu").get_collection("ratt_db").get(
+        ids=[f"chunk_{i}" for i in range(n)], include=("embeddings",))
+    encode = make_encode_fn(ChunkEncoder(ChunkEncoderConfig(max_len=8)),
+                            CheckpointManager(ck, "s1").restore_best()
+                            ["params"])
+    want, _ = encode(gather_chunk_embedding_batch(
+        FrameStore(root).open(), load_chunk_index(root), np.arange(n)))
+    want = want / (np.linalg.norm(want, axis=1, keepdims=True) + 1e-8)
+    np.testing.assert_allclose(np.asarray(got["embeddings"]), want, rtol=0,
+                               atol=1e-4)

@@ -21,6 +21,11 @@
     python -m vit_research_tpu_torch.cli search FRAME [FRAME ...] \\
         --db DB --collection C [--k 10] [--where JSON] [--device cuda]
     python -m vit_research_tpu_torch.cli db-info DB [--compact]
+    python -m vit_research_tpu_torch.cli train-stage1 --store STORE \
+        --ckpt CKPT [--epochs 10] [--run-id R [--resume]] [--device cuda]
+    python -m vit_research_tpu_torch.cli write-ratt-db --store STORE \
+        --ckpt CKPT --db DB [--collection ratt_db] [--run-id R] \
+        [--device cuda]
     python -m vit_research_tpu_torch.cli self-label FRAMES --db DB \
         --collection C --out LABELS.csv [--upsert] [--device cuda]
     python -m vit_research_tpu_torch.cli finalize-clips --clips CLIPS \
@@ -44,7 +49,8 @@ or train. ``VRT_TINY=1`` swaps the
 ViT-B/16 for the reference's tiny test ViT and ``VRT_GRAYSCALE=1`` embeds
 luminance frames, as in the reference. The arcs follow the reference's
 layout: :mod:`.ingest`, :mod:`.segment_cmds`, :mod:`.db_cmds`,
-:mod:`.serve_cmds`, with the shared helpers in :mod:`.common`.
+:mod:`.train_cmds`, :mod:`.serve_cmds`, with the shared helpers in
+:mod:`.common`.
 """
 
 from vit_research_tpu_torch.cli.parser import main  # noqa: F401

@@ -17,6 +17,8 @@ import json
 import os
 import sys
 
+import numpy as np
+
 PROFILE_PREFIX = "torch|"
 
 
@@ -198,6 +200,46 @@ def load_corpus(db: str, collection: str, device, *,
         return client, col, corpus_from_collection(col)
     except ValueError as e:
         raise SystemExit(str(e))
+
+
+def _scoring_call(fn, *a, **kw):
+    """Run an evaluate/scoring.py loader, turning its
+    ``ScoringUnavailable`` into the CLI's clean exit."""
+    from vit_research_tpu_torch.evaluate.scoring import ScoringUnavailable
+
+    try:
+        return fn(*a, **kw)
+    except ScoringUnavailable as e:
+        raise SystemExit(str(e))
+
+
+def _stage1_encode_batch(dim: int, t: int, ckpt, run_id, *,
+                         strict: bool = False, device="cuda"):
+    """The frozen stage-1 ChunkEncoder on ``device`` as a raw (B, T, D) ->
+    (embs, logits) callable (evaluate/scoring.py, CLI error convention)."""
+    from vit_research_tpu_torch.evaluate import scoring
+
+    return _scoring_call(scoring.stage1_encode_batch, dim, t, ckpt, run_id,
+                         strict=strict, device=device)
+
+
+def _stage1_encode(store, idx, ckpt, run_id, device="cuda"):
+    """The frozen stage-1 ChunkEncoder for the chunks of a frame store;
+    restored from ``run_id`` when given.
+
+    Returns ``(encode_batch, encode_chunk)``: the raw (B, T, D) ->
+    (embs, logits) callable and a one-chunk dict -> L2-normalised (D,)
+    wrapper."""
+    encode_batch = _stage1_encode_batch(
+        store.dim, int(idx["frame_idx"].shape[1]), ckpt, run_id,
+        device=device)
+
+    def encode_chunk(ch):
+        emb, _ = encode_batch(store.gather_paths([ch["frames"]]))
+        v = np.asarray(emb[0])
+        return v / (np.linalg.norm(v) + 1e-8)
+
+    return encode_batch, encode_chunk
 
 
 def _list_clip_dirs(root: str) -> list:

@@ -1,6 +1,6 @@
-"""Vector-store commands: search, db-info.
+"""Vector-store commands: write-ratt-db, search, db-info.
 
-Port of the two verbs of vit_research_tpu/cli/db_cmds.py, with the
+Port of three verbs of vit_research_tpu/cli/db_cmds.py, with the
 reference's arguments and output lines plus ``--device``.
 """
 
@@ -11,6 +11,31 @@ import json
 import numpy as np
 
 from vit_research_tpu_torch.cli import common
+
+
+def cmd_write_ratt_db(args):
+    """Chunk-encoder embeddings of every chunk of a frame store into a
+    cosine collection, with the encoder of a stage-1 run (``--run-id``;
+    fresh weights without one)."""
+    from vit_research_tpu_torch.db.builders import write_ratt_chunk_db
+    from vit_research_tpu_torch.db.frame_store import (FrameStore,
+                                                       load_chunk_index)
+    from vit_research_tpu_torch.store.vector_store import PersistentClient
+
+    store = FrameStore(args.store).open()
+    idx = load_chunk_index(args.store)
+    encode, _ = common._stage1_encode(store, idx, args.ckpt, args.run_id,
+                                      args.device)
+    client = PersistentClient(args.db, device=args.device)
+    col = client.get_or_create_collection(
+        args.collection, metadata={"hnsw:space": "cosine"})
+    # chunk rows inherit the store's embedding profile (the frames were
+    # embedded when the store was built, not now)
+    if store.embedding_profile:
+        common._stamp_profile(col, store.embedding_profile)
+    n = write_ratt_chunk_db(idx, store, encode, col)
+    client.flush()
+    print(f"wrote {n} chunk embeddings into {args.collection}")
 
 
 def cmd_search(args):
@@ -73,6 +98,17 @@ def cmd_db_info(args):
 
 
 def register(sub):
+    wr = sub.add_parser(
+        "write-ratt-db",
+        help="stage-1 chunk embeddings of a frame store into a collection")
+    wr.add_argument("--store", required=True)
+    wr.add_argument("--ckpt", required=True)
+    wr.add_argument("--db", required=True)
+    wr.add_argument("--collection", default="ratt_db")
+    wr.add_argument("--run-id", default=None)
+    common.device_arg(wr)
+    wr.set_defaults(fn=cmd_write_ratt_db)
+
     se = sub.add_parser(
         "search", help="embed frames (or .npz rows) and print neighbors")
     se.add_argument("frames", nargs="*", help="frame image paths")

@@ -9,13 +9,14 @@ import argparse
 
 def build_parser() -> argparse.ArgumentParser:
     from vit_research_tpu_torch.cli import (db_cmds, ingest, segment_cmds,
-                                            serve_cmds)
+                                            serve_cmds, train_cmds)
 
     p = argparse.ArgumentParser(prog="vit_research_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     ingest.register(sub)
     segment_cmds.register(sub)
     db_cmds.register(sub)
+    train_cmds.register(sub)
     serve_cmds.register(sub)
     return p
 

@@ -9,7 +9,8 @@
 // strides (the last dim has stride 1), so the backbone passes the q/k/v
 // projections in their (B, T, H, dh) order without a copy; o is written
 // through its own strides (the wrapper allocates it (B, T, H, dh)). Any T;
-// dh in {16, 32, 64}.
+// dh in {16, 32, 64, 96} (96: the stage-1 chunk encoder, 768 wide with 8
+// heads, at T = 9 to 25; a 64-row query tile is then mostly idle).
 //
 // Optional key bias (ToMe's proportional attention, models/vit.py's
 // ToMeEncoderBlock): a (B, T) f32 row per batch element, with its batch
@@ -407,6 +408,9 @@ attn_bf16(const Params<__nv_bfloat16> p) {
 
 // ----------------------------------------------------------------- f32
 
+// dh = 96: (64*100 + 2*64*100 + 2*64*96 + 64*72) * 4 = 144,384 bytes (plus
+// 512 with the bias), under the 227 KB a block may opt into: one block an
+// SM. dh = 192 would need ~267 KB and another design.
 template <int DH>
 struct F32Layout {
   static constexpr int LDQ = DH + 4, LDK = DH + 4, LDV = DH, LDP = BK + 8;
@@ -690,7 +694,7 @@ int launch_bf16(const Params<__nv_bfloat16>& p, int batch, cudaStream_t s) {
 // element strides strides[0..2] (q), [3..5] (k), [6..8] (v) for batch,
 // head and token; o is written through strides[9..11]. The last dim has
 // stride 1; base pointers and strides are multiples of 16 bytes. dh in
-// {16, 32, 64}. bias: null, or a (batch, seq) f32 key bias whose rows are
+// {16, 32, 64, 96}. bias: null, or a (batch, seq) f32 key bias whose rows are
 // bias_stride elements apart (stride 1 along seq). Returns
 // cudaGetLastError() after the launch.
 extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
@@ -708,6 +712,7 @@ extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
       case 16: return launch_bf16<16>(p, batch, s);
       case 32: return launch_bf16<32>(p, batch, s);
       case 64: return launch_bf16<64>(p, batch, s);
+      case 96: return launch_bf16<96>(p, batch, s);
     }
   } else {
     const auto p = make_params<float>(q, k, v, o, heads, seq, strides, scale,
@@ -716,6 +721,7 @@ extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
       case 16: return launch_f32<16>(p, batch, s);
       case 32: return launch_f32<32>(p, batch, s);
       case 64: return launch_f32<64>(p, batch, s);
+      case 96: return launch_f32<96>(p, batch, s);
     }
   }
   return (int)cudaErrorInvalidValue;

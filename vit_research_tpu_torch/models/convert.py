@@ -14,7 +14,10 @@ into a ``state_dict`` for models/vit.py::VisionTransformer, and
 
 ``side_mlp_to_state_dict`` / ``side_mlp_to_params`` do the same for the
 side classifier (segment/clustering.py::SideMLP), whose Flax tree is also
-the format of its ``.npz`` files (train/checkpoint.py).
+the format of its ``.npz`` files (train/checkpoint.py), and
+``chunk_encoder_to_state_dict`` / ``chunk_encoder_to_params`` for the
+stage-1 ``ChunkEncoder`` (models/heads.py), whose blocks are the
+backbone's.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vit_research_tpu_torch.utils.configs import ViTConfig
+from vit_research_tpu_torch.utils.configs import ChunkEncoderConfig, ViTConfig
 
 
 def _np(x) -> np.ndarray:
@@ -35,6 +38,63 @@ def _ln(tree) -> dict:
 
 def _dense(tree) -> dict:
     return {"weight": _np(tree["kernel"]).T, "bias": _np(tree["bias"])}
+
+
+def _block_to_flat(blk, pre: str, d: int) -> dict:
+    """One flax ``EncoderBlock`` tree -> flat ``state_dict`` entries under
+    ``pre``."""
+    flat = {}
+    for name in ("ln1", "ln2"):
+        for k, v in _ln(blk[name]).items():
+            flat[f"{pre}{name}.{k}"] = v
+    for name in ("query", "key", "value"):
+        kern = _np(blk["attn"][name]["kernel"])  # (D, H, dh)
+        flat[f"{pre}attn.{name}.weight"] = kern.reshape(d, -1).T
+        flat[f"{pre}attn.{name}.bias"] = \
+            _np(blk["attn"][name]["bias"]).reshape(-1)
+    out = _np(blk["attn"]["out"]["kernel"])  # (H, dh, D)
+    flat[f"{pre}attn.out.weight"] = out.reshape(-1, d).T
+    flat[f"{pre}attn.out.bias"] = _np(blk["attn"]["out"]["bias"])
+    for name in ("fc1", "fc2"):
+        for k, v in _dense(blk["mlp"][name]).items():
+            flat[f"{pre}mlp.{name}.{k}"] = v
+    return flat
+
+
+def _tensors(flat: dict) -> dict:
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in flat.items()}
+
+
+def _getter(state_dict):
+    def t(name):
+        return state_dict[name].detach().to("cpu", torch.float32).numpy()
+    return t
+
+
+def _block_to_tree(t, pre: str, d: int, h: int) -> dict:
+    """The inverse of :func:`_block_to_flat` (``t``: name -> numpy)."""
+    def ln(name):
+        return {"scale": t(name + ".weight"), "bias": t(name + ".bias")}
+
+    def dense(name):
+        return {"kernel": t(name + ".weight").T.copy(),
+                "bias": t(name + ".bias")}
+
+    attn = {}
+    for name in ("query", "key", "value"):
+        attn[name] = {
+            "kernel": t(f"{pre}attn.{name}.weight").T.reshape(d, h, -1)
+            .copy(),
+            "bias": t(f"{pre}attn.{name}.bias").reshape(h, -1),
+        }
+    attn["out"] = {
+        "kernel": t(f"{pre}attn.out.weight").T.reshape(h, -1, d).copy(),
+        "bias": t(f"{pre}attn.out.bias"),
+    }
+    return {"ln1": ln(pre + "ln1"), "ln2": ln(pre + "ln2"), "attn": attn,
+            "mlp": {"fc1": dense(pre + "mlp.fc1"),
+                    "fc2": dense(pre + "mlp.fc2")}}
 
 
 def params_to_state_dict(params, config: ViTConfig) -> dict:
@@ -50,37 +110,18 @@ def params_to_state_dict(params, config: ViTConfig) -> dict:
     for k, v in _ln(p["encoder_norm"]).items():
         flat[f"encoder_norm.{k}"] = v
     for i in range(config.num_layers):
-        blk = p[f"block_{i}"]
-        pre = f"blocks.{i}."
-        for name in ("ln1", "ln2"):
-            for k, v in _ln(blk[name]).items():
-                flat[f"{pre}{name}.{k}"] = v
-        for name in ("query", "key", "value"):
-            kern = _np(blk["attn"][name]["kernel"])  # (D, H, dh)
-            flat[f"{pre}attn.{name}.weight"] = kern.reshape(d, -1).T
-            flat[f"{pre}attn.{name}.bias"] = \
-                _np(blk["attn"][name]["bias"]).reshape(-1)
-        out = _np(blk["attn"]["out"]["kernel"])  # (H, dh, D)
-        flat[f"{pre}attn.out.weight"] = out.reshape(-1, d).T
-        flat[f"{pre}attn.out.bias"] = _np(blk["attn"]["out"]["bias"])
-        for name in ("fc1", "fc2"):
-            for k, v in _dense(blk["mlp"][name]).items():
-                flat[f"{pre}mlp.{name}.{k}"] = v
+        flat.update(_block_to_flat(p[f"block_{i}"], f"blocks.{i}.", d))
     if config.representation_size is not None:
         for k, v in _dense(p["pre_logits"]).items():
             flat[f"pre_logits.{k}"] = v
-    return {k: torch.from_numpy(np.array(v, np.float32))
-            for k, v in flat.items()}
+    return _tensors(flat)
 
 
 def state_dict_to_params(state_dict, config: ViTConfig) -> dict:
     """torch ``state_dict`` -> Flax ViT params ``{"params": {...}}`` of
     float32 numpy arrays (the inverse of :func:`params_to_state_dict`)."""
-    def t(name):
-        return state_dict[name].detach().to("cpu", torch.float32).numpy()
-
+    t = _getter(state_dict)
     d = config.hidden_size
-    h = config.num_heads
     ps = config.patch_size
 
     def ln(pre):
@@ -100,23 +141,8 @@ def state_dict_to_params(state_dict, config: ViTConfig) -> dict:
         "encoder_norm": ln("encoder_norm"),
     }
     for i in range(config.num_layers):
-        pre = f"blocks.{i}."
-        attn = {}
-        for name in ("query", "key", "value"):
-            attn[name] = {
-                "kernel": t(f"{pre}attn.{name}.weight").T.reshape(d, h, -1)
-                .copy(),
-                "bias": t(f"{pre}attn.{name}.bias").reshape(h, -1),
-            }
-        attn["out"] = {
-            "kernel": t(f"{pre}attn.out.weight").T.reshape(h, -1, d).copy(),
-            "bias": t(f"{pre}attn.out.bias"),
-        }
-        p[f"block_{i}"] = {
-            "ln1": ln(pre + "ln1"), "ln2": ln(pre + "ln2"), "attn": attn,
-            "mlp": {"fc1": dense(pre + "mlp.fc1"),
-                    "fc2": dense(pre + "mlp.fc2")},
-        }
+        p[f"block_{i}"] = _block_to_tree(t, f"blocks.{i}.", d,
+                                         config.num_heads)
     if config.representation_size is not None:
         p["pre_logits"] = dense("pre_logits")
     return {"params": p}
@@ -146,3 +172,41 @@ def side_mlp_to_params(state_dict) -> dict:
         name: {"kernel": t(f"{name}.weight").T.copy(),
                "bias": t(f"{name}.bias").copy()}
         for name in _SIDE_MLP_LAYERS}}
+
+
+def chunk_encoder_to_state_dict(params) -> dict:
+    """The JAX package's flax ``ChunkEncoder`` params (numpy, with or
+    without the outer ``{"params": ...}``) -> ``state_dict`` of
+    models/heads.py::ChunkEncoder (float32 CPU tensors)."""
+    p = params.get("params", params)
+    d = _np(p["cls_token"]).shape[-1]
+    flat = {"cls_token": _np(p["cls_token"]),
+            "pos_embedding": _np(p["pos_embedding"])}
+    for k, v in _ln(p["norm"]).items():
+        flat[f"norm.{k}"] = v
+    n_blocks = sum(1 for k in p if k.startswith("block_"))
+    for i in range(n_blocks):
+        flat.update(_block_to_flat(p[f"block_{i}"], f"blocks.{i}.", d))
+    for name in ("fc", "logit"):
+        for k, v in _dense(p["class_head"][name]).items():
+            flat[f"class_head.{name}.{k}"] = v
+    return _tensors(flat)
+
+
+def chunk_encoder_to_params(state_dict,
+                            config: ChunkEncoderConfig) -> dict:
+    """``ChunkEncoder`` ``state_dict`` -> the flax tree ``{"params":
+    {...}}`` of float32 numpy arrays (the inverse of
+    :func:`chunk_encoder_to_state_dict`; ``config`` gives the head count)."""
+    t = _getter(state_dict)
+    d = config.embed_dim
+    p = {"cls_token": t("cls_token"), "pos_embedding": t("pos_embedding"),
+         "norm": {"scale": t("norm.weight"), "bias": t("norm.bias")},
+         "class_head": {name: {"kernel": t(f"class_head.{name}.weight").T
+                               .copy(),
+                               "bias": t(f"class_head.{name}.bias")}
+                        for name in ("fc", "logit")}}
+    for i in range(config.num_layers):
+        p[f"block_{i}"] = _block_to_tree(t, f"blocks.{i}.", d,
+                                         config.num_heads)
+    return {"params": p}

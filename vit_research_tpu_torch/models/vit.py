@@ -67,6 +67,34 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, generator) -> None:
                           generator=generator)
 
 
+class Dropout(nn.Dropout):
+    """Dropout whose masks come from ``self.generator`` when it is set (a
+    ``torch.Generator`` on the activations' device; the training loops
+    seed one per epoch, so a resumed run replays its masks), else from
+    torch's default generator. Drops as flax does: ``where(keep, x /
+    (1 - p), 0)`` with ``keep ~ Bernoulli(1 - p)``."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__(p)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep_prob = 1.0 - self.p
+        keep = torch.empty(x.shape, device=x.device).bernoulli_(
+            keep_prob, generator=self.generator).to(torch.bool)
+        return torch.where(keep, x / keep_prob, 0.0)
+
+
+def set_dropout_generator(module: nn.Module, generator) -> None:
+    """Point every :class:`Dropout` of ``module`` at ``generator`` (None:
+    torch's default generator)."""
+    for mod in module.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator
+
+
 def _dense(lin: nn.Linear, x: torch.Tensor, qdg) -> torch.Tensor:
     """``lin(x)``, or its int8 product through ``qdg`` (ops/quant.py) plus
     the bias: the reference injects its int8 ``dot_general`` into the same
@@ -121,7 +149,7 @@ class MlpBlock(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(dim, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, dim)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.gelu_approximate = "tanh" if gelu_approximate else "none"
         self.dot_general = dot_general  # None, or an ops/quant.py product
 
@@ -148,7 +176,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.softmax_dtype = softmax_dtype
         self.dot_general = dot_general  # None, or an ops/quant.py product
 
@@ -210,7 +238,7 @@ class EncoderBlock(nn.Module):
         self.ln2 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.mlp = MlpBlock(dim, mlp_dim, dropout_rate, gelu_approximate,
                             dot_general)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x, output_scores: bool = False):
         y, scores = self.attn(self.ln1(x), output_scores)
@@ -282,7 +310,7 @@ class VisionTransformer(nn.Module):
         self.encoder_norm = nn.LayerNorm(d, eps=c.layer_norm_eps)
         self.pre_logits = (nn.Linear(d, c.representation_size)
                            if c.representation_size is not None else None)
-        self.input_dropout = nn.Dropout(c.dropout_rate)
+        self.input_dropout = Dropout(c.dropout_rate)
         self.reset_parameters(generator)
 
     @torch.no_grad()

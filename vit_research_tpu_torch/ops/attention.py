@@ -16,6 +16,12 @@ writes the output in that order too. On a CPU tensor it runs
 softmax(q k^T * scale + bias) v: ToMe's proportional attention, where
 the reference adds ``log(sizes)`` to the scores on its einsum path
 (models/vit.py ToMe blocks). The kernel adds it inside its score loop.
+
+Gradients: when an input requires grad, the call goes through
+:class:`_Attention`, a ``torch.autograd.Function`` whose forward is the
+kernel (the plain version on the CPU) and whose backward is the VJP of
+:func:`attention_plain`, as the reference's ``custom_vjp`` takes the VJP of
+``xla_attention`` (there is no backward kernel).
 """
 
 from __future__ import annotations
@@ -24,8 +30,9 @@ import ctypes
 
 import torch
 
-#: head widths the kernel is compiled for (ViT-B: 64; tiny test configs)
-KERNEL_HEAD_DIMS = (16, 32, 64)
+#: head widths the kernel is compiled for (ViT-B: 64; the stage-1 chunk
+#: encoder, 768 wide with 8 heads: 96; tiny test configs)
+KERNEL_HEAD_DIMS = (16, 32, 64, 96)
 _DTYPES = (torch.float32, torch.bfloat16)
 _ALIGN = 16  # bytes: the kernel moves q, k, v and o in 16-byte copies
 
@@ -121,6 +128,50 @@ def _launch(q, k, v, scale, key_bias):
     return o
 
 
+def _forward(q, k, v, scale, key_bias):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale=scale, key_bias=key_bias)
+    if q.device.type == "cuda":
+        return _launch(q, k, v, scale, key_bias)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+class _Attention(torch.autograd.Function):
+    """Forward: :func:`_forward` (the kernel on CUDA). Backward: the VJP
+    of :func:`attention_plain` at the saved inputs, for q, k, v and the key
+    bias, whichever require grad."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, scale):
+        inputs = (q, k, v, key_bias)
+        ctx.save_for_backward(*(t if t is not None and t.requires_grad
+                                else None for t in inputs))
+        # inputs that take no grad may be inference tensors (a cached key
+        # bias), which save_for_backward refuses: kept on ctx instead
+        ctx.constants = [None if t is None or t.requires_grad else t
+                         for t in inputs]
+        ctx.scale = scale
+        return _forward(q, k, v, scale, key_bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = [c if t is None else t
+                 for t, c in zip(ctx.saved_tensors, ctx.constants)]
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad[:4])]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(())
+        if wanted:
+            with torch.enable_grad():
+                q, k, v, key_bias = inputs
+                out = attention_plain(q, k, v, scale=ctx.scale,
+                                      key_bias=key_bias)
+                grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(grads) if t is not None and t.requires_grad else None
+                  for t in inputs), None)
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale=None, key_bias=None) -> torch.Tensor:
     """softmax(q k^T * scale + key_bias) v for (B, H, T, head_dim) f32 or
@@ -134,7 +185,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of 16 bytes (see :func:`_kernel_strides`), and the output is the
     ``transpose(1, 2)`` view of a contiguous (B, T, H, head_dim) tensor.
     It raises on a head width or layout the kernel does not take. A CPU
-    input runs :func:`attention_plain`."""
+    input runs :func:`attention_plain`. When an input requires grad
+    (and grad mode is on), the call goes through :class:`_Attention`, so
+    the gradients are the plain version's."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one (B, H, T, dh) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -145,11 +198,10 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_key_bias(key_bias, q)
     d = q.shape[-1]
     scale = float(d ** -0.5) if scale is None else float(scale)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale=scale, key_bias=key_bias)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, scale, key_bias)
-    raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, key_bias)):
+        return _Attention.apply(q, k, v, key_bias, scale)
+    return _forward(q, k, v, scale, key_bias)
 
 
 multi_head_attention.launches = 0

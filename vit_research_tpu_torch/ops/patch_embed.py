@@ -17,6 +17,13 @@ splits it into three bf16 pieces (:func:`fold_split_weight`), so the
 kernel multiplies on the bf16 tensor cores with f32 accuracy; float32
 images take the kernel's f32 CUDA-core version, which applies the affine
 in its loader. On a CPU tensor it runs :func:`patch_embed_plain`.
+
+Gradients with respect to ``w`` and ``bias`` come from :class:`_PatchEmbed`,
+a ``torch.autograd.Function`` whose backward is the VJP of
+:func:`patch_embed_plain`, as the reference's ``custom_vjp`` takes the VJP
+of ``_rows_project_xla``. It saves the images and the unfolded weight, not
+the kernel's folded and split pieces: the backward recomputes what it
+needs (the normalised rows) from the images. The images take no grad.
 """
 
 from __future__ import annotations
@@ -164,6 +171,48 @@ def _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
     return out
 
 
+def _forward(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
+    """The kernel on a CUDA tensor, the plain version on a CPU one:
+    (B*N, D)."""
+    if images.device.type == "cpu":
+        return patch_embed_plain(images, w, bias, a_vec, b_vec,
+                                 patch_size=patch_size, out_dtype=out_dtype)
+    if images.device.type == "cuda":
+        return _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype)
+    raise ValueError(f"unsupported device {images.device}")
+
+
+class _PatchEmbed(torch.autograd.Function):
+    """Forward: :func:`_forward` (the kernel on CUDA). Backward: the VJP
+    of :func:`patch_embed_plain` with respect to ``w`` and ``bias``."""
+
+    @staticmethod
+    def forward(ctx, images, w, bias, a_vec, b_vec, patch_size, out_dtype):
+        ctx.save_for_backward(w, bias)
+        # The images and the affine vectors take no grad and may be
+        # inference tensors (the engine runs under inference_mode, and
+        # _affine_on caches its vectors), which save_for_backward refuses.
+        ctx.images, ctx.affine = images, (a_vec, b_vec)
+        ctx.cfg = dict(patch_size=patch_size, out_dtype=out_dtype)
+        return _forward(images, w, bias, a_vec, b_vec, patch_size,
+                        out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        w, bias = ctx.saved_tensors
+        params = [t.detach().requires_grad_(need)
+                  for t, need in zip((w, bias), ctx.needs_input_grad[1:3])]
+        wanted = [t for t in params if t.requires_grad]
+        grads = iter(())
+        if wanted:
+            with torch.enable_grad():
+                out = patch_embed_plain(ctx.images, *params, *ctx.affine,
+                                        **ctx.cfg)
+                grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (None, *(next(grads) if t.requires_grad else None
+                        for t in params), None, None, None, None)
+
+
 def fused_patch_embed(images: torch.Tensor, w: torch.Tensor,
                       bias: torch.Tensor, *, patch_size: int,
                       rescale: float = 1.0, mean=(0.0, 0.0, 0.0),
@@ -177,19 +226,19 @@ def fused_patch_embed(images: torch.Tensor, w: torch.Tensor,
       bias: (D,) float32.
     Returns (B, N, D) in ``out_dtype`` (float32 or bfloat16). A CUDA input
     launches the kernel (and counts it in ``fused_patch_embed.launches``);
-    a CPU input runs the plain version."""
+    a CPU input runs the plain version. When ``w`` or ``bias`` requires
+    grad (and grad mode is on), the call goes through :class:`_PatchEmbed`,
+    so their gradients are the plain version's."""
     c = images.shape[-1]
     a_vec, b_vec = _affine_on(images.device, patch_size, c, float(rescale),
                               tuple(float(x) for x in mean),
                               tuple(float(x) for x in std))
     _check(images, w, bias, a_vec, b_vec, patch_size, out_dtype)
-    if images.device.type == "cpu":
-        out = patch_embed_plain(images, w, bias, a_vec, b_vec,
-                                patch_size=patch_size, out_dtype=out_dtype)
-    elif images.device.type == "cuda":
-        out = _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype)
+    if torch.is_grad_enabled() and (w.requires_grad or bias.requires_grad):
+        out = _PatchEmbed.apply(images, w, bias, a_vec, b_vec, patch_size,
+                                out_dtype)
     else:
-        raise ValueError(f"unsupported device {images.device}")
+        out = _forward(images, w, bias, a_vec, b_vec, patch_size, out_dtype)
     return out.reshape(images.shape[0], -1, w.shape[1])
 
 
