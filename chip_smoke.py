@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels, holds
 each against its plain PyTorch version, then drives the kNN+HMM main path,
-the vector-store, serving, labelling and fast-profile paths and stage-1
-training through the port's CLI at full width and checks the results.
+the vector-store, serving, labelling and fast-profile paths, stage-1
+training and the retrieval trainers through the port's CLI at full width
+and checks the results.
 
     python3 chip_smoke.py
 
@@ -23,6 +24,12 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      the kernels' gradients: B's q/k/v and key-bias gradients through its
      autograd Function on the card (dh = 64 and 96, f32 and bf16) and A's
      w and bias gradients, against torch.autograd of the plain versions;
+  3d. the attention kernel at the RAG/RATT heads' dh = 192 (H = 4; B = 8
+     and 256 at T = 5, B = 32 at T = 65 and 130; f32 and bf16, with and
+     without a key bias, contiguous and projection order) against its
+     plain version, the plain version's time, SDPA (with the bias as a
+     float mask) and its bound; gradients through its Function against
+     the plain VJP; ptxas's registers and spills of the dh = 192 kernels;
   3b. the fused LayerNorm + projection kernel, driven through its public
      entry ``ln_matmul`` at ViT-B shapes (M = 256*197, K = 768, N = 768
      and 3072 with exact GELU; x and W f32, and x f32 with W bf16), then
@@ -88,16 +95,33 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      a planted fault, dq zeroed, which the check must catch), the step
      and eval-batch times, and write_ratt_chunk_db's rows/s on a seeded
      game-sized store (200,000 frames, ~100,000 chunks);
+  5f. the retrieval trainers on phase 4's world: a two-game frame store
+     (phase 4's segment clips and the corpus game's possessions),
+     write-rag-db (rows equal the store's), write-ratt-db with phase 5e's
+     run, train-rag 2 epochs with --rebuild sync --rebuild-every 1 and
+     --resume for a third through the CLI on the card at full width
+     (RAGHead 768 x 2, 4 heads: B at dh = 192; its launches, 2 a training
+     step and a validation batch, counted as the path ``rag``), the synced
+     and rebuild-db --run-id rows against a CPU ProjectionHead (1e-5),
+     train-ratt with --rebuild sync (rows against a CPU projection) and
+     with --attention-losses (no kernel launches), the card
+     FrameRetriever against a float64 host top-k (tie-aware), a dropout-0
+     train_rag trajectory on the card against the CPU (and the same run
+     with dq zeroed, which must fail it), a preset-rag train step's time,
+     launches and idle share, and a FrameRetriever batch of 8 queries
+     against a seeded 200,000 x 768 frame collection;
   6. a game-sized store: a seeded 200,000 x 768 cosine collection queried
      with 256 queries, k = 50, on the card in f32 and in int8, each held
      against the CPU answer of the same rows, and timed;
   7. one JSON line of kernel summaries (``launches`` sums the kernel's
-     launches over the paths of phases 4-5e, ``launches_by_path`` lists
-     them, ``fast`` being phase 5d's write-frame-db and segment and
-     ``stage1`` phase 5e's verbs; the attention entry's ``key_bias``
+     launches over the paths of phases 4-5f, ``launches_by_path`` lists
+     them, ``fast`` being phase 5d's write-frame-db and segment,
+     ``stage1`` phase 5e's verbs and ``rag`` phase 5f's train-rag and
+     train-ratt; the attention entry's ``key_bias``
      holds phase 5d's rows, ``stage1_dh96`` phase 3c's, ``grad_rel_err``
-     the gradient checks and ``stage1_path`` phase 5e's numbers), then
-     the result line.
+     the gradient checks and ``stage1_path`` phase 5e's numbers,
+     ``rag_dh192`` phase 3d's rows and ``rag_path`` phase 5f's), then the
+     result line.
 
 Bounds (``bound_ms``) are the larger of the bytes a kernel must move
 over the H100 SXM's 3.35 TB/s and its operations over the peak of the
@@ -133,6 +157,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import math
@@ -305,20 +330,26 @@ def _demangle(names: list) -> list:
     return short
 
 
-def log_ptxas(source: str) -> None:
-    """One line per kernel of ``source``: ptxas's registers, shared
-    memory (static; dynamic shared memory is set at launch) and spills."""
+def _ptxas_lines(source: str, needle: str) -> list:
+    """ptxas's registers and spills of the kernels of ``source`` whose
+    mangled name holds ``needle``."""
     rows, name, spills = [], "?", ""
     for line in _build.ptxas_report(source):
         if m := re.search(r"Compiling entry function '(\S+)'", line):
             name = m.group(1)
         elif "spill" in line:
             spills = line
-        elif "registers" in line:
+        elif "registers" in line and needle in name:
             rows.append((name, line.split(":", 1)[1].strip(), spills))
-    for short, (_, used, spill) in zip(_demangle([r[0] for r in rows]),
-                                       rows):
-        log(f"[1] ptxas {source} {short}: {used}; {spill}")
+    return [f"{short}: {used}; {spill}" for short, (_, used, spill) in
+            zip(_demangle([r[0] for r in rows]), rows)]
+
+
+def log_ptxas(source: str) -> None:
+    """One line per kernel of ``source``: ptxas's registers, shared
+    memory (static; dynamic shared memory is set at launch) and spills."""
+    for line in _ptxas_lines(source, ""):
+        log(f"[1] ptxas {source} {line}")
 
 
 # (B, H, W, P, output dtypes): the main path's B=256 and the bf16
@@ -626,6 +657,155 @@ def phase_kernel_grads(smi: str) -> dict:
     out["patch_embed"] = max(errs)
     torch.cuda.empty_cache()
     return out
+
+
+# The RAG/RATT heads (HeadConfig(): 768 wide, 4 heads): dh = 192 at T =
+# 1 + num_queries = 5 for train-rag's B = 8 and a 256-chunk batch; T = 65
+# and 130 stream a full and a partial second key tile (f32 holds one K/V
+# buffer at this width).
+RAG_HEADS, RAG_DH = 4, 192
+RAG_ATTN_CASES = ((8, 5), (256, 5), (32, 65), (32, 130))
+
+
+def _device_ms(fn, calls: int = 20) -> float:
+    """The device time of ``fn``'s kernels a call, by torch.profiler: where
+    a call's host work outlasts its kernels, CUDA events time the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def phase_attention_rag(smi: str) -> dict:
+    """Kernel B at the RAG/RATT heads' dh = 192 (H = 4; B = 8 and 256 at T
+    = 5, B = 32 at T = 65 and 130), f32 and bf16, with and without a key
+    bias, on contiguous inputs and on projection-order views, each against
+    the plain version of the same values; timed against the plain version
+    and SDPA (with the bias as a float mask) and its bound; at T = 5 also
+    the kernel's and SDPA's device time under the profiler. Then the
+    gradients through ``_Attention`` against the plain VJP (T = 5 and
+    130), and ptxas's registers and spills of the dh = 192 kernels."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(5)
+    h, dh = RAG_HEADS, RAG_DH
+    for line in _ptxas_lines("attention.cu", "192"):
+        log(f"[3d] ptxas {line}")
+    rows = {}
+    for b, t in RAG_ATTN_CASES:
+        q32, k32, v32 = (torch.randn(b, t, h, dh, generator=g).to(dev)
+                         for _ in range(3))
+        bias = torch.log(torch.randint(1, 9, (b, t), generator=g).float()) \
+            .to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            views = [x.to(dtype).transpose(1, 2) for x in (q32, k32, v32)]
+            contig = [x.contiguous() for x in views]
+            # bf16: P and the output rounded to bf16 (phase 3c's bound)
+            bound_err = ATTN_BOUND[dtype] if dtype == torch.float32 else \
+                2 ** -8 * contig[2].float().abs().max().item()
+            for kb in (None, bias):
+                want = attn.attention_plain(*(x.float() for x in contig),
+                                            key_bias=kb)
+                row = {}
+                for layout, (q, k, v) in (("contiguous", contig),
+                                          ("projection order", views)):
+                    before = attn.multi_head_attention.launches
+                    got = attn.multi_head_attention(q, k, v, key_bias=kb)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want).abs().max().item()
+                    if attn.multi_head_attention.launches != before + 1 \
+                            or not err <= bound_err:
+                        raise AssertionError(
+                            f"attention kernel dh=192 B={b} T={t} {name} "
+                            f"{layout} bias={kb is not None}: {err}")
+                    row[layout] = (err, cuda_ms(
+                        lambda: attn.multi_head_attention(q, k, v,
+                                                          key_bias=kb)))
+                q, k, v = contig
+                plain_ms = cuda_ms(lambda: attn.attention_plain(
+                    q, k, v, key_bias=kb))
+                mask = None if kb is None else kb[:, None, None, :].to(dtype)
+                sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask))
+                lim = bound(4 * q.numel() * q.element_size()
+                            + (0 if kb is None else kb.numel() * 4),
+                            4 * b * h * t * t * dh,
+                            "f32" if dtype == torch.float32 else "bf16")
+                key = f"B{b}_T{t}_{name}" + ("_bias" if kb is not None
+                                             else "")
+                device = {}
+                if t == 5:
+                    device = dict(
+                        device_ms=_device_ms(
+                            lambda: attn.multi_head_attention(
+                                q, k, v, key_bias=kb)),
+                        library_device_ms=_device_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q, k, v, attn_mask=mask)))
+                    with_kb = " + key bias" if kb is not None else ""
+                    log(f"[3d] device time a call under the profiler, B={b}"
+                        f" T={t} {name}{with_kb}: kernel "
+                        f"{device['device_ms']:.4f} ms, SDPA "
+                        f"{device['library_device_ms']:.4f} ms | {smi}")
+                log(f"[3d] attention B={b} H={h} T={t} dh={dh} {name}"
+                    f"{' + key bias' if kb is not None else ''}: max|err| "
+                    f"{max(e for e, _ in row.values()):.3e} (bound "
+                    f"{bound_err:.2e}) | kernel {row['contiguous'][1]:.4f} "
+                    f"ms (projection order {row['projection order'][1]:.4f})"
+                    f" | plain {plain_ms:.4f} ms | SDPA"
+                    f"{'+mask' if kb is not None else ''} {sdpa_ms:.4f} ms | "
+                    f"{bound_text(lim)} | {smi}")
+                rows[key] = dict(
+                    max_abs_err=max(e for e, _ in row.values()),
+                    ms=row["contiguous"][1],
+                    ms_projection_order=row["projection order"][1],
+                    plain_ms=plain_ms, library_ms=sdpa_ms, **device, **lim)
+                del want, mask
+            del views, contig, q, k, v
+        del q32, k32, v32, bias
+    torch.cuda.empty_cache()
+
+    grads = {}
+    g = torch.Generator(device=dev).manual_seed(6)
+    for t in (5, 130):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            leaves = [torch.randn(8, h, t, dh, generator=g, device=dev)
+                      .to(dtype).requires_grad_(True) for _ in range(3)]
+            bias = torch.randn(8, t, generator=g, device=dev) \
+                .requires_grad_(True)
+            gout = torch.randn(8, h, t, dh, generator=g, device=dev).to(dtype)
+            before = attn.multi_head_attention.launches
+            got = attn.multi_head_attention(*leaves, key_bias=bias)
+            if attn.multi_head_attention.launches != before + 1 or \
+                    got.grad_fn is None:
+                raise AssertionError(f"attention dh=192 {name}: no kernel "
+                                     "launch or no grad_fn")
+            got_grads = torch.autograd.grad(got, [*leaves, bias], gout)
+            ref = [x.detach().clone().requires_grad_(True)
+                   for x in (*leaves, bias)]
+            want_grads = torch.autograd.grad(
+                attn.attention_plain(*ref[:3], key_bias=ref[3]), ref, gout)
+            errs = [_rel_err(x, y) for x, y in zip(got_grads, want_grads)]
+            log(f"[3d] attention grads dh=192 B=8 T={t} {name}: relative "
+                f"max|err| dq {errs[0]:.2e} dk {errs[1]:.2e} dv "
+                f"{errs[2]:.2e} dbias {errs[3]:.2e} (bound "
+                f"{GRAD_BOUND[dtype]:.0e})")
+            if not max(errs) <= GRAD_BOUND[dtype]:
+                raise AssertionError(f"attention gradients dh=192 T={t} "
+                                     f"{name} disagree: {errs}")
+            grads[f"T{t}_{name}"] = max(errs)
+    torch.cuda.empty_cache()
+    return dict(rows=rows, grad_rel_err=grads)
 
 
 LN_CASES = [(768, None, torch.float32), (3072, "gelu", torch.float32),
@@ -2371,6 +2551,531 @@ def phase_stage1_path(smi: str, root: str) -> dict:
                 planted_zero_dq_off_share=planted["off_share"], **times)
 
 
+# ---- phase 5f: the retrieval heads and their trainers --------------------
+
+# train-rag's preset batch (accumulation 4) and top-k
+RAG_BATCH, RAG_TOP_K = 8, 5
+# rebuild-db --run-id on the card against a CPU ProjectionHead of the same
+# restored weights on the same store rows: three 768-wide f32 layers in
+# other summation orders, then L2-normalised.
+RAG_ROW_BOUND = 1e-5
+# The card retriever against a float64 host masked top-k of the same rows:
+# f32 scores are ~1e-7 off, so rows whose scores tie within this may come
+# in either order (tie-aware).
+RETRIEVE_TIE = 1e-5
+# The dropout-0 train_rag trajectory, card vs CPU, 20 steps (5 updates of
+# accumulation 4) from one state: phase 5e's bounds (TRAJ_LOSS_RTOL,
+# TRAJ_OFF_SHARE), with every element within lr_phase1 an update.
+RAG_TRAJ_STEPS = 20
+
+
+def _rag_world(root: str, main: dict) -> list:
+    """Two games' clip directories under ``rag_clips_{vid}``: vid 2 holds
+    phase 4's segment clips, vid 1 the corpus game's possessions (links to
+    its frames), and a clip-label CSV (left 1, right 0). Returns the world
+    arguments of the CLI. Two games: the retrievers exclude rows of the
+    query's own game, and phase 5's store holds one."""
+    template = os.path.join(root, "rag_clips_{vid}")
+    labels = {}
+    d2 = template.format(vid=2)
+    os.makedirs(d2)
+    for d in sorted(os.listdir(main["out"])):
+        if m := CLIP_RE.match(d):
+            os.symlink(os.path.join(main["out"], d), os.path.join(d2, d))
+            labels[os.path.join(d2, d)] = int(m.group(2) == "left")
+    d1, fnum, clip = template.format(vid=1), 1, 0
+    for side, n in CORPUS_SEGMENTS:
+        if side != "none":
+            clip += 1
+            cd = os.path.join(d1, f"vid1_clip_{clip}_{side}")
+            os.makedirs(cd)
+            for f in range(fnum, fnum + n):
+                name = f"vid1_frame_{f}.jpg"
+                os.symlink(os.path.join(main["corpus_dir"], name),
+                           os.path.join(cd, name))
+            labels[cd] = int(side == "left")
+        fnum += n
+    labels_csv = os.path.join(root, "rag_clip_labels.csv")
+    with open(labels_csv, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["clip_path", "label"])
+        for path, label in labels.items():
+            w.writerow([path, label])
+    return ["--clip-root", template, "--vids", "1", "2", "--clip-labels",
+            labels_csv]
+
+
+def _host_retrieval_check(got, rows, space, q, mask, k) -> int:
+    """The card retriever's answer ``got`` (B, k, D) against a float64
+    masked top-k of ``rows`` on the host: per query, as many rows as
+    candidates (up to k) and zeros after them; every returned row a stored
+    row inside the mask; the returned rows' scores equal the host's top-k
+    scores within RETRIEVE_TIE. Returns the queries whose rows came in
+    another order than the host's (near-ties)."""
+    r = rows.astype(np.float64)
+    unit = r / (np.linalg.norm(r, axis=1, keepdims=True) + 1e-8)
+    q = q.astype(np.float64)
+    if space == "l2":
+        s = -((q * q).sum(1)[:, None] - 2 * q @ r.T + (r * r).sum(1)[None])
+    else:
+        s = q @ unit.T
+    s = np.where(mask, s, -np.inf)
+    reordered = 0
+    for i in range(len(q)):
+        n_valid = min(k, int(mask[i].sum()))
+        live = np.abs(got[i]).sum(1) > 0
+        if live.sum() != n_valid or live[n_valid:].any():
+            raise AssertionError(f"retrieval query {i}: {live.sum()} rows, "
+                                 f"want {n_valid} then zeros")
+        if not n_valid:
+            continue
+        cos = got[i, :n_valid].astype(np.float64) @ unit.T
+        idx = cos.argmax(1)
+        if not (cos.max(1) >= 1 - 1e-5).all() or not mask[i, idx].all():
+            raise AssertionError(f"retrieval query {i}: a returned row is "
+                                 "not a stored row inside the mask")
+        want = np.sort(s[i])[::-1][:n_valid]
+        if np.abs(s[i, idx] - want).max() > RETRIEVE_TIE:
+            raise AssertionError(f"retrieval query {i}: scores "
+                                 f"{s[i, idx]} against the host's {want}")
+        reordered += int(not np.array_equal(idx, np.argsort(
+            -s[i], kind="stable")[:n_valid]))
+    return reordered
+
+
+def _rag_trajectory(smi: str) -> dict:
+    """Dropout-0 train_rag at full width (HeadConfig(): RAGHead 768 x 2, 4
+    heads; ProjectionHead 768), 20 steps of B = 8 (accumulation 4) and 2
+    validations, on a seeded world (two training games, one validation
+    game; 768-wide frame rows with a label signal, so retrieval ranks
+    without near-ties), on the card and on the CPU from one state, and on
+    the card with _Attention's dq zeroed (a planted fault: dh = 192 is
+    the only attention of this run)."""
+    from vit_research_tpu_torch.retrieval import FrameRetriever
+    from vit_research_tpu_torch.train import train_rag as rag_mod
+    from vit_research_tpu_torch.utils.configs import preset
+
+    rng = np.random.default_rng(12)
+    direction = rng.standard_normal(768).astype(np.float32)
+    chunks, table = [], {}
+    for vid in (1, 2, 3):
+        for c in (range(40) if vid < 3 else range(16)):
+            side = "left" if c % 2 else "right"
+            label = int(rng.integers(0, 2))
+            frames = [f"/g{vid}/c{c}/f{i}.jpg" for i in range(8)]
+            for p in frames:
+                table[p] = rng.standard_normal(768).astype(np.float32) \
+                    + label * direction
+            chunks.append(dict(vid=vid, clip=c // 4, start_idx=c * 8,
+                               end_idx=c * 8 + 7, side=side, label=label,
+                               status_id=label, t_center=(c % 10) / 10 + 0.05,
+                               t_width=0.5, frames=frames))
+    train = [c for c in chunks if c["vid"] < 3]
+    val = [c for c in chunks if c["vid"] == 3]
+    samples = [{"pth": p, "side": c["side"], "t_norm": c["t_center"],
+                "clip_num": c["clip"], "vid_num": c["vid"]}
+               for c in chunks for p in c["frames"]]
+
+    def chunk_embed(batch):
+        emb = np.stack([np.mean([table[p] for p in c["frames"]], axis=0)
+                        for c in batch])
+        return emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-8)
+
+    cfg = preset("rag")
+    cfg = dataclasses.replace(
+        cfg, head=dataclasses.replace(cfg.head, classifier_dropout=0.0),
+        train=dataclasses.replace(cfg.train, num_epochs=2, rebuild_every=0))
+    init = rag_mod.build_model(cfg, 9).state_dict()
+    runs = {}
+    for dev, fault in (("cuda", False), ("cpu", False), ("cuda", True)):
+        col = Collection("rag_traj", space="cosine", device=dev)
+        col.upsert([s["pth"] for s in samples],
+                   np.stack([table[s["pth"]] for s in samples]), samples)
+        before = attn.multi_head_attention.launches
+        t0 = time.monotonic()
+        with _planted_zero_dq() if fault else contextlib.nullcontext():
+            model, hist = rag_mod.train_rag(
+                train, val, chunk_embed,
+                FrameRetriever(col, top_k=RAG_TOP_K), cfg=cfg,
+                init_params=init, device=dev)
+        runs[dev, fault] = (hist, {k: v.detach().cpu() for k, v in
+                                   model.state_dict().items()},
+                            attn.multi_head_attention.launches - before,
+                            time.monotonic() - t0)
+    (h_c, p_c, l_c, t_c), (h_h, p_h, _, t_h) = (runs["cuda", False],
+                                                runs["cpu", False])
+    errs = _trajectory_errs(h_c, p_c, h_h, p_h)
+    planted = _trajectory_errs(*runs["cuda", True][:2], h_h, p_h)
+    updates = RAG_TRAJ_STEPS // cfg.train.accum_steps
+    lr_bound = cfg.train.lr_phase1 * updates
+
+    def passes(e: dict) -> bool:
+        return (e["loss"] <= TRAJ_LOSS_RTOL and e["param"] <= lr_bound
+                and e["off_share"] <= TRAJ_OFF_SHARE)
+
+    for epoch, (a, b) in enumerate(zip(h_c, h_h)):
+        log(f"[5f]   epoch {epoch} card / CPU: train_loss "
+            f"{a['train_loss']:.8f} / {b['train_loss']:.8f}, val_loss "
+            f"{a['val_loss']:.8f} / {b['val_loss']:.8f}, retr_sim "
+            f"{a['retr_sim']:.6f} / {b['retr_sim']:.6f}")
+    for what, e in (("card", errs), ("card, dq zeroed at dh = 192 (planted "
+                                     "fault)", planted)):
+        log(f"[5f] dropout-0 train_rag trajectory, {RAG_TRAJ_STEPS} steps "
+            f"(B=8, {updates} updates) + 2 validations, {what} vs CPU from "
+            f"one state: losses relative max|err| {e['loss']:.3e} (bound "
+            f"{TRAJ_LOSS_RTOL:.0e}); parameters max|err| {e['param']:.3e} "
+            f"(bound lr x updates {lr_bound:.0e}), {e['off_share']:.3e} of "
+            f"the elements outside the key biases beyond 1e-5 + 1e-3 rel "
+            f"(bound {TRAJ_OFF_SHARE:.0e}; worst {e['worst']})")
+    val_batches = math.ceil(len(val) / RAG_BATCH)
+    want_l = 2 * (RAG_TRAJ_STEPS + 2 * val_batches)
+    log(f"[5f] kernel B launched {l_c} times in the card run (2 a training "
+        f"step and a validation batch: {want_l}); card {t_c:.1f} s, CPU "
+        f"{t_h:.1f} s")
+    if len(h_c) != 2 or not (passes(errs) and l_c == want_l):
+        raise AssertionError(f"train_rag trajectory: {errs}, {l_c} "
+                             "launches")
+    if passes(planted):
+        raise AssertionError(f"the train_rag trajectory check passes a "
+                             f"zeroed dq: {planted}")
+    return dict(trajectory_loss_rel_err=errs["loss"],
+                trajectory_param_err=errs["param"],
+                trajectory_off_share=errs["off_share"],
+                planted_zero_dq_loss_rel_err=planted["loss"],
+                planted_zero_dq_off_share=planted["off_share"])
+
+
+def _rag_step_times(smi: str, rows: np.ndarray, metas: list) -> dict:
+    """A preset-`rag` train step at full width on the card (B = 8 chunk
+    embeddings, retrieval of 5 rows from a FrameRetriever over ``rows``,
+    RAGHead + ProjectionHead forward and backward, the Optimizer with
+    accumulation 4: one update every 4 steps; classifier dropout 0.2 as the
+    CLI's): ms a step by CUDA events over 8 steps, then launches a step and
+    the device's idle share under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_research_tpu_torch.retrieval import FrameRetriever
+    from vit_research_tpu_torch.train import train_rag as rag_mod
+    from vit_research_tpu_torch.train.optim import make_optimizer
+    from vit_research_tpu_torch.utils.configs import preset
+
+    dev = torch.device("cuda")
+    cfg = preset("rag")
+    model = rag_mod.build_model(cfg, 0).to(dev)
+    vit_mod.set_dropout_generator(model, tce.dropout_generator(0, 0, dev))
+    opt = make_optimizer(cfg.train, 24, list(model.parameters()))
+    train_step, _ = rag_mod.make_step_fns(model, opt, True)
+    col = Collection("rag_steps", space="cosine", device="cuda")
+    col.upsert([m["pth"] for m in metas], rows, metas)
+    retriever = FrameRetriever(col, top_k=RAG_TOP_K)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.nn.functional.normalize(
+        torch.randn(RAG_BATCH, 768, generator=g, device=dev), dim=1)
+    y = (torch.rand(RAG_BATCH, generator=g, device=dev) > 0.5).float()
+    pick = np.linspace(0, len(metas) - 1, RAG_BATCH).astype(int)
+    md = {"vid": np.asarray([3 - metas[i]["vid_num"] for i in pick]),
+          "side": np.asarray([metas[i]["side"] for i in pick], object),
+          "t_center": np.asarray([metas[i]["t_norm"] for i in pick]),
+          "t_width": np.full(RAG_BATCH, 0.2)}
+
+    def step():
+        with torch.no_grad():
+            z = model["proj"](x)
+        train_step(x, retriever(z, md), y, cfg.train.contrastive_weight)
+
+    out = {"train_step_ms": cuda_ms(step, reps=3, n=8)}
+    for _ in range(4):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 8
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 8
+    out.update(train_step_wall_ms=wall_ms, train_step_kernel_ms=busy_ms,
+               train_step_launches=sum(e.count for e in kernels) / 8,
+               train_step_idle=max(0.0, 1 - busy_ms / wall_ms))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"[5f] preset-rag train step (RAGHead 768x2, 4 heads, T=5; "
+        f"ProjectionHead 768; B={RAG_BATCH}, accumulation 4, retrieval of "
+        f"{RAG_TOP_K} from {len(metas)} rows): {out['train_step_ms']:.3f} ms "
+        f"by CUDA events; under the profiler {busy_ms:.3f} ms of kernels in "
+        f"{wall_ms:.3f} ms of wall, idle {100 * out['train_step_idle']:.1f}%"
+        f", {out['train_step_launches']:.0f} launches a step | {smi}")
+    for e in top:
+        log(f"[5f]   {e.self_device_time_total / 1e3 / 8:8.3f} ms "
+            f"x{e.count // 8:<4d} {e.key[:90]}")
+    del model, opt, col, retriever
+    torch.cuda.empty_cache()
+    return out
+
+
+def _retrieval_times(smi: str, n: int = 200_000, b: int = 8) -> dict:
+    """A FrameRetriever batch of 8 queries against a seeded 200,000 x 768
+    frame collection (8 games, two sides, t_norm uniform) on the card: the
+    first call (the device snapshot's upload) on the host clock, then
+    batches by CUDA events, and the answers against the host top-k."""
+    from vit_research_tpu_torch.retrieval import FrameRetriever
+
+    rng = np.random.default_rng(13)
+    rows = rng.standard_normal((n, 768), dtype=np.float32)
+    vids = rng.integers(1, 9, n)
+    sides = np.where(rng.integers(0, 2, n) == 1, "left", "right")
+    t_norm = rng.uniform(0, 1, n)
+    col = Collection("rag_game", space="cosine", device="cuda")
+    col.upsert([f"f{i}" for i in range(n)], rows,
+               [{"vid_num": int(v), "side": str(s), "t_norm": float(t)}
+                for v, s, t in zip(vids, sides, t_norm)])
+    ret = FrameRetriever(col, top_k=RAG_TOP_K)
+    q = rng.standard_normal((b, 768), dtype=np.float32)
+    md = {"vid": np.arange(1, b + 1) % 8 + 1,
+          "side": np.asarray(["left", "right"] * (b // 2), object),
+          "t_center": rng.uniform(0.1, 0.9, b), "t_width": np.full(b, 0.2)}
+    t0 = time.perf_counter()
+    got = ret(q, md).cpu().numpy()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    ms = cuda_ms(lambda: ret(q, md), reps=5, n=10)
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ret(q, md).cpu()
+        host.append((time.perf_counter() - t0) * 1e3)
+    t_c = md["t_center"]
+    lo = (t_c - 0.1).astype(np.float32)[:, None]
+    hi = (t_c + 0.1).astype(np.float32)[:, None]
+    t32 = t_norm.astype(np.float32)[None]
+    mask = ((vids[None] != md["vid"][:, None])
+            & (sides[None] == md["side"].astype(str)[:, None])
+            & (t32 >= lo) & (t32 <= hi))
+    reordered = _host_retrieval_check(got, rows, "cosine", q, mask,
+                                      RAG_TOP_K)
+    lim = bound(rows.nbytes + b * 768 * 4 + b * RAG_TOP_K * 768 * 4,
+                2 * b * n * 768, "f32")
+    log(f"[5f] FrameRetriever, {b} queries x {n} x 768 rows (cosine, vid/"
+        f"side/time mask, top {RAG_TOP_K}): first call (snapshot upload) "
+        f"{first_ms:.1f} ms; then {ms:.3f} ms a batch by CUDA events, "
+        f"{statistics.median(host):.3f} ms host clock with readback; "
+        f"{bound_text(lim)}; answers equal the host top-k ({reordered} of "
+        f"{b} queries in another order among near-ties) | {smi}")
+    del col, ret
+    torch.cuda.empty_cache()
+    return dict(retrieval_first_ms=first_ms, retrieval_ms=ms,
+                retrieval_host_ms=statistics.median(host),
+                retrieval_bound_ms=lim["bound_ms"])
+
+
+def phase_rag_path(smi: str, root: str, main: dict) -> dict:
+    """The retrieval trainers through the CLI on the card at full width on
+    phase 4's world: a two-game frame store (build-frame-store),
+    write-rag-db (rows equal to the store's), write-ratt-db with phase
+    5e's stage-1 run, train-rag 2 epochs with --rebuild sync
+    --rebuild-every 1 and --resume for a third (kernel B at dh = 192: 2
+    launches a training step and a validation batch), rebuild-db --run-id
+    (rows against a CPU ProjectionHead), train-ratt with --rebuild sync
+    (rows against a CPU projection) and with --attention-losses (no
+    kernel launch: RATTHead returns its scores); then the card retriever
+    against the host top-k, a dropout-0 card vs CPU trajectory with a
+    planted fault, the step and retrieval times."""
+    from vit_research_tpu_torch.db.enrich import chunk_stats
+    from vit_research_tpu_torch.train.train_rag import chunk_embed_from_store
+    from vit_research_tpu_torch.retrieval import FrameRetriever
+    from vit_research_tpu_torch.utils.configs import load_config
+
+    t_phase = time.monotonic()
+    world = _rag_world(root, main)
+    store_dir, db = os.path.join(root, "store_rag"), \
+        os.path.join(root, "db_rag")
+    ck = os.path.join(root, "ckpt_rag")
+    cli.main(["build-frame-store", *world, "--out", store_dir,
+              "--batch-size", str(BATCH), "--device", "cuda"])
+    fs = FrameStore(store_dir).open()
+    idx = load_chunk_index(store_dir)
+    chunks = common._chunks_from_index(fs, idx)
+    train = [c for c in chunks if c["vid"] == 1]
+    val = [c for c in chunks if c["vid"] == 2]
+    log(f"[5f] two-game frame store: {fs.n} frames, {len(chunks)} chunks "
+        f"({len(train)} of vid 1 train, {len(val)} of vid 2 validate)")
+
+    cli.main(["write-rag-db", *world, "--store", store_dir, "--db", db,
+              "--device", "cuda"])
+    col = PersistentClient(db, device="cpu").get_collection("ragdb")
+    got = col.get(include=("embeddings", "metadatas"))
+    want = fs.gather_paths([[p] for p in got["ids"]])[:, 0]
+    raw_err = float(np.abs(np.asarray(got["embeddings"]) - want).max())
+    if col.count() != fs.n or raw_err != 0.0 or \
+            col.embedding_profile != fs.embedding_profile:
+        raise AssertionError(f"write-rag-db: {col.count()} rows of "
+                             f"{fs.n}, max|err| {raw_err}, profile "
+                             f"{col.embedding_profile!r}")
+    raw_rows = {i: e for i, e in zip(got["ids"], np.asarray(
+        got["embeddings"]))}
+    log(f"[5f] write-rag-db: {col.count()} rows equal the store's, "
+        f"profile {col.embedding_profile!r}")
+    cli.main(["write-ratt-db", "--store", store_dir, "--ckpt",
+              os.path.join(root, "ckpt_s1"), "--run-id", "s1", "--db", db,
+              "--device", "cuda"])
+
+    # train-rag: the counted path, kernel B at dh = 192
+    rag_argv = ["train-rag", "--store", store_dir, "--db", db, "--ckpt", ck,
+                "--train-vids", "1", "--val-vids", "2", "--batch-size",
+                str(RAG_BATCH), "--top-k", str(RAG_TOP_K), "--run-id",
+                "rag1", "--rebuild", "sync", "--rebuild-every", "1", *world,
+                "--device", "cuda"]
+    steps, evals = len(train) // RAG_BATCH, math.ceil(len(val) / RAG_BATCH)
+    pe.fused_patch_embed.launches = 0
+    attn.multi_head_attention.launches = 0
+    t0 = time.monotonic()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(rag_argv + ["--epochs", "2"])
+        cli.main(rag_argv + ["--epochs", "3", "--resume"])
+    torch.cuda.synchronize()
+    t_rag = time.monotonic() - t0
+    launches = _launch_counts()
+    out = buf.getvalue()
+    log("\n".join(f"[5f]   {line}" for line in out.splitlines()))
+    mngr = checkpoint.CheckpointManager(ck, "rag1")
+    epochs = [r["step"] for r in read_metrics(
+        os.path.join(mngr.dir, "metrics.jsonl"))]
+    want_launches = {"patch_embed": 0, "attention": 2 * 3 * (steps + evals)}
+    log(f"[5f] CLI train-rag 2 epochs + --resume 1 ({steps} steps and "
+        f"{evals} validation batches an epoch, --rebuild sync every epoch): "
+        f"{t_rag:.1f} s wall; launches {launches} (want {want_launches})")
+    if launches != want_launches or epochs != [0, 1, 2] or \
+            mngr.restore(2)["step"] != 3 * steps or \
+            out.count("epoch 2:") != 1:
+        raise AssertionError(f"train-rag: launches {launches}, epochs "
+                             f"{epochs}")
+    if load_config(os.path.join(mngr.dir, "experiment.json")).head \
+            .embed_dim != 768:
+        raise AssertionError("train-rag's experiment.json")
+    # --rebuild sync rewrote ragdb through the live projection of the last
+    # epoch: the rows are the restored run's projection of the store rows
+    params = mngr.restore(2)["params"]
+    proj = heads.ProjectionHead(768, proj_dim=768)
+    proj.load_state_dict({k[5:]: v for k, v in params.items()
+                          if k.startswith("proj.")})
+    ids = sorted(raw_rows)
+    with torch.no_grad():
+        want_proj = proj(torch.from_numpy(np.stack([raw_rows[i]
+                                                    for i in ids]))).numpy()
+    synced = PersistentClient(db, device="cpu").get_collection("ragdb").get(
+        ids=ids, include=("embeddings",))
+    sync_err = float(np.abs(np.asarray(synced["embeddings"])
+                            - want_proj).max())
+
+    cli.main(["rebuild-db", *world, "--store", store_dir, "--db", db,
+              "--collection", "ragdb_proj", "--ckpt", ck, "--run-id", "rag1",
+              "--device", "cuda"])
+    best = mngr.restore_best()["params"]
+    proj.load_state_dict({k[5:]: v for k, v in best.items()
+                          if k.startswith("proj.")})
+    with torch.no_grad():
+        want_best = proj(torch.from_numpy(np.stack([raw_rows[i]
+                                                    for i in ids]))).numpy()
+    rebuilt = PersistentClient(db, device="cpu").get_collection("ragdb_proj")
+    row_err = float(np.abs(np.asarray(rebuilt.get(
+        ids=ids, include=("embeddings",))["embeddings"]) - want_best).max())
+    log(f"[5f] train-rag --rebuild sync rows vs a CPU ProjectionHead of the "
+        f"last epoch: max|err| {sync_err:.3e}; rebuild-db --run-id rag1: "
+        f"{rebuilt.count()} rows vs a CPU ProjectionHead of the best epoch: "
+        f"max|err| {row_err:.3e} (bound {RAG_ROW_BOUND:.0e}), profile "
+        f"{rebuilt.embedding_profile!r}")
+    if not (sync_err <= RAG_ROW_BOUND and row_err <= RAG_ROW_BOUND) or \
+            rebuilt.embedding_profile != fs.embedding_profile + "|proj:rag1":
+        raise AssertionError(f"rebuilt rows disagree: {sync_err}, "
+                             f"{row_err}")
+
+    # train-ratt: RATTHead returns its scores, so no kernel launch
+    ratt_argv = ["train-ratt", "--store", store_dir, "--db", db, "--ckpt",
+                 ck, "--train-vids", "1", "--val-vids", "2", "--batch-size",
+                 str(RAG_BATCH), "--epochs", "1", "--device", "cuda"]
+    t0 = time.monotonic()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(ratt_argv + ["--rebuild", "sync", "--rebuild-every", "1",
+                              "--run-id", "ratt1"])
+        cli.main(ratt_argv + ["--attention-losses", "--run-id", "ratt2"])
+    torch.cuda.synchronize()
+    t_ratt = time.monotonic() - t0
+    out = buf.getvalue()
+    log("\n".join(f"[5f]   {line}" for line in out.splitlines()))
+    after = _launch_counts()
+    sd = checkpoint.CheckpointManager(ck, "ratt1").restore(0)["params"]
+    chunk_proj = heads.ProjectionHead(3 * 768, hidden_dim=768, proj_dim=768)
+    chunk_proj.load_state_dict({k[5:]: v for k, v in sd.items()
+                                if k.startswith("proj.")})
+    frames = gather_chunk_embedding_batch(fs, idx, np.arange(len(chunks)))
+    with torch.no_grad():
+        z = chunk_proj(torch.from_numpy(chunk_stats(frames))).numpy()
+    z /= np.linalg.norm(z, axis=1, keepdims=True) + 1e-8
+    ratt_rows = PersistentClient(db, device="cpu").get_collection(
+        "ratt_db").get(ids=[f"chunk_{i}" for i in range(len(chunks))],
+                       include=("embeddings",))
+    ratt_err = float(np.abs(np.asarray(ratt_rows["embeddings"]) - z).max())
+    log(f"[5f] CLI train-ratt --rebuild sync and --attention-losses, 1 "
+        f"epoch each: {t_ratt:.1f} s wall; launches {after} (train-rag's "
+        f"{launches}); re-projected ratt_db rows vs a CPU projection of the "
+        f"run: max|err| {ratt_err:.3e} (bound {RAG_ROW_BOUND:.0e})")
+    if after != launches or "loss_attn_entropy" not in out or \
+            f"rebuilt {len(chunks)} chunk rows" not in out or \
+            not ratt_err <= RAG_ROW_BOUND:
+        raise AssertionError(f"train-ratt: launches {after}, rows "
+                             f"{ratt_err}")
+
+    # the card retriever against the host top-k on ragdb's rows
+    col = PersistentClient(db, device="cuda").get_collection("ragdb")
+    every = np.linspace(0, len(chunks) - 1, 64).astype(int)
+    batch = [chunks[i] for i in every]
+    md = {"vid": np.asarray([c["vid"] for c in batch]),
+          "side": np.asarray([c["side"] for c in batch], object),
+          "t_center": np.asarray([c["t_center"] for c in batch],
+                                 np.float32),
+          "t_width": np.asarray([c["t_width"] for c in batch], np.float32)}
+    q = chunk_embed_from_store(fs)(batch).astype(np.float32)
+    got = FrameRetriever(col, top_k=RAG_TOP_K)(q, md).cpu().numpy()
+    all_rows = col.get(include=("embeddings", "metadatas"))
+    metas = all_rows["metadatas"]
+    cv = np.asarray([m["vid_num"] for m in metas])
+    cs = np.asarray([m["side"] for m in metas])
+    ct = np.asarray([m["t_norm"] for m in metas], np.float32)
+    lo = (md["t_center"].astype(np.float64) - md["t_width"] / 2).astype(
+        np.float32)
+    hi = (md["t_center"].astype(np.float64) + md["t_width"] / 2).astype(
+        np.float32)
+    mask = ((cv[None] != md["vid"][:, None])
+            & (cs[None] == md["side"].astype(str)[:, None])
+            & (ct[None] >= lo[:, None]) & (ct[None] <= hi[:, None]))
+    reordered = _host_retrieval_check(
+        got, np.asarray(all_rows["embeddings"]), col.space, q, mask,
+        RAG_TOP_K)
+    log(f"[5f] FrameRetriever on the card, 64 chunk queries x "
+        f"{col.count()} ragdb rows: equal to the host float64 masked "
+        f"top-{RAG_TOP_K} ({int(mask.any(1).sum())} queries with candidates;"
+        f" {reordered} in another order among near-ties within "
+        f"{RETRIEVE_TIE:.0e})")
+
+    out = dict(launches=launches, rag_row_err=row_err, sync_row_err=sync_err,
+               ratt_row_err=ratt_err, retriever_reordered=reordered)
+    out.update(_rag_trajectory(smi))
+    store_rows = fs.gather(np.arange(fs.n))
+    store_metas = [{"pth": str(p), "vid_num": 1 + i % 2,
+                    "side": "left" if i % 3 else "right",
+                    "t_norm": (i % 100) / 100} for i, p in
+                   enumerate(fs.paths)]
+    out.update(_rag_step_times(smi, store_rows, store_metas))
+    out.update(_retrieval_times(smi))
+    log(f"[5f] phase 5f: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
 def phase_game_store(smi: str, n: int = 200_000, d: int = 768,
                      n_q: int = 256, k: int = 50) -> None:
     """A game's worth of frames as a seeded cosine collection, queried on
@@ -2624,6 +3329,7 @@ def main() -> int:
     attn_summary = phase_attention(smi)
     attn_stage1 = phase_attention_stage1(smi)
     grads = phase_kernel_grads(smi)
+    attn_rag = phase_attention_rag(smi)
     ln_summary = phase_ln_matmul(smi)
     with tempfile.TemporaryDirectory(prefix="vrt_chip_smoke_") as root:
         main_path = phase_main_path(smi, root)
@@ -2632,6 +3338,7 @@ def main() -> int:
         label_path = phase_label_path(smi, root, main_path)
         fast_path = phase_fast_path(smi, root, main_path)
         stage1 = phase_stage1_path(smi, root)
+        rag = phase_rag_path(smi, root, main_path)
     phase_game_store(smi)
     # each main path's launches, counted from 0 just before it ran; a
     # kernel's "launches" is their sum
@@ -2640,7 +3347,7 @@ def main() -> int:
                "follow": serve_path["follow_launches"],
                "label": label_path["launches"],
                "fast": fast_path["launches"],
-               "stage1": stage1["launches"]}
+               "stage1": stage1["launches"], "rag": rag["launches"]}
 
     def launches(kernel: str) -> dict:
         per = {path: counts[kernel] for path, counts in by_path.items()}
@@ -2666,7 +3373,10 @@ def main() -> int:
              grad_rel_err={k: v for k, v in grads.items()
                            if k.startswith("attention")},
              stage1_path={k: v for k, v in stage1.items()
-                          if k != "launches"}),
+                          if k != "launches"},
+             rag_dh192=attn_rag["rows"],
+             rag_grad_rel_err=attn_rag["grad_rel_err"],
+             rag_path={k: v for k, v in rag.items() if k != "launches"}),
         dict(name="ln_matmul", route="cuda",
              source="vit_research_tpu_torch/csrc/fused_ln.cu",
              replaces="vit_research_tpu/ops/fused_ln.py:62",

@@ -113,7 +113,9 @@ def test_port_imports_no_jax():
               "train.losses", "train.optim", "train.common",
               "train.diagnostics", "train.train_chunk_encoder",
               "models.heads", "evaluate.scoring", "cli.train_cmds",
-              "utils.metrics"):
+              "utils.metrics", "retrieval", "retrieval.retrievers",
+              "train.async_rebuild", "train.train_rag", "train.train_ratt",
+              "db.enrich", "db.builders", "cli.db_cmds"):
         assert f"vit_research_tpu_torch.{m}" in mods
     # chip_smoke.py is imported as a module: its top-level imports run.
     mods.append("chip_smoke")

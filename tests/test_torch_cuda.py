@@ -670,7 +670,8 @@ def test_attention_kernel_dh96_matches_plain(cuda, t, layout, dtype,
     torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("dh,t", [(64, 197), (96, 9), (96, 25)])
+@pytest.mark.parametrize("dh,t", [(64, 197), (96, 9), (96, 25), (192, 5),
+                                  (192, 130)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_function_grads_on_card(cuda, dh, t, dtype):
     """A CUDA input that requires grad launches the kernel once and gets
@@ -776,3 +777,66 @@ def test_train_stage1_and_write_ratt_db_on_card(cuda, tmp_path, capsys):
     want = want / (np.linalg.norm(want, axis=1, keepdims=True) + 1e-8)
     np.testing.assert_allclose(np.asarray(got["embeddings"]), want, rtol=0,
                                atol=1e-4)
+
+
+# ---- the retrieval heads: kernel B at dh = 192, train-rag
+
+
+@pytest.mark.parametrize("b,t", [(8, 5), (256, 5), (4, 65), (4, 130)])
+@pytest.mark.parametrize("layout", ["contiguous", "projection_order"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_attention_kernel_dh192_matches_plain(cuda, b, t, layout, dtype,
+                                              with_bias):
+    """The RAG/RATT heads' head width (768 / 4 heads) at their T = 5 and
+    at T = 65 and 130 (a full key tile and a partial one; f32 streams the
+    second and third tile through its one K/V buffer). Tolerances as at
+    dh = 96."""
+    q, k, v = _attention_inputs(b, 4, t, 192, dtype, layout, cuda, t + 192)
+    bias = _key_bias(b, t, t).to(cuda) if with_bias else None
+    before = attn.multi_head_attention.launches
+    got = attn.multi_head_attention(q, k, v, key_bias=bias)
+    assert attn.multi_head_attention.launches == before + 1
+    assert got.transpose(1, 2).is_contiguous()
+    want = attn.attention_plain(q.float(), k.float(), v.float(),
+                                key_bias=bias)
+    atol = 1e-5 if dtype == torch.float32 else \
+        2 ** -8 * v.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+
+
+def test_rag_head_on_card_matches_cpu(cuda):
+    """RAGHead at HeadConfig()'s full width (768, 2 layers, 4 heads:
+    kernel B at dh = 192, T = 5) on the card against the CPU plain
+    forward of the same weights, in eval and in a dropout-0 training
+    step's gradients (through B's Function)."""
+    from vit_research_tpu_torch.models.heads import RAGHead
+    from vit_research_tpu_torch.utils.configs import HeadConfig
+
+    cfg = HeadConfig(classifier_dropout=0.0)
+    host = RAGHead(cfg, generator=torch.Generator().manual_seed(0))
+    card = RAGHead(cfg).to(cuda)
+    card.load_state_dict(host.state_dict())
+    g = torch.Generator().manual_seed(1)
+    cls = torch.randn(8, 768, generator=g)
+    ret = torch.randn(8, 5, 768, generator=g)
+    host.eval()
+    card.eval()
+    before = attn.multi_head_attention.launches
+    with torch.no_grad():
+        got = card(cls.to(cuda), ret.to(cuda))
+    assert attn.multi_head_attention.launches == before + 2
+    want = host(cls, ret)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x.cpu(), y, rtol=0, atol=1e-4)
+    card.train()
+    host.train()
+    grads = []
+    for model, dev in ((card, cuda), (host, torch.device("cpu"))):
+        logits, _ = model(cls.to(dev), ret.to(dev))
+        grads.append(torch.autograd.grad(logits.sum(),
+                                         list(model.parameters())))
+    for x, y in zip(*grads):
+        scale = y.abs().max().item()
+        torch.testing.assert_close(x.cpu(), y, rtol=0,
+                                   atol=1e-4 * max(scale, 1e-3))

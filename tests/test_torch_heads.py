@@ -31,7 +31,8 @@ from vit_research_tpu.utils.configs import ChunkEncoderConfig as JaxCEConfig
 from vit_research_tpu_torch.models import convert, heads
 from vit_research_tpu_torch.ops import attention as attn
 from vit_research_tpu_torch.ops import patch_embed as pe
-from vit_research_tpu_torch.utils.configs import ChunkEncoderConfig
+from vit_research_tpu_torch.utils.configs import (ChunkEncoderConfig,
+                                                  HeadConfig)
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -152,17 +153,19 @@ def test_attention_grads_with_an_inference_mode_key_bias():
 def test_kernel_head_dims_match_the_cuda_dispatch():
     """The widths the wrapper lets through are the widths compiled into
     both of the CUDA source's dispatch switches (96 for the chunk
-    encoder's 768 / 8 heads)."""
+    encoder's 768 / 8 heads, 192 for the RAG/RATT heads' 768 / 4)."""
     src = (CSRC / "attention.cu").read_text()
     bf16 = sorted(int(d) for d in re.findall(
         r"case (\d+): return launch_bf16<\1>", src))
     f32 = sorted(int(d) for d in re.findall(
         r"case (\d+): return launch_f32<\1>", src))
     assert bf16 == f32 == sorted(attn.KERNEL_HEAD_DIMS)
-    assert 96 in attn.KERNEL_HEAD_DIMS
+    assert 96 in attn.KERNEL_HEAD_DIMS and 192 in attn.KERNEL_HEAD_DIMS
     assert SMALL.embed_dim // SMALL.num_heads == 96
     full = ChunkEncoderConfig()
     assert full.embed_dim // full.num_heads in attn.KERNEL_HEAD_DIMS
+    head_cfg = HeadConfig()
+    assert head_cfg.embed_dim // head_cfg.num_heads == 192
 
 
 # ------------------------------------------------------- kernel A gradients

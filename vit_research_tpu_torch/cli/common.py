@@ -171,6 +171,59 @@ def _load_world(args):
     return recs, chunks
 
 
+def _chunks_from_index(store, idx, vids=None):
+    """Chunk dicts (data/chunks.py's schema) from a stored chunk index,
+    optionally only those of ``vids``."""
+    want = {int(v) for v in vids} if vids else None
+    chunks = []
+    for i in range(len(idx["label"])):
+        if want is not None and int(idx["vid"][i]) not in want:
+            continue
+        chunks.append({
+            "vid": int(idx["vid"][i]), "clip": int(idx["clip"][i]),
+            "start_idx": int(idx["start_idx"][i]),
+            "end_idx": int(idx["end_idx"][i]),
+            "side": str(idx["side"][i]), "label": int(idx["label"][i]),
+            "status_id": int(idx["status_id"][i]),
+            "t_center": float(idx["t_center"][i]),
+            "t_width": float(idx["t_width"][i]),
+            "frames": [str(store.paths[j]) for j in idx["frame_idx"][i]],
+        })
+    return chunks
+
+
+def _store_embed(store):
+    """Frame paths -> their rows (n, D) of the frame store ``store``."""
+    def embed(paths):
+        return store.gather_paths([[p] for p in paths])[:, 0]
+    return embed
+
+
+def _split_by_vids(chunks, train_vids, val_vids):
+    train = [c for c in chunks if c["vid"] in set(train_vids)]
+    val = [c for c in chunks if c["vid"] in set(val_vids)]
+    return train, val
+
+
+def _fence_store_collection(col, store, *, writes: bool) -> None:
+    """The profile fence between a frame store and a collection a trainer
+    ranks (and with ``writes``, rewrites) its rows against: the two must
+    hold one embedding space. A collection stamped with another profile
+    than the store's warns on a read and exits on a write (the rows
+    written come from the store)."""
+    stored = getattr(col, "embedding_profile", None)
+    want = store.embedding_profile
+    if stored is None or want is None or stored == want:
+        return
+    msg = (f"collection {col.name!r} holds embeddings of profile "
+           f"{stored!r}, the store {want!r}")
+    if writes:
+        raise SystemExit(msg + ": refusing to write the store's rows into "
+                         "it; rebuild into a fresh collection")
+    print(f"WARNING: {msg} — distances across profiles are not "
+          "comparable", file=sys.stderr, flush=True)
+
+
 def _labeled_frames(frames_dir: str, manual_csv: str):
     """Sorted frame names with manual-interval side labels ('ignore' for
     unlabeled)."""
@@ -268,6 +321,11 @@ def world_args(sp):
                     default=None)
     sp.add_argument("--chunk-size", type=int, default=8)
     sp.add_argument("--chunk-stride", type=int, default=2)
+
+
+def split_args(sp):
+    sp.add_argument("--train-vids", type=int, nargs="+", required=True)
+    sp.add_argument("--val-vids", type=int, nargs="+", required=True)
 
 
 def device_arg(sp):

@@ -1,9 +1,10 @@
-"""Training commands: train-stage1 (the ChunkEncoder).
+"""Training commands: train-stage1 (the ChunkEncoder), train-rag
+(ProjectionHead + RAGHead) and train-ratt (chunk-statistic projection +
+RATTHead).
 
-Port of the first verb of vit_research_tpu/cli/train_cmds.py, with the
-reference's arguments and output lines plus ``--device``. The retrieval
-trainers (train-rag, train-ratt, train-cached, train-stage2) come with
-their slice.
+Port of those verbs of vit_research_tpu/cli/train_cmds.py, with the
+reference's arguments and output lines plus ``--device``. train-cached
+and train-stage2 come with their slice.
 """
 
 from __future__ import annotations
@@ -57,6 +58,172 @@ def cmd_train_stage1(args):
           max((h.get("val_acc", 0) for h in history), default=0))
 
 
+def _open_store(args):
+    """(store, chunk index, train chunks, validation chunks) of ``--store``
+    split by ``--train-vids`` / ``--val-vids``."""
+    from vit_research_tpu_torch.db.frame_store import (FrameStore,
+                                                       load_chunk_index)
+
+    store = FrameStore(args.store).open()
+    idx = load_chunk_index(args.store)
+    chunks = common._chunks_from_index(store, idx)
+    train, val = common._split_by_vids(chunks, args.train_vids,
+                                       args.val_vids)
+    return store, idx, chunks, train, val
+
+
+def _run_manager(args, cfg):
+    """The run's CheckpointManager under ``--ckpt``, with its experiment
+    config written beside the checkpoints."""
+    from vit_research_tpu_torch.train.checkpoint import CheckpointManager
+    from vit_research_tpu_torch.utils.configs import save_config
+
+    run_id = args.run_id or cfg.run_id()
+    os.makedirs(args.ckpt, exist_ok=True)
+    try:
+        mngr = CheckpointManager(args.ckpt, run_id)
+    except ValueError as e:  # a run directory of the JAX package
+        raise SystemExit(str(e))
+    save_config(cfg, os.path.join(mngr.dir, "experiment.json"))
+    return run_id, mngr
+
+
+def _finish(run_id, mngr, history):
+    mngr.wait()
+    best = max((h.get("val_acc", 0.0) for h in history), default=0.0)
+    print(f"run {run_id}: best val acc {best:.4f}")
+
+
+def cmd_train_rag(args):
+    """The RAG loop: ProjectionHead + RAGHead over live frame retrieval
+    from ``--collection``, with optional synchronous DB rebuilds
+    (``--rebuild sync``: the rows rewritten through the live projection
+    every ``--rebuild-every`` epochs; needs the world's ``--clip-root``
+    and ``--vids`` for the rows' metadata)."""
+    from dataclasses import replace
+
+    from vit_research_tpu_torch.device import resolve_device
+    from vit_research_tpu_torch.retrieval.retrievers import FrameRetriever
+    from vit_research_tpu_torch.store.vector_store import PersistentClient
+    from vit_research_tpu_torch.train.train_rag import (
+        chunk_embed_from_store, train_rag)
+    from vit_research_tpu_torch.utils.configs import preset
+
+    resolve_device(args.device)  # before the run directory exists
+    if args.rebuild == "sync" and not (args.clip_root and args.vids):
+        raise SystemExit("--rebuild sync requires --clip-root/--vids "
+                         "(per-frame metadata for the DB rewrite)")
+    store, _, _, train, val = _open_store(args)
+    cfg = preset("cls_only" if args.no_retrieval else "rag")
+    cfg = replace(
+        cfg,
+        head=replace(cfg.head, embed_dim=store.dim),
+        retrieval=replace(cfg.retrieval, top_k=args.top_k,
+                          collection=args.collection),
+        train=replace(cfg.train, num_epochs=args.epochs,
+                      batch_size=args.batch_size,
+                      rebuild_every=args.rebuild_every),
+        train_vids=tuple(args.train_vids), test_vids=tuple(args.val_vids))
+
+    client = PersistentClient(args.db, autoflush=False, device=args.device)
+    col = client.get_or_create_collection(args.collection)
+    common._fence_store_collection(col, store,
+                                   writes=args.rebuild == "sync")
+    retriever = FrameRetriever(col, top_k=cfg.retrieval.top_k)
+
+    rebuild_fn = None
+    if args.rebuild == "sync":
+        from vit_research_tpu_torch.db.builders import rebuild_frame_db
+
+        recs, _ = common._load_world(args)
+        embed = common._store_embed(store)
+
+        def rebuild_fn(project_fn):
+            n = rebuild_frame_db(recs, embed, project_fn, col)
+            client.flush()
+            return n
+
+    run_id, mngr = _run_manager(args, cfg)
+    _, history = train_rag(
+        train, val, chunk_embed_from_store(store), retriever, cfg=cfg,
+        use_retrieval=not args.no_retrieval, rebuild_fn=rebuild_fn,
+        ckpt_manager=mngr, resume=args.resume, verbose=True,
+        device=args.device)
+    _finish(run_id, mngr, history)
+
+
+def cmd_train_ratt(args):
+    """Live-retrieval RATT training: 3D-wide chunk statistics ->
+    projection -> RattChunkRetriever over ``--collection`` -> RATTHead;
+    ``--attention-losses`` adds the CLS-attention terms (the preset
+    ``chunks``), ``--rebuild sync`` re-projects every chunk row with the
+    live projection every ``--rebuild-every`` epochs."""
+    from dataclasses import replace
+
+    from vit_research_tpu_torch.device import resolve_device
+    from vit_research_tpu_torch.retrieval.retrievers import \
+        RattChunkRetriever
+    from vit_research_tpu_torch.store.vector_store import PersistentClient
+    from vit_research_tpu_torch.train.train_ratt import train_ratt
+    from vit_research_tpu_torch.utils.configs import preset
+
+    resolve_device(args.device)
+    store, _, chunks, train, val = _open_store(args)
+    # flags default to None, so the preset's values ('chunks': 12 epochs,
+    # top_k 12, rebuild_every 3) stand unless given
+    cfg = preset("chunks" if args.attention_losses else "ratt")
+    cfg = replace(
+        cfg,
+        head=replace(cfg.head, embed_dim=store.dim),
+        retrieval=replace(
+            cfg.retrieval, collection=args.collection,
+            **({} if args.top_k is None else {"top_k": args.top_k})),
+        train=replace(
+            cfg.train,
+            **{k: v for k, v in (
+                ("num_epochs", args.epochs),
+                ("batch_size", args.batch_size),
+                ("rebuild_every", args.rebuild_every)) if v is not None}),
+        train_vids=tuple(args.train_vids), test_vids=tuple(args.val_vids))
+    r = cfg.retrieval
+
+    client = PersistentClient(args.db, autoflush=False, device=args.device)
+    try:
+        # strict: a mistyped --collection must not train against an empty
+        # collection created on the spot
+        col = client.get_collection(args.collection)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    common._fence_store_collection(col, store,
+                                   writes=args.rebuild == "sync")
+    retriever = RattChunkRetriever(col, top_k=r.top_k)
+
+    def frame_embs_fn(batch):
+        return store.gather_paths([ch["frames"] for ch in batch])
+
+    rebuild_fn = None
+    if args.rebuild == "sync":
+        from vit_research_tpu_torch.db.builders import reproject_chunk_rows
+
+        def rebuild_fn(project_fn):
+            try:
+                n = reproject_chunk_rows(chunks, frame_embs_fn, project_fn,
+                                         col)
+            except ValueError as e:
+                raise SystemExit(str(e))
+            client.flush()
+            print(f"rebuilt {n} chunk rows with the live projection")
+
+    run_id, mngr = _run_manager(args, cfg)
+    _, history = train_ratt(
+        train, val, frame_embs_fn, retriever, cfg=cfg,
+        attention_losses=args.attention_losses,
+        contrastive_weight=args.contrastive_weight, rebuild_fn=rebuild_fn,
+        ckpt_manager=mngr, resume=args.resume, verbose=True,
+        device=args.device)
+    _finish(run_id, mngr, history)
+
+
 def register(sub):
     t1 = sub.add_parser("train-stage1",
                         help="train the stage-1 ChunkEncoder on a frame "
@@ -73,3 +240,60 @@ def register(sub):
                     help="continue --run-id's latest checkpoint")
     common.device_arg(t1)
     t1.set_defaults(fn=cmd_train_stage1)
+
+    tr = sub.add_parser("train-rag",
+                        help="train ProjectionHead + RAGHead over live "
+                             "frame retrieval")
+    common.split_args(tr)
+    tr.add_argument("--store", required=True)
+    tr.add_argument("--db", required=True)
+    tr.add_argument("--ckpt", required=True)
+    tr.add_argument("--collection", default="ragdb")
+    tr.add_argument("--epochs", type=int, default=24)
+    tr.add_argument("--batch-size", type=int, default=8)
+    tr.add_argument("--top-k", type=int, default=5)
+    tr.add_argument("--no-retrieval", action="store_true")
+    tr.add_argument("--rebuild", choices=["none", "sync"], default="none")
+    tr.add_argument("--rebuild-every", type=int, default=4)
+    tr.add_argument("--run-id", default=None)
+    tr.add_argument("--resume", action="store_true")
+    # the world's arguments, needed for --rebuild sync only
+    tr.add_argument("--clip-root", dest="clip_root", default=None)
+    tr.add_argument("--vids", type=int, nargs="+", default=None)
+    tr.add_argument("--clip-labels", dest="clip_labels", default=None)
+    tr.add_argument("--event-template", dest="event_template", default=None)
+    tr.add_argument("--chunk-size", type=int, default=8)
+    tr.add_argument("--chunk-stride", type=int, default=2)
+    common.device_arg(tr)
+    tr.set_defaults(fn=cmd_train_rag)
+
+    tt = sub.add_parser("train-ratt",
+                        help="train the chunk projection + RATTHead over "
+                             "live chunk retrieval")
+    common.split_args(tt)
+    tt.add_argument("--store", required=True)
+    tt.add_argument("--db", required=True)
+    tt.add_argument("--ckpt", required=True)
+    tt.add_argument("--collection", default="ratt_db")
+    tt.add_argument("--epochs", type=int, default=None,
+                    help="override the preset's epoch count "
+                         "(ratt: 24, chunks: 12)")
+    tt.add_argument("--batch-size", type=int, default=None)
+    tt.add_argument("--top-k", type=int, default=None,
+                    help="override the preset's top_k (ratt: 8, chunks: 12)")
+    tt.add_argument("--attention-losses", action="store_true",
+                    help="add the CLS-attention weighted contrastive and "
+                         "entropy terms (the training_chunk_works line)")
+    tt.add_argument("--contrastive-weight", type=float, default=0.0,
+                    help="max-pull retrieval contrastive weight (the "
+                         "reference hardcodes 0)")
+    tt.add_argument("--rebuild", choices=["none", "sync"], default="none",
+                    help="sync: re-project every chunk row with the live "
+                         "projection every --rebuild-every epochs")
+    tt.add_argument("--rebuild-every", type=int, default=None,
+                    help="override the preset's cadence "
+                         "(ratt: 4, chunks: 3)")
+    tt.add_argument("--run-id", default=None)
+    tt.add_argument("--resume", action="store_true")
+    common.device_arg(tt)
+    tt.set_defaults(fn=cmd_train_ratt)

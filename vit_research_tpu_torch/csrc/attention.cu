@@ -9,8 +9,9 @@
 // strides (the last dim has stride 1), so the backbone passes the q/k/v
 // projections in their (B, T, H, dh) order without a copy; o is written
 // through its own strides (the wrapper allocates it (B, T, H, dh)). Any T;
-// dh in {16, 32, 64, 96} (96: the stage-1 chunk encoder, 768 wide with 8
-// heads, at T = 9 to 25; a 64-row query tile is then mostly idle).
+// dh in {16, 32, 64, 96, 192} (96: the stage-1 chunk encoder, 768 wide
+// with 8 heads, at T = 9 to 25; 192: the RAG/RATT heads, 768 wide with 4
+// heads, at T = 5; a 64-row query tile is then mostly idle).
 //
 // Optional key bias (ToMe's proportional attention, models/vit.py's
 // ToMeEncoderBlock): a (B, T) f32 row per batch element, with its batch
@@ -60,6 +61,14 @@
 //   goes through a 64 x 72 f32 tile in shared memory (written and read
 //   only by the warp that owns its rows) into the P V micro-GEMM, which
 //   reads 4 P and dh/8 V float4 per 4 keys for another 128 FMAs.
+//   At dh = 192 that layout (64 query rows, K/V double-buffered) needs
+//   267,264 bytes of shared memory, over the 232,448 a block may opt into.
+//   There a block owns 32 query rows (thread (ty, tx) rows ty + 16i, i <
+//   2, so O stays 2 x 24 registers a thread, as 4 x 12 at dh = 96) and K/V
+//   are single-buffered: (32*196 + 64*196 + 64*192 + 32*72) * 4 = 133,632
+//   bytes (133,888 with the bias), one block an SM. The next key tile then
+//   loads only after this one is consumed; on the heads' path T = 5, one
+//   tile, so there is nothing to overlap.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -118,17 +127,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copies 64 rows of DH elements of (b, h)'s tensor, from token `row0` on,
-// into shared memory with row pitch `ld`; rows past `seq` are zeroed.
-template <typename T, int DH>
+// Copies ROWS rows of DH elements of (b, h)'s tensor, from token `row0`
+// on, into shared memory with row pitch `ld`; rows past `seq` are zeroed.
+template <typename T, int DH, int ROWS = 64>
 __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
                                           long long st, int row0, int seq,
                                           int tid) {
   constexpr int CH = DH * (int)sizeof(T) / 16;  // 16-byte chunks per row
   constexpr int PER = 16 / (int)sizeof(T);     // elements per chunk
-  static_assert(64 * CH % THREADS == 0, "whole copies per thread");
+  static_assert(ROWS * CH % THREADS == 0, "whole copies per thread");
 #pragma unroll
-  for (int it = 0; it < 64 * CH / THREADS; ++it) {
+  for (int it = 0; it < ROWS * CH / THREADS; ++it) {
     const int i = tid + it * THREADS;
     const int r = i / CH, c = i % CH;
     const int row = row0 + r;
@@ -138,13 +147,15 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
   }
 }
 
-template <typename T>
+// The block's (b, h) pointers and its first query row q0 (blocks of ROWS
+// query rows).
+template <int ROWS, typename T>
 __device__ __forceinline__ void head_ptrs(const Params<T>& p, int& q0,
                                           const T*& qg, const T*& kg,
                                           const T*& vg, T*& og,
                                           const float*& bg) {
   const long long bh = blockIdx.x / p.n_qblocks;
-  q0 = (int)(blockIdx.x - bh * p.n_qblocks) * BQ;
+  q0 = (int)(blockIdx.x - bh * p.n_qblocks) * ROWS;
   const long long b = bh / p.heads, h = bh - (bh / p.heads) * p.heads;
   qg = p.q + b * p.sq.b + h * p.sq.h;
   kg = p.k + b * p.sk.b + h * p.sk.h;
@@ -224,7 +235,7 @@ attn_bf16(const Params<__nv_bfloat16> p) {
   const bf16 *qg, *kg, *vg;
   bf16* og;
   const float* bg;
-  head_ptrs(p, q0, qg, kg, vg, og, bg);
+  head_ptrs<BQ>(p, q0, qg, kg, vg, og, bg);
   const int seq = p.seq;
 
   load_rows<bf16, DH>(Qs, LD, qg, p.sq.t, q0, seq, tid);
@@ -408,21 +419,29 @@ attn_bf16(const Params<__nv_bfloat16> p) {
 
 // ----------------------------------------------------------------- f32
 
-// dh = 96: (64*100 + 2*64*100 + 2*64*96 + 64*72) * 4 = 144,384 bytes (plus
-// 512 with the bias), under the 227 KB a block may opt into: one block an
-// SM. dh = 192 would need ~267 KB and another design.
+// dh <= 96: 64 query rows, K/V double-buffered. dh = 96: (64*100 +
+// 2*64*100 + 2*64*96 + 64*72) * 4 = 144,384 bytes (plus 512 with the
+// bias), one block an SM. dh = 192: 32 query rows, one K/V buffer:
+// (32*196 + 64*196 + 64*192 + 32*72) * 4 = 133,632 bytes (plus 256 with
+// the bias), one block an SM. Both under the 232,448 a block may opt into.
 template <int DH>
 struct F32Layout {
+  static constexpr int ROWS = DH > 96 ? 32 : 64;  // query rows a block
+  static constexpr int RI = ROWS / 16;  // query rows a thread, 16 apart
+  static constexpr int STAGES = DH > 96 ? 1 : 2;  // K/V buffers
   static constexpr int LDQ = DH + 4, LDK = DH + 4, LDV = DH, LDP = BK + 8;
   static constexpr int Q = 0;
-  static constexpr int K = Q + BQ * LDQ;         // 2 buffers
-  static constexpr int V = K + 2 * BK * LDK;     // 2 buffers
-  static constexpr int P = V + 2 * BK * LDV;
-  static constexpr int FLOATS = P + BQ * LDP;
+  static constexpr int K = Q + ROWS * LDQ;
+  static constexpr int V = K + STAGES * BK * LDK;
+  static constexpr int P = V + STAGES * BK * LDV;
+  static constexpr int FLOATS = P + ROWS * LDP;
   static constexpr int BYTES = FLOATS * 4;
-  // 2 key-bias tiles after P, for the BIAS kernel
-  static constexpr int BIAS_BYTES = BYTES + 2 * BK * 4;
+  // a key-bias tile for each K/V buffer after P, for the BIAS kernel
+  static constexpr int BIAS_BYTES = BYTES + STAGES * BK * 4;
 };
+static_assert(F32Layout<96>::BYTES == 144384, "dh = 96 layout");
+static_assert(F32Layout<192>::BYTES == 133632, "dh = 192 layout");
+static_assert(Bf16Layout<192>::BYTES == 128000, "bf16 dh = 192 layout");
 
 // O columns of thread tx: dh/8 of them, as float4 groups 32 apart (dh >=
 // 32) or one float2 (dh = 16).
@@ -441,25 +460,28 @@ template <int DH, bool FULL, bool BIAS>
 __device__ __forceinline__ void f32_tile(const float* Qs, const float* kt,
                                          const float* vt, const float* bt,
                                          float* Ps, int n_valid, int ty,
-                                         int tx, float sl, float (&m)[4],
-                                         float (&l)[4],
-                                         float (&o)[4][DH / 8]) {
+                                         int tx, float sl,
+                                         float (&m)[F32Layout<DH>::RI],
+                                         float (&l)[F32Layout<DH>::RI],
+                                         float (&o)[F32Layout<DH>::RI]
+                                                   [DH / 8]) {
   using L = F32Layout<DH>;
   constexpr int OC = DH / 8;
+  constexpr int RI = L::RI;
   const int jmax = FULL ? 8 : (n_valid + 7) / 8;
 
-  float s[4][8];
+  float s[RI][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
   // Not unrolled: each step already holds 128 independent FMAs, and
   // unrolling spills (ptxas, dh = 64).
 #pragma unroll 1
   for (int d = 0; d < DH; d += 4) {
-    float4 qv[4];
+    float4 qv[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
       qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * L::LDQ + d]);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -467,7 +489,7 @@ __device__ __forceinline__ void f32_tile(const float* Qs, const float* kt,
         const float4 kv =
             *reinterpret_cast<const float4*>(&kt[(tx + 8 * j) * L::LDK + d]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
           s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
           s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
@@ -480,7 +502,7 @@ __device__ __forceinline__ void f32_tile(const float* Qs, const float* kt,
   // Scores in log2 units (scale * log2 e folded in), plus the key bias
   // (already in log2 units); keys >= T: -inf.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     float mx = -CUDART_INF_F;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -517,9 +539,9 @@ __device__ __forceinline__ void f32_tile(const float* Qs, const float* kt,
   const int n_c4 = FULL ? BK / 4 : (n_valid + 3) / 4;
 #pragma unroll 2
   for (int c4 = 0; c4 < n_c4; ++c4) {
-    float4 pv[4];
+    float4 pv[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
       pv[i] = *reinterpret_cast<const float4*>(
           &Ps[(ty + 16 * i) * L::LDP + c4 * 4]);
 #pragma unroll
@@ -542,7 +564,7 @@ __device__ __forceinline__ void f32_tile(const float* Qs, const float* kt,
         vv[1] = x.y;
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const float pe = e == 0 ? pv[i].x : e == 1 ? pv[i].y
                        : e == 2 ? pv[i].z : pv[i].w;
 #pragma unroll
@@ -557,29 +579,30 @@ template <int DH, bool BIAS>
 __global__ void __launch_bounds__(THREADS) attn_f32(const Params<float> p) {
   using L = F32Layout<DH>;
   constexpr int OC = DH / 8;
+  constexpr int RI = L::RI;
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
   float* Qs = smem + L::Q;
   float* Ps = smem + L::P;
-  float* Bs = smem + L::FLOATS;  // [2][BK] if BIAS
+  float* Bs = smem + L::FLOATS;  // [STAGES][BK] if BIAS
 
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   int q0;
   const float *qg, *kg, *vg;
   float* og;
   const float* bg;
-  head_ptrs(p, q0, qg, kg, vg, og, bg);
+  head_ptrs<L::ROWS>(p, q0, qg, kg, vg, og, bg);
   const int seq = p.seq;
 
-  load_rows<float, DH>(Qs, L::LDQ, qg, p.sq.t, q0, seq, tid);
+  load_rows<float, DH, L::ROWS>(Qs, L::LDQ, qg, p.sq.t, q0, seq, tid);
   load_rows<float, DH>(smem + L::K, L::LDK, kg, p.sk.t, 0, seq, tid);
   load_rows<float, DH>(smem + L::V, L::LDV, vg, p.sv.t, 0, seq, tid);
   cp_async_commit();
   if constexpr (BIAS) load_bias(Bs, bg, 0, seq, tid);
 
-  float m[4], l[4], o[4][OC];
+  float m[RI], l[RI], o[RI][OC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = -CUDART_INF_F;
     l[i] = 0.f;
 #pragma unroll
@@ -589,17 +612,30 @@ __global__ void __launch_bounds__(THREADS) attn_f32(const Params<float> p) {
   const int n_tiles = (seq + BK - 1) / BK;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < n_tiles) {
-      load_rows<float, DH>(smem + L::K + (buf ^ 1) * BK * L::LDK, L::LDK, kg,
-                           p.sk.t, (tile + 1) * BK, seq, tid);
-      load_rows<float, DH>(smem + L::V + (buf ^ 1) * BK * L::LDV, L::LDV, vg,
-                           p.sv.t, (tile + 1) * BK, seq, tid);
-      cp_async_commit();
-      if constexpr (BIAS)
-        load_bias(Bs + (buf ^ 1) * BK, bg, (tile + 1) * BK, seq, tid);
-      cp_async_wait<1>();
+    const int buf = L::STAGES == 2 ? tile & 1 : 0;
+    if constexpr (L::STAGES == 2) {
+      if (tile + 1 < n_tiles) {
+        load_rows<float, DH>(smem + L::K + (buf ^ 1) * BK * L::LDK, L::LDK,
+                             kg, p.sk.t, (tile + 1) * BK, seq, tid);
+        load_rows<float, DH>(smem + L::V + (buf ^ 1) * BK * L::LDV, L::LDV,
+                             vg, p.sv.t, (tile + 1) * BK, seq, tid);
+        cp_async_commit();
+        if constexpr (BIAS)
+          load_bias(Bs + (buf ^ 1) * BK, bg, (tile + 1) * BK, seq, tid);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
     } else {
+      // one buffer: refilled after the previous tile's closing barrier
+      if (tile > 0) {
+        load_rows<float, DH>(smem + L::K, L::LDK, kg, p.sk.t, tile * BK,
+                             seq, tid);
+        load_rows<float, DH>(smem + L::V, L::LDV, vg, p.sv.t, tile * BK,
+                             seq, tid);
+        cp_async_commit();
+        if constexpr (BIAS) load_bias(Bs, bg, tile * BK, seq, tid);
+      }
       cp_async_wait<0>();
     }
     __syncthreads();
@@ -617,7 +653,7 @@ __global__ void __launch_bounds__(THREADS) attn_f32(const Params<float> p) {
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
     for (int off = 1; off < 8; off <<= 1)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
@@ -674,10 +710,11 @@ int launch(Kernel kernel, const Params<T>& p, int batch, int bytes,
 }
 
 template <int DH>
-int launch_f32(const Params<float>& p, int batch, cudaStream_t s) {
-  if (p.bias)
-    return launch(attn_f32<DH, true>, p, batch, F32Layout<DH>::BIAS_BYTES, s);
-  return launch(attn_f32<DH, false>, p, batch, F32Layout<DH>::BYTES, s);
+int launch_f32(Params<float> p, int batch, cudaStream_t s) {
+  using L = F32Layout<DH>;
+  p.n_qblocks = (p.seq + L::ROWS - 1) / L::ROWS;
+  if (p.bias) return launch(attn_f32<DH, true>, p, batch, L::BIAS_BYTES, s);
+  return launch(attn_f32<DH, false>, p, batch, L::BYTES, s);
 }
 
 template <int DH>
@@ -694,8 +731,8 @@ int launch_bf16(const Params<__nv_bfloat16>& p, int batch, cudaStream_t s) {
 // element strides strides[0..2] (q), [3..5] (k), [6..8] (v) for batch,
 // head and token; o is written through strides[9..11]. The last dim has
 // stride 1; base pointers and strides are multiples of 16 bytes. dh in
-// {16, 32, 64, 96}. bias: null, or a (batch, seq) f32 key bias whose rows are
-// bias_stride elements apart (stride 1 along seq). Returns
+// {16, 32, 64, 96, 192}. bias: null, or a (batch, seq) f32 key bias whose
+// rows are bias_stride elements apart (stride 1 along seq). Returns
 // cudaGetLastError() after the launch.
 extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
                                  void* o, int batch, int heads, int seq,
@@ -713,6 +750,7 @@ extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
       case 32: return launch_bf16<32>(p, batch, s);
       case 64: return launch_bf16<64>(p, batch, s);
       case 96: return launch_bf16<96>(p, batch, s);
+      case 192: return launch_bf16<192>(p, batch, s);
     }
   } else {
     const auto p = make_params<float>(q, k, v, o, heads, seq, strides, scale,
@@ -722,6 +760,7 @@ extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
       case 32: return launch_f32<32>(p, batch, s);
       case 64: return launch_f32<64>(p, batch, s);
       case 96: return launch_f32<96>(p, batch, s);
+      case 192: return launch_f32<192>(p, batch, s);
     }
   }
   return (int)cudaErrorInvalidValue;

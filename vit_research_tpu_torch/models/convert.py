@@ -17,7 +17,11 @@ side classifier (segment/clustering.py::SideMLP), whose Flax tree is also
 the format of its ``.npz`` files (train/checkpoint.py), and
 ``chunk_encoder_to_state_dict`` / ``chunk_encoder_to_params`` for the
 stage-1 ``ChunkEncoder`` (models/heads.py), whose blocks are the
-backbone's.
+backbone's; ``projection_head_to_state_dict`` / ``projection_head_to_params``
+for ``ProjectionHead`` (768 -> 768 and 2304 -> 768), and
+``rag_head_to_state_dict`` / ``rag_head_to_params`` and
+``ratt_head_to_state_dict`` / ``ratt_head_to_params`` for ``RAGHead`` and
+``RATTHead``.
 """
 
 from __future__ import annotations
@@ -210,3 +214,93 @@ def chunk_encoder_to_params(state_dict,
         p[f"block_{i}"] = _block_to_tree(t, f"blocks.{i}.", d,
                                          config.num_heads)
     return {"params": p}
+
+
+_PROJECTION_LAYERS = ("d1", "d2", "out")
+
+
+def projection_head_to_state_dict(params) -> dict:
+    """The JAX package's flax ``ProjectionHead`` params (numpy, with or
+    without the outer ``{"params": ...}``) -> ``state_dict`` of
+    models/heads.py::ProjectionHead."""
+    p = params.get("params", params)
+    return _tensors({f"{name}.{k}": v for name in _PROJECTION_LAYERS
+                     for k, v in _dense(p[name]).items()})
+
+
+def projection_head_to_params(state_dict) -> dict:
+    """``ProjectionHead`` ``state_dict`` -> the flax tree ``{"params":
+    {"d1": {"kernel", "bias"}, "d2": ..., "out": ...}}`` (the inverse of
+    :func:`projection_head_to_state_dict`)."""
+    t = _getter(state_dict)
+    return {"params": {name: {"kernel": t(f"{name}.weight").T.copy(),
+                              "bias": t(f"{name}.bias")}
+                       for name in _PROJECTION_LAYERS}}
+
+
+def _head_to_flat(p, mlps: tuple) -> dict:
+    """The parts RAGHead and RATTHead share: type embeddings, position
+    table, blocks, final LayerNorm and the classifier MLPs ``mlps``."""
+    d = _np(p["cls_type"]).shape[-1]
+    flat = {name: _np(p[name])
+            for name in ("cls_type", "ret_type", "pos_embedding")}
+    for k, v in _ln(p["norm"]).items():
+        flat[f"norm.{k}"] = v
+    n_blocks = sum(1 for k in p if k.startswith("block_"))
+    for i in range(n_blocks):
+        flat.update(_block_to_flat(p[f"block_{i}"], f"blocks.{i}.", d))
+    for mlp in mlps:
+        if mlp in p:
+            for name in ("fc", "logit"):
+                for k, v in _dense(p[mlp][name]).items():
+                    flat[f"{mlp}.{name}.{k}"] = v
+    return flat
+
+
+def _head_to_tree(state_dict, config, mlps: tuple) -> dict:
+    t = _getter(state_dict)
+    p = {name: t(name) for name in ("cls_type", "ret_type", "pos_embedding")}
+    p["norm"] = {"scale": t("norm.weight"), "bias": t("norm.bias")}
+    for i in range(config.num_layers):
+        p[f"block_{i}"] = _block_to_tree(t, f"blocks.{i}.", config.embed_dim,
+                                         config.num_heads)
+    for mlp in mlps:
+        if f"{mlp}.fc.weight" in state_dict:
+            p[mlp] = {name: {"kernel": t(f"{mlp}.{name}.weight").T.copy(),
+                             "bias": t(f"{mlp}.{name}.bias")}
+                      for name in ("fc", "logit")}
+    return p
+
+
+def rag_head_to_state_dict(params) -> dict:
+    """The JAX package's flax ``RAGHead`` params -> ``state_dict`` of
+    models/heads.py::RAGHead (float32 CPU tensors)."""
+    p = params.get("params", params)
+    flat = _head_to_flat(p, ("classifier",))
+    flat["pooler.retrieval_queries"] = _np(
+        p["pooler"]["retrieval_queries"])
+    return _tensors(flat)
+
+
+def rag_head_to_params(state_dict, config) -> dict:
+    """``RAGHead`` ``state_dict`` -> the flax tree ``{"params": {...}}``
+    (the inverse of :func:`rag_head_to_state_dict`; ``config``, a
+    ``HeadConfig``, gives the layer and head counts)."""
+    p = _head_to_tree(state_dict, config, ("classifier",))
+    p["pooler"] = {"retrieval_queries":
+                   _getter(state_dict)("pooler.retrieval_queries")}
+    return {"params": p}
+
+
+def ratt_head_to_state_dict(params) -> dict:
+    """The JAX package's flax ``RATTHead`` params (with or without the
+    relevance head) -> ``state_dict`` of models/heads.py::RATTHead."""
+    p = params.get("params", params)
+    return _tensors(_head_to_flat(p, ("class_head", "relevance_head")))
+
+
+def ratt_head_to_params(state_dict, config) -> dict:
+    """``RATTHead`` ``state_dict`` -> the flax tree ``{"params": {...}}``
+    (the inverse of :func:`ratt_head_to_state_dict`)."""
+    return {"params": _head_to_tree(state_dict, config,
+                                    ("class_head", "relevance_head"))}

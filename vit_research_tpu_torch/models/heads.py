@@ -1,5 +1,5 @@
-"""Retrieval-augmented head family, first part: the pooler, the
-projection head, the classifier MLP and the stage-1 ChunkEncoder.
+"""Retrieval-augmented head family: the pooler, the projection head, the
+classifier MLP, the stage-1 ChunkEncoder, RAGHead and RATTHead.
 
 Port of vit_research_tpu/models/heads.py as ``nn.Module``s with the same
 computation and a parameter layout that models/convert.py maps one to one
@@ -13,14 +13,23 @@ onto the flax trees:
 - ``ChunkEncoder``: learned CLS + position table over a chunk's T frame
   embeddings -> pre-norm transformer (the backbone's ``EncoderBlock``,
   tanh GELU) -> LayerNorm -> chunk embedding (the CLS row) and a binary
-  class logit.
+  class logit;
+- ``RAGHead``: the CLS token and M pooled retrieval tokens (plus type
+  embeddings and a position table) -> pre-norm transformer ->
+  LayerNorm -> Dense(256) -> Dense(1) logit and the fused CLS row;
+- ``RATTHead``: like RAGHead over the raw retrieved tokens (no pooler, a
+  ``max_tokens`` position table), returning (class logit, relevance
+  logit or None, fused CLS row, per-layer attention probabilities);
+- ``cls_retrieval_importance``: the last layer's head-averaged CLS ->
+  retrieved-token attention.
 
 Attention runs through models/vit.py's ``MultiHeadSelfAttention``: kernel
-B on a CUDA device (dh = 96 at the real width, 768 / 8 heads) in eval mode
-and in dropout-0 training, the plain path where scores are returned or
-attention dropout is on. Dropout masks come from the generator that
-models/vit.py::set_dropout_generator sets. ``RAGHead``, ``RATTHead`` and
-``cls_retrieval_importance`` come with the retrieval trainers.
+B on a CUDA device in eval mode and in dropout-0 training (dh = 96 in the
+chunk encoder, 768 / 8 heads; dh = 192 in RAGHead, 768 / 4 heads, at T =
+1 + num_queries = 5), the plain path where scores are returned (every
+RATTHead layer) or attention dropout is on. Dropout masks come from the
+generator that models/vit.py::set_dropout_generator sets. The heads
+compute in float32; ``dtype='bfloat16'`` is not ported and is refused.
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ from torch import nn
 from vit_research_tpu_torch.models.vit import (Dropout, EncoderBlock,
                                                _lecun_normal_)
 from vit_research_tpu_torch.ops.topk import l2_normalize
-from vit_research_tpu_torch.utils.configs import ChunkEncoderConfig
+from vit_research_tpu_torch.utils.configs import (ChunkEncoderConfig,
+                                                  HeadConfig)
 
 
 def _dense(in_features: int, out_features: int, generator) -> nn.Linear:
@@ -95,6 +105,37 @@ class ClassifierMLP(nn.Module):
         return self.logit(self.dropout(torch.relu(self.fc(x))))
 
 
+def _require_f32(config, what: str) -> None:
+    if config.dtype != "float32":
+        raise NotImplementedError(
+            f"{what}.dtype={config.dtype!r} is not ported; the port's "
+            "heads compute in float32")
+
+
+@torch.no_grad()
+def _init_dense_and_norms(module: nn.Module, generator) -> None:
+    """Every ``nn.Linear`` of ``module`` lecun-normal with zero bias (flax
+    Dense's init), every LayerNorm ones/zeros."""
+    for mod in module.modules():
+        if isinstance(mod, nn.Linear):
+            _lecun_normal_(mod.weight, mod.in_features, generator)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+
+
+def _head_blocks(c: HeadConfig) -> nn.ModuleList:
+    """The heads' pre-norm blocks: the backbone's EncoderBlock, MLP 4x
+    wide, tanh GELU."""
+    return nn.ModuleList(
+        EncoderBlock(c.embed_dim, c.num_heads, 4 * c.embed_dim,
+                     dropout_rate=c.dropout_rate,
+                     attention_dropout_rate=c.dropout_rate,
+                     layer_norm_eps=1e-6, gelu_approximate=True)
+        for _ in range(c.num_layers))
+
+
 class ChunkEncoder(nn.Module):
     """(B, T, D) frame embeddings -> (chunk embedding (B, D), class logit
     (B, 1)[, per-layer attention probabilities]).
@@ -106,10 +147,7 @@ class ChunkEncoder(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         c = config
-        if c.dtype != "float32":
-            raise NotImplementedError(
-                f"ChunkEncoderConfig.dtype={c.dtype!r} is not ported; the "
-                "port's chunk encoder computes in float32")
+        _require_f32(c, "ChunkEncoderConfig")
         self.config = c
         d = c.embed_dim
         self.cls_token = nn.Parameter(torch.empty(1, 1, d))
@@ -132,13 +170,7 @@ class ChunkEncoder(nn.Module):
         from models/convert.py, not from a shared seed."""
         nn.init.normal_(self.cls_token, std=0.02, generator=generator)
         nn.init.normal_(self.pos_embedding, std=0.02, generator=generator)
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                _lecun_normal_(mod.weight, mod.in_features, generator)
-                nn.init.zeros_(mod.bias)
-            elif isinstance(mod, nn.LayerNorm):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
+        _init_dense_and_norms(self, generator)
 
     def forward(self, frame_embeddings: torch.Tensor, *,
                 return_attention: bool = False):
@@ -164,3 +196,98 @@ class ChunkEncoder(nn.Module):
         if return_attention:
             return chunk_emb, class_logit, scores_all
         return chunk_emb, class_logit
+
+
+class RAGHead(nn.Module):
+    """cls (B, D) + retrieved (B, R, D) -> (logits (B, 1), fused (B, D)).
+
+    The retrieved rows are pooled into ``num_queries`` tokens, so the
+    blocks see T = 1 + num_queries tokens (5 at ``HeadConfig()``)."""
+
+    def __init__(self, config: HeadConfig, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        c = config
+        _require_f32(c, "HeadConfig")
+        self.config = c
+        d = c.embed_dim
+        self.pooler = RetrievalMultiQueryPooler(d, c.num_queries,
+                                                generator=generator)
+        self.cls_type = nn.Parameter(torch.zeros(1, 1, d))
+        self.ret_type = nn.Parameter(torch.zeros(1, 1, d))
+        self.pos_embedding = nn.Parameter(torch.empty(1, 1 + c.num_queries,
+                                                      d))
+        self.blocks = _head_blocks(c)
+        self.norm = nn.LayerNorm(d, eps=1e-6)
+        self.classifier = ClassifierMLP(d, c.hidden_dim,
+                                        c.classifier_dropout)
+        with torch.no_grad():
+            nn.init.normal_(self.pos_embedding, std=0.02,
+                            generator=generator)
+        _init_dense_and_norms(self, generator)
+
+    def forward(self, cls_embeddings, retrieved_embeddings):
+        pooled = self.pooler(retrieved_embeddings.to(torch.float32))
+        cls_tok = cls_embeddings[:, None].to(torch.float32) + self.cls_type
+        x = torch.cat([cls_tok, pooled + self.ret_type], dim=1) \
+            + self.pos_embedding
+        for block in self.blocks:
+            x, _ = block(x)
+        fused_cls = self.norm(x)[:, 0]
+        return self.classifier(fused_cls), fused_cls
+
+
+class RATTHead(nn.Module):
+    """cls (B, D) + raw retrieved (B, K, D) -> (class_logit, relevance_logit
+    or None, fused (B, D), per-layer attention probabilities (B, H, T,
+    T)). Every layer returns its scores, so attention takes the plain
+    path (as the reference's XLA path, which serves scores)."""
+
+    def __init__(self, config: HeadConfig, use_relevance_head: bool = False,
+                 *, generator: torch.Generator | None = None):
+        super().__init__()
+        c = config
+        _require_f32(c, "HeadConfig")
+        self.config = c
+        d = c.embed_dim
+        self.cls_type = nn.Parameter(torch.zeros(1, 1, d))
+        self.ret_type = nn.Parameter(torch.zeros(1, 1, d))
+        self.pos_embedding = nn.Parameter(torch.empty(1, c.max_tokens, d))
+        self.blocks = _head_blocks(c)
+        self.norm = nn.LayerNorm(d, eps=1e-6)
+        self.class_head = ClassifierMLP(d, c.hidden_dim, c.classifier_dropout)
+        self.relevance_head = (ClassifierMLP(d, c.hidden_dim,
+                                             c.classifier_dropout)
+                               if use_relevance_head else None)
+        with torch.no_grad():
+            nn.init.normal_(self.pos_embedding, std=0.02,
+                            generator=generator)
+        _init_dense_and_norms(self, generator)
+
+    def forward(self, cls_embeddings, retrieved_embeddings, *,
+                use_retrieval: bool = True):
+        c = self.config
+        x = cls_embeddings[:, None].to(torch.float32) + self.cls_type
+        if use_retrieval:
+            x = torch.cat([x, retrieved_embeddings.to(torch.float32)
+                           + self.ret_type], dim=1)
+        seq = x.shape[1]
+        if seq > c.max_tokens:
+            raise ValueError(f"sequence {seq} exceeds max_tokens "
+                             f"{c.max_tokens}")
+        x = x + self.pos_embedding[:, :seq]
+        scores_all = []
+        for block in self.blocks:
+            x, scores = block(x, True)
+            scores_all.append(scores)
+        fused = self.norm(x)[:, 0]
+        relevance = (self.relevance_head(fused)
+                     if self.relevance_head is not None else None)
+        return self.class_head(fused), relevance, fused, scores_all
+
+
+def cls_retrieval_importance(attention_scores):
+    """CLS -> retrieved-token importance (B, T - 1): the last layer's
+    attention probabilities (B, H, T, T), CLS row, averaged over heads,
+    without the CLS -> CLS entry."""
+    return attention_scores[-1][:, :, 0, :].mean(dim=1)[:, 1:]

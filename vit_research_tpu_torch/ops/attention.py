@@ -31,8 +31,9 @@ import ctypes
 import torch
 
 #: head widths the kernel is compiled for (ViT-B: 64; the stage-1 chunk
-#: encoder, 768 wide with 8 heads: 96; tiny test configs)
-KERNEL_HEAD_DIMS = (16, 32, 64, 96)
+#: encoder, 768 wide with 8 heads: 96; the RAG/RATT heads, 768 wide with 4
+#: heads: 192; tiny test configs)
+KERNEL_HEAD_DIMS = (16, 32, 64, 96, 192)
 _DTYPES = (torch.float32, torch.bfloat16)
 _ALIGN = 16  # bytes: the kernel moves q, k, v and o in 16-byte copies
 

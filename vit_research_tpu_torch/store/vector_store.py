@@ -806,6 +806,22 @@ class Collection:
             self._device_cache = None
             self._dirty = True  # persist in config.json on next flush
 
+    def device_snapshot(self, fields: Sequence[str], since=None):
+        """The rows and metadata columns for a reader on the collection's
+        device, taken under the lock: ``(version, rows, columns)``, or
+        None while the version is still ``since``. ``version`` is the
+        mutation counter, which moves on every change (an in-place
+        same-id upsert included), so callers cache on it; ``rows`` is a
+        float32 copy of the rows on ``self.device``; ``columns`` maps
+        each of ``fields`` to its metadata column (numpy, object)."""
+        with self._lock:
+            if since == self._mutations:
+                return None
+            return (self._mutations,
+                    torch.tensor(self._embeddings, dtype=torch.float32,
+                                 device=self.device),
+                    {f: self._column(f) for f in fields})
+
     def _device_corpus(self):
         if self._device_cache is None:
             emb = torch.from_numpy(self._embeddings).to(self.device)

@@ -3,13 +3,14 @@
 Port of vit_research_tpu/train/common.py: a host-side batcher (the same
 seeded numpy shuffles, so batches come in the JAX package's order), the
 train state (a module, its optimizer and the step count), resume from the
-latest run checkpoint, and the per-epoch metric means. The retrieval
-trainers' DB-rebuild cadence (``maybe_rebuild_db``, ``finish_rebuilds``)
-comes with them.
+latest run checkpoint, the per-epoch metric means and dropout
+generators, and the retrieval trainers' epoch loop (``run_epochs``) with
+its DB-rebuild cadence (``maybe_rebuild_db``, ``finish_rebuilds``).
 """
 
 from __future__ import annotations
 
+import copy
 import warnings
 from dataclasses import dataclass
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from vit_research_tpu_torch.models.vit import set_dropout_generator
 from vit_research_tpu_torch.train.optim import Optimizer
 
 
@@ -129,6 +131,15 @@ def split_train_val(items, val_frac: float = 0.2, seed: int = 0):
     return train, val
 
 
+def dropout_generator(seed: int, epoch: int, device) -> torch.Generator:
+    """The epoch's dropout generator on ``device``, seeded from (seed,
+    epoch) alone."""
+    state = np.random.SeedSequence([seed, epoch]).generate_state(2)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(state[0]) << 31) ^ int(state[1]))
+    return gen
+
+
 class MetricAverager:
     """Streaming scalar means (a keras ``Mean`` per key)."""
 
@@ -146,3 +157,102 @@ class MetricAverager:
 
     def reset(self):
         self.sums, self.counts = {}, {}
+
+
+def host_projection(module: nn.Module, device, *, prepare=None,
+                    frozen: bool = False):
+    """``module`` (after ``prepare`` on its input, when given) as the host
+    callable the DB rebuilders take: numpy in, numpy out, run on
+    ``device`` without a graph. ``frozen``: through a copy of the weights
+    taken now, for an async rebuild, whose thread runs while training
+    updates the live weights in place."""
+    if frozen:
+        module = copy.deepcopy(module)
+
+    @torch.no_grad()
+    def fn(x) -> np.ndarray:
+        x = torch.as_tensor(np.asarray(x, np.float32)).to(device)
+        return module(x if prepare is None else prepare(x)).cpu().numpy()
+    return fn
+
+
+def maybe_rebuild_db(epoch, train_cfg, proj: nn.Module, device, *,
+                     prepare=None, rebuild_fn=None, rebuild_scheduler=None,
+                     verbose=False) -> None:
+    """The retrieval trainers' epoch-end DB rebuild: every
+    ``rebuild_every`` epochs, ``(epoch + 1) % R == 0`` (the reference's
+    1-indexed ``epoch % R == 0``, nba_proj/train/training.py:479-480).
+
+    ``rebuild_fn(project_fn)`` rebuilds synchronously; a
+    train/async_rebuild.py ``RebuildScheduler`` first swaps in a finished
+    rebuild, then is kicked with ``project_fn``, through a copy of the
+    weights taken at the kick. ``project_fn`` is :func:`host_projection`
+    of the trainer's live projection ``proj`` (after ``prepare``):
+    train_rag's maps (B, d) chunk embeddings, train_ratt's (B, T, d)
+    frame embeddings."""
+    due = bool(train_cfg.rebuild_every) and \
+        (epoch + 1) % train_cfg.rebuild_every == 0
+    if rebuild_scheduler is not None:
+        if rebuild_scheduler.maybe_swap() and verbose:
+            print(f"epoch {epoch}: swapped in async DB rebuild")
+        if due:
+            rebuild_scheduler.kick(host_projection(
+                proj, device, prepare=prepare, frozen=True))
+    elif rebuild_fn is not None and due:
+        rebuild_fn(host_projection(proj, device, prepare=prepare))
+
+
+def finish_rebuilds(rebuild_scheduler) -> None:
+    """Drain the async rebuild scheduler at the end of training; a failed
+    last rebuild is printed, not raised past the trained weights."""
+    if rebuild_scheduler is not None:
+        rebuild_scheduler.wait()
+        rebuild_scheduler.maybe_swap(raise_on_error=False)
+
+
+def run_epochs(state: TrainState, train_items, val_items, train_cfg, *,
+               start_epoch: int, batch_tensors, train_step, eval_step,
+               seed: int, device, proj: nn.Module, prepare=None,
+               ckpt_manager=None, rebuild_fn=None, rebuild_scheduler=None,
+               verbose: bool = False) -> list[dict]:
+    """The retrieval trainers' epoch loop; returns one metrics dict per
+    epoch run.
+
+    Each epoch: the training batches in the seeded order
+    (``seed + epoch``) under the epoch's dropout generator, each through
+    ``train_step(epoch, *batch_tensors(batch)) -> {metric: value}``; the
+    validation batches in order through ``eval_step(*batch_tensors(batch))
+    -> {metric: value}``; the means, a checkpoint (model, optimizer, step)
+    and the best ``val_acc`` when a manager is given; then
+    :func:`maybe_rebuild_db` with ``proj``. A finished async rebuild is
+    drained at the end."""
+    model = state.model
+    history = []
+    for epoch in range(start_epoch, train_cfg.num_epochs):
+        set_dropout_generator(model, dropout_generator(seed, epoch, device))
+        m = MetricAverager()
+        for batch in batch_iterator(train_items, train_cfg.batch_size,
+                                    seed=seed + epoch):
+            metrics = train_step(epoch, *batch_tensors(batch))
+            state.step += 1
+            m.update(**metrics)
+        set_dropout_generator(model, None)
+
+        for batch in batch_iterator(val_items, train_cfg.batch_size,
+                                    shuffle=False, drop_remainder=False):
+            m.update(**eval_step(*batch_tensors(batch)))
+
+        metrics = m.result()
+        history.append(metrics)
+        if verbose:
+            print(f"epoch {epoch}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in metrics.items()))
+        if ckpt_manager is not None:
+            ckpt_manager.save(epoch, state.checkpoint(), metrics=metrics)
+            ckpt_manager.maybe_update_best(epoch, metrics.get("val_acc", 0))
+        maybe_rebuild_db(epoch, train_cfg, proj, device, prepare=prepare,
+                         rebuild_fn=rebuild_fn,
+                         rebuild_scheduler=rebuild_scheduler,
+                         verbose=verbose)
+    finish_rebuilds(rebuild_scheduler)
+    return history

@@ -31,6 +31,7 @@ from vit_research_tpu_torch.models.vit import set_dropout_generator
 from vit_research_tpu_torch.train import losses
 from vit_research_tpu_torch.train.common import (MetricAverager, TrainState,
                                                  batch_iterator,
+                                                 dropout_generator,
                                                  maybe_resume)
 from vit_research_tpu_torch.train.diagnostics import (conditioned_separation,
                                                       confusion_counts)
@@ -47,15 +48,6 @@ def stage1_optimizer(params, lr: float, grad_clip: float = 1.0,
     return Optimizer(params, lr=lr,
                      clip=("each", grad_clip) if grad_clip else None,
                      weight_decay=weight_decay, eps=adam_eps)
-
-
-def dropout_generator(seed: int, epoch: int, device) -> torch.Generator:
-    """The epoch's dropout generator on ``device``, seeded from (seed,
-    epoch) alone."""
-    state = np.random.SeedSequence([seed, epoch]).generate_state(2)
-    gen = torch.Generator(device=device)
-    gen.manual_seed((int(state[0]) << 31) ^ int(state[1]))
-    return gen
 
 
 def _batch(store, chunk_index, ids, device):
