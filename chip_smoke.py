@@ -448,13 +448,15 @@ def phase_attention(smi: str) -> dict:
     (B, H, T, dh) inputs and on the views of (B, T, H, dh) tensors that the
     projections give, each held against the plain version of the same
     values; timed against the plain version and SDPA (contiguous inputs).
-    Returns the f32 summary at T = 197 with the bf16 one under "bf16"."""
+    Returns the f32 summary at T = 197 with the bf16 one under "bf16",
+    and the f32 row of ``smoke``'s frame (B = 1, T = 313: the P = 32
+    backbone at 432x768) under "smoke_t313"."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     summary = {}
-    for b, t in ((BATCH, 197), (BATCH, 325), (32, 1297)):
+    for b, t in ((BATCH, 197), (BATCH, 325), (32, 1297), (1, 313)):
         # projection order (B, T, H, dh), as the backbone's q/k/v
         q32, k32, v32 = (torch.randn(b, t, 12, 64, generator=g).to(dev)
                          for _ in range(3))
@@ -484,6 +486,21 @@ def phase_attention(smi: str) -> dict:
             plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v))
             log(f"[3] attention B={b} H=12 T={t} dh=64 {name}: plain "
                 f"{plain_ms:.4f} ms | {smi}")
+            if t == 313 and dtype == torch.float32:
+                lim = bound(4 * q.numel() * 4, 4 * b * 12 * t * t * 64, "f32")
+                summary["smoke_t313"] = dict(
+                    max_abs_err=max(e for e, _ in row.values()),
+                    ms=row["contiguous"][1],
+                    ms_projection_order=row["projection order"][1],
+                    device_ms=_device_ms(
+                        lambda: attn.multi_head_attention(q, k, v)),
+                    plain_ms=plain_ms, library_ms=cuda_ms(
+                        lambda: F.scaled_dot_product_attention(q, k, v)),
+                    **lim)
+                log(f"[3] smoke's frame, B=1 T=313: device "
+                    f"{_ms(summary['smoke_t313']['device_ms'])} ms; SDPA "
+                    f"{summary['smoke_t313']['library_ms']:.4f} ms; "
+                    f"{bound_text(lim)} | {smi}")
             if t == 197:
                 sdpa_ms = cuda_ms(
                     lambda: F.scaled_dot_product_attention(q, k, v))
@@ -501,7 +518,8 @@ def phase_attention(smi: str) -> dict:
             del views, contig, q, k, v
         del q32, k32, v32
         torch.cuda.empty_cache()
-    return dict(summary["float32"], bf16=summary["bfloat16"])
+    return dict(summary["float32"], bf16=summary["bfloat16"],
+                smoke_t313=summary["smoke_t313"])
 
 
 # Stage 1's chunk encoder (768 wide, 8 heads): B = 256 chunks of 8 frames
@@ -667,20 +685,48 @@ RAG_HEADS, RAG_DH = 4, 192
 RAG_ATTN_CASES = ((8, 5), (256, 5), (32, 65), (32, 130))
 
 
-def _device_ms(fn, calls: int = 20) -> float:
-    """The device time of ``fn``'s kernels a call, by torch.profiler: where
-    a call's host work outlasts its kernels, CUDA events time the host."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def _device_ms(fn, calls: int = 20, tries: int = 4) -> float | None:
+    """The card's time of ``fn``'s work a call, where a call's host work
+    outlasts its kernels (CUDA events around single calls time the host):
+    ``calls`` calls queued behind a sleeping kernel, so the card runs them
+    back to back, timed by CUDA events (the gaps between kernels
+    included). The sleep is sized from the host's time for the calls and
+    doubled until the card is still asleep when the host has queued them
+    all; None (not measured) if it never is. torch.profiler's device
+    records were lost or counted twice in some sessions late in a run."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    # cycles a millisecond of torch.cuda._sleep
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(1_000_000)
+    b.record()
+    b.synchronize()
+    cycles_ms = 1_000_000 / max(a.elapsed_time(b), 1e-3)
+    sleep_ms = 2e3 * host_s + 1.0
+    for _ in range(tries):
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        torch.cuda._sleep(int(cycles_ms * sleep_ms))
+        start.record()
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+        stop.record()
+        queued_in_time = not start.query()
+        stop.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(stop) / calls
+        sleep_ms *= 2
+    return None
+
+
+def _ms(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def phase_attention_rag(smi: str) -> dict:
@@ -689,7 +735,7 @@ def phase_attention_rag(smi: str) -> dict:
     bias, on contiguous inputs and on projection-order views, each against
     the plain version of the same values; timed against the plain version
     and SDPA (with the bias as a float mask) and its bound; at T = 5 also
-    the kernel's and SDPA's device time under the profiler. Then the
+    the kernel's and SDPA's device time (_device_ms). Then the
     gradients through ``_Attention`` against the plain VJP (T = 5 and
     130), and ptxas's registers and spills of the dh = 192 kernels."""
     import torch.nn.functional as F
@@ -752,10 +798,10 @@ def phase_attention_rag(smi: str) -> dict:
                             lambda: F.scaled_dot_product_attention(
                                 q, k, v, attn_mask=mask)))
                     with_kb = " + key bias" if kb is not None else ""
-                    log(f"[3d] device time a call under the profiler, B={b}"
+                    log(f"[3d] device time a call, calls back to back, B={b}"
                         f" T={t} {name}{with_kb}: kernel "
-                        f"{device['device_ms']:.4f} ms, SDPA "
-                        f"{device['library_device_ms']:.4f} ms | {smi}")
+                        f"{_ms(device['device_ms'])} ms, SDPA "
+                        f"{_ms(device['library_device_ms'])} ms | {smi}")
                 log(f"[3d] attention B={b} H={h} T={t} dh={dh} {name}"
                     f"{' + key bias' if kb is not None else ''}: max|err| "
                     f"{max(e for e, _ in row.values()):.3e} (bound "
@@ -3076,6 +3122,695 @@ def phase_rag_path(smi: str, root: str, main: dict) -> dict:
     return out
 
 
+# ---- phase 5g: stage 2 and live event scoring ---------------------------
+
+# the CLI's k = 6/6/4: RATTHeadV2 (HeadConfig(): 768 x 2, 4 heads) sees T =
+# 5 + 6 + 6 + 4 = 21 tokens
+S2_K = dict(k_sim=6, k_contrast=6, k_temporal=4)
+S2_KARGS = ["--k-sim", "6", "--k-contrast", "6", "--k-temporal", "4"]
+# Scored rows on the card against a CPU LiveEventScorer of the same
+# restored weights on the same clips and frame embeddings (and the three
+# card routes against one another): probabilities through three encoder
+# layers and the head in other summation orders. A top-k chunk may differ
+# only where the CPU's probabilities of the two chunks are within
+# SCORE_TIE (the near tie phase 5d allows ToMe's merges). The logits'
+# difference is
+# printed: a head trained to a small loss gives logits of order 10, whose
+# f32 rounding through the head exceeds 1e-4 where the probabilities
+# saturate.
+SCORE_BOUND = 1e-4
+SCORE_TIE = 1e-5
+# the dropout-0 train_stage2 trajectory: 20 steps of B = 8 (5 updates of
+# accumulation 4), phase 5e's bounds
+S2_TRAJ_STEPS, S2_BATCH = 20, 8
+S2_CHUNKS, S2_ROWS = 2_000, 99_997
+
+
+def _rows_agree(got: list, want: list, what: str) -> float:
+    """Scored rows ``got`` against ``want``: the same clips and chunks,
+    probabilities within SCORE_BOUND, the same top-k chunks but where
+    ``want``'s probabilities of the two chunks tie within SCORE_TIE.
+    Returns the largest probability difference; prints the logits'."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows, want {len(want)}")
+    worst, logit_err, logit_max = 0.0, 0.0, 0.0
+    for g, w in zip(got, want):
+        if g is None or w is None:
+            if g is not w:
+                raise AssertionError(f"{what}: {g!r} against {w!r}")
+            continue
+        keys = ("clip_key", "side", "num_chunks", "start_idxs",
+                "start_frames", "end_frames")
+        if any(g[k] != w[k] for k in keys):
+            raise AssertionError(f"{what}: {g['clip_key']} differs in "
+                                 f"{[k for k in keys if g[k] != w[k]]}")
+        a, b = (np.asarray(r["prob_sequence"], np.float64) for r in (g, w))
+        la, lb = (np.asarray(r["raw_sequence"], np.float64) for r in (g, w))
+        if not (np.isfinite(a).all() and np.isfinite(la).all()):
+            raise AssertionError(f"{what}: a sequence is not finite")
+        worst = max(worst, float(np.abs(a - b).max()))
+        logit_err = max(logit_err, float(np.abs(la - lb).max()))
+        logit_max = max(logit_max, float(np.abs(lb).max()))
+        prob = dict(zip(w["start_idxs"], w["prob_sequence"]))
+        for a, b in zip(g["topk_chunks"], w["topk_chunks"]):
+            ia, ib = a["chunk_start_idx"], b["chunk_start_idx"]
+            if ia != ib and abs(prob[ia] - prob[ib]) >= SCORE_TIE:
+                raise AssertionError(f"{what}: {g['clip_key']} ranks chunk "
+                                     f"{ia} where the reference ranks {ib}")
+    log(f"[5g]   {what}: probabilities max|err| {worst:.3e}, logits "
+        f"{logit_err:.3e} (max |logit| {logit_max:.2f})")
+    if not worst <= SCORE_BOUND:
+        raise AssertionError(f"{what}: probabilities differ by {worst}")
+    return worst
+
+
+@contextlib.contextmanager
+def _planted_zero_head():
+    """A planted fault in kernel B's forward: the first head's output
+    zeroed (the stage-2 path takes no gradient through B)."""
+    orig = attn._launch
+
+    def faulty(q, k, v, scale, key_bias):
+        out = orig(q, k, v, scale, key_bias)
+        out[:, 0] = 0
+        return out
+
+    attn._launch = faulty
+    try:
+        yield
+    finally:
+        attn._launch = orig
+
+
+def _stage2_kernel_rows(smi: str) -> dict:
+    """Kernel B at the stage-2 path's dh = 96 shapes: B = 1 chunk (the
+    cache build and live validation encode one chunk a call) and B = 29
+    (a 64-frame clip's chunks in one scoring batch), T = 9, f32, in
+    projection order against the plain version, with the plain version's
+    time, SDPA's and the bound; device times by _device_ms (the calls
+    are host-bound)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(5)
+    rows = {}
+    for b in (1, 29):
+        q, k, v = (torch.randn(b, 9, 8, 96, generator=g).cuda()
+                   .transpose(1, 2) for _ in range(3))
+        want = attn.attention_plain(*(x.contiguous() for x in (q, k, v)))
+        err = (attn.multi_head_attention(q, k, v) - want).abs().max().item()
+        if not err <= ATTN_BOUND[torch.float32]:
+            raise AssertionError(f"attention dh=96 B={b} T=9: {err}")
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        row = dict(max_abs_err=err,
+                   ms=cuda_ms(lambda: attn.multi_head_attention(q, k, v)),
+                   device_ms=_device_ms(
+                       lambda: attn.multi_head_attention(q, k, v)),
+                   plain_ms=cuda_ms(lambda: attn.attention_plain(qc, kc, vc)),
+                   library_ms=cuda_ms(
+                       lambda: F.scaled_dot_product_attention(qc, kc, vc)),
+                   library_device_ms=_device_ms(
+                       lambda: F.scaled_dot_product_attention(qc, kc, vc)),
+                   **bound(4 * q.numel() * 4, 4 * b * 8 * 9 * 9 * 96, "f32"))
+        log(f"[5g] attention B={b} H=8 T=9 dh=96 f32 projection order: "
+            f"max|err| {err:.3e} | kernel {row['ms']:.4f} ms (device "
+            f"{_ms(row['device_ms'])}) | plain {row['plain_ms']:.4f} ms | "
+            f"SDPA {row['library_ms']:.4f} ms (device "
+            f"{_ms(row['library_device_ms'])}) | {bound_text(row)} | {smi}")
+        rows[f"B{b}_T9_float32"] = row
+    return rows
+
+
+def _stage2_trajectory(smi: str, fs, chunks, ck: str, db: str) -> dict:
+    """Dropout-0 train_stage2 at full width (HeadConfig(): RATTHeadV2 768 x
+    2, 4 heads, k = 6/6/4; preset stage2: B = 8, accumulation 4), 20 steps
+    and one live validation of 16 chunks, on the card and on the CPU from
+    one state; each builds its own cache with its own stage-1 encoder (B
+    at dh = 96 on the card) against the same collection. Then the card
+    run with kernel B's first head zeroed (a planted fault: it must fail
+    the bounds) and with _Attention's dq zeroed (no gradient flows through
+    B on this path: it must equal the card run)."""
+    from vit_research_tpu_torch.retrieval import cache_stage2 as CS
+    from vit_research_tpu_torch.train import train_stage2 as ts2
+    from vit_research_tpu_torch.utils.configs import preset
+
+    params = checkpoint.CheckpointManager(ck, "s1").restore_best()["params"]
+    train = [c for c in chunks if c["vid"] == 1][:S2_TRAJ_STEPS * S2_BATCH]
+    val = [c for c in chunks if c["vid"] == 2][:16]
+    col = PersistentClient(db, device="cpu").get_collection("ratt_db")
+    cfg = preset("stage2")
+    cfg = dataclasses.replace(
+        cfg, head=dataclasses.replace(cfg.head, classifier_dropout=0.0,
+                                      **S2_K),
+        train=dataclasses.replace(cfg.train, num_epochs=1,
+                                  batch_size=S2_BATCH))
+    init = ts2.build_head(cfg, 9).state_dict()
+
+    def encoder(dev):
+        enc = tce.make_encode_fn(
+            heads.ChunkEncoder(ChunkEncoderConfig(max_len=8)).to(dev), params)
+
+        def encode_chunk(ch):
+            emb, _ = enc(fs.gather_paths([ch["frames"]]))
+            return emb[0] / (np.linalg.norm(emb[0]) + 1e-8)
+        return encode_chunk
+
+    runs = {}
+    for dev, fault in (("cuda", None), ("cpu", None), ("cuda", "head"),
+                       ("cuda", "dq")):
+        plant = {"head": _planted_zero_head, "dq": _planted_zero_dq}.get(
+            fault, contextlib.nullcontext)
+        before = attn.multi_head_attention.launches
+        t0 = time.monotonic()
+        with plant():
+            enc = encoder(dev)
+            cache = CS.build_stage2_cache(train + val, enc, col, **S2_K)
+            head, hist = ts2.train_stage2(train, val, cache, encode_fn=enc,
+                                          collection=col, cfg=cfg,
+                                          init_params=init, device=dev)
+        runs[dev, fault] = (hist, {k: v.detach().cpu() for k, v in
+                                   head.state_dict().items()},
+                            attn.multi_head_attention.launches - before,
+                            time.monotonic() - t0)
+    (h_c, p_c, l_c, t_c), (h_h, p_h, _, t_h) = (runs["cuda", None],
+                                                runs["cpu", None])
+    errs = _trajectory_errs(h_c, p_c, h_h, p_h)
+    planted = _trajectory_errs(*runs["cuda", "head"][:2], h_h, p_h)
+    h_dq, p_dq = runs["cuda", "dq"][:2]
+    dq_errs = _trajectory_errs(h_dq, p_dq, h_h, p_h)
+    dq_same = h_dq == h_c and all(torch.equal(p_dq[k], p_c[k]) for k in p_c)
+    updates = S2_TRAJ_STEPS // cfg.train.accum_steps
+    lr_bound = cfg.train.lr_phase1 * updates
+
+    def passes(e: dict) -> bool:
+        return (e["loss"] <= TRAJ_LOSS_RTOL and e["param"] <= lr_bound
+                and e["off_share"] <= TRAJ_OFF_SHARE)
+
+    a, b = h_c[0], h_h[0]
+    log(f"[5g]   card / CPU: train_loss {a['train_loss']:.8f} / "
+        f"{b['train_loss']:.8f}, val_loss {a['val_loss']:.8f} / "
+        f"{b['val_loss']:.8f}, grad_rms_support {a['grad_rms_support']:.8f}"
+        f" / {b['grad_rms_support']:.8f}")
+    for what, e in (("card", errs), ("card, B's first head zeroed (planted "
+                                     "fault)", planted)):
+        log(f"[5g] dropout-0 train_stage2 trajectory, {S2_TRAJ_STEPS} steps "
+            f"(B={S2_BATCH}, {updates} updates) + a live validation of "
+            f"{len(val)} chunks, {what} vs CPU from one state: losses "
+            f"relative max|err| {e['loss']:.3e} (bound {TRAJ_LOSS_RTOL:.0e});"
+            f" parameters max|err| {e['param']:.3e} (bound lr x updates "
+            f"{lr_bound:.0e}), {e['off_share']:.3e} of the elements outside "
+            f"the key biases beyond 1e-5 + 1e-3 rel (bound "
+            f"{TRAJ_OFF_SHARE:.0e}; worst {e['worst']})")
+    want_l = 3 * (len(train) + 2 * len(val))
+    log(f"[5g] kernel B launched {l_c} times in the card run (3 a chunk "
+        f"encode: the cache's {len(train) + len(val)} chunks and the "
+        f"validation pool's {len(val)}: {want_l}); with dq zeroed the run "
+        f"passes the bounds (losses {dq_errs['loss']:.3e}) and equals the "
+        f"card run bit for bit: {dq_same}; card {t_c:.1f} s, CPU {t_h:.1f} s")
+    if not (passes(errs) and l_c == want_l and passes(dq_errs)):
+        raise AssertionError(f"train_stage2 trajectory: {errs}, {l_c} "
+                             f"launches, dq zeroed {dq_errs}")
+    if passes(planted):
+        raise AssertionError(f"the train_stage2 trajectory check passes a "
+                             f"zeroed head in B: {planted}")
+    return dict(trajectory_loss_rel_err=errs["loss"],
+                trajectory_param_err=errs["param"],
+                trajectory_off_share=errs["off_share"],
+                planted_zero_head_loss_rel_err=planted["loss"],
+                planted_zero_head_off_share=planted["off_share"])
+
+
+def _stage2_step_times(smi: str) -> dict:
+    """A preset-`stage2` train step at full width on the card (RATTHeadV2
+    768 x 2, 4 heads, T = 21; B = 8 seeded branch inputs; classifier
+    dropout 0.2; the Optimizer with accumulation 4): ms a step by CUDA
+    events over 8 steps, then launches a step and the device's idle share
+    under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_research_tpu_torch.train import train_stage2 as ts2
+    from vit_research_tpu_torch.train.optim import make_optimizer
+    from vit_research_tpu_torch.utils.configs import preset
+
+    dev = torch.device("cuda")
+    cfg = preset("stage2")
+    head = ts2.build_head(cfg, 0).to(dev)
+    vit_mod.set_dropout_generator(head, tce.dropout_generator(0, 0, dev))
+    opt = make_optimizer(cfg.train, 24, list(head.parameters()))
+    train_step, _ = ts2.make_step_fns(head, opt, 1.0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = [torch.randn(S2_BATCH, *s, 768, generator=g, device=dev)
+         for s in ((), (6,), (6,), (4,))]
+    y = (torch.rand(S2_BATCH, generator=g, device=dev) > 0.5).float()
+    out = {"train_step_ms": cuda_ms(lambda: train_step(*x, y), reps=3, n=8)}
+    for _ in range(4):
+        train_step(*x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            train_step(*x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 8
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 8
+    out.update(train_step_wall_ms=wall_ms, train_step_kernel_ms=busy_ms,
+               train_step_launches=sum(e.count for e in kernels) / 8,
+               train_step_idle=max(0.0, 1 - busy_ms / wall_ms))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    log(f"[5g] preset-stage2 train step (RATTHeadV2 768x2, 4 heads, T=21; "
+        f"B={S2_BATCH}, accumulation 4, plain attention): "
+        f"{out['train_step_ms']:.3f} ms by CUDA events; under the profiler "
+        f"{busy_ms:.3f} ms of kernels in {wall_ms:.3f} ms of wall, idle "
+        f"{100 * out['train_step_idle']:.1f}%, "
+        f"{out['train_step_launches']:.0f} launches a step | {smi}")
+    for e in top:
+        log(f"[5g]   {e.self_device_time_total / 1e3 / 8:8.3f} ms "
+            f"x{e.count // 8:<4d} {e.key[:90]}")
+    del head, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stage2_cache_rate(smi: str, params: dict) -> dict:
+    """build_stage2_cache for 2,000 chunks against a seeded 99,997-row
+    chunk collection on the card (a single query at >= 2^14 rows takes
+    the device route): each chunk encoded by the stage-1 encoder (B = 1,
+    kernel B at dh = 96) from seeded frame rows, then its content and
+    temporal queries (64 and 32 results) and branch selection on the
+    host. Host clock."""
+    from vit_research_tpu_torch.retrieval import cache_stage2 as CS
+
+    rng = np.random.default_rng(14)
+    n = S2_ROWS
+    rows = rng.standard_normal((n, 768), dtype=np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    clip = np.arange(n) // 40
+    col = Collection("s2_game", space="cosine", device="cuda")
+    col.upsert([f"chunk_{i}" for i in range(n)], rows, [
+        {"vid_num": int(c % 50), "clip_num": int(c), "side":
+         "left" if c % 2 else "right", "label": int(c % 3 == 0),
+         "t_center": float((i % 40 + 4) / 40), "t_width": 0.2,
+         "start_idx": int(2 * (i % 40)), "end_idx": int(2 * (i % 40) + 7)}
+        for i, c in enumerate(clip)])
+    frames = rng.standard_normal((S2_CHUNKS, 8, 768), dtype=np.float32)
+    chunks = [{"vid": 99, "clip": i // 50, "start_idx": 2 * (i % 50),
+               "end_idx": 2 * (i % 50) + 7, "side": "left" if i % 3
+               else "right", "label": i % 2, "t_center": (i % 50) / 50,
+               "t_width": 0.16, "row": i} for i in range(S2_CHUNKS)]
+    enc = tce.make_encode_fn(
+        heads.ChunkEncoder(ChunkEncoderConfig(max_len=8)).cuda(), params)
+    enc_s = [0.0]
+
+    def encode_chunk(ch):
+        t0 = time.perf_counter()
+        emb, _ = enc(frames[ch["row"]][None])
+        enc_s[0] += time.perf_counter() - t0
+        return emb[0] / (np.linalg.norm(emb[0]) + 1e-8)
+
+    col.query(query_embeddings=rows[:1], n_results=1)  # snapshot upload
+    before = attn.multi_head_attention.launches
+    t0 = time.perf_counter()
+    cache = CS.build_stage2_cache(chunks, encode_chunk, col, **S2_K)
+    wall = time.perf_counter() - t0
+    launches = attn.multi_head_attention.launches - before
+    filled = np.mean([(np.abs(e["sim_embs"]).sum(1) > 0).mean()
+                      for e in cache.values()])
+    log(f"[5g] build_stage2_cache: {S2_CHUNKS} chunks against {n} x 768 "
+        f"rows (device route, 2 queries a chunk) in {wall:.2f} s = "
+        f"{S2_CHUNKS / wall:.1f} chunks/s; the encode {enc_s[0]:.2f} s "
+        f"({100 * enc_s[0] / wall:.1f}%, B launched {launches} times); "
+        f"{100 * filled:.1f}% of the sim slots filled | {smi}")
+    if len(cache) != S2_CHUNKS or launches != 3 * S2_CHUNKS:
+        raise AssertionError(f"cache of {len(cache)} entries, {launches} "
+                             "launches")
+    del col, cache
+    torch.cuda.empty_cache()
+    return dict(cache_build_chunks_per_s=S2_CHUNKS / wall,
+                cache_build_encode_share=enc_s[0] / wall)
+
+
+def _read_rows(path: str) -> list:
+    with open(path) as f:
+        if path.endswith(".jsonl"):
+            return [json.loads(line) for line in f if line.strip()]
+        return json.load(f)
+
+
+def _scoring_session(sock: str, paths: list, cfg, n: int = 64) -> tuple:
+    """One live session on the daemon (``cfg``: its score_events config or
+    None) in pushes of ``n`` frames: (start reply, the rows of the clips,
+    push ms on the host clock)."""
+    push_ms, rows = [], []
+    with serve.SessionClient(sock, timeout=300.0) as c:
+        start = c.request({"op": "segment_start", "k": 50,
+                           "min_len": MIN_LEN, "pad": PAD, "vid": 2,
+                           **({"score_events": cfg} if cfg else {})})
+        if not start.get("ok"):
+            raise AssertionError(f"segment_start refused: {start}")
+        for i in range(0, len(paths), n):
+            t0 = time.perf_counter()
+            r = c.request({"op": "segment_push", "paths": paths[i:i + n]})
+            push_ms.append((time.perf_counter() - t0) * 1e3)
+            rows += r.get("events") or []
+        rows += c.request({"op": "segment_finish"}).get("events") or []
+    return start, rows, push_ms
+
+
+def phase_stage2_path(smi: str, root: str, main: dict) -> dict:
+    """Stage 2 and live event scoring through the CLI on the card at full
+    width: write-ratt-db of phase 5f's two-game store with phase 5e's
+    stage-1 run; train-stage2 (RATTHeadV2 HeadConfig(), k = 6/6/4) 2
+    epochs and --resume for a third, then --preset stage3 from its best
+    weights with --cached-val; eval-clips on the validation game,
+    score-events against a planted template, metrics, smoke; segment
+    --score-events offline, with --follow, and with --follow --socket
+    against a serve --warmup daemon; serve-ctl reload-weights to the
+    stage-3 run while a scoring session is open. Checks the card's rows
+    against a CPU scorer of the same weights, the routes against one
+    another, the pinned session, kernel B's launches at dh = 96, and a
+    dropout-0 card vs CPU trajectory with a planted fault."""
+    from vit_research_tpu_torch.evaluate import scoring
+    from vit_research_tpu_torch.evaluate.clip_sequences import \
+        infer_clip_sequences
+    from vit_research_tpu_torch.evaluate.event_scoring import (
+        score_event_localization, truth_events_by_clip)
+    from vit_research_tpu_torch.utils.configs import load_config
+
+    t_phase = time.monotonic()
+    store_dir = os.path.join(root, "store_rag")
+    ck, db = os.path.join(root, "ckpt_s1"), os.path.join(root, "db_s2")
+    cache = os.path.join(root, "s2_cache.pkl")
+    fs = FrameStore(store_dir).open()
+    chunks = common._chunks_from_index(fs, load_chunk_index(store_dir))
+    n_train = sum(c["vid"] == 1 for c in chunks)
+    val = [c for c in chunks if c["vid"] == 2]
+    walls: dict = {}
+    by_path: dict = {}
+
+    def verb(name: str, argv: list) -> str:
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        walls[name] = walls.get(name, 0.0) + time.monotonic() - t0
+        return buf.getvalue()
+
+    def counted(path: str, fn):
+        pe.fused_patch_embed.launches = 0
+        attn.multi_head_attention.launches = 0
+        out = fn()
+        by_path[path] = _launch_counts()
+        return out
+
+    verb("write-ratt-db", ["write-ratt-db", "--store", store_dir, "--ckpt",
+                           ck, "--run-id", "s1", "--db", db, "--device",
+                           "cuda"])
+    t2 = ["train-stage2", "--store", store_dir, "--db", db, "--ckpt", ck,
+          "--collection", "ratt_db", "--cache", cache, "--stage1-run-id",
+          "s1", "--train-vids", "1", "--val-vids", "2", *S2_KARGS,
+          "--device", "cuda"]
+    out = counted("stage2", lambda: verb(
+        "train-stage2 (2 epochs)", t2 + ["--epochs", "2", "--run-id", "s2"])
+        + verb("train-stage2 --resume", t2 + ["--epochs", "3", "--run-id",
+                                              "s2", "--resume"])
+        + verb("train-stage2 --preset stage3 --cached-val", t2 + [
+            "--epochs", "1", "--run-id", "s3", "--preset", "stage3",
+            "--init-run-id", "s2", "--cached-val"]))
+    log("\n".join(f"[5g]   {line}" for line in out.splitlines()
+                  if not line.startswith("[CACHE] built ")))
+    mngr = checkpoint.CheckpointManager(ck, "s2")
+    epochs = [r["step"] for r in read_metrics(
+        os.path.join(mngr.dir, "metrics.jsonl"))]
+    # B: the cache build encodes every chunk once, live validation the
+    # validation pool once a run (the stage-3 run reads both from the cache)
+    want = {"patch_embed": 0,
+            "attention": 3 * (len(chunks) + 2 * len(val))}
+    log(f"[5g] train-stage2 on {len(chunks)} chunks ({n_train} train, "
+        f"{len(val)} validate): launches {by_path['stage2']} (want {want}: "
+        f"B at dh = 96, {3 * len(chunks)} in the cache build)")
+    pinned = load_config(os.path.join(ck, "s3", "experiment.json"))
+    if (by_path["stage2"] != want or epochs != [0, 1, 2]
+            or mngr.restore(2)["step"] != 3 * (n_train // S2_BATCH)
+            or out.count("built stage-2 cache") != 1
+            or out.count("loaded stage-2 cache") != 2
+            or pinned.pinned_run_id != "s2" or "run s3: best" not in out):
+        raise AssertionError(f"train-stage2: launches {by_path['stage2']}, "
+                             f"epochs {epochs}")
+
+    # eval-clips on the validation game, against the CPU
+    res = os.path.join(root, "s2_eval")
+    counted("eval_clips", lambda: verb("eval-clips", [
+        "eval-clips", "--store", store_dir, "--ckpt", ck, "--db", db,
+        "--collection", "ratt_db", "--vids", "2", "--out", res,
+        "--stage1-run-id", "s1", "--stage2-run-id", "s2", *S2_KARGS,
+        "--device", "cuda"]))
+    rows = _read_rows(os.path.join(res, "logit_sequences.json"))
+    cpu_col = scoring.open_collection(db, "ratt_db", device="cpu")
+    _, cpu_encode = common._stage1_encode(fs, load_chunk_index(store_dir),
+                                          ck, "s1", "cpu")
+    cpu_head = scoring.stage2_head(768, ck, "s2", strict=True,
+                                   device="cpu", **S2_K)
+    want_rows = infer_clip_sequences(val, cpu_head, cpu_encode, cpu_col,
+                                     **S2_K)
+    eval_err = _rows_agree(rows, want_rows, "eval-clips")
+    log(f"[5g] eval-clips on game 2: {len(rows)} clips, {len(val)} chunks; "
+        f"launches {by_path['eval_clips']}; rows vs the CPU max|err| "
+        f"{eval_err:.3e} (bound {SCORE_BOUND:.0e})")
+    if by_path["eval_clips"] != {"patch_embed": 0,
+                                 "attention": 3 * len(val)}:
+        raise AssertionError(f"eval-clips launches {by_path['eval_clips']}")
+
+    # score-events against a planted template: frames 20-35 of every clip
+    template = {}
+    for d in sorted(os.listdir(main["out"])):
+        if CLIP_RE.match(d):
+            nums = sorted(int(FRAME_RE.match(f).group(1)) for f in
+                          os.listdir(os.path.join(main["out"], d))
+                          if FRAME_RE.match(f))
+            template[os.path.join(main["out"], d)] = {
+                "event_make": [[nums[20], nums[35]]]}
+    tpl = os.path.join(root, "s2_events.json")
+    with open(tpl, "w") as f:
+        json.dump(template, f)
+    report = os.path.join(root, "s2_report.json")
+    verb("score-events", ["score-events", os.path.join(
+        res, "logit_sequences.json"), "--events", tpl, "--out", report])
+    got = _read_rows(report)
+    want_report = score_event_localization(rows, truth_events_by_clip(
+        template))
+    log(f"[5g] score-events: {got['clips_scored']} clips scored against "
+        f"the planted template, hit@k {got['hit_at']}, top-1 centre error "
+        f"{got.get('center_error_mean')} frames")
+    if got != want_report or got["clips_scored"] != len(rows):
+        raise AssertionError(f"score-events report {got}")
+
+    out = verb("metrics", ["metrics", mngr.dir])
+    if out.count("epoch ") != 3 or "val_best_f1=" not in out:
+        raise AssertionError(f"metrics printed {out!r}")
+    out = counted("smoke", lambda: verb("smoke", ["smoke", "--device",
+                                                  "cuda"]))
+    log(f"[5g] smoke: {out.strip().splitlines()}; launches "
+        f"{by_path['smoke']} (A at P = 32, B at T = 313: 12 blocks)")
+    if by_path["smoke"] != {"patch_embed": 1, "attention": 12} or \
+            "encoded_tokens: (1, 313, 768)" not in out:
+        raise AssertionError(f"smoke: {by_path['smoke']}, {out!r}")
+
+    # segment --score-events offline, then the CPU scorer on its clips
+    score = ["--score-events", "--score-ckpt", ck, "--stage1-run-id", "s1",
+             "--stage2-run-id", "s2", "--score-db", db,
+             "--score-collection", "ratt_db", "--chunk-size", "8",
+             "--chunk-stride", "2", *S2_KARGS]
+    seg = ["--method", "knn-hmm", "--k", "50", "--min-len", str(MIN_LEN),
+           "--pad", str(PAD), "--vid", "2", "--batch-size", str(BATCH)]
+    query_dir, n_query = main["query_dir"], main["n_query"]
+    out_off = os.path.join(root, "s2_scored")
+    out = counted("score", lambda: verb("segment --score-events", [
+        "segment", query_dir, "--db", main["db"], "--corpus-collection",
+        "corpus", "--out", out_off, *seg, *score, "--device", "cuda"]))
+    offline = _read_rows(os.path.join(out_off, "events.json"))
+    batches = math.ceil(n_query / BATCH)
+    scored_b = by_path["score"]["attention"] - 12 * batches
+    log(f"[5g] segment --score-events: {len(offline)} clips scored; "
+        f"launches {by_path['score']} ({batches} engine batches; B at dh = "
+        f"96 {scored_b} = 3 a clip)")
+    if by_path["score"]["patch_embed"] != batches or \
+            scored_b != 3 * len(offline) or len(offline) != len(template):
+        raise AssertionError(f"segment --score-events: launches "
+                             f"{by_path['score']}, {len(offline)} rows")
+    paths = [os.path.join(query_dir, f"vid2_frame_{f}.jpg")
+             for f in range(1, n_query + 1)]
+    card = embed.make_hf_frame_embedder(device="cuda", batch_size=BATCH)
+    table = {os.path.basename(p): e
+             for p, e in zip(paths, card.embed_paths(paths))}
+    del card
+
+    def cpu_scorer(run_id):
+        return scoring.make_live_scorer(
+            lambda ps: np.stack([table[os.path.basename(p)] for p in ps]),
+            dim=768, ckpt=ck, stage1_run_id="s1", stage2_run_id=run_id,
+            db=db, collection="ratt_db", chunk_size=8, chunk_stride=2,
+            device="cpu", **S2_K)
+
+    clip_dirs = common._list_clip_dirs(out_off)
+    cpu_rows = [common._score_clip_dir(cpu_scorer("s2"), d)
+                for d in clip_dirs]
+    score_err = _rows_agree(offline, cpu_rows, "segment --score-events")
+    log(f"[5g] the card's scored rows vs a CPU LiveEventScorer of the same "
+        f"runs on the same clips and frame embeddings: max|err| "
+        f"{score_err:.3e} (bound {SCORE_BOUND:.0e}; top-k chunks equal "
+        f"but for ties within {SCORE_TIE:.0e})")
+
+    # the live routes: in-process --follow, then a daemon
+    follow = [*seg, "--follow", "--idle-timeout", "30", "--poll-interval",
+              "0.05"]
+    out_local = os.path.join(root, "s2_follow_local")
+    out_sock = os.path.join(root, "s2_follow_socket")
+    sock = os.path.join(os.path.dirname(_socket_path(root)), "s.sock")
+    cfg = {"ckpt": os.path.abspath(ck), "stage1_run_id": "s1",
+           "stage2_run_id": "s2", "db": os.path.abspath(db),
+           "collection": "ratt_db", "chunk_size": 8, "chunk_stride": 2,
+           **S2_K}
+    sessions: dict = {}
+
+    def live_routes():
+        verb("segment --follow --score-events", [
+            "segment", _live_copy(query_dir, os.path.join(root, "s2_live_a")),
+            "--db", main["db"], "--corpus-collection", "corpus", "--out",
+            out_local, *follow, *score, "--device", "cuda"])
+        thread, errors = _serve_thread(
+            ["serve", "--socket", sock, "--db", main["db"], "--collection",
+             "corpus", "--batch-size", str(BATCH), "--warmup", "--device",
+             "cuda"])
+        _await_ready(sock, errors)
+        verb("segment --follow --socket --score-events", [
+            "segment", _live_copy(query_dir, os.path.join(root, "s2_live_b")),
+            "--socket", sock, "--out", out_sock, *follow, *score])
+        # a session open across serve-ctl reload-weights (to the stage-3
+        # run), then one opened after it
+        with serve.SessionClient(sock, timeout=300.0) as c:
+            start = c.request({"op": "segment_start", "k": 50,
+                               "min_len": MIN_LEN, "pad": PAD, "vid": 2,
+                               "score_events": cfg})
+            half = len(paths) // 2
+            rows_a = []
+            for i in range(0, half, 64):
+                rows_a += c.request({"op": "segment_push", "paths": paths[
+                    i:min(i + 64, half)]}).get("events") or []
+            sessions["reload"] = json.loads(verb("serve-ctl reload-weights", [
+                "serve-ctl", "reload-weights", "--socket", sock, "--ckpt",
+                os.path.abspath(ck), "--stage1-run-id", "s1",
+                "--stage2-run-id", "s3", "--chunk-size", "8", *S2_KARGS]))
+            for i in range(half, len(paths), 64):
+                rows_a += c.request({"op": "segment_push", "paths": paths[
+                    i:i + 64]}).get("events") or []
+            rows_a += c.request({"op": "segment_finish"}).get("events") \
+                or []
+        sessions["pinned"] = (start, rows_a)
+        sessions["after"] = _scoring_session(
+            sock, paths, dict(cfg, stage2_run_id="s3"))
+        sessions["off"] = _scoring_session(sock, paths, None)
+        sessions["stats"] = serve.request(sock, {"op": "stats"},
+                                          timeout=60.0)
+        verb("serve-ctl shutdown", ["serve-ctl", "shutdown", "--socket",
+                                    sock])
+        thread.join(timeout=60.0)
+        if thread.is_alive() or errors:
+            raise AssertionError(f"serve thread alive {thread.is_alive()},"
+                                 f" {errors}")
+
+    counted("score_live", live_routes)
+    local = _read_rows(os.path.join(out_local, "events.jsonl"))
+    daemon = _read_rows(os.path.join(out_sock, "events.jsonl"))
+    route_err = max(_rows_agree(local, offline, "segment --follow"),
+                    _rows_agree(daemon, offline, "--follow --socket"))
+    start_a, rows_a = sessions["pinned"]
+    start_b, rows_b, push_on = sessions["after"]
+    _, _, push_off = sessions["off"]
+    reload_reply = sessions["reload"]
+    pinned_err = _rows_agree(rows_a, offline, "the pinned session")
+    s3_err = _rows_agree(rows_b, [common._score_clip_dir(cpu_scorer("s3"), d)
+                                  for d in clip_dirs], "after the reload")
+    moved = max(float(np.abs(np.subtract(a["raw_sequence"],
+                                         b["raw_sequence"])).max())
+                for a, b in zip(rows_b, offline))
+    w2, w3 = (checkpoint.CheckpointManager(ck, r).restore_best()["params"]
+              for r in ("s2", "s3"))
+    w_moved = max(float((w3[k] - w2[k]).abs().max()) for k in w2)
+    stats = sessions["stats"]
+    live = by_path["score_live"]
+    scored_live = len(local) + len(daemon) + len(rows_a) + len(rows_b)
+    log(f"[5g] live rows: --follow and --follow --socket vs offline max|err|"
+        f" {route_err:.3e}; serve-ctl reload-weights -> generation "
+        f"{reload_reply['generation']}, "
+        f"{reload_reply['active_sessions_pinned']} session pinned; the "
+        f"pinned session (generation "
+        f"{start_a['weights_generation']}) vs offline {pinned_err:.3e}; the "
+        f"session after it (generation {start_b['weights_generation']}, "
+        f"stage-3 run) vs a CPU scorer of s3 {s3_err:.3e}; s3's weights "
+        f"{w_moved:.3e} from s2's, its logits {moved:.3e}; stats "
+        f"events_scored "
+        f"{stats['segment']['events_scored']}, errors "
+        f"{stats['segment']['event_errors']}, stacks "
+        f"{stats['scorer_stacks']}; launches {live} (B - 12 A = "
+        f"{live['attention'] - 12 * live['patch_embed']} = 3 x "
+        f"{scored_live} clips scored)")
+    if (start_a["weights_generation"] != 0
+            or start_b["weights_generation"] != 1
+            or reload_reply["generation"] != 1
+            or reload_reply["active_sessions_pinned"] != 1
+            or not w_moved > 0.0
+            or stats["segment"]["event_errors"]
+            or stats["segment"]["events_scored"] != len(daemon)
+            + len(rows_a) + len(rows_b)
+            or live["attention"] - 12 * live["patch_embed"]
+            != 3 * scored_live):
+        raise AssertionError(f"live scoring: {reload_reply}, {stats}, "
+                             f"{live}")
+    log(f"[5g] segment_push of 64 frames, host clock: median "
+        f"{statistics.median(push_on):.2f} ms with scoring, max "
+        f"{max(push_on):.2f} (a push that scores a clip); "
+        f"{statistics.median(push_off):.2f} ms without, max "
+        f"{max(push_off):.2f} | {smi}")
+
+    # a 64-frame clip's score_clip on the card (its frames cached)
+    params = checkpoint.CheckpointManager(ck, "s1").restore_best()["params"]
+    scorer = scoring.make_live_scorer(
+        None, dim=768, ckpt=ck, stage1_run_id="s1", stage2_run_id="s2",
+        db=db, collection="ratt_db", chunk_size=8, chunk_stride=2,
+        device="cuda", **S2_K)
+    clip64 = paths[60:124]
+    scorer.remember(clip64, np.stack([table[os.path.basename(p)]
+                                      for p in clip64]))
+    score_ms = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        scorer.score_clip(clip64, side="left", clip_num=1, vid=2)
+        score_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[5g] score_clip of a 64-frame clip (29 chunks, 58 store queries) "
+        f"on the card: median {statistics.median(score_ms[1:]):.2f} ms, "
+        f"first {score_ms[0]:.2f} ms (host clock) | {smi}")
+
+    log("[5g] verbs' wall: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in walls.items()))
+    out = dict(launches_by_path=by_path, eval_row_err=eval_err,
+               score_row_err=score_err, route_row_err=route_err,
+               pinned_row_err=pinned_err, reload_row_err=s3_err,
+               push_ms_scoring=statistics.median(push_on),
+               push_ms_plain=statistics.median(push_off),
+               score_clip_ms=statistics.median(score_ms[1:]),
+               verb_wall_s=walls, attention_dh96=_stage2_kernel_rows(smi))
+    out.update(_stage2_trajectory(smi, fs, chunks, ck, db))
+    out.update(_stage2_step_times(smi))
+    out.update(_stage2_cache_rate(smi, params))
+    log(f"[5g] phase 5g: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
 def phase_game_store(smi: str, n: int = 200_000, d: int = 768,
                      n_q: int = 256, k: int = 50) -> None:
     """A game's worth of frames as a seeded cosine collection, queried on
@@ -3339,6 +4074,7 @@ def main() -> int:
         fast_path = phase_fast_path(smi, root, main_path)
         stage1 = phase_stage1_path(smi, root)
         rag = phase_rag_path(smi, root, main_path)
+        stage2 = phase_stage2_path(smi, root, main_path)
     phase_game_store(smi)
     # each main path's launches, counted from 0 just before it ran; a
     # kernel's "launches" is their sum
@@ -3347,12 +4083,14 @@ def main() -> int:
                "follow": serve_path["follow_launches"],
                "label": label_path["launches"],
                "fast": fast_path["launches"],
-               "stage1": stage1["launches"], "rag": rag["launches"]}
+               "stage1": stage1["launches"], "rag": rag["launches"],
+               **stage2["launches_by_path"]}
 
     def launches(kernel: str) -> dict:
         per = {path: counts[kernel] for path, counts in by_path.items()}
         return dict(launches=sum(per.values()), launches_by_path=per)
 
+    smoke_row = attn_summary.pop("smoke_t313")
     kernels = [
         dict(name="patch_embed", route="cuda",
              source="vit_research_tpu_torch/csrc/patch_embed.cu",
@@ -3376,7 +4114,12 @@ def main() -> int:
                           if k != "launches"},
              rag_dh192=attn_rag["rows"],
              rag_grad_rel_err=attn_rag["grad_rel_err"],
-             rag_path={k: v for k, v in rag.items() if k != "launches"}),
+             rag_path={k: v for k, v in rag.items() if k != "launches"},
+             stage2_dh96=stage2["attention_dh96"],
+             smoke_t313=smoke_row,
+             stage2_path={k: v for k, v in stage2.items()
+                          if k not in ("launches_by_path",
+                                       "attention_dh96")}),
         dict(name="ln_matmul", route="cuda",
              source="vit_research_tpu_torch/csrc/fused_ln.cu",
              replaces="vit_research_tpu/ops/fused_ln.py:62",

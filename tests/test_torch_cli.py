@@ -115,7 +115,10 @@ def test_port_imports_no_jax():
               "models.heads", "evaluate.scoring", "cli.train_cmds",
               "utils.metrics", "retrieval", "retrieval.retrievers",
               "train.async_rebuild", "train.train_rag", "train.train_ratt",
-              "db.enrich", "db.builders", "cli.db_cmds"):
+              "db.enrich", "db.builders", "cli.db_cmds", "models.ratt_v2",
+              "retrieval.cache_io", "retrieval.cache_stage2",
+              "train.train_stage2", "evaluate.clip_sequences",
+              "evaluate.live", "evaluate.smoke", "cli.eval_cmds"):
         assert f"vit_research_tpu_torch.{m}" in mods
     # chip_smoke.py is imported as a module: its top-level imports run.
     mods.append("chip_smoke")
@@ -191,3 +194,26 @@ def test_cli_build_frame_store_search_db_info(world, tmp_path):
     out = _run(["db-info", db, "--device", "cpu"], wd)
     assert out.stdout.startswith("corpus: 72 rows  space=l2  dim=32  "
                                  "device_quant=-  profile=torch|tiny|")
+
+
+def test_port_has_the_jax_verbs_but_train_cached():
+    """27 of the JAX package's 28 verbs; train-cached is not ported yet."""
+    import argparse
+
+    from vit_research_tpu.cli import (db_cmds, eval_cmds, ingest,
+                                      segment_cmds, serve_cmds, train_cmds)
+    from vit_research_tpu_torch.cli.parser import build_parser
+
+    def verbs(parser):
+        return {v for a in parser._actions
+                if isinstance(a, argparse._SubParsersAction)
+                for v in a.choices}
+
+    jax_parser = argparse.ArgumentParser()
+    sub = jax_parser.add_subparsers()
+    for mod in (ingest, segment_cmds, db_cmds, train_cmds, eval_cmds,
+                serve_cmds):
+        mod.register(sub)
+    port, jax_verbs = verbs(build_parser()), verbs(jax_parser)
+    assert len(jax_verbs) == 28 and len(port) == 27
+    assert jax_verbs - port == {"train-cached"} and port <= jax_verbs

@@ -840,3 +840,70 @@ def test_rag_head_on_card_matches_cpu(cuda):
         scale = y.abs().max().item()
         torch.testing.assert_close(x.cpu(), y, rtol=0,
                                    atol=1e-4 * max(scale, 1e-3))
+
+
+def test_ratt_v2_and_live_scorer_on_card_match_cpu(cuda, tmp_path):
+    """RATTHeadV2 at HeadConfig()'s full width (768, 2 layers, 4 heads, k
+    = 6/6/4: T = 21, plain attention, so no launch) on the card against
+    the CPU; then a LiveEventScorer of one stage-1 and one stage-2 run on
+    the card against the same runs on the CPU: one encoder batch a clip
+    (kernel B at dh = 96, 3 launches), the same rows within 1e-4."""
+    from vit_research_tpu_torch.evaluate import scoring
+    from vit_research_tpu_torch.models.heads import ChunkEncoder
+    from vit_research_tpu_torch.models.ratt_v2 import RATTHeadV2
+    from vit_research_tpu_torch.train.checkpoint import CheckpointManager
+    from vit_research_tpu_torch.utils.configs import (ChunkEncoderConfig,
+                                                      HeadConfig)
+
+    cfg = HeadConfig(classifier_dropout=0.0)
+    host = RATTHeadV2(cfg, generator=torch.Generator().manual_seed(0))
+    card = RATTHeadV2(cfg).to(cuda)
+    card.load_state_dict(host.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = [torch.randn(8, *s, 768, generator=g) for s in ((), (6,), (6,),
+                                                        (4,))]
+    before = attn.multi_head_attention.launches
+    with torch.no_grad():
+        got = card.eval()(*(t.to(cuda) for t in x))
+        want = host.eval()(*x)
+    assert attn.multi_head_attention.launches == before
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-4)
+    for a, b in zip(got[2]["attn_scores"], want[2]["attn_scores"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+
+    ck = str(tmp_path / "ck")
+    encoder = ChunkEncoder(ChunkEncoderConfig(max_len=8),
+                           generator=torch.Generator().manual_seed(2))
+    for run, sd in (("s1", encoder.state_dict()), ("s2", host.state_dict())):
+        mngr = CheckpointManager(ck, run)
+        mngr.save(0, {"params": sd, "step": 0})
+        mngr.maybe_update_best(0, 1.0)
+    rng = np.random.default_rng(3)
+    rows = rng.standard_normal((300, 768)).astype(np.float32)
+    table = {f"vid1_frame_{i}.jpg": rng.standard_normal(768).astype(
+        np.float32) for i in range(1, 41)}
+    rows_out = {}
+    for dev in ("cuda", "cpu"):
+        col = Collection("ratt_db", space="cosine", device=dev)
+        col.upsert([f"r{i}" for i in range(300)], rows, [
+            {"vid_num": 7, "clip_num": i // 30, "side": "left" if i % 2
+             else "right", "label": i % 3 % 2, "t_center": (i % 30) / 30,
+             "t_width": 0.1, "start_idx": i % 30, "end_idx": i % 30 + 7}
+            for i in range(300)])
+        scorer = scoring.make_live_scorer(
+            lambda ps: np.stack([table[os.path.basename(p)] for p in ps]),
+            dim=768, ckpt=ck, stage1_run_id="s1", stage2_run_id="s2",
+            collection=col, chunk_size=8, chunk_stride=2, device=dev,
+            k_sim=6, k_contrast=6, k_temporal=4)
+        before = attn.multi_head_attention.launches
+        rows_out[dev] = scorer.score_clip(
+            [f"/c/vid1_frame_{i}.jpg" for i in range(1, 41)], side="left",
+            clip_num=1, vid=1)
+        launched = attn.multi_head_attention.launches - before
+        assert launched == (3 if dev == "cuda" else 0)
+    a, b = rows_out["cuda"], rows_out["cpu"]
+    assert a["num_chunks"] == b["num_chunks"] == 17
+    np.testing.assert_allclose(a["prob_sequence"], b["prob_sequence"],
+                               rtol=0, atol=1e-4)
+    assert [c["chunk_start_idx"] for c in a["topk_chunks"]] == \
+        [c["chunk_start_idx"] for c in b["topk_chunks"]]

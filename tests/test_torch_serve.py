@@ -461,14 +461,12 @@ def test_session_protocol_errors_and_unported_ops(engines, sockdir):
                 r = c.request({"op": "segment_start", "k": 5,
                                "score_events": cfg})
                 assert not r["ok"]
-                assert "score_events" in r["error"]
-                assert "waits for the port" in r["error"]
+                assert "score_events config missing" in r["error"]
             # refused, not half-built: no session was left behind
             r = c.request({"op": "segment_finish"})
             assert not r["ok"] and "no active segment" in r["error"]
             r = c.request({"op": "reload_weights"})
-            assert not r["ok"] and "reload_weights waits for the port" \
-                in r["error"]
+            assert not r["ok"] and "matched no scorer stacks" in r["error"]
             r = c.request({"op": "segment_start", "k": 5,
                            "transitions": [[1.0]]})
             assert not r["ok"] and "'transitions'" in r["error"]
@@ -696,26 +694,26 @@ def test_follow_backend_reconnects_and_replays(engines, sockdir, capsys):
     sock = os.path.join(sockdir, "flap.sock")
     args = argparse.Namespace(
         socket=sock, k=5, confidence_threshold=0.7, min_len=20, pad=2,
-        max_lag=64, write_back=False, vid=1)
+        max_lag=64, write_back=False, vid=1, score_events=False)
     stream = ["left"] * 30 + ["none"] * 20
     sp = [paths[s] for s in stream]
     clips = []
     with serving(serve.EmbedServer(teng, collection=col, coalesce_ms=0),
                  sock):
         backend = segment_cmds._DaemonFollowBackend(args)
-        clips += backend.push(stream[:20], sp[:20])
+        clips += backend.push(stream[:20], sp[:20])[0]
         # the daemon dies with the session (a killed daemon severs the
         # client socket; stop() alone leaves the handler serving)
     backend.client._sock.shutdown(socket.SHUT_RDWR)
     with serving(serve.EmbedServer(teng, collection=col, coalesce_ms=0),
                  sock):
         for i in range(20, 50, 10):
-            clips += backend.push(stream[i:i + 10], sp[i:i + 10])
-        fin, forced = backend.finish()
+            clips += backend.push(stream[i:i + 10], sp[i:i + 10])[0]
+        fin, events, forced = backend.finish()
     clips += fin
     assert "reconnecting and replaying" in capsys.readouterr().out
     assert [(c.side, c.start, c.end) for c in clips] == [("left", 0, 31)]
-    assert forced == 0
+    assert forced == 0 and events is None and not backend.scoring
 
 
 # --------------------------------------------------------------- the CLI
@@ -800,7 +798,7 @@ def test_follow_local_and_socket_write_the_offline_clips(tiny_world,
         assert json.loads(capsys.readouterr().out)["collection"] == "corpus"
         cli.main(["serve-ctl", "reload", "--socket", sock])
         assert json.loads(capsys.readouterr().out)["rows"] == 72
-        with pytest.raises(SystemExit, match="reload_weights waits"):
+        with pytest.raises(SystemExit, match="matched no scorer stacks"):
             cli.main(["serve-ctl", "reload-weights", "--socket", sock])
         with pytest.raises(SystemExit, match="only apply to reload"):
             cli.main(["serve-ctl", "ping", "--socket", sock, "--db", "x"])
@@ -828,13 +826,16 @@ def test_segment_flags_validated_before_the_engine(tiny_world, capsys):
         (["--method", "knn-hmm"], "needs --db and --corpus-collection"),
         (["--method", "knn-hmm", "--follow", "--socket",
           os.path.join(tiny_world, "none.sock")], "no daemon socket"),
+        (["--method", "knn-hmm", "--db", "db", "--corpus-collection",
+          "corpus", "--score-events", "--stage1-run-id", "r", "--device",
+          "cpu"],
+         "--score-events needs"),
     ]
     for extra, msg in cases:
         with pytest.raises(SystemExit, match=msg):
             cli.main(base + extra)
     assert not os.path.exists("o")  # nothing ran
-    for unported in (["--method", "temporal"], ["--score-events"],
-                     ["--method", "knn-hmm", "--stage1-run-id", "r"]):
+    for unported in (["--method", "temporal"],):
         with pytest.raises(SystemExit) as e:  # argparse refuses them
             cli.main(base + unported)
         assert e.value.code == 2

@@ -295,6 +295,70 @@ def _stage1_encode(store, idx, ckpt, run_id, device="cuda"):
     return encode_batch, encode_chunk
 
 
+def _stage2_head(dim: int, ckpt, run_id, *, k_sim: int, k_contrast: int,
+                 k_temporal: int, strict: bool = False, device="cuda"):
+    """The stage-2 RATTHeadV2 on ``device`` as ``apply(query, sim,
+    contrast, temporal) -> (B, 1)`` logits (evaluate/scoring.py, CLI
+    error convention)."""
+    from vit_research_tpu_torch.evaluate import scoring
+
+    return _scoring_call(scoring.stage2_head, dim, ckpt, run_id,
+                         k_sim=k_sim, k_contrast=k_contrast,
+                         k_temporal=k_temporal, strict=strict, device=device)
+
+
+def _open_collection(db_path, name, device="cuda"):
+    """Open an existing collection for a read-side command
+    (evaluate/scoring.py, CLI error convention)."""
+    from vit_research_tpu_torch.evaluate import scoring
+
+    return _scoring_call(scoring.open_collection, db_path, name,
+                         device=device)
+
+
+def _live_event_scorer(args, eng, emb_cache_cap=None):
+    """The live make/miss scorer of ``segment --score-events`` on the
+    engine's device (None when the flag is off): evaluate/scoring.py's
+    make_live_scorer with the CLI's flags and error convention."""
+    if not getattr(args, "score_events", False):
+        return None
+    from vit_research_tpu_torch.evaluate import scoring
+
+    return _scoring_call(
+        scoring.make_live_scorer, eng.embed_paths, dim=eng.out_dim,
+        ckpt=args.score_ckpt, stage1_run_id=args.stage1_run_id,
+        stage2_run_id=args.stage2_run_id, db=args.score_db or args.db,
+        collection=args.score_collection, chunk_size=args.chunk_size,
+        chunk_stride=args.chunk_stride, k_sim=args.k_sim,
+        k_contrast=args.k_contrast, k_temporal=args.k_temporal,
+        future_step=args.future_step, emb_cache_cap=emb_cache_cap,
+        device=eng.device)
+
+
+def _score_clip_dir(scorer, clip_dir):
+    """Score one written clip directory: its eval row, or None for a clip
+    shorter than one chunk."""
+    from vit_research_tpu_torch.data import naming
+
+    vid, clip_num, side = naming.parse_clip_dir(
+        os.path.basename(os.path.normpath(clip_dir)))
+    frames = naming.list_frames(clip_dir)
+    return scorer.score_clip(
+        [os.path.join(clip_dir, f) for f in frames],
+        side=side, clip_num=clip_num, vid=vid)
+
+
+def _event_row_summary(row) -> str:
+    top = (row.get("topk_chunks") or [None])[0]
+    if top is None:
+        return f"{row['clip_key']}: no chunks"
+    where = (f"frames {top['start_frame']}..{top['end_frame']}"
+             if top.get("start_frame") is not None else
+             f"chunk idx {top['chunk_start_idx']}..{top['chunk_end_idx']}")
+    return (f"{row['clip_key']} ({row['side']}): top event chunk {where} "
+            f"P(make)={top['prob']:.3f} over {row['num_chunks']} chunks")
+
+
 def _list_clip_dirs(root: str) -> list:
     """The ``vid*_clip_*`` directories under ``root``, sorted by name."""
     from vit_research_tpu_torch.data import naming

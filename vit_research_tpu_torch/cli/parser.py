@@ -8,8 +8,9 @@ import argparse
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from vit_research_tpu_torch.cli import (db_cmds, ingest, segment_cmds,
-                                            serve_cmds, train_cmds)
+    from vit_research_tpu_torch.cli import (db_cmds, eval_cmds, ingest,
+                                            segment_cmds, serve_cmds,
+                                            train_cmds)
 
     p = argparse.ArgumentParser(prog="vit_research_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -17,6 +18,7 @@ def build_parser() -> argparse.ArgumentParser:
     segment_cmds.register(sub)
     db_cmds.register(sub)
     train_cmds.register(sub)
+    eval_cmds.register(sub)
     serve_cmds.register(sub)
     return p
 

@@ -6,11 +6,13 @@ clustering and fresh-test.
 Port of vit_research_tpu/cli/segment_cmds.py with the reference's
 arguments plus ``--device``, the fast profile's strided embedding
 (``--frame-stride``, ``--stride-refine[-radius]``, ``--event-template``,
-``--force-stride``) included. Not ported yet, and so not flags of this
-parser (argparse refuses them): ``--method temporal`` and live event
-scoring (``--score-events`` and its ``--score-*``, ``--stage*-run-id``,
-``--chunk-*`` and ``--k-*`` flags), which need the heads (ROADMAP
-item 2).
+``--force-stride``) and live event scoring (``--score-events`` with its
+``--score-*``, ``--stage*-run-id``, ``--chunk-*``, ``--k-*`` and
+``--future-step`` flags: offline from the written clip dirs, in-process
+with ``--follow``, and through the daemon's session with ``--follow
+--socket``) included. Not ported yet, and so not a choice of this parser
+(argparse refuses it): ``--method temporal``, which needs the temporal
+head.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def cmd_segment(args):
     (``--follow``, in this process or through a serve daemon with
     ``--socket``); ``--method streaks`` the pre-HMM sliding-window
     classifier (nba_proj/generate_clips.py:99-368, also writes
-    clip_intervals.csv). Both take optional confident write-back."""
+    clip_intervals.csv). Both take optional confident write-back and
+    ``--score-events``: a make/miss eval row for every clip."""
     from vit_research_tpu_torch.data import naming
     from vit_research_tpu_torch.segment.pipeline import (
         segment_with_knn_hmm, segment_with_knn_streaks)
@@ -70,7 +73,8 @@ def cmd_segment(args):
         if args.db or args.corpus_collection:
             raise SystemExit("--socket ranks against the DAEMON's "
                              "collection (cli serve --collection); drop "
-                             "--db/--corpus-collection")
+                             "--db/--corpus-collection — scoring still "
+                             "takes --score-db/--score-collection")
     if args.follow and args.method != "knn-hmm":
         raise SystemExit("--follow supports --method knn-hmm only")
     if args.transitions and args.method != "knn-hmm":
@@ -88,6 +92,22 @@ def cmd_segment(args):
         space = getattr(col, "space", "l2")
     transitions = (_load_transitions(args.transitions)
                    if args.transitions else None)
+    if args.score_events and not (args.score_collection and args.score_ckpt
+                                  and args.stage1_run_id
+                                  and args.stage2_run_id
+                                  and (args.score_db or args.db)):
+        raise SystemExit(
+            "--score-events needs --score-collection, --score-ckpt, "
+            "--stage1-run-id and --stage2-run-id (the TRAINED runs to "
+            "score with — without them the head would be random weights "
+            "producing plausible-looking garbage), plus a retrieval "
+            "store (--score-db, or --db when they share one); see "
+            "eval-clips for the training pipeline")
+    if args.score_events and (args.chunk_size < 1 or args.chunk_stride < 1):
+        # build_chunks says the same, but only after the game's embed
+        # (offline) or at the first clip (--follow)
+        raise SystemExit("--score-events needs positive --chunk-size and "
+                         "--chunk-stride")
 
     if args.follow:
         if args.socket:
@@ -103,11 +123,18 @@ def cmd_segment(args):
     os.makedirs(args.out, exist_ok=True)
     frames = naming.list_frames(args.frames)
     eng = common._engine(args.batch_size, args.device)
+    # the scorer before the embed: a typo'd --score-collection or a
+    # missing checkpoint fails here, not after the game's embed
+    scorer = common._live_event_scorer(args, eng)
     frame_paths = [os.path.join(args.frames, f) for f in frames]
     if args.frame_stride > 1:
         embs = _embed_strided(args, eng, frame_paths, refine_threshold)
     else:
         embs = eng.embed_paths(frame_paths)
+    if scorer is not None:
+        # the clip dirs hold copies of these frames under the same names:
+        # scoring reuses the embeddings instead of embedding them again
+        scorer.remember(frame_paths, embs)
     if args.write_back:
         # write-back upserts this engine's embeddings into the corpus: a
         # cross-profile write permanently mixes embedding spaces
@@ -131,6 +158,25 @@ def cmd_segment(args):
     if args.write_back:
         client.flush()
     print(f"decoded {len(decoded)} frames -> {len(clip_dirs)} clips")
+
+    if scorer is not None:
+        from vit_research_tpu_torch.evaluate.clip_sequences import \
+            save_results
+
+        rows = []
+        for cdir in clip_dirs:
+            row = common._score_clip_dir(scorer, cdir)
+            if row is None:
+                print(f"{os.path.basename(cdir)}: too short to chunk "
+                      f"(< {scorer.chunk_size} frames) — not scored")
+                continue
+            print(common._event_row_summary(row))
+            rows.append(row)
+        save_results(rows, os.path.join(args.out, "events.json"),
+                     os.path.join(args.out, "events.csv"))
+        print(f"scored {len(rows)}/{len(clip_dirs)} clips -> "
+              f"{os.path.join(args.out, 'events.json')} "
+              "(score with: score-events)")
 
 
 def _check_stride_args(args):
@@ -234,7 +280,9 @@ def _embed_strided(args, eng, frame_paths, refine_threshold):
 
 
 class _LocalFollowBackend:
-    """--follow in-process: own engine + KnnHmmStreamSession."""
+    """--follow in-process: own engine + KnnHmmStreamSession (+ scorer).
+    Clips are scored from their just-written dirs, with the stream's
+    embeddings from the scorer's LRU."""
 
     def __init__(self, args, corpus, collection, client, *,
                  metric: str = "l2", transition_matrix=None):
@@ -247,6 +295,12 @@ class _LocalFollowBackend:
             # (reads already warned in common.load_corpus)
             common._stamp_profile(collection)
         self._client = client
+        # a bounded LRU: a followed game grows without limit, but its
+        # clips are recent (fixed-lag commits); 16,384 frames cover any
+        # possession, and evicted frames are embedded again on a miss
+        self.scorer = common._live_event_scorer(args, self.eng,
+                                                emb_cache_cap=16384)
+        self.scoring = self.scorer is not None
         self.session = KnnHmmStreamSession(
             corpus, device=self.eng.device, k=args.k,
             confidence_threshold=args.confidence_threshold,
@@ -255,26 +309,33 @@ class _LocalFollowBackend:
             metric=metric, transition_matrix=transition_matrix)
 
     def push(self, names, paths):
-        """Clip intervals that became final with this chunk."""
+        """(clip intervals that became final with this chunk, None): local
+        clips are scored later, from the written dir (score_dir)."""
         # prefetch=0: each call is a single <=batch_size chunk, so a
         # producer thread can't overlap anything — it would just add
         # a thread spawn + queue per poll on a 200k-frame session
         embs = self.eng.embed_paths(paths, prefetch=0)
-        return self.session.push_batch(names, embs)
+        if self.scorer is not None:
+            self.scorer.remember(names, embs)
+        return self.session.push_batch(names, embs), None
 
     def finish(self):
         clips = self.session.finish()
         if self._client is not None:
             self._client.flush()
-        return clips, self.session.forced
+        return clips, None, self.session.forced
+
+    def score_dir(self, clip_dir):
+        return common._score_clip_dir(self.scorer, clip_dir)
 
 
 class _DaemonFollowBackend:
     """--follow --socket: a running ``cli serve`` daemon owns the warm
-    engine and the corpus collection; this process only tails the frames
-    dir, pushes paths over the unix socket and writes clip dirs from the
-    replies. N games can follow concurrently against ONE card — the
-    daemon serializes device work and micro-batches concurrent embeds
+    engine, the corpus collection and (with --score-events) the scoring
+    stack; this process only tails the frames dir, pushes paths over the
+    unix socket and writes clip dirs and event rows from the replies. N
+    games can follow concurrently against ONE card — the daemon
+    serializes device work and micro-batches concurrent embeds
     (serve.py), where N local --follow loops would each need their own
     engine.
 
@@ -326,6 +387,22 @@ class _DaemonFollowBackend:
                "write_back": bool(args.write_back), "vid": args.vid}
         if self._transitions is not None:
             req["transitions"] = self._transitions
+        if args.score_events:
+            # the local scorer's configuration, checked daemon-side (a bad
+            # run is an error reply); paths absolute, like the frames',
+            # as the daemon's working directory is not the user's
+            req["score_events"] = {
+                "ckpt": os.path.abspath(args.score_ckpt),
+                "stage1_run_id": args.stage1_run_id,
+                "stage2_run_id": args.stage2_run_id,
+                "db": os.path.abspath(args.score_db or args.db),
+                "collection": args.score_collection,
+                "chunk_size": args.chunk_size,
+                "chunk_stride": args.chunk_stride,
+                "k_sim": args.k_sim, "k_contrast": args.k_contrast,
+                "k_temporal": args.k_temporal,
+                "future_step": args.future_step,
+                "emb_cache_cap": 16384}
         wait_s = (self.WARMING_DEADLINE_S if first
                   else self.RECONNECT_DEADLINE_S)
         try:
@@ -353,6 +430,7 @@ class _DaemonFollowBackend:
             if first:
                 raise SystemExit(err)
             raise RuntimeError(err)
+        self.scoring = bool(resp.get("scoring"))
 
     def _await_ready_and_retry(self, req, deadline_s: float) -> dict:
         """Poll a WARMING daemon until the real server takes over, then
@@ -420,10 +498,10 @@ class _DaemonFollowBackend:
 
     def _reconnect_and_replay(self, pending_paths):
         """New connection + session, replay the push history (and the
-        interrupted push, when given); returns only the clips BEYOND
-        those already returned to the follow loop. Any failure DURING
-        the replay poisons the backend — a half-replayed session must
-        never accept more pushes."""
+        interrupted push, when given); returns only the clips and events
+        BEYOND those already returned to the follow loop. Any failure
+        DURING the replay poisons the backend — a half-replayed session
+        must never accept more pushes."""
         import time
 
         try:
@@ -454,7 +532,7 @@ class _DaemonFollowBackend:
                 time.sleep(2.0)
         replay = self._history + (
             [pending_paths] if pending_paths is not None else [])
-        all_clips = []
+        all_clips, all_events = [], []
         for paths in replay:
             try:
                 r = self.client.request({"op": "segment_push",
@@ -465,11 +543,14 @@ class _DaemonFollowBackend:
                 raise self._poison(
                     f"replay failed mid-history: {r.get('error')}")
             all_clips.extend(r["clips"])
+            all_events.extend(r.get("events") or [])
         new_clips = all_clips[self._clips_returned:]
+        new_events = (all_events[self._clips_returned:]
+                      if self.scoring else None)
         self._clips_returned = len(all_clips)
         print(f"reconnected: replayed {len(replay)} pushes, "
               f"{len(new_clips)} new clip(s)", flush=True)
-        return self._ivs(new_clips)
+        return self._ivs(new_clips), new_events
 
     def push(self, names, paths):
         if self._poisoned:
@@ -482,9 +563,9 @@ class _DaemonFollowBackend:
         except OSError:
             # ConnectionError AND timeouts (a busy daemon past the 600s
             # recv window poisons the SessionClient the same way)
-            clips = self._reconnect_and_replay(paths)
+            clips, events = self._reconnect_and_replay(paths)
             self._history.append(paths)
-            return clips
+            return clips, events
         if not resp.get("ok"):
             # surfaced like a local embed failure so the follow loop's
             # isolate/decode-retry logic applies unchanged (the daemon
@@ -494,24 +575,27 @@ class _DaemonFollowBackend:
                                f"{resp.get('error')}")
         self._history.append(paths)
         self._clips_returned += len(resp["clips"])
-        return self._ivs(resp["clips"])
+        return self._ivs(resp["clips"]), resp.get("events")
 
     def finish(self):
         if self._poisoned:
             raise RuntimeError(
                 f"daemon follow backend unrecoverable: {self._poisoned}")
-        pre_clips = []
+        pre_clips, pre_events = [], []
         try:
             resp = self.client.request({"op": "segment_finish"})
         except OSError:
-            pre_clips = self._reconnect_and_replay(None)
+            pre_clips, pre_events = self._reconnect_and_replay(None)
+            pre_events = pre_events or []
             resp = self.client.request({"op": "segment_finish"})
         if not resp.get("ok"):
             raise SystemExit(
                 f"daemon segment_finish failed: {resp.get('error')}")
         self.client.close()
-        return pre_clips + self._ivs(resp["clips"]), int(
-            resp.get("forced", 0))
+        clips = pre_clips + self._ivs(resp["clips"])
+        events = ((pre_events + (resp.get("events") or []))
+                  if self.scoring else None)
+        return clips, events, int(resp.get("forced", 0))
 
 
 def _segment_follow(args, backend):
@@ -530,24 +614,32 @@ def _segment_follow(args, backend):
     reference's incremental loop (nba_proj/generate_clips_hmm.py:367-490)
     could only decode at the end.
 
-    ``backend`` owns the embed+segment stack: in this process
+    ``backend`` owns the embed+segment(+score) stack: in this process
     (:class:`_LocalFollowBackend`) or a shared daemon
-    (:class:`_DaemonFollowBackend`)."""
+    (:class:`_DaemonFollowBackend`). With --score-events every clip's
+    eval row goes to ``events.jsonl`` under --out as the clip is
+    written."""
     import shutil
     import time
 
     from vit_research_tpu_torch.data import naming
 
     os.makedirs(args.out, exist_ok=True)
+    events_path = os.path.join(args.out, "events.jsonl")
+    if backend.scoring:
+        # one JSONL a session: a rerun into the same --out must not
+        # append to the previous game's rows
+        open(events_path, "w").close()
     consumed: list = []  # frame names in stream order
     seen: set = set()    # consumed or permanently skipped
     retries: dict = {}   # name -> failed decode attempts
     clip_count = 0
+    event_count = 0
     last_num = -1        # highest consumed frame number
 
-    def emit(clips):
-        nonlocal clip_count
-        for iv in clips:
+    def emit(clips, rows=None):
+        nonlocal clip_count, event_count
+        for j, iv in enumerate(clips):
             clip_count += 1
             cdir = os.path.join(
                 args.out, naming.clip_dir_name(args.vid, clip_count,
@@ -559,6 +651,23 @@ def _segment_follow(args, backend):
                     shutil.copy(src, os.path.join(cdir, f))
             print(f"clip {clip_count}: {iv.side} frames "
                   f"{iv.start}..{iv.end} -> {cdir}", flush=True)
+            if not backend.scoring:
+                continue
+            # score the possession the moment it is final: daemon rows
+            # arrive with the clips, local clips score from the dir
+            row = rows[j] if rows is not None else backend.score_dir(cdir)
+            if row is None:
+                print(f"  not scored: too short to chunk "
+                      f"(< {args.chunk_size} frames)", flush=True)
+                continue
+            if "clip_key" not in row:  # the daemon's per-clip error row
+                print(f"  WARNING: scoring failed: "
+                      f"{row.get('error', row)}", flush=True)
+                continue
+            event_count += 1
+            with open(events_path, "a") as fh:
+                fh.write(json.dumps(row) + "\n")
+            print(f"  {common._event_row_summary(row)}", flush=True)
 
     def scan_fresh():
         # os.scandir + seen-check BEFORE parsing: a 2-hour game leaves
@@ -589,7 +698,7 @@ def _segment_follow(args, backend):
         'out-of-order' next poll and be dropped."""
         nonlocal last_num
         try:
-            clips = backend.push(
+            clips, rows = backend.push(
                 chunk, [os.path.join(args.frames, f) for f in chunk])
         except Exception:
             if len(chunk) > 1:  # isolate the bad frame, preserve order
@@ -622,7 +731,7 @@ def _segment_follow(args, backend):
         consumed.extend(chunk)
         seen.update(chunk)
         last_num = naming.frame_num(chunk[-1])
-        emit(clips)
+        emit(clips, rows)
         return True
 
     last_new = time.monotonic()
@@ -666,10 +775,14 @@ def _segment_follow(args, backend):
             # milliseconds, permanently skipping a frame that was merely
             # mid-write
             time.sleep(args.poll_interval)
-    clips, forced = backend.finish()
-    emit(clips)
+    clips, rows, forced = backend.finish()
+    emit(clips, rows)
     print(f"followed {len(consumed)} frames -> {clip_count} clips "
           f"({forced} forced commits)", flush=True)
+    if backend.scoring:
+        print(f"scored {event_count} clips live -> {events_path} "
+              "(JSONL, one eval row per clip; score with: score-events)",
+              flush=True)
 
 
 def cmd_tune_segment(args):
@@ -979,6 +1092,32 @@ def register(sub):
                     help="JSON with a 3x3 HMM transition matrix (bare "
                     "list or tune-segment output); default is the "
                     "reference's hand-tuned matrix (knn-hmm method)")
+    sg.add_argument("--score-events", action="store_true",
+                    help="score each clip for make/miss events the "
+                    "moment it is written (live in --follow mode): "
+                    "chunk + stage-1 encode + live retrieval + stage-2 "
+                    "head, one eval row per clip")
+    sg.add_argument("--score-ckpt", default=None,
+                    help="checkpoint root holding the stage-1/stage-2 "
+                    "runs (--score-events)")
+    sg.add_argument("--stage1-run-id", default=None,
+                    help="trained stage-1 (ChunkEncoder) run under "
+                    "--score-ckpt; required with --score-events")
+    sg.add_argument("--stage2-run-id", default=None,
+                    help="trained stage-2 (RATTHeadV2) run under "
+                    "--score-ckpt; required with --score-events")
+    sg.add_argument("--score-db", default=None,
+                    help="vector-store root of the chunk retrieval "
+                    "collection (defaults to --db)")
+    sg.add_argument("--score-collection", default=None,
+                    help="chunk collection for live retrieval "
+                    "(e.g. ratt_db)")
+    sg.add_argument("--chunk-size", type=int, default=8)
+    sg.add_argument("--chunk-stride", type=int, default=2)
+    sg.add_argument("--k-sim", type=int, default=6)
+    sg.add_argument("--k-contrast", type=int, default=6)
+    sg.add_argument("--k-temporal", type=int, default=4)
+    sg.add_argument("--future-step", type=int, default=2)
     common.device_arg(sg)
     sg.set_defaults(fn=cmd_segment)
 

@@ -1,10 +1,10 @@
 """Training commands: train-stage1 (the ChunkEncoder), train-rag
-(ProjectionHead + RAGHead) and train-ratt (chunk-statistic projection +
-RATTHead).
+(ProjectionHead + RAGHead), train-ratt (chunk-statistic projection +
+RATTHead) and train-stage2 (RATTHeadV2 over the stage-2 cache).
 
 Port of those verbs of vit_research_tpu/cli/train_cmds.py, with the
 reference's arguments and output lines plus ``--device``. train-cached
-and train-stage2 come with their slice.
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -224,6 +224,80 @@ def cmd_train_ratt(args):
     _finish(run_id, mngr, history)
 
 
+def cmd_train_stage2(args):
+    """Stage 2: RATTHeadV2 trained on the stage-2 cache (built from the
+    frozen stage-1 run ``--stage1-run-id`` against ``--collection`` and
+    saved to ``--cache`` when that file is missing), validated with live
+    retrieval or, with ``--cached-val``, from the cache. ``--preset stage3
+    --init-run-id <run>`` continues a stage-2 run's best weights."""
+    from dataclasses import replace
+
+    from vit_research_tpu_torch.device import resolve_device
+    from vit_research_tpu_torch.retrieval import cache_stage2 as CS
+    from vit_research_tpu_torch.store.vector_store import PersistentClient
+    from vit_research_tpu_torch.train.checkpoint import CheckpointManager
+    from vit_research_tpu_torch.train.train_stage2 import train_stage2
+    from vit_research_tpu_torch.utils.configs import preset
+
+    resolve_device(args.device)  # before the run directory exists
+    store, idx, chunks, train, val = _open_store(args)
+    _, encode_chunk = common._stage1_encode(store, idx, args.ckpt,
+                                            args.stage1_run_id, args.device)
+    cfg = preset(args.preset)
+    cfg = replace(
+        cfg,
+        head=replace(cfg.head, embed_dim=store.dim, k_sim=args.k_sim,
+                     k_contrast=args.k_contrast, k_temporal=args.k_temporal),
+        retrieval=replace(cfg.retrieval, collection=args.collection),
+        train=replace(cfg.train, num_epochs=args.epochs,
+                      batch_size=args.batch_size),
+        train_vids=tuple(args.train_vids), test_vids=tuple(args.val_vids),
+        pinned_run_id=args.init_run_id or "")
+
+    col = PersistentClient(args.db, autoflush=False, device=args.device) \
+        .get_or_create_collection(args.collection)
+    if os.path.exists(args.cache):
+        cache = CS.load_cache(args.cache)
+        print(f"loaded stage-2 cache ({len(cache)} chunks) from {args.cache}")
+    else:
+        cache = CS.build_stage2_cache(
+            chunks, encode_chunk, col, k_sim=cfg.head.k_sim,
+            k_contrast=cfg.head.k_contrast, k_temporal=cfg.head.k_temporal,
+            future_step=cfg.retrieval.future_chunk_step,
+            search_k_content=cfg.retrieval.search_k_content,
+            search_k_temporal=cfg.retrieval.search_k_temporal,
+            checkpoint_path=args.cache, verbose=True)
+        print(f"built stage-2 cache ({len(cache)} chunks) -> {args.cache}")
+
+    init_params = None
+    if args.init_run_id:
+        if not os.path.isdir(os.path.join(args.ckpt, args.init_run_id)):
+            raise SystemExit(
+                f"--init-run-id {args.init_run_id}: no such run under "
+                f"{args.ckpt}")
+        try:
+            restored = CheckpointManager(args.ckpt,
+                                         args.init_run_id).restore_best()
+        except ValueError as e:  # a run directory of the JAX package
+            raise SystemExit(str(e))
+        if restored is None:
+            raise SystemExit(
+                f"--init-run-id {args.init_run_id}: no best checkpoint")
+        init_params = restored["params"]
+
+    run_id, mngr = _run_manager(args, cfg)
+    _, history = train_stage2(
+        train, val, cache,
+        encode_fn=None if args.cached_val else encode_chunk,
+        collection=None if args.cached_val else col,
+        cfg=cfg, ckpt_manager=mngr, verbose=True, init_params=init_params,
+        resume=args.resume, device=args.device)
+    mngr.wait()
+    best = max((h.get("val_acc", 0.0) for h in history), default=0.0)
+    f1 = max((h.get("val_best_f1", 0.0) for h in history), default=0.0)
+    print(f"run {run_id}: best val acc {best:.4f} best f1 {f1:.4f}")
+
+
 def register(sub):
     t1 = sub.add_parser("train-stage1",
                         help="train the stage-1 ChunkEncoder on a frame "
@@ -297,3 +371,33 @@ def register(sub):
     tt.add_argument("--resume", action="store_true")
     common.device_arg(tt)
     tt.set_defaults(fn=cmd_train_ratt)
+
+    t2 = sub.add_parser("train-stage2",
+                        help="train RATTHeadV2 over the stage-2 "
+                             "sim/contrast/temporal cache")
+    common.split_args(t2)
+    t2.add_argument("--store", required=True)
+    t2.add_argument("--db", required=True)
+    t2.add_argument("--ckpt", required=True)
+    t2.add_argument("--collection", default="ratt_db_s2")
+    t2.add_argument("--cache", required=True,
+                    help="stage-2 cache pickle; built (and saved) if missing")
+    t2.add_argument("--stage1-run-id", default=None)
+    t2.add_argument("--preset", choices=["stage2", "stage3"],
+                    default="stage2")
+    t2.add_argument("--init-run-id", default=None,
+                    help="continue a previous stage-2 run's best weights")
+    t2.add_argument("--epochs", type=int, default=30)
+    t2.add_argument("--batch-size", type=int, default=8)
+    t2.add_argument("--k-sim", type=int, default=6)
+    t2.add_argument("--k-contrast", type=int, default=6)
+    t2.add_argument("--k-temporal", type=int, default=4)
+    t2.add_argument("--cached-val", action="store_true",
+                    help="validate from the cache instead of live retrieval")
+    t2.add_argument("--run-id", default=None,
+                    help="name the run dir (required to --resume it later)")
+    t2.add_argument("--resume", action="store_true",
+                    help="continue --run-id's latest checkpoint "
+                         "(weights, optimizer and step)")
+    common.device_arg(t2)
+    t2.set_defaults(fn=cmd_train_stage2)

@@ -21,7 +21,8 @@ backbone's; ``projection_head_to_state_dict`` / ``projection_head_to_params``
 for ``ProjectionHead`` (768 -> 768 and 2304 -> 768), and
 ``rag_head_to_state_dict`` / ``rag_head_to_params`` and
 ``ratt_head_to_state_dict`` / ``ratt_head_to_params`` for ``RAGHead`` and
-``RATTHead``.
+``RATTHead``, and ``ratt_v2_to_state_dict`` for stage 2's ``RATTHeadV2``
+(models/ratt_v2.py).
 """
 
 from __future__ import annotations
@@ -304,3 +305,31 @@ def ratt_head_to_params(state_dict, config) -> dict:
     (the inverse of :func:`ratt_head_to_state_dict`)."""
     return {"params": _head_to_tree(state_dict, config,
                                     ("class_head", "relevance_head"))}
+
+
+def ratt_v2_to_state_dict(params) -> dict:
+    """The JAX package's flax ``RATTHeadV2`` params (numpy, with or without
+    the outer ``{"params": ...}``) -> ``state_dict`` of
+    models/ratt_v2.py::RATTHeadV2: ``query_proj``, the three branch
+    projections' ``fc1``/``fc2``, ``transformer_block_{i}`` ->
+    ``blocks.{i}``, ``norm``, ``classifier_fc``, ``classifier_logit`` and
+    the twelve (1, 1, D) tokens."""
+    from vit_research_tpu_torch.models.ratt_v2 import BRANCHES, TOKENS
+
+    p = params.get("params", params)
+    d = _np(p["cls_token"]).shape[-1]
+    flat = {name: _np(p[name]) for name in TOKENS}
+    for name in ("query_proj", "classifier_fc", "classifier_logit"):
+        for k, v in _dense(p[name]).items():
+            flat[f"{name}.{k}"] = v
+    for branch in BRANCHES:
+        for fc in ("fc1", "fc2"):
+            for k, v in _dense(p[branch][fc]).items():
+                flat[f"{branch}.{fc}.{k}"] = v
+    for k, v in _ln(p["norm"]).items():
+        flat[f"norm.{k}"] = v
+    n_blocks = sum(1 for k in p if k.startswith("transformer_block_"))
+    for i in range(n_blocks):
+        flat.update(_block_to_flat(p[f"transformer_block_{i}"],
+                                   f"blocks.{i}.", d))
+    return _tensors(flat)

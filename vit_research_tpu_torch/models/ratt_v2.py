@@ -1,0 +1,152 @@
+"""RATTHeadV2: the three-branch (support / contrast / temporal) retrieval
+head of stage 2.
+
+Port of vit_research_tpu/models/ratt_v2.py as ``nn.Module``s with the same
+computation and a parameter layout that models/convert.py
+(``ratt_v2_to_state_dict``) maps one to one onto the flax tree:
+
+- per-branch two-layer projections ``BranchProjection`` (Dense(2D, relu)
+  -> Dense(D));
+- a one-Dense query projection with the residual local token
+  ``local = q + Dense(q)``;
+- learned per-branch summary tokens and type embeddings;
+- the sequence ``[CLS, supSum, sup..., conSum, con..., tmpSum, tmp...,
+  local]``, T = 5 + Ks + Kc + Kt (21 at k = 6/6/4, 25 at 8/8/4);
+- pre-norm blocks (the backbone's ``EncoderBlock``, exact GELU, MLP 4x
+  wide), each returning its attention scores;
+- the classifier on CLS: Dense(2 * mlp_dim, relu) -> Dropout
+  (``HeadConfig.classifier_dropout``) -> Dense(1);
+- the aux outputs: the branch summaries, the local token and every
+  block's scores; ``branch_attention_diagnostics`` reduces the last
+  block's CLS attention per branch.
+
+Every block returns its scores, so attention takes the plain path
+(models/vit.py's ``needs_plain``), as the JAX package's XLA attention
+does whenever scores are returned: this head launches no kernel. It
+computes in float32; ``dtype='bfloat16'`` is not ported and is refused.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from vit_research_tpu_torch.models.heads import (_init_dense_and_norms,
+                                                 _require_f32)
+from vit_research_tpu_torch.models.vit import Dropout, EncoderBlock
+from vit_research_tpu_torch.utils.configs import HeadConfig
+
+#: the twelve learned (1, 1, D) tokens, in the flax tree's names
+TOKENS = ("cls_token", "support_token", "contrast_token", "temporal_token",
+          "type_cls", "type_support_summary", "type_support",
+          "type_contrast_summary", "type_contrast", "type_temporal_summary",
+          "type_temporal", "type_local")
+#: the branch projections, in the flax tree's names
+BRANCHES = ("support_proj", "contrast_proj", "temporal_proj")
+
+
+class BranchProjection(nn.Module):
+    """Dense(2D, relu) -> Dense(D)."""
+
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        self.fc1 = nn.Linear(hidden_size, 2 * hidden_size)
+        self.fc2 = nn.Linear(2 * hidden_size, hidden_size)
+
+    def forward(self, x):
+        return self.fc2(torch.relu(self.fc1(x)))
+
+
+def token_indices(ks: int, kc: int, kt: int) -> dict:
+    """Positions of the summary and local tokens in the head's sequence."""
+    return {"support_summary": 1, "contrast_summary": 2 + ks,
+            "temporal_summary": 3 + ks + kc, "local": 4 + ks + kc + kt}
+
+
+class RATTHeadV2(nn.Module):
+    """chunk (B, D), support (B, Ks, D), contrast (B, Kc, D), temporal
+    (B, Kt, D) -> (class logit (B, 1), cls_out (B, D), aux)."""
+
+    def __init__(self, config: HeadConfig, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        c = config
+        _require_f32(c, "HeadConfig")
+        self.config = c
+        d = c.embed_dim
+        self.query_proj = nn.Linear(d, d)
+        self.support_proj = BranchProjection(d)
+        self.contrast_proj = BranchProjection(d)
+        self.temporal_proj = BranchProjection(d)
+        for name in TOKENS:
+            self.register_parameter(name, nn.Parameter(torch.empty(1, 1, d)))
+        self.blocks = nn.ModuleList(
+            EncoderBlock(d, c.num_heads, 4 * d, dropout_rate=c.dropout_rate,
+                         attention_dropout_rate=c.dropout_rate,
+                         layer_norm_eps=1e-6)
+            for _ in range(c.num_layers))
+        self.norm = nn.LayerNorm(d, eps=1e-6)
+        self.classifier_fc = nn.Linear(d, 2 * c.mlp_dim)
+        self.classifier_dropout = Dropout(c.classifier_dropout)
+        self.classifier_logit = nn.Linear(2 * c.mlp_dim, 1)
+        # the reference's initialisers: tokens normal(0.02), dense
+        # kernels lecun-normal with zero bias, LayerNorm ones/zeros
+        with torch.no_grad():
+            for name in TOKENS:
+                nn.init.normal_(getattr(self, name), std=0.02,
+                                generator=generator)
+        _init_dense_and_norms(self, generator)
+
+    def forward(self, chunk_embs, support_tokens, contrast_tokens,
+                temporal_tokens):
+        b = chunk_embs.shape[0]
+        ks, kc, kt = (support_tokens.shape[1], contrast_tokens.shape[1],
+                      temporal_tokens.shape[1])
+        q_raw = chunk_embs[:, None].to(torch.float32)
+        local = q_raw + self.query_proj(q_raw)
+        sup = self.support_proj(support_tokens.to(torch.float32))
+        con = self.contrast_proj(contrast_tokens.to(torch.float32))
+        tmp = self.temporal_proj(temporal_tokens.to(torch.float32))
+
+        def tok(name, n=1):
+            return getattr(self, name).expand(b, n, -1)
+
+        x = torch.cat([tok("cls_token"), tok("support_token"), sup,
+                       tok("contrast_token"), con, tok("temporal_token"),
+                       tmp, local], dim=1)
+        x = x + torch.cat([
+            tok("type_cls"), tok("type_support_summary"),
+            tok("type_support", ks), tok("type_contrast_summary"),
+            tok("type_contrast", kc), tok("type_temporal_summary"),
+            tok("type_temporal", kt), tok("type_local")], dim=1)
+        scores_all = []
+        for block in self.blocks:
+            x, scores = block(x, True)
+            scores_all.append(scores)
+        x = self.norm(x)
+        cls_out = x[:, 0]
+        h = self.classifier_dropout(torch.relu(self.classifier_fc(cls_out)))
+        aux = {name: x[:, i] for name, i in
+               token_indices(ks, kc, kt).items()}
+        aux["local_out"] = aux.pop("local")
+        aux["attn_scores"] = scores_all
+        return self.classifier_logit(h), cls_out, aux
+
+
+def branch_attention_diagnostics(scores_all, ks: int, kc: int,
+                                 kt: int) -> dict:
+    """The last block's head-averaged CLS attention, averaged over the
+    batch, on each token group (0-d tensors)."""
+    cls_attn = scores_all[-1].mean(dim=1)[:, 0, :]  # (B, T)
+    at = token_indices(ks, kc, kt)
+    return {
+        "cls_self": cls_attn[:, 0].mean(),
+        "support_summary": cls_attn[:, at["support_summary"]].mean(),
+        "support_tokens": cls_attn[:, 2:2 + ks].mean(),
+        "contrast_summary": cls_attn[:, at["contrast_summary"]].mean(),
+        "contrast_tokens": cls_attn[:, 3 + ks:3 + ks + kc].mean(),
+        "temporal_summary": cls_attn[:, at["temporal_summary"]].mean(),
+        "temporal_tokens":
+            cls_attn[:, 4 + ks + kc:4 + ks + kc + kt].mean(),
+        "local": cls_attn[:, at["local"]].mean(),
+    }

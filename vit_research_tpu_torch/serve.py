@@ -21,9 +21,12 @@ per request by the first byte.
                                                   error count, frames embedded,
                                                   device batches, segment session
                                                   gauges (active/finished/abandoned,
-                                                  frames/clips)
+                                                  frames/clips/events)
     {"op": "reload", "db": null, "collection": null}
                                                -> {"ok": true, "rows": N, ...}
+    {"op": "reload_weights", "ckpt": null, "stage1_run_id": null,
+     "stage2_run_id": null}                    -> {"ok": true, "generation": N,
+                                                   "reloaded": [...]}
     {"op": "shutdown"}
 
 Binary framing (bulk transport: a 16-frame JPEG request is ~0.7 MB of
@@ -76,6 +79,27 @@ and swaps it atomically — no engine restart:
   already-finished sessions survive into the reopened generation.
 - ``cli serve-ctl reload`` is the operator form.
 
+Hot weight reload (``reload_weights``): scoring sessions restore a
+stage-1 ChunkEncoder + stage-2 RATTHeadV2 stack from run checkpoints;
+the daemon caches each restored stack per config key ``(ckpt,
+stage1_run_id, stage2_run_id, chunk_size, k_sim, k_contrast,
+k_temporal)`` from first use, so concurrent sessions share one restore
+and serving stays on one weight generation until the operator rolls it
+forward:
+
+- ``reload_weights`` restores the cached stacks from disk again (a
+  training run wrote a new best checkpoint) and swaps them in; every
+  restore completes before any swap, so a failed restore leaves every
+  old stack serving, and the generation rises once.
+- ``ckpt`` / ``stage1_run_id`` / ``stage2_run_id`` narrow which stacks
+  reload; all three together PRELOAD a stack no session has asked for
+  yet. ``chunk_size`` and the ``k_*`` only describe such a target and
+  are refused without the full id triple.
+- Active scoring sessions are pinned: they keep the stack they started
+  with (``segment_start`` replies carry ``weights_generation``); new
+  sessions get the reloaded one.
+- ``cli serve-ctl reload-weights`` is the operator form.
+
 Live segmentation sessions (one per connection — use
 :class:`SessionClient`, not the one-shot :func:`request`): the server's
 collection doubles as the labeled kNN corpus (cli write-frame-db),
@@ -96,10 +120,35 @@ back mid-game (segment/pipeline.py::KnnHmmStreamSession):
                                     positions within the session)
     {"op": "segment_finish"}       -> remaining clips + "forced" count
 
-Not ported yet, and refused with an error reply rather than ignored:
-live event scoring (a ``"score_events"`` config in ``segment_start``)
-and ``reload_weights``, which need the retrieval heads and their
-checkpoints; and the mesh-sharded corpus of ``serve --shard-device``.
+Live event scoring (optional): a ``"score_events"`` config in
+``segment_start`` returns a make/miss eval row with every finished clip,
+``segment --score-events`` (evaluate/live.py) over the socket:
+
+    {"op": "segment_start", ..., "score_events": {
+        "ckpt": "ckpts", "stage1_run_id": "...", "stage2_run_id": "...",
+        "db": "db", "collection": "ratt_db",
+        "chunk_size": 8, "chunk_stride": 2, "k_sim": 8, "k_contrast": 8,
+        "k_temporal": 4, "future_step": 2, "emb_cache_cap": 16384}}
+        -> {"ok": true, ..., "scoring": true, "weights_generation": N}
+           (required: ckpt/stage1_run_id/stage2_run_id/db/collection; a
+            missing or mistyped run is an error reply, never a
+            random-weight head)
+    segment_push / segment_finish replies then carry
+        "events": [row | null, ...]   (aligned with "clips"; null: a clip
+                                       shorter than one chunk;
+                                       {"error": ...}: the clip failed to
+                                       score, and is delivered all the
+                                       same)
+
+The rows are eval-clips' schema, which cli score-events reads. The
+stream's embeddings are reused for scoring (an ``emb_cache_cap`` LRU);
+frames pushed as b64 that leave the cache cannot be embedded again (no
+path) and error. Scoring runs on the engine's device under the device
+lock, like every other device op.
+
+Not ported, and refused (argparse refuses the flag): the mesh-sharded
+corpus of ``serve --shard-device``. ``segment --method temporal`` is
+not a choice of the port's CLI.
 
 Concurrency: requests are parsed and decoded on per-connection threads;
 device work (the engine's forward, corpus staging, the sessions' and
@@ -373,11 +422,6 @@ class _Coalescer:
                     done.set()
 
 
-_NOT_PORTED = ("{} waits for the port of the retrieval heads and their "
-               "checkpoints (ROADMAP items 2-3); this daemon runs the "
-               "torch engine, which has neither yet")
-
-
 class EmbedServer:
     """Warm-engine embedding (+ optional retrieval) server."""
 
@@ -406,6 +450,14 @@ class EmbedServer:
         self._collection_lock = threading.Lock()
         self._reload_lock = threading.Lock()  # one reload at a time
         self._write_back_sessions = 0
+        # Hot weight reload (the `reload_weights` op): restored scorer
+        # stacks cached per config key from first use, as (generation,
+        # (encode_batch, head_apply)). A reload REPLACES an entry, never
+        # the modules inside a stack, so a session holding the old stack
+        # keeps its generation (pinned).
+        self._weights_lock = threading.Lock()
+        self._scorer_stacks: dict[tuple, tuple] = {}
+        self._weights_generation = 0
         # observability (the `stats` op): counters shared across
         # connection threads, guarded by their own lock — never the
         # device lock, a stats probe must not queue behind a forward
@@ -502,14 +554,139 @@ class EmbedServer:
                 self._corpus_cache = (key, corpus)
             return self._corpus_cache[1]
 
+    def _make_scorer(self, cfg):
+        """The live event scorer of a segment session
+        (evaluate/scoring.py::make_live_scorer) on the engine's device:
+        (scorer, weights generation). A misconfiguration raises
+        ValueError, an error reply; never a random-weight head."""
+        from vit_research_tpu_torch.evaluate import scoring
+
+        if not isinstance(cfg, dict):
+            raise ValueError(
+                "'score_events' must be an object: {ckpt, stage1_run_id, "
+                "stage2_run_id, db, collection, ...}")
+        required = ("ckpt", "stage1_run_id", "stage2_run_id", "db",
+                    "collection")
+        missing = [k for k in required if not cfg.get(k)]
+        if missing:
+            raise ValueError(
+                f"score_events config missing {missing} — the TRAINED "
+                "runs to score with (cli train-stage1 / train-stage2) and "
+                "the chunk retrieval collection (cli write-ratt-db)")
+
+        def embed_missing(paths):
+            # score_clip's re-embed of frames evicted from the scorer's
+            # LRU: it runs under the device lock (scoring is device
+            # work), so the engine is called directly, not through
+            # _embed_request or the coalescer, which take the lock
+            paths = [str(p) for p in paths]
+            gone = [p for p in paths if not os.path.exists(p)]
+            if gone:
+                raise ValueError(
+                    "score_events: frames evicted from the embedding "
+                    f"cache and not on disk (e.g. {gone[:2]}); push "
+                    "frames as paths or raise emb_cache_cap")
+            from vit_research_tpu_torch.data.preprocess import load_frames
+
+            return self.engine.embed_batch(
+                load_frames(paths, self.engine.spec))
+
+        def num(key, default):
+            v = cfg.get(key)  # an explicit null takes the default
+            return default if v is None else int(v)
+
+        # emb_cache_cap: null means unbounded, absent the bounded default
+        cap = cfg.get("emb_cache_cap", 16384)
+        cap = None if cap is None else int(cap)
+        # the collection opens outside the device lock (a store read is
+        # host disk work; holding the lock would stall every session's
+        # pushes); the cheap checks come before the restore
+        col = scoring.open_collection(cfg["db"], cfg["collection"],
+                                      device=self.engine.device)
+        if num("chunk_size", 8) < 1 or num("chunk_stride", 2) < 1:
+            raise ValueError(
+                "score_events needs positive chunk_size and chunk_stride")
+        key = (str(cfg["ckpt"]), str(cfg["stage1_run_id"]),
+               str(cfg["stage2_run_id"]), num("chunk_size", 8),
+               num("k_sim", 8), num("k_contrast", 8), num("k_temporal", 4))
+        gen, stack = self._scorer_stack(key)
+        scorer = scoring.make_live_scorer(
+            embed_missing, dim=self.engine.out_dim, collection=col,
+            stack=stack, chunk_size=key[3],
+            chunk_stride=num("chunk_stride", 2), k_sim=key[4],
+            k_contrast=key[5], k_temporal=key[6],
+            future_step=num("future_step", 2), emb_cache_cap=cap,
+            device=self.engine.device)
+        return scorer, gen
+
+    def _load_stack(self, key: tuple) -> tuple:
+        """Restore a scorer stack of config ``key`` from disk onto the
+        engine's device, under the device lock like every model build on
+        this server."""
+        from vit_research_tpu_torch.evaluate import scoring
+
+        with self._device():
+            return scoring.load_scorer_stack(
+                dim=self.engine.out_dim, ckpt=key[0], stage1_run_id=key[1],
+                stage2_run_id=key[2], chunk_size=key[3], k_sim=key[4],
+                k_contrast=key[5], k_temporal=key[6],
+                device=self.engine.device)
+
+    def _scorer_stack(self, key: tuple) -> tuple:
+        """The cached ``(generation, (encode_batch, head_apply))`` of a
+        scorer config key, restored on first use. Sessions bind the
+        returned stack; a later ``reload_weights`` replaces the cache
+        entry, so bound sessions stay on the generation they started
+        with."""
+        with self._weights_lock:
+            ent = self._scorer_stacks.get(key)
+        if ent is not None:
+            return ent
+        # restored outside _weights_lock: a restore must not stall other
+        # sessions' cache hits
+        stack = self._load_stack(key)
+        with self._weights_lock:
+            # a lost race keeps the other session's stack, so the
+            # sessions of one key share one stack
+            return self._scorer_stacks.setdefault(
+                key, (self._weights_generation, stack))
+
+    def _score_clips(self, session, clips):
+        """Eval rows of just-finished clips, aligned with ``clips`` (None
+        for a clip shorter than one chunk, ``{"error": ...}`` for a clip
+        that failed to score); None when the session scores nothing.
+        Clips are numbered in emission order, scored or not, as the CLI's
+        --follow loop numbers them."""
+        st = session.get("segment_score")
+        if st is None:
+            return None
+        rows = []
+        for c in clips:
+            st["clips"] += 1
+            frames = st["refs"][c.start: c.end + 1]
+            try:
+                # the stage-1 encode, the head and any re-embed are
+                # device work
+                with self._device():
+                    rows.append(st["scorer"].score_clip(
+                        frames, side=c.side, clip_num=st["clips"],
+                        vid=st["vid"]))
+            except Exception as e:  # noqa: BLE001 - never fail the push:
+                # its clips would be lost to the client while the session
+                # has already moved past them
+                rows.append({"error": str(e)})
+        self._count("segment", "events_scored",
+                    n=sum(1 for r in rows
+                          if r is not None and "clip_key" in r))
+        self._count("segment", "event_errors",
+                    n=sum(1 for r in rows
+                          if r is not None and "clip_key" not in r))
+        return rows
+
     def _segment_start(self, req, session) -> dict:
         if "segment" in session:
             raise ValueError("a segment session is already active on "
                              "this connection; segment_finish it first")
-        if req.get("score_events") not in (None, False):
-            # never a session without the scoring it asked for
-            raise ValueError(_NOT_PORTED.format(
-                "live event scoring ('score_events')"))
         write_back = bool(req.get("write_back"))
         if write_back and req.get("vid") is None:
             raise ValueError(
@@ -546,6 +723,7 @@ class EmbedServer:
             # reload refused forever) and skew the session gauges.
             session.pop("segment", None)
             session.pop("segment_write_back", None)
+            session.pop("segment_score", None)
             if write_back:  # pinned above — unpin exactly once
                 with self._collection_lock:
                     self._write_back_sessions -= 1
@@ -570,6 +748,22 @@ class EmbedServer:
             except ValueError as e:
                 raise ValueError(f"'transitions': {e} (calibrate with "
                                  "cli tune-segment)")
+        scorer, weights_gen = None, None
+        score_cfg = req.get("score_events")
+        if score_cfg not in (None, False):
+            # not a truthiness test: {} must reach _make_scorer's
+            # required-keys error, never silently disable scoring. Built
+            # before any session state, so a bad config leaves the
+            # connection as it was
+            scorer, weights_gen = self._make_scorer(score_cfg)
+        score_vid = 0
+        if scorer is not None and req.get("vid") is not None:
+            try:
+                score_vid = int(req["vid"])
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"'vid' must be an integer when scoring, got "
+                    f"{req['vid']!r}")
         # host read; only staging and session setup are device work
         corpus = self._corpus_snapshot(collection)
         with self._device():
@@ -598,10 +792,20 @@ class EmbedServer:
                 metric=space, corpus_prenormalized=True)
         session["segment"] = seg
         session["segment_write_back"] = write_back
+        if scorer is not None:
+            session["segment_score"] = {
+                "scorer": scorer, "refs": [], "clips": 0,
+                "vid": score_vid, "weights_generation": weights_gen}
+            self._count("segment", "scoring_active")
         self._count("segment", "sessions_started")
         self._count("segment", "sessions_active")
-        return {"ok": True, "corpus_size": seg.corpus_size,
-                "metric": space, "scoring": False}
+        resp = {"ok": True, "corpus_size": seg.corpus_size,
+                "metric": space, "scoring": scorer is not None}
+        if weights_gen is not None:
+            # the weight generation that scores this session, for its
+            # lifetime (reload_weights pins active sessions)
+            resp["weights_generation"] = weights_gen
+        return resp
 
     @staticmethod
     def _clips_json(clips) -> list:
@@ -624,10 +828,23 @@ class EmbedServer:
         embs = self._embed_request(req)
         with self._device():  # the kNN top-k matmul is device work
             clips = seg.push_batch(names, embs)
+        st = session.get("segment_score")
+        if st is not None:
+            # refs index frames by global session position (what clip
+            # start/end mean), full paths where given so evicted frames
+            # can be embedded again; the scorer's LRU is keyed by
+            # basename, which either form resolves to. Extended only
+            # after push_batch succeeded: a failed push consumed nothing
+            st["refs"].extend(req["paths"] if "paths" in req else names)
+            st["scorer"].remember(names, embs)
         self._count("segment", "frames_pushed", n=len(names))
         self._count("segment", "clips_emitted", n=len(clips))
-        return {"ok": True, "frames_seen": seg.frames_seen,
+        resp = {"ok": True, "frames_seen": seg.frames_seen,
                 "clips": self._clips_json(clips)}
+        events = self._score_clips(session, clips)
+        if events is not None:
+            resp["events"] = events
+        return resp
 
     def _segment_finish(self, session) -> dict:
         seg = session.get("segment")
@@ -637,8 +854,13 @@ class EmbedServer:
         resp = {"ok": True, "frames_seen": seg.frames_seen,  # must not
                 "forced": seg.forced,  # lose the pending clips silently
                 "clips": self._clips_json(clips)}
+        events = self._score_clips(session, clips)
+        if events is not None:
+            resp["events"] = events
         self._count("segment", "clips_emitted", n=len(clips))
         session.pop("segment")
+        if session.pop("segment_score", None) is not None:
+            self._count("segment", "scoring_active", n=-1)
         self._unpin_write_back(session)
         self._count("segment", "sessions_finished")
         self._count("segment", "sessions_active", n=-1)
@@ -801,12 +1023,74 @@ class EmbedServer:
                     "carried_flushed": carried_flushed,
                     "sharded": False}
 
+    def _reload_weights(self, req) -> dict:
+        """Restore scorer stacks from disk again and swap them in for NEW
+        sessions (the module docstring's "Hot weight reload").
+
+        Every selected stack is restored before any is swapped: a stack
+        that fails to restore makes the op an error reply with every old
+        stack still serving. Active scoring sessions hold their stack and
+        keep their generation either way."""
+        ckpt = req.get("ckpt")
+        s1 = req.get("stage1_run_id")
+        s2 = req.get("stage2_run_id")
+        dim_keys = ("chunk_size", "k_sim", "k_contrast", "k_temporal")
+        if (any(req.get(k) is not None for k in dim_keys)
+                and not (ckpt and s1 and s2)):
+            # the dims only describe a preload target; without the full
+            # id triple they would be dropped silently
+            raise ValueError(
+                "chunk_size/k_sim/k_contrast/k_temporal only apply when "
+                "ckpt, stage1_run_id and stage2_run_id are all given "
+                "(they parameterize the preload target, not a filter)")
+        with self._weights_lock:
+            keys = list(self._scorer_stacks)
+        if ckpt and s1 and s2:
+            # a full target preloads a stack no session has asked for yet
+            def num(k, default):
+                v = req.get(k)
+                return default if v is None else int(v)
+
+            target = (str(ckpt), str(s1), str(s2), num("chunk_size", 8),
+                      num("k_sim", 8), num("k_contrast", 8),
+                      num("k_temporal", 4))
+            if target not in keys:
+                keys.append(target)
+        selected = [k for k in keys
+                    if (not ckpt or k[0] == str(ckpt))
+                    and (not s1 or k[1] == str(s1))
+                    and (not s2 or k[2] == str(s2))]
+        if not selected:
+            raise ValueError(
+                "reload_weights matched no scorer stacks — none are "
+                "cached yet (no scoring session has run); pass ckpt, "
+                "stage1_run_id and stage2_run_id together to preload one")
+        # ScoringUnavailable (a ValueError) becomes an error reply before
+        # anything is swapped
+        fresh = {k: self._load_stack(k) for k in selected}
+        with self._weights_lock:
+            self._weights_generation += 1
+            gen = self._weights_generation
+            for k, stack in fresh.items():
+                self._scorer_stacks[k] = (gen, stack)
+        with self._stats_lock:
+            # only scoring sessions hold a weight stack
+            pinned = self._stats["segment"]["scoring_active"]
+        return {"ok": True, "generation": gen,
+                "reloaded": [{"ckpt": k[0], "stage1_run_id": k[1],
+                              "stage2_run_id": k[2], "chunk_size": k[3],
+                              "k_sim": k[4], "k_contrast": k[5],
+                              "k_temporal": k[6]} for k in selected],
+                "active_sessions_pinned": pinned}
+
     def _connection_closed(self, session) -> None:
         """Called by the socket handler when a connection ends. A still-
         open segment session dies with it (state is per-connection) —
         account it so the active gauge can't leak upward forever."""
         if session.get("segment") is not None:
             session.pop("segment", None)
+            if session.pop("segment_score", None) is not None:
+                self._count("segment", "scoring_active", n=-1)
             self._unpin_write_back(session)
             self._count("segment", "sessions_abandoned")
             self._count("segment", "sessions_active", n=-1)
@@ -817,6 +1101,9 @@ class EmbedServer:
         op = req.get("op")
         self._count("requests", str(op))
         if op == "stats":
+            with self._weights_lock:
+                wgen = self._weights_generation
+                n_stacks = len(self._scorer_stacks)
             with self._stats_lock:
                 snap = {"requests": dict(self._stats["requests"]),
                         "errors": self._stats["errors"],
@@ -829,9 +1116,8 @@ class EmbedServer:
                                        if self._coalescer else None),
                     "collection": getattr(self.collection, "name", None),
                     "engine_profile": self.engine_profile,
-                    # no weight stacks until reload_weights is ported
-                    "weights_generation": 0,
-                    "scorer_stacks": 0,
+                    "weights_generation": wgen,
+                    "scorer_stacks": n_stacks,
                     "batch_size": self.engine.batch_size,
                     "out_dim": self.engine.out_dim}
         if op == "segment_start":
@@ -848,7 +1134,7 @@ class EmbedServer:
         if op == "reload":
             return self._reload(req)
         if op == "reload_weights":
-            raise ValueError(_NOT_PORTED.format("reload_weights"))
+            return self._reload_weights(req)
         if op == "embed":
             emb = self._embed_request(req)
             if req.get("_reply_binary"):

@@ -5,7 +5,8 @@ seeded numpy shuffles, so batches come in the JAX package's order), the
 train state (a module, its optimizer and the step count), resume from the
 latest run checkpoint, the per-epoch metric means and dropout
 generators, and the retrieval trainers' epoch loop (``run_epochs``) with
-its DB-rebuild cadence (``maybe_rebuild_db``, ``finish_rebuilds``).
+its DB-rebuild cadence (``maybe_rebuild_db``, ``finish_rebuilds``),
+which stage 2's loop shares.
 """
 
 from __future__ import annotations
@@ -212,7 +213,8 @@ def finish_rebuilds(rebuild_scheduler) -> None:
 
 def run_epochs(state: TrainState, train_items, val_items, train_cfg, *,
                start_epoch: int, batch_tensors, train_step, eval_step,
-               seed: int, device, proj: nn.Module, prepare=None,
+               seed: int, device, proj: nn.Module | None = None,
+               prepare=None, val_batch_tensors=None, epoch_metrics=None,
                ckpt_manager=None, rebuild_fn=None, rebuild_scheduler=None,
                verbose: bool = False) -> list[dict]:
     """The retrieval trainers' epoch loop; returns one metrics dict per
@@ -221,11 +223,12 @@ def run_epochs(state: TrainState, train_items, val_items, train_cfg, *,
     Each epoch: the training batches in the seeded order
     (``seed + epoch``) under the epoch's dropout generator, each through
     ``train_step(epoch, *batch_tensors(batch)) -> {metric: value}``; the
-    validation batches in order through ``eval_step(*batch_tensors(batch))
-    -> {metric: value}``; the means, a checkpoint (model, optimizer, step)
-    and the best ``val_acc`` when a manager is given; then
-    :func:`maybe_rebuild_db` with ``proj``. A finished async rebuild is
-    drained at the end."""
+    validation batches in order through ``eval_step(*val_batch_tensors(
+    batch)) -> {metric: value}`` (``val_batch_tensors`` defaults to
+    ``batch_tensors``); the means, which ``epoch_metrics(epoch, metrics)``
+    may extend in place; a checkpoint (model, optimizer, step) and the
+    best ``val_acc`` when a manager is given; then :func:`maybe_rebuild_db`
+    with ``proj``. A finished async rebuild is drained at the end."""
     model = state.model
     history = []
     for epoch in range(start_epoch, train_cfg.num_epochs):
@@ -240,9 +243,12 @@ def run_epochs(state: TrainState, train_items, val_items, train_cfg, *,
 
         for batch in batch_iterator(val_items, train_cfg.batch_size,
                                     shuffle=False, drop_remainder=False):
-            m.update(**eval_step(*batch_tensors(batch)))
+            m.update(**eval_step(*(val_batch_tensors or batch_tensors)(
+                batch)))
 
         metrics = m.result()
+        if epoch_metrics is not None:
+            epoch_metrics(epoch, metrics)
         history.append(metrics)
         if verbose:
             print(f"epoch {epoch}: " + " ".join(
