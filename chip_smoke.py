@@ -24,6 +24,11 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      the kernels' gradients: B's q/k/v and key-bias gradients through its
      autograd Function on the card (dh = 64 and 96, f32 and bf16) and A's
      w and bias gradients, against torch.autograd of the plain versions;
+     and the head widths of F4's repair: B at dh = 128 (its own
+     instantiation) and at dh = 80 and 48 (zero-padded to 96 and 64;
+     ``padded_launches``), f32 and bf16, B = 32, T = 9 and 197, against
+     its plain version, SDPA and its bound, with the padding's copy time;
+     and an EncoderBlock at dh = 256 (the plain route) against the CPU;
   3d. the attention kernel at the RAG/RATT heads' dh = 192 (H = 4; B = 8
      and 256 at T = 5, B = 32 at T = 65 and 130; f32 and bf16, with and
      without a key bias, contiguous and projection order) against its
@@ -110,6 +115,17 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      with dq zeroed, which must fail it), a preset-rag train step's time,
      launches and idle share, and a FrameRetriever batch of 8 queries
      against a seeded 200,000 x 768 frame collection;
+  5h. the last verb and modules on phase 5f's store and phase 5e's run:
+     train-cached (the bin cache built, 2 epochs, --resume for a third;
+     B at dh = 96 encodes every anchor and batch) with the card's cache
+     against a CPU build of the same rows (tie-aware) and a dropout-0
+     card vs CPU trajectory; ``segment --method temporal`` (the default,
+     3000 epochs) on phase 4's corpus game, its temporal_head.npz read on
+     the CPU (probabilities, decoded paths), 50 epochs card vs CPU, an
+     epoch at 20,000 frames under the profiler; the joint ViT-B/16 +
+     RAGHead train step card vs CPU (and with B's dq zeroed, which must
+     fail), then its time at 4 chunks x 8 frames; RAG-ViT at full width
+     card vs CPU;
   6. a game-sized store: a seeded 200,000 x 768 cosine collection queried
      with 256 queries, k = 50, on the card in f32 and in int8, each held
      against the CPU answer of the same rows, and timed;
@@ -117,7 +133,8 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      launches over the paths of phases 4-5f, ``launches_by_path`` lists
      them, ``fast`` being phase 5d's write-frame-db and segment,
      ``stage1`` phase 5e's verbs and ``rag`` phase 5f's train-rag and
-     train-ratt; the attention entry's ``key_bias``
+     train-ratt, ``cached``, ``temporal``, ``joint`` and ``rag_vit``
+     phase 5h's; the attention entry's ``key_bias``
      holds phase 5d's rows, ``stage1_dh96`` phase 3c's, ``grad_rel_err``
      the gradient checks and ``stage1_path`` phase 5e's numbers,
      ``rag_dh192`` phase 3d's rows and ``rag_path`` phase 5f's), then the
@@ -586,6 +603,100 @@ def phase_attention_stage1(smi: str) -> dict:
             del views, contig, want, q, k, v
         del q32, k32, v32
     torch.cuda.empty_cache()
+    return rows
+
+
+# Head widths other than the compiled ones (F4): dh = 128 natively (768
+# wide with 6 heads), 80 (ViT-H/14's 1,280 / 16) and 48 (768 / 16)
+# zero-padded to 96 and 64, each at B = 32, T = 9 and 197; dh = 256 (512
+# wide with 2 heads) through EncoderBlock, on the plain route.
+F4_CASES = ((128, 6), (80, 16), (48, 16))
+
+
+def phase_attention_widths(smi: str) -> dict:
+    """Kernel B at head widths the reference runs beyond the backbone's
+    and the heads' (F4): dh = 128 on its own instantiation, 80 and 48
+    zero-padded to the next compiled width (the wrapper's copies timed
+    apart, ``padded_launches`` counted), f32 and bf16, each against the
+    plain version of the same values under ATTN_BOUND, with SDPA's time
+    and the bound; then an EncoderBlock at dh = 256 on the card against
+    the CPU, on the plain route (no launch)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(12)
+    b = 32
+    rows = {}
+    for dh, h in F4_CASES:
+        width = attn.kernel_head_dim(dh)
+        for t in (9, 197):
+            q32, k32, v32 = (torch.randn(b, t, h, dh, generator=g).to(dev)
+                             for _ in range(3))
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[-1]
+                q, k, v = (x.to(dtype).transpose(1, 2)
+                           for x in (q32, k32, v32))
+                want = attn.attention_plain(q.float(), k.float(), v.float())
+                bound_err = ATTN_BOUND[dtype] if dtype == torch.float32 \
+                    else 2 ** -8 * v.float().abs().max().item()
+                launches = attn.multi_head_attention.launches
+                padded = attn.multi_head_attention.padded_launches
+                got = attn.multi_head_attention(q, k, v)
+                torch.cuda.synchronize()
+                n_launch = attn.multi_head_attention.launches - launches
+                n_pad = attn.multi_head_attention.padded_launches - padded
+                err = (got.float() - want).abs().max().item()
+                if not (err <= bound_err and got.shape == q.shape
+                        and (n_launch, n_pad) == (1, int(width != dh))):
+                    raise AssertionError(
+                        f"attention kernel dh={dh} T={t} {name}: max|err| "
+                        f"{err} (bound {bound_err}), {n_launch} launches, "
+                        f"{n_pad} padded")
+                ms = cuda_ms(lambda: attn.multi_head_attention(q, k, v))
+                pad_ms = cuda_ms(lambda: [attn.pad_head_dim(x, width)
+                                          for x in (q, k, v)]) \
+                    if width != dh else 0.0
+                qc, kc, vc = (x.contiguous() for x in (q, k, v))
+                plain_ms = cuda_ms(lambda: attn.attention_plain(qc, kc, vc))
+                sdpa_ms = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(qc, kc, vc))
+                lim = bound(4 * q.numel() * q.element_size(),
+                            4 * b * h * t * t * dh,
+                            "f32" if dtype == torch.float32 else "bf16")
+                log(f"[3c] F4 attention B={b} H={h} T={t} dh={dh}"
+                    f"{'' if width == dh else f' (padded to {width})'} "
+                    f"{name}: max|err| {err:.3e} (bound {bound_err:.2e}) | "
+                    f"kernel {ms:.4f} ms (padding copies {pad_ms:.4f}) | "
+                    f"plain {plain_ms:.4f} ms | SDPA {sdpa_ms:.4f} ms | "
+                    f"{bound_text(lim)} | padded_launches +{n_pad} | {smi}")
+                rows[f"dh{dh}_T{t}_{name}"] = dict(
+                    max_abs_err=err, ms=ms, padding_ms=pad_ms,
+                    plain_ms=plain_ms, library_ms=sdpa_ms,
+                    padded=width != dh, **lim)
+                del q, k, v, qc, kc, vc, want, got
+            del q32, k32, v32
+    torch.cuda.empty_cache()
+
+    # dh = 256: the block routes it to the plain path by its named rule
+    torch.manual_seed(3)
+    host = vit_mod.EncoderBlock(512, 2, 1024).eval()
+    card = vit_mod.EncoderBlock(512, 2, 1024).to(dev).eval()
+    card.load_state_dict(host.state_dict())
+    x = torch.randn(b, 197, 512, generator=g)
+    launches = attn.multi_head_attention.launches
+    with torch.no_grad():
+        got = card(x.to(dev))[0].cpu()
+        want = host(x)[0]
+    n_launch = attn.multi_head_attention.launches - launches
+    err = float((got - want).abs().max() / want.abs().max())
+    log(f"[3c] F4 EncoderBlock 512 wide, 2 heads (dh = 256, "
+        f"head_too_wide_for_kernel: {vit_mod.head_too_wide_for_kernel(256)})"
+        f" B={b} T=197 card vs CPU: max|err| / max|out| {err:.3e} (bound "
+        f"{ATTN_BOUND[torch.float32]:.0e}); {n_launch} kernel launches "
+        f"(the plain route)")
+    if not (err <= ATTN_BOUND[torch.float32] and n_launch == 0):
+        raise AssertionError(f"dh = 256 block: {err}, {n_launch} launches")
+    rows["dh256_block_rel_err"] = err
     return rows
 
 
@@ -2299,6 +2410,20 @@ def _planted_zero_dq():
         attn._Attention.backward = staticmethod(orig)
 
 
+@contextlib.contextmanager
+def _plain_attention():
+    """Kernel B swapped for its plain version on the card (the S1
+    bisection): ``_launch`` computes ``attention_plain`` and counts no
+    launch."""
+    orig = attn._launch
+    attn._launch = lambda q, k, v, scale, key_bias: attn.attention_plain(
+        q, k, v, scale=scale, key_bias=key_bias)
+    try:
+        yield
+    finally:
+        attn._launch = orig
+
+
 def _trajectory_errs(h_c, p_c, h_h, p_h) -> dict:
     """Card run (losses ``h_c``, parameters ``p_c``) against the CPU run:
     the losses' relative max error, the parameters' max error, and the
@@ -2584,6 +2709,7 @@ def phase_stage1_path(smi: str, root: str) -> dict:
     if passes(planted):
         raise AssertionError(f"the trajectory check passes a zeroed dq: "
                              f"{planted}")
+    s1 = _s1_bisection(fs, idx, init, cfg0, val16, runs)
 
     times = _stage1_times(smi)
     times.update(_write_ratt_rate(smi, root, mngr.restore_best()["params"]))
@@ -2594,7 +2720,74 @@ def phase_stage1_path(smi: str, root: str) -> dict:
                 trajectory_param_err=errs["param"],
                 trajectory_off_share=errs["off_share"],
                 planted_zero_dq_loss_rel_err=planted["loss"],
-                planted_zero_dq_off_share=planted["off_share"], **times)
+                planted_zero_dq_off_share=planted["off_share"],
+                s1_bisection=s1, **times)
+
+
+def _s1_bisection(fs, idx, init, cfg0, val16, runs) -> dict:
+    """Suspect S1: where the stage-1 trajectory's card-vs-CPU loss gap
+    comes from. The same 20-step dropout-0 run (a) as checked above, (b)
+    with B swapped for its plain version on the card (isolates B at dh =
+    96), (c) at max_len 24 instead of 8 on both devices from the same
+    weights (the position table's size; the rows used are the same 9),
+    (d) at max_len 24 from its own seeded init and (e) at max_len 8 from
+    another seed (the init's share), each reported as the losses'
+    relative and absolute gaps and as the gap between the trained
+    encoders' validation logits (both evaluated on the CPU): the
+    validation BCE is small, so a small logit gap reads as a large
+    relative loss gap."""
+    val_x = gather_chunk_embedding_batch(fs, idx, np.asarray(val16))
+
+    def logits(state, cfg):
+        model = heads.ChunkEncoder(cfg)
+        return tce.make_encode_fn(model, state)(val_x)[1].reshape(-1)
+
+    def run(dev, cfg, state, plain=False):
+        model = _stage1_encoder(cfg)
+        model.load_state_dict(state)
+        with _plain_attention() if plain else contextlib.nullcontext():
+            trained, _, hist = tce.train_chunk_encoder(
+                fs, idx, list(range(40)), val16, config=cfg, num_epochs=4,
+                batch_size=8, device=dev, model=model)
+        return hist, {k: v.detach().cpu()
+                      for k, v in trained.state_dict().items()}
+
+    cfg24 = dataclasses.replace(cfg0, max_len=24)
+    # the same weights in a 25-row position table (rows 9-24 unused)
+    same24 = dict(init, pos_embedding=torch.cat(
+        [init["pos_embedding"], _stage1_encoder(cfg24, 7).state_dict()[
+            "pos_embedding"][:, 9:]], dim=1))
+    init24 = _stage1_encoder(cfg24, 7).state_dict()
+    seed8 = _stage1_encoder(cfg0, 8).state_dict()
+    variants = {
+        "kernel B (the check above)": (
+            runs["cuda", False][:2], runs["cpu", False][:2], cfg0),
+        "B swapped for plain": (
+            run("cuda", cfg0, init, plain=True), runs["cpu", False][:2],
+            cfg0),
+        "max_len 24, the same weights": (
+            run("cuda", cfg24, same24), run("cpu", cfg24, same24), cfg24),
+        "max_len 24, its own seed-7 init": (
+            run("cuda", cfg24, init24), run("cpu", cfg24, init24), cfg24),
+        "max_len 8, a seed-8 init": (
+            run("cuda", cfg0, seed8), run("cpu", cfg0, seed8), cfg0),
+    }
+    out = {}
+    for name, ((h_c, p_c), (h_h, p_h), cfg) in variants.items():
+        rel = _trajectory_errs(h_c, p_c, h_h, p_h)
+        abs_loss = max(abs(a[k] - b[k]) for a, b in zip(h_c, h_h)
+                       for k in ("train_loss", "val_loss"))
+        lc, lh = logits(p_c, cfg), logits(p_h, cfg)
+        out[name] = dict(loss_rel=rel["loss"], loss_abs=abs_loss,
+                         logit_abs=float(np.abs(lc - lh).max()),
+                         logit_max=float(np.abs(lh).max()),
+                         param=rel["param"], off_share=rel["off_share"])
+        log(f"[5e] S1 bisection, {name}: losses relative max|err| "
+            f"{rel['loss']:.3e}, absolute {abs_loss:.3e}; validation "
+            f"logits max|err| {out[name]['logit_abs']:.3e} (max|logit| "
+            f"{out[name]['logit_max']:.3f}); parameters max|err| "
+            f"{rel['param']:.3e}, off share {rel['off_share']:.3e}")
+    return out
 
 
 # ---- phase 5f: the retrieval heads and their trainers --------------------
@@ -3811,6 +4004,544 @@ def phase_stage2_path(smi: str, root: str, main: dict) -> dict:
     return out
 
 
+# ---- phase 5h: train-cached, the temporal head, the joint step, RAG-ViT
+
+# train-cached's flags on phase 5f's store (the preset's batch and top-k;
+# bins of 0.1 in t_center)
+CACHED_BATCH, CACHED_TOP_K, CACHED_DELTA_T = 8, 8, 0.1
+# the temporal head: the first epochs of the card's training against a
+# CPU run of the same init; its probabilities card vs CPU from the
+# temporal_head.npz the card wrote (f32 through five convolutions)
+TEMPORAL_TRAJ_EPOCHS = 50
+TEMPORAL_PROB_BOUND = 1e-4
+TEMPORAL_EPOCH_FRAMES = 20_000
+# the joint ViT + RAGHead step: Adam's learning rate, steps card vs CPU
+JOINT_LR, JOINT_STEPS = 1e-4, 2
+
+
+def _profiled(fn, steps: int) -> dict:
+    """``fn`` ``steps`` times under torch.profiler after a warm-up: wall
+    ms a call, kernel ms a call, launches a call and the idle share
+    1 - kernel time / wall time, with the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(wall_ms=wall_ms, kernel_ms=busy_ms,
+                launches=sum(e.count for e in kernels) / steps,
+                idle=max(0.0, 1 - busy_ms / wall_ms),
+                top=[(e.key[:80], e.self_device_time_total / 1e3 / steps)
+                     for e in top])
+
+
+def _recording_queries(col, calls: list):
+    """``col`` whose ``query`` also appends each answer (ids and distances
+    per anchor) to ``calls``."""
+    real = col.query
+
+    def query(*a, **kw):
+        res = real(*a, **kw)
+        calls.append([dict(zip(i, d)) for i, d in
+                      zip(res["ids"], res["distances"])])
+        return res
+
+    col.query = query
+    return col
+
+
+def _same_pools(got: dict, want: dict) -> tuple:
+    """Bins whose pools differ between two bin caches: (in order, as sets
+    of rows, the first differing bin in build order or None). Raises
+    unless both hold the same bins."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"bin caches hold other bins: "
+                             f"{len(got)} vs {len(want)}")
+    ordered = as_sets = 0
+    first = None
+    for i, (key, w) in enumerate(want.items()):
+        g = got[key]
+        same = all(np.array_equal(g[n], w[n]) for n in w)
+        ordered += not same
+        if not same and first is None:
+            first = i
+        rows = [{(int(v), float(t), int(f)) for v, t, f in
+                 zip(p["vid"], p["t_center"], p["is_hard_negative"])}
+                for p in (g, w)]
+        as_sets += rows[0] != rows[1]
+    return ordered, as_sets, first
+
+
+def _nearest_tie(answers: list) -> float:
+    """The smallest gap between two candidates' best distances over a
+    bin's mega-query (one {id: distance} a anchor)."""
+    best: dict = {}
+    for answer in answers:
+        for i, d in answer.items():
+            best[i] = min(d, best.get(i, math.inf))
+    d = np.sort(np.asarray(list(best.values())))
+    return float(np.diff(d).min()) if len(d) > 1 else math.inf
+
+
+def phase_cached_path(smi: str, root: str) -> dict:
+    """train-cached on phase 5f's two-game store with phase 5e's stage-1
+    run and phase 5g's ratt_db: the bin cache built and 2 epochs, then
+    --resume for a third, through the CLI on the card (B at dh = 96
+    encodes every anchor and batch; RATTHead runs plain attention). The
+    card's cache against a CPU build from the same collection rows
+    (tie-aware: the mega-queries' answers equal within RETRIEVE_TIE),
+    and a dropout-0 train_chunk_cached trajectory on the card against
+    the CPU's within phase 5e's bounds."""
+    from vit_research_tpu_torch.retrieval import cache_bins as CB
+    from vit_research_tpu_torch.train import train_chunk_cached as tcc
+    from vit_research_tpu_torch.utils.configs import preset
+
+    t_phase = time.monotonic()
+    store_dir = os.path.join(root, "store_rag")
+    ck, db = os.path.join(root, "ckpt_s1"), os.path.join(root, "db_s2")
+    cache = os.path.join(root, "bin_cache.pkl")
+    fs = FrameStore(store_dir).open()
+    idx = load_chunk_index(store_dir)
+    chunks = common._chunks_from_index(fs, idx)
+    train = [c for c in chunks if c["vid"] == 1]
+    val = [c for c in chunks if c["vid"] == 2]
+    tc = ["train-cached", "--store", store_dir, "--db", db, "--ckpt", ck,
+          "--collection", "ratt_db", "--cache", cache, "--stage1-run-id",
+          "s1", "--train-vids", "1", "--val-vids", "2", "--batch-size",
+          str(CACHED_BATCH), "--top-k", str(CACHED_TOP_K), "--delta-t",
+          str(CACHED_DELTA_T), "--run-id", "c1", "--device", "cuda"]
+    pe.fused_patch_embed.launches = 0
+    attn.multi_head_attention.launches = 0
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        cli.main(tc + ["--epochs", "2"])
+        cli.main(tc + ["--epochs", "3", "--resume"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    out = buf.getvalue()
+    log("\n".join(f"[5h]   {line}" for line in out.splitlines()
+                  if not line.startswith("[CACHE] (")))
+    bins: dict = {}
+    for ch in chunks:
+        bins.setdefault((ch["side"], CB.coarse_time_bin(
+            ch["t_center"], CACHED_DELTA_T), ch["label"]), []).append(ch)
+    anchors = sum(min(3, len(v)) for v in bins.values())
+    encodes = anchors + 3 * (len(train) // CACHED_BATCH) \
+        + 3 * math.ceil(len(val) / CACHED_BATCH)
+    want = {"patch_embed": 0, "attention": 3 * encodes}
+    ckpt_steps = checkpoint.CheckpointManager(ck, "c1").all_steps()
+    log(f"[5h] CLI train-cached (bin cache + 2 epochs, then --resume for "
+        f"a third) {wall:.1f} s wall on {len(chunks)} chunks ({len(train)} "
+        f"train, {len(val)} validate, {len(bins)} bins, {anchors} anchors):"
+        f" launches {launches} (want {want}: B at dh = 96, 3 an encode)")
+    if (launches != want or ckpt_steps != [0, 1, 2]
+            or out.count("built bin cache") != 1
+            or out.count("loaded bin cache") != 1
+            or out.count("epoch 0:") != 1 or "epoch 2:" not in out):
+        raise AssertionError(f"train-cached: launches {launches}, "
+                             f"checkpoints {ckpt_steps}")
+
+    # the card's cache against a CPU build of the same rows: the card
+    # rebuilt in this process (equal to the CLI's pickle) and the CPU, each
+    # recording its mega-queries' answers
+    cfg = preset("chunks_cached")
+    r = cfg.retrieval
+    kw = dict(train_vids=[1], candidates_per_bin=r.candidates_per_bin,
+              query_mult=r.query_mult, max_per_video=r.per_video_cap,
+              max_global_appearances=r.global_cap,
+              min_time_gap=r.min_time_gap,
+              hard_negative_ratio=r.hard_negative_ratio,
+              lambda_global=r.lambda_global, delta_t=CACHED_DELTA_T,
+              seed=cfg.train.seed)
+    card_cache = CB.load_cache(cache)
+    built, calls = {}, {}
+    for key, dev in (("card", "cuda"), ("host", "cpu")):
+        _, encode = common._stage1_encode(fs, idx, ck, "s1", dev)
+        col = PersistentClient(db, device=dev).get_collection("ratt_db")
+        calls[key] = []
+        built[key] = CB.build_bin_cache(
+            chunks, encode, _recording_queries(col, calls[key]), **kw)
+    rebuilt = _same_pools(built["card"], card_cache)[0]
+    worst = 0.0
+    if len(calls["card"]) != len(calls["host"]):
+        raise AssertionError("the builds queried other bins")
+    for a, b in zip(calls["card"], calls["host"]):
+        for qa, qb in zip(a, b):
+            if qa.keys() != qb.keys():
+                raise AssertionError("a mega-query returned other rows")
+            worst = max(worst, max(abs(qa[i] - qb[i]) for i in qa))
+    # a pool may differ only from the first bin whose candidates hold a
+    # near tie on: the greedy picks carry global counts into later bins
+    ordered, as_sets, first = _same_pools(built["card"], built["host"])
+    tie = math.inf if first is None else _nearest_tie(calls["host"][first])
+    log(f"[5h] bin cache ({len(card_cache)} bins): the card's CLI pickle "
+        f"vs an in-process card rebuild: {rebuilt} bins differ; card vs CPU"
+        f" build of the same rows: {len(calls['card'])} mega-queries, the "
+        f"same rows, distances max|err| {worst:.3e} (ties within "
+        f"{RETRIEVE_TIE:.0e}); pools differing {ordered} in order, "
+        f"{as_sets} as sets, from bin {first} of the build on, whose "
+        f"candidates' nearest distances are {tie:.2e} apart")
+    if (rebuilt or worst > RETRIEVE_TIE or len(calls["host"]) != len(
+            card_cache) or (first is not None and tie > RETRIEVE_TIE)):
+        raise AssertionError(f"bin cache: {rebuilt} bins differ from the "
+                             f"pickle, distances {worst}, first differing "
+                             f"bin {first} without a tie ({tie})")
+
+    # dropout-0 trajectory, card vs CPU, from one seeded init on the same
+    # cached rows and chunk embeddings (the card's encoder). Its cache
+    # draws candidates from both games, so that the training game's
+    # chunks retrieve the other game's rows (the CLI's --train-vids 1
+    # cache gives them none: same-game rows are masked)
+    encode_batch, encode_chunk = common._stage1_encode(fs, idx, ck, "s1",
+                                                       "cuda")
+    both = CB.build_bin_cache(
+        chunks, encode_chunk, PersistentClient(db, device="cuda")
+        .get_collection("ratt_db"), **dict(kw, train_vids=[1, 2]))
+    embs = encode_batch(gather_chunk_embedding_batch(
+        fs, idx, np.arange(len(chunks))))[0]
+    embs = embs / (np.linalg.norm(embs, axis=1, keepdims=True) + 1e-8)
+    row = {(c["vid"], c["clip"], c["start_idx"]): i
+           for i, c in enumerate(chunks)}
+
+    def chunk_embed(batch):
+        return embs[[row[c["vid"], c["clip"], c["start_idx"]]
+                     for c in batch]]
+
+    tcfg = dataclasses.replace(
+        cfg, head=dataclasses.replace(cfg.head, embed_dim=fs.dim,
+                                      classifier_dropout=0.0),
+        retrieval=dataclasses.replace(r, top_k=CACHED_TOP_K),
+        train=dataclasses.replace(cfg.train, num_epochs=2,
+                                  batch_size=CACHED_BATCH))
+    runs = {}
+    for key, dev in (("card", "cuda"), ("host", "cpu")):
+        head, hist = tcc.train_chunk_cached(
+            train, val, chunk_embed, both, cfg=tcfg,
+            delta_t=CACHED_DELTA_T, device=dev)
+        runs[key] = (hist, {k: v.detach().cpu()
+                            for k, v in head.state_dict().items()})
+    errs = _trajectory_errs(*runs["card"], *runs["host"])
+    n_steps = 2 * (len(train) // CACHED_BATCH)
+    lr_bound = tcfg.train.lr_phase1 * n_steps
+    log(f"[5h] dropout-0 train_chunk_cached, {n_steps} steps + 2 "
+        f"validations, card vs CPU from one init: losses relative max|err| "
+        f"{errs['loss']:.3e} (bound {TRAJ_LOSS_RTOL:.0e}); parameters "
+        f"max|err| {errs['param']:.3e} (bound lr x steps {lr_bound:.0e}), "
+        f"off share {errs['off_share']:.3e} (bound {TRAJ_OFF_SHARE:.0e}; "
+        f"worst {errs['worst']}); agreement {runs['card'][0][-1]['agreement']:.3f}")
+    if not (errs["loss"] <= TRAJ_LOSS_RTOL and errs["param"] <= lr_bound
+            and errs["off_share"] <= TRAJ_OFF_SHARE):
+        raise AssertionError(f"train_chunk_cached trajectory: {errs}")
+    log(f"[5h] train-cached part: {time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches, wall_s=wall, bins=len(card_cache),
+                anchors=anchors, query_dist_err=worst,
+                pools_differing_in_order=ordered,
+                pools_differing_as_sets=as_sets,
+                trajectory_loss_rel_err=errs["loss"],
+                trajectory_param_err=errs["param"],
+                trajectory_off_share=errs["off_share"])
+
+
+def phase_temporal_path(smi: str, root: str, main: dict) -> dict:
+    """``segment --method temporal`` (the default method; 3000 epochs) on
+    phase 4's corpus game with its manual CSV through the CLI on the card:
+    the engine embeds the game (kernels A and B at ViT-B/16 @224), the
+    TemporalHead trains on the card and is written to temporal_head.npz.
+    That file read on the CPU: its probabilities against the card's
+    (TEMPORAL_PROB_BOUND) and the decoded paths (equal but at ties below
+    TIE_MARGIN); the first 50 epochs of a card run against a CPU run of
+    one init (phase 5e's loss bound); whether the clips are the planted
+    possessions (reported); an epoch at a game's length under the
+    profiler."""
+    from vit_research_tpu_torch.data import naming
+    from vit_research_tpu_torch.data.labels import ManualIntervals
+    from vit_research_tpu_torch.models.temporal_head import (
+        TemporalHead, f32_convolutions, masked_cross_entropy)
+    from vit_research_tpu_torch.train import train_temporal as tt
+
+    t_phase = time.monotonic()
+    frames_dir, manual = main["corpus_dir"], main["corpus_csv"]
+    out_dir = os.path.join(root, "clips_temporal")
+    names = naming.list_frames(frames_dir)
+    pe.fused_patch_embed.launches = 0
+    attn.multi_head_attention.launches = 0
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["segment", frames_dir, "--manual-csv", manual, "--out",
+                  out_dir, "--vid", "1", "--min-len", str(MIN_LEN), "--pad",
+                  str(PAD), "--batch-size", str(BATCH), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    batches = math.ceil(len(names) / BATCH)
+    log(f"[5h] CLI segment --method temporal (default; 3000 epochs) on "
+        f"{len(names)} frames: {wall:.1f} s wall; {buf.getvalue().strip()};"
+        f" launches {launches} for {batches} engine batches | {smi}")
+    _check_launches(launches, batches, "segment --method temporal")
+    if f"decoded {len(names)} frames" not in buf.getvalue():
+        raise AssertionError(buf.getvalue())
+
+    # the card's weights, read on the CPU, on the engine's embeddings
+    embs = common._engine(BATCH, "cuda").embed_paths(
+        [os.path.join(frames_dir, n) for n in names])
+    npz = os.path.join(out_dir, "temporal_head.npz")
+    dim = embs.shape[1]
+    model = TemporalHead(dim)
+    model.load_state_dict(convert.temporal_head_to_state_dict(
+        checkpoint.load_params_npz(
+            convert.temporal_head_to_params(model.state_dict()), npz)))
+    p_host = tt.predict_probs(model, embs)
+    p_card = tt.predict_probs(model.to("cuda"), embs)
+    prob_err = float(np.abs(p_card - p_host).max())
+    path_card = hmm.smooth_probabilities(p_card, device="cuda")
+    path_host = hmm.smooth_probabilities(p_host, device="cpu")
+    top2 = np.sort(p_host, axis=1)[:, -2:]
+    differ = np.flatnonzero(path_card != path_host)
+    margins = top2[differ, 1] - top2[differ, 0]
+    clips = _clip_ranges(out_dir)
+    planted, fnum = [], 1
+    for side, n in CORPUS_SEGMENTS:  # possessions of at least MIN_LEN
+        if side != "none" and n >= MIN_LEN:
+            planted.append((side, max(1, fnum - PAD),
+                            min(len(names), fnum + n - 1 + PAD)))
+        fnum += n
+    at_planted = len(clips) == len(planted) and all(
+        c[0] == p[0] and abs(c[1] - p[1]) <= BOUNDARY_SLACK
+        and abs(c[2] - p[2]) <= BOUNDARY_SLACK
+        for c, p in zip(clips, planted))
+    log(f"[5h] temporal_head.npz on the CPU vs the card: probabilities "
+        f"max|err| {prob_err:.3e} (bound {TEMPORAL_PROB_BOUND:.0e}); decoded "
+        f"paths differ at {len(differ)} frames (emission margins there "
+        f"{margins.max() if len(differ) else 0:.2e}, ties below "
+        f"{TIE_MARGIN:.0e}); clips {clips} vs the planted possessions "
+        f"{planted}: {'equal' if at_planted else 'NOT equal'} (reported)")
+    if not (prob_err <= TEMPORAL_PROB_BOUND and np.isfinite(p_card).all()
+            and (margins < TIE_MARGIN).all()):
+        raise AssertionError(f"temporal head card vs CPU: {prob_err}, "
+                             f"margins {margins}")
+
+    # the first 50 epochs, card vs CPU from one seeded init
+    labels = np.asarray(ManualIntervals.from_csv(manual).label_array(names))
+    init = convert.temporal_head_to_params(TemporalHead(
+        dim, generator=torch.Generator().manual_seed(0)).state_dict())
+    losses = {key: tt.train_temporal_head(
+        embs, labels, epochs=TEMPORAL_TRAJ_EPOCHS, init_params=init,
+        device=dev)[1] for key, dev in (("card", "cuda"), ("host", "cpu"))}
+    traj = float(np.max(np.abs(losses["card"] - losses["host"])
+                        / np.abs(losses["host"])))
+    log(f"[5h] TemporalHead, {TEMPORAL_TRAJ_EPOCHS} epochs card vs CPU from "
+        f"one init: losses relative max|err| {traj:.3e} (bound "
+        f"{TRAJ_LOSS_RTOL:.0e}; {losses['host'][0]:.5f} -> "
+        f"{losses['host'][-1]:.5f})")
+    if not traj <= TRAJ_LOSS_RTOL:
+        raise AssertionError(f"temporal trajectory: {traj}")
+
+    # an epoch at a game's length: forward + backward + Adam, f32 convs
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(1, TEMPORAL_EPOCH_FRAMES, 768, generator=g, device=dev)
+    y = torch.randint(-1, 3, (1, TEMPORAL_EPOCH_FRAMES), generator=g,
+                      device=dev)
+    head = TemporalHead(768).to(dev).train()
+    opt = torch.optim.Adam(head.parameters(), lr=1e-5, betas=tt._BETAS,
+                           eps=1e-8)
+
+    def epoch():
+        loss = masked_cross_entropy(head(x), y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    with f32_convolutions():
+        epoch_ms = cuda_ms(epoch, reps=3, n=5)
+        prof = _profiled(epoch, 5)
+    flops = 0
+    dims = [768, 256, 256, 128, 64, 3]
+    for (c_in, c_out, k) in zip(dims, dims[1:], (9, 7, 5, 3, 1)):
+        # forward; backward: the weight gradient and (but conv1) the input's
+        flops += 2 * TEMPORAL_EPOCH_FRAMES * c_in * c_out * k * (
+            3 if c_in != 768 else 2)
+    lim = bound(TEMPORAL_EPOCH_FRAMES * 768 * 4, flops, "f32")
+    log(f"[5h] TemporalHead epoch at {TEMPORAL_EPOCH_FRAMES} frames x 768 "
+        f"(f32 convolutions): {epoch_ms:.3f} ms by CUDA events; "
+        f"{bound_text(lim)}; under the profiler {prof['kernel_ms']:.3f} ms "
+        f"of kernels in {prof['wall_ms']:.3f} ms of wall, idle "
+        f"{100 * prof['idle']:.1f}%, {prof['launches']:.0f} launches | {smi}")
+    for key, ms in prof["top"]:
+        log(f"[5h]   {ms:8.3f} ms {key}")
+    log(f"[5h] temporal part: {time.monotonic() - t_phase:.1f} s")
+    del head, opt, x, y
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall_s=wall, prob_err=prob_err,
+                path_frames_differing=int(len(differ)),
+                clips_at_planted=at_planted, trajectory_loss_rel_err=traj,
+                epoch_ms=epoch_ms, epoch_idle=prof["idle"],
+                epoch_launches=prof["launches"], epoch_gflop=flops / 1e9,
+                **{f"epoch_{k}": v for k, v in lim.items()})
+
+
+def _joint_models(dev):
+    """ViT-B/16 @224, ProjectionHead 768 and RAGHead (HeadConfig()) from
+    one seed, on ``dev``."""
+    from vit_research_tpu_torch.utils.configs import HeadConfig, ViTConfig
+
+    gen = torch.Generator().manual_seed(0)
+    return [m.to(dev) for m in (
+        vit_mod.VisionTransformer(ViTConfig(), generator=gen),
+        heads.ProjectionHead(768, generator=gen),
+        heads.RAGHead(HeadConfig(), generator=gen))]
+
+
+def phase_joint_path(smi: str) -> dict:
+    """The joint train step (train/train_step.py) at full ViT-B/16 @224
+    width: 2 steps of B = 1 chunk x 2 frames on the card against the CPU
+    from one state (phase 5e's bounds), the same card run with B's dq
+    zeroed (must fail them), then the card alone at B = 4 chunks x 8
+    frames: the step by CUDA events, its launches and idle share."""
+    from vit_research_tpu_torch.train.optim import Optimizer
+    from vit_research_tpu_torch.train.train_step import \
+        make_joint_train_step
+
+    t_phase = time.monotonic()
+    g = torch.Generator().manual_seed(9)
+    inputs = [(torch.randn(1, 2, 224, 224, 3, generator=g),
+               torch.randn(1, 5, 768, generator=g),
+               torch.tensor([float(i % 2)])) for i in range(JOINT_STEPS)]
+    runs, by_path = {}, {}
+    for key, dev, fault in (("card", "cuda", False), ("host", "cpu", False),
+                            ("card", "cuda", True)):
+        mods = _joint_models(dev)
+        opt = Optimizer([p for m in mods for p in m.parameters()],
+                        lr=JOINT_LR)
+        step = make_joint_train_step(*mods, opt)
+        pe.fused_patch_embed.launches = 0
+        attn.multi_head_attention.launches = 0
+        t0 = time.monotonic()
+        with _planted_zero_dq() if fault else contextlib.nullcontext():
+            losses = [float(step(*(t.to(dev) for t in batch)))
+                      for batch in inputs]
+        if key == "card" and not fault:
+            by_path = _launch_counts()
+        runs[key, fault] = (
+            [dict(train_loss=l, val_loss=l) for l in losses],
+            {f"{i}.{k}": v.detach().cpu() for i, m in enumerate(mods)
+             for k, v in m.state_dict().items()}, time.monotonic() - t0)
+        del mods, opt, step
+        torch.cuda.empty_cache()
+    base = runs["host", False][:2]
+    errs = _trajectory_errs(*runs["card", False][:2], *base)
+    planted = _trajectory_errs(*runs["card", True][:2], *base)
+    lr_bound = JOINT_LR * JOINT_STEPS
+
+    def passes(e: dict) -> bool:
+        return (e["loss"] <= TRAJ_LOSS_RTOL and e["param"] <= lr_bound
+                and e["off_share"] <= TRAJ_OFF_SHARE)
+
+    for what, e in (("card", errs), ("card, dq zeroed (planted fault)",
+                                     planted)):
+        log(f"[5h] joint step ViT-B/16 @224 + ProjectionHead + RAGHead, "
+            f"{JOINT_STEPS} steps of 1 chunk x 2 frames, {what} vs CPU: "
+            f"losses relative max|err| {e['loss']:.3e} (bound "
+            f"{TRAJ_LOSS_RTOL:.0e}); parameters max|err| {e['param']:.3e} "
+            f"(bound lr x steps {lr_bound:.0e}), off share "
+            f"{e['off_share']:.3e} (bound {TRAJ_OFF_SHARE:.0e}; worst "
+            f"{e['worst']})")
+    want = {"patch_embed": 0, "attention": JOINT_STEPS * (12 + 2)}
+    log(f"[5h] joint step launches on the card {by_path} (want {want}: B "
+        f"forward in the 12 ViT blocks at T = 197, dh = 64 and RAGHead's 2 "
+        f"at dh = 192; the backward is the plain VJP); card "
+        f"{runs['card', False][2]:.1f} s, CPU {runs['host', False][2]:.1f} s")
+    if not (passes(errs) and by_path == want):
+        raise AssertionError(f"joint step: {errs}, launches {by_path}")
+    if passes(planted):
+        raise AssertionError(f"the joint-step check passes a zeroed dq: "
+                             f"{planted}")
+
+    # the card alone at B = 4 chunks x 8 frames
+    dev = torch.device("cuda")
+    mods = _joint_models(dev)
+    opt = Optimizer([p for m in mods for p in m.parameters()], lr=JOINT_LR)
+    step = make_joint_train_step(*mods, opt)
+    gd = torch.Generator(device=dev).manual_seed(10)
+    frames = torch.randn(4, 8, 224, 224, 3, generator=gd, device=dev)
+    retrieved = torch.randn(4, 5, 768, generator=gd, device=dev)
+    labels = torch.tensor([0.0, 1.0, 0.0, 1.0], device=dev)
+    step_ms = cuda_ms(lambda: step(frames, retrieved, labels), reps=3, n=3)
+    prof = _profiled(lambda: step(frames, retrieved, labels), 3)
+    t, d = 197, 768  # a frame's forward: 12 blocks and the patch matmul
+    frame = 12 * (2 * t * (4 * d * d + 2 * d * 4 * d) + 4 * t * t * d) \
+        + 2 * 196 * 768 * d
+    flops = 3 * 32 * frame  # the backward: twice the forward
+    lim = bound(0, flops, "f32")
+    log(f"[5h] joint step B = 4 chunks x 8 frames: {step_ms:.2f} ms by CUDA "
+        f"events ({flops / step_ms / 1e9:.1f} TFLOP/s at ~{flops / 1e12:.2f}"
+        f" TFLOP); {bound_text(lim)}; under the profiler "
+        f"{prof['kernel_ms']:.2f} ms of kernels in {prof['wall_ms']:.2f} ms "
+        f"of wall, idle {100 * prof['idle']:.1f}%, {prof['launches']:.0f} "
+        f"launches | {smi}")
+    for key, ms in prof["top"]:
+        log(f"[5h]   {ms:8.3f} ms {key}")
+    log(f"[5h] joint part: {time.monotonic() - t_phase:.1f} s")
+    del mods, opt, step, frames
+    torch.cuda.empty_cache()
+    return dict(launches=by_path, trajectory_loss_rel_err=errs["loss"],
+                trajectory_param_err=errs["param"],
+                trajectory_off_share=errs["off_share"],
+                planted_zero_dq_loss_rel_err=planted["loss"],
+                planted_zero_dq_off_share=planted["off_share"],
+                step_ms=step_ms, step_idle=prof["idle"],
+                step_launches=prof["launches"], step_bound_ms=lim["bound_ms"])
+
+
+def phase_rag_vit_path(smi: str) -> dict:
+    """RAG-ViT at full width (ViT-B/16 @224 with 4 retrieval tokens from 8
+    retrieved rows: T = 197 + 4) on 8 frames, the card against the CPU
+    within EMBED_BOUND; B's launches (12, dh = 64)."""
+    from vit_research_tpu_torch.models import rag_vit
+
+    host = rag_vit.build_rag_vit(num_retrieval_tokens=4, seed=0).eval()
+    g = torch.Generator().manual_seed(13)
+    imgs = torch.randn(8, 224, 224, 3, generator=g)
+    retrieved = torch.nn.functional.normalize(
+        torch.randn(8, 8, 768, generator=g), dim=-1)
+    with torch.no_grad():
+        want = host(imgs, retrieved)
+        card = host.to("cuda")
+        pe.fused_patch_embed.launches = 0
+        attn.multi_head_attention.launches = 0
+        got = card(imgs.to("cuda"), retrieved.to("cuda"))
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        ms = cuda_ms(lambda: card(imgs.to("cuda"), retrieved.to("cuda")),
+                     reps=3, n=3)
+    err = max(float((got[k].cpu() - want[k]).abs().max()) for k in want)
+    log(f"[5h] RAG-ViT ViT-B/16 @224 + 4 retrieval tokens (T = 201), 8 "
+        f"frames, card vs CPU: max|err| {err:.3e} over the endpoints "
+        f"(bound {EMBED_BOUND:.0e}); launches {launches}; forward "
+        f"{ms:.2f} ms | {smi}")
+    if not (err <= EMBED_BOUND and launches == {"patch_embed": 0,
+                                                "attention": 12}):
+        raise AssertionError(f"RAG-ViT: {err}, {launches}")
+    del card, host
+    torch.cuda.empty_cache()
+    return dict(launches=launches, max_abs_err=err, forward_ms=ms)
+
+
 def phase_game_store(smi: str, n: int = 200_000, d: int = 768,
                      n_q: int = 256, k: int = 50) -> None:
     """A game's worth of frames as a seeded cosine collection, queried on
@@ -4063,6 +4794,7 @@ def main() -> int:
     pe_summary = phase_patch_embed(smi)
     attn_summary = phase_attention(smi)
     attn_stage1 = phase_attention_stage1(smi)
+    attn_widths = phase_attention_widths(smi)
     grads = phase_kernel_grads(smi)
     attn_rag = phase_attention_rag(smi)
     ln_summary = phase_ln_matmul(smi)
@@ -4075,6 +4807,10 @@ def main() -> int:
         stage1 = phase_stage1_path(smi, root)
         rag = phase_rag_path(smi, root, main_path)
         stage2 = phase_stage2_path(smi, root, main_path)
+        cached = phase_cached_path(smi, root)
+        temporal = phase_temporal_path(smi, root, main_path)
+    joint = phase_joint_path(smi)
+    rag_vit = phase_rag_vit_path(smi)
     phase_game_store(smi)
     # each main path's launches, counted from 0 just before it ran; a
     # kernel's "launches" is their sum
@@ -4084,7 +4820,9 @@ def main() -> int:
                "label": label_path["launches"],
                "fast": fast_path["launches"],
                "stage1": stage1["launches"], "rag": rag["launches"],
-               **stage2["launches_by_path"]}
+               **stage2["launches_by_path"], "cached": cached["launches"],
+               "temporal": temporal["launches"], "joint": joint["launches"],
+               "rag_vit": rag_vit["launches"]}
 
     def launches(kernel: str) -> dict:
         per = {path: counts[kernel] for path, counts in by_path.items()}
@@ -4119,7 +4857,13 @@ def main() -> int:
              smoke_t313=smoke_row,
              stage2_path={k: v for k, v in stage2.items()
                           if k not in ("launches_by_path",
-                                       "attention_dh96")}),
+                                       "attention_dh96")},
+             head_widths=attn_widths,
+             **{f"{name}_path": {k: v for k, v in part.items()
+                                 if k != "launches"}
+                for name, part in (("cached", cached),
+                                   ("temporal", temporal),
+                                   ("joint", joint), ("rag_vit", rag_vit))}),
         dict(name="ln_matmul", route="cuda",
              source="vit_research_tpu_torch/csrc/fused_ln.cu",
              replaces="vit_research_tpu/ops/fused_ln.py:62",

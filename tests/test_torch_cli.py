@@ -118,7 +118,11 @@ def test_port_imports_no_jax():
               "db.enrich", "db.builders", "cli.db_cmds", "models.ratt_v2",
               "retrieval.cache_io", "retrieval.cache_stage2",
               "train.train_stage2", "evaluate.clip_sequences",
-              "evaluate.live", "evaluate.smoke", "cli.eval_cmds"):
+              "evaluate.live", "evaluate.smoke", "cli.eval_cmds",
+              "retrieval.cache_bins", "train.train_chunk_cached",
+              "models.temporal_head", "train.train_temporal",
+              "train.train_step", "models.rag_vit", "models.reranker",
+              "data.pipeline", "db.writers"):
         assert f"vit_research_tpu_torch.{m}" in mods
     # chip_smoke.py is imported as a module: its top-level imports run.
     mods.append("chip_smoke")
@@ -196,8 +200,9 @@ def test_cli_build_frame_store_search_db_info(world, tmp_path):
                                  "device_quant=-  profile=torch|tiny|")
 
 
-def test_port_has_the_jax_verbs_but_train_cached():
-    """27 of the JAX package's 28 verbs; train-cached is not ported yet."""
+def test_port_has_every_jax_verb():
+    """The JAX package's 28 verbs, each with its flags (the port adds
+    ``--device``; ``serve --shard-device`` is the one flag it refuses)."""
     import argparse
 
     from vit_research_tpu.cli import (db_cmds, eval_cmds, ingest,
@@ -215,5 +220,17 @@ def test_port_has_the_jax_verbs_but_train_cached():
                 serve_cmds):
         mod.register(sub)
     port, jax_verbs = verbs(build_parser()), verbs(jax_parser)
-    assert len(jax_verbs) == 28 and len(port) == 27
-    assert jax_verbs - port == {"train-cached"} and port <= jax_verbs
+    assert len(jax_verbs) == 28 and len(port) == 28
+    assert port == jax_verbs
+
+    def flags(parser):
+        return {v: {s for a in sp._actions for s in a.option_strings}
+                for a in parser._actions
+                if isinstance(a, argparse._SubParsersAction)
+                for v, sp in a.choices.items()}
+
+    port_flags, jax_flags = flags(build_parser()), flags(jax_parser)
+    for verb in jax_verbs:
+        missing = jax_flags[verb] - port_flags[verb]
+        assert missing == ({"--shard-device"} if verb == "serve" else set()),\
+            (verb, missing)

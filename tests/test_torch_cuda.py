@@ -134,8 +134,10 @@ def test_attention_kernel_takes_a_transposed_view(cuda):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    q = torch.zeros(1, 2, 8, 128, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
+    # every width up to 192 is taken (dh = 128 natively since F4's
+    # repair, others zero-padded); a wider one is not
+    q = torch.zeros(1, 2, 8, 256, device=cuda)
+    with pytest.raises(ValueError, match="head_dim up to 192"):
         attn.multi_head_attention(q, q, q)
     q = torch.zeros(1, 2, 64, 8, device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="stride 1 on its last dim"):
@@ -907,3 +909,147 @@ def test_ratt_v2_and_live_scorer_on_card_match_cpu(cuda, tmp_path):
                                rtol=0, atol=1e-4)
     assert [c["chunk_start_idx"] for c in a["topk_chunks"]] == \
         [c["chunk_start_idx"] for c in b["topk_chunks"]]
+
+
+# ------------------------------------------------- head widths (F4)
+
+
+@pytest.mark.parametrize("dh", [48, 80, 100, 128, 150])
+@pytest.mark.parametrize("t", [9, 65, 197])
+@pytest.mark.parametrize("layout", ["contiguous", "projection_order"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_takes_every_width_to_192(cuda, dh, t, layout,
+                                                   dtype):
+    """dh = 128 natively, other widths zero-padded to the next compiled
+    one (counted in padded_launches), each against the plain version at
+    the true width's scale; the output holds dh columns."""
+    q, k, v = _attention_inputs(2, 4, t, dh, dtype, layout, cuda, t + dh)
+    bias = _key_bias(2, t, dh).to(cuda)
+    launches = attn.multi_head_attention.launches
+    padded = attn.multi_head_attention.padded_launches
+    got = attn.multi_head_attention(q, k, v, key_bias=bias)
+    assert attn.multi_head_attention.launches == launches + 1
+    assert attn.multi_head_attention.padded_launches == \
+        padded + int(dh not in attn.KERNEL_HEAD_DIMS)
+    assert got.shape == (2, 4, t, dh)
+    want = attn.attention_plain(q.float(), k.float(), v.float(),
+                                key_bias=bias)
+    atol = 1e-5 if dtype == torch.float32 else \
+        2 ** -8 * v.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+
+
+def test_attention_kernel_refuses_heads_wider_than_192(cuda):
+    q = torch.zeros(1, 2, 5, 256, device=cuda)
+    launches = attn.multi_head_attention.launches
+    with pytest.raises(ValueError, match="up to 192"):
+        attn.multi_head_attention(q, q, q)
+    assert attn.multi_head_attention.launches == launches
+
+
+@pytest.mark.parametrize("dim,heads", [(160, 2), (256, 2), (512, 2)])
+def test_encoder_block_at_other_head_widths_on_card(cuda, dim, heads):
+    """EncoderBlock at dh = 80 (padded), 128 (native) and 256 (the plain
+    route of models/vit.py::head_too_wide_for_kernel) on the card against
+    the CPU, in eval; B launches for the first two only."""
+    from vit_research_tpu_torch.models.vit import EncoderBlock
+
+    torch.manual_seed(0)
+    host = EncoderBlock(dim, heads, 2 * dim).eval()
+    card = EncoderBlock(dim, heads, 2 * dim).to(cuda).eval()
+    card.load_state_dict(host.state_dict())
+    x = torch.randn(3, 197, dim)
+    launches = attn.multi_head_attention.launches
+    with torch.no_grad():
+        got = card(x.to(cuda))[0].cpu()
+        want = host(x)[0]
+    assert attn.multi_head_attention.launches == \
+        launches + int(dim // heads <= 192)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# ------------------------------------------ temporal head, joint step
+
+
+def test_temporal_head_on_card_is_f32_under_a_tf32_default(cuda):
+    """The TemporalHead forward and 20 training epochs on the card against
+    the CPU with cuDNN's global TF32 flag on: the head's own scope keeps
+    the convolutions in f32 (TF32 would miss these bounds by ~1e-3). The
+    losses within 1e-5 relative, the trained weights within lr an epoch
+    (Adam turns the rounding noise of a near-zero gradient into a step of
+    up to lr: 10% of conv_0's weights end 1e-6 to 1.3e-5 apart, which
+    moves the probabilities by ~4e-4), and the card's probabilities of the
+    card-trained weights within 1e-5 of the CPU's for the same weights."""
+    from vit_research_tpu_torch.models import convert
+    from vit_research_tpu_torch.models.temporal_head import TemporalHead
+    from vit_research_tpu_torch.train.train_temporal import (
+        predict_probs, train_temporal_head)
+
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((400, 768)).astype(np.float32)
+    labels = rng.integers(-1, 3, size=400)
+    head = TemporalHead(768, generator=torch.Generator().manual_seed(0))
+    init = convert.temporal_head_to_params(head.state_dict())
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card, card_losses = train_temporal_head(emb, labels, epochs=20,
+                                                init_params=init,
+                                                device="cuda")
+        assert torch.backends.cudnn.allow_tf32  # restored
+        got = predict_probs(card, emb)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    host, host_losses = train_temporal_head(emb, labels, epochs=20,
+                                            init_params=init, device="cpu")
+    np.testing.assert_allclose(card_losses, host_losses, rtol=1e-5, atol=0)
+    for (name, a), b in zip(card.state_dict().items(),
+                            host.state_dict().values()):
+        assert (a.cpu() - b).abs().max() <= 1e-5 * 20, name
+    same = TemporalHead(768)
+    same.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    np.testing.assert_allclose(got, predict_probs(same, emb), rtol=0,
+                               atol=1e-5)
+
+
+def test_joint_train_step_on_card_matches_cpu(cuda):
+    """Two joint steps (ViT + ProjectionHead + RAGHead) on the card against
+    the CPU from one set of weights: B runs forward and backward through
+    its Function in the ViT blocks (dh = 16 here) and RAGHead's."""
+    from vit_research_tpu_torch.models.heads import ProjectionHead, RAGHead
+    from vit_research_tpu_torch.models.vit import VisionTransformer
+    from vit_research_tpu_torch.train.optim import Optimizer
+    from vit_research_tpu_torch.train.train_step import \
+        make_joint_train_step
+    from vit_research_tpu_torch.utils.configs import HeadConfig
+
+    g = torch.Generator().manual_seed(0)
+    cfg = ViTConfig(image_size=(32, 32), patch_size=8, hidden_size=64,
+                    num_layers=2, num_heads=4, mlp_dim=128)
+    hcfg = HeadConfig(embed_dim=64, num_layers=1, num_heads=2, mlp_dim=32,
+                      num_queries=2)
+    mods = {}
+    for dev in ("cpu", "cuda"):
+        gen = torch.Generator().manual_seed(1)
+        ms = (VisionTransformer(cfg, generator=gen),
+              ProjectionHead(64, hidden_dim=64, proj_dim=64, generator=gen),
+              RAGHead(hcfg, generator=gen))
+        mods[dev] = [m.to(dev) for m in ms]
+    frames = torch.randn(2, 2, 32, 32, 3, generator=g)
+    retrieved = torch.randn(2, 3, 64, generator=g)
+    labels = torch.tensor([0.0, 1.0])
+    losses = {}
+    for dev, ms in mods.items():
+        opt = Optimizer([p for m in ms for p in m.parameters()], lr=1e-3,
+                        eps=1e-8)
+        step = make_joint_train_step(*ms, opt)
+        before = attn.multi_head_attention.launches
+        losses[dev] = [float(step(frames.to(dev), retrieved.to(dev),
+                                  labels.to(dev))) for _ in range(2)]
+        launched = attn.multi_head_attention.launches - before
+        assert launched == (2 * (2 + 1) if dev == "cuda" else 0)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    for a, b in zip(mods["cuda"], mods["cpu"]):
+        for (name, p), q in zip(a.state_dict().items(),
+                                b.state_dict().values()):
+            assert (p.cpu() - q).abs().max() <= 2e-3, name

@@ -275,3 +275,92 @@ def test_attention_rejects_mismatched_shapes():
         attn.multi_head_attention(q, torch.zeros(1, 2, 6, 16), q)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         attn.multi_head_attention(q.double(), q.double(), q.double())
+
+
+# ------------------------------------------- attention head widths (F4)
+
+
+def test_kernel_head_dim_takes_every_width_up_to_192():
+    """A compiled width runs as it is, any other width up to 192 at the
+    next compiled one (zero-padded), and a wider head is not taken."""
+    assert attn.KERNEL_HEAD_DIMS == (16, 32, 64, 96, 128, 192)
+    for d in range(1, 257):
+        w = attn.kernel_head_dim(d)
+        if d > 192:
+            assert w is None, d
+            continue
+        assert w in attn.KERNEL_HEAD_DIMS and w >= d, d
+        assert all(c < d for c in attn.KERNEL_HEAD_DIMS if c < w), d
+    assert [attn.kernel_head_dim(d) for d in (48, 80, 128, 150)] == \
+        [64, 96, 128, 192]
+
+
+@pytest.mark.parametrize("dh", [8, 48, 80, 100, 150])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_padded_attention_equals_the_unpadded_one(dh, with_bias):
+    """The computation _launch makes for a width between two compiled
+    ones, run on the plain version: q, k, v zero-padded to the next
+    width, the true width's scale, the first dh columns. Equal to the
+    unpadded attention within 1e-6 (zero columns add exact zeros to
+    q k^T; only the einsums' blocking may differ)."""
+    rng = np.random.default_rng(dh)
+    b, t, h = 2, 21, 3
+    q, k, v = (torch.from_numpy(
+        rng.standard_normal((b, t, h, dh)).astype(np.float32))
+        .transpose(1, 2) for _ in range(3))
+    bias = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32)) \
+        if with_bias else None
+    width = attn.kernel_head_dim(dh)
+    padded = [attn.pad_head_dim(x, width) for x in (q, k, v)]
+    for x, p in zip((q, k, v), padded):
+        assert p.shape == (b, h, t, width)
+        assert torch.equal(p[..., :dh], x) and not p[..., dh:].any()
+        attn._kernel_strides(p)  # a layout the kernel takes
+    got = attn.attention_plain(*padded, scale=dh ** -0.5,
+                               key_bias=bias)[..., :dh]
+    want = attn.attention_plain(q, k, v, key_bias=bias)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_launch_refuses_heads_wider_than_192():
+    """The kernel's own contract: a width it does not take raises before
+    anything launches (the wrapper never hands it to the plain version)."""
+    q = torch.zeros(1, 2, 5, 256)
+    with pytest.raises(ValueError, match="up to 192, got 256"):
+        attn._launch(q, q, q, 256 ** -0.5, None)
+
+
+@pytest.mark.parametrize("dim,heads,kernel", [
+    (160, 2, True),    # dh = 80: padded to 96
+    (256, 2, True),    # dh = 128
+    (384, 2, True),    # dh = 192
+    (512, 2, False),   # dh = 256: the plain route
+    (780, 3, False),   # dh = 260
+])
+def test_attention_routing_by_head_width(dim, heads, kernel, monkeypatch):
+    """MultiHeadSelfAttention (eval, dropout 0, no scores) hands every
+    head width up to 192 to ops/attention.py and a wider one to the plain
+    path by its named rule (models/vit.py::head_too_wide_for_kernel); the
+    two routes compute one function."""
+    from vit_research_tpu_torch.models import vit
+
+    calls = []
+    real = attn.multi_head_attention
+
+    def spy(*a, **kw):
+        calls.append(a[0].shape[-1])
+        return real(*a, **kw)
+
+    torch.manual_seed(0)
+    mhsa = vit.MultiHeadSelfAttention(dim, heads).eval()
+    x = torch.randn(2, 7, dim)
+    monkeypatch.setattr(attn, "multi_head_attention", spy)
+    with torch.no_grad():
+        out, _ = mhsa(x)
+        ref, scores = mhsa(x, output_scores=True)  # always the plain path
+    assert vit.head_too_wide_for_kernel(dim // heads) is not kernel
+    assert calls == ([dim // heads] if kernel else [])
+    assert scores.shape == (2, heads, 7, 7)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-6)

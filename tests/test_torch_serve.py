@@ -830,15 +830,15 @@ def test_segment_flags_validated_before_the_engine(tiny_world, capsys):
           "corpus", "--score-events", "--stage1-run-id", "r", "--device",
           "cpu"],
          "--score-events needs"),
+        # the default method, temporal, is ported: it needs the manual
+        # intervals it trains on
+        ([], "--method temporal needs --manual-csv"),
+        (["--method", "temporal", "--follow"], "--method knn-hmm only"),
     ]
     for extra, msg in cases:
         with pytest.raises(SystemExit, match=msg):
             cli.main(base + extra)
     assert not os.path.exists("o")  # nothing ran
-    for unported in (["--method", "temporal"],):
-        with pytest.raises(SystemExit) as e:  # argparse refuses them
-            cli.main(base + unported)
-        assert e.value.code == 2
     capsys.readouterr()
     with pytest.raises(SystemExit) as e:
         cli.main(["serve", "--socket", "s", "--shard-device"])

@@ -10,9 +10,10 @@ arguments plus ``--device``, the fast profile's strided embedding
 ``--score-*``, ``--stage*-run-id``, ``--chunk-*``, ``--k-*`` and
 ``--future-step`` flags: offline from the written clip dirs, in-process
 with ``--follow``, and through the daemon's session with ``--follow
---socket``) included. Not ported yet, and so not a choice of this parser
-(argparse refuses it): ``--method temporal``, which needs the temporal
-head.
+--socket``) included. ``--method temporal``, the reference's default,
+trains the TemporalHead on the game's manual intervals (``--manual-csv``,
+``--epochs``) on ``--device`` and caches it as ``temporal_head.npz`` in
+``--out``.
 """
 
 from __future__ import annotations
@@ -45,8 +46,11 @@ def _load_transitions(path):
 
 
 def cmd_segment(args):
-    """Frames -> possession clips against a labelled frame collection
-    (--db/--corpus-collection, built by write-frame-db). ``--method
+    """Frames -> possession clips. ``--method temporal`` (the default) is
+    the reference's modern path: a TemporalHead CNN trained on the game's
+    manual intervals, then the HMM (nba_proj/smarter_generate_clips.py:
+    349-423). The other two rank against a labelled frame collection
+    (--db/--corpus-collection, built by write-frame-db): ``--method
     knn-hmm`` is the kNN-vote + Viterbi path
     (nba_proj/generate_clips_hmm.py:367-490), offline or live
     (``--follow``, in this process or through a serve daemon with
@@ -56,7 +60,8 @@ def cmd_segment(args):
     ``--score-events``: a make/miss eval row for every clip."""
     from vit_research_tpu_torch.data import naming
     from vit_research_tpu_torch.segment.pipeline import (
-        segment_with_knn_hmm, segment_with_knn_streaks)
+        segment_with_knn_hmm, segment_with_knn_streaks,
+        segment_with_temporal_head)
 
     # Validate method arguments BEFORE the engine spins up: embedding a
     # whole frames dir only to fail on a missing flag is hostile.
@@ -79,9 +84,12 @@ def cmd_segment(args):
         raise SystemExit("--follow supports --method knn-hmm only")
     if args.transitions and args.method != "knn-hmm":
         raise SystemExit("--transitions applies to --method knn-hmm only "
-                         "(the streaks path doesn't take an HMM "
+                         "(the temporal/streaks paths don't take an HMM "
                          "transition override)")
-    if not args.socket:
+    knn = args.method in ("knn-hmm", "streaks")
+    if args.method == "temporal" and not args.manual_csv:
+        raise SystemExit("--method temporal needs --manual-csv")
+    if knn and not args.socket:
         if not (args.db and args.corpus_collection):
             raise SystemExit(f"--method {args.method} needs --db and "
                              "--corpus-collection (see write-frame-db)")
@@ -135,11 +143,20 @@ def cmd_segment(args):
         # the clip dirs hold copies of these frames under the same names:
         # scoring reuses the embeddings instead of embedding them again
         scorer.remember(frame_paths, embs)
-    if args.write_back:
+    if knn and args.write_back:
         # write-back upserts this engine's embeddings into the corpus: a
         # cross-profile write permanently mixes embedding spaces
         common._stamp_profile(col)
-    if args.method == "streaks":
+    if args.method == "temporal":
+        from vit_research_tpu_torch.data.labels import ManualIntervals
+
+        decoded, clip_dirs, _ = segment_with_temporal_head(
+            frames, embs, ManualIntervals.from_csv(args.manual_csv),
+            device=eng.device, out_root=args.out, src_dir=args.frames,
+            vid=args.vid, epochs=args.epochs, min_len=args.min_len,
+            pad=args.pad,
+            params_path=os.path.join(args.out, "temporal_head.npz"))
+    elif args.method == "streaks":
         decoded, clip_dirs, _ = segment_with_knn_streaks(
             frames, embs, corpus, device=eng.device, out_root=args.out,
             src_dir=args.frames, vid=args.vid, k=args.k,
@@ -155,7 +172,7 @@ def cmd_segment(args):
             min_len=args.min_len, pad=args.pad, metric=space,
             collection=col if args.write_back else None,
             transition_matrix=transitions)
-    if args.write_back:
+    if knn and args.write_back:
         client.flush()
     print(f"decoded {len(decoded)} frames -> {len(clip_dirs)} clips")
 
@@ -1034,10 +1051,12 @@ def cmd_fresh_test(args):
 def register(sub):
     sg = sub.add_parser("segment", help="frames -> possession clips")
     sg.add_argument("frames")
-    sg.add_argument("--method", choices=["knn-hmm", "streaks"],
-                    required=True)
+    sg.add_argument("--method", choices=["temporal", "knn-hmm", "streaks"],
+                    default="temporal")
     sg.add_argument("--window", type=int, default=50,
                     help="sliding window (streaks method)")
+    sg.add_argument("--manual-csv", default=None,
+                    help="manual intervals (temporal method)")
     sg.add_argument("--db", default=None, help="vector-store root")
     sg.add_argument("--corpus-collection", default=None,
                     help="labeled frame collection (write-frame-db)")
@@ -1062,6 +1081,8 @@ def register(sub):
                     help="--follow: fixed-lag Viterbi window")
     sg.add_argument("--out", required=True)
     sg.add_argument("--vid", type=int, required=True)
+    sg.add_argument("--epochs", type=int, default=3000,
+                    help="TemporalHead training epochs (temporal method)")
     sg.add_argument("--batch-size", type=int, default=256)
     sg.add_argument("--min-len", type=int, default=100)
     sg.add_argument("--pad", type=int, default=100)

@@ -3,7 +3,7 @@ client (serve, serve-ctl).
 
 Port of vit_research_tpu/cli/serve_cmds.py with the reference's flags
 plus ``--device``. ``serve --shard-device`` (a collection sharded over
-several cards) waits for the port of the mesh (ROADMAP item 5) and is
+several cards) waits for the port of the mesh (ROADMAP §1, multi-GPU) and is
 not a flag of this parser.
 """
 

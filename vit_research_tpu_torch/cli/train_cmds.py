@@ -1,16 +1,18 @@
 """Training commands: train-stage1 (the ChunkEncoder), train-rag
 (ProjectionHead + RAGHead), train-ratt (chunk-statistic projection +
-RATTHead) and train-stage2 (RATTHeadV2 over the stage-2 cache).
+RATTHead), train-cached (RATTHead over the label-conditioned bin cache)
+and train-stage2 (RATTHeadV2 over the stage-2 cache).
 
-Port of those verbs of vit_research_tpu/cli/train_cmds.py, with the
-reference's arguments and output lines plus ``--device``. train-cached
-is not ported yet.
+Port of vit_research_tpu/cli/train_cmds.py, with the reference's
+arguments and output lines plus ``--device``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+
+import numpy as np
 
 from vit_research_tpu_torch.cli import common
 
@@ -224,6 +226,68 @@ def cmd_train_ratt(args):
     _finish(run_id, mngr, history)
 
 
+def cmd_train_cached(args):
+    """RATTHead over the label-conditioned bin cache (built from the
+    frozen stage-1 run ``--stage1-run-id`` against ``--collection`` and
+    saved to ``--cache`` when that file is missing; the reference's
+    nba_proj/train/training_chunk_cached.py:815-1636)."""
+    from dataclasses import replace
+
+    from vit_research_tpu_torch.device import resolve_device
+    from vit_research_tpu_torch.retrieval import cache_bins as CB
+    from vit_research_tpu_torch.store.vector_store import PersistentClient
+    from vit_research_tpu_torch.train.train_chunk_cached import \
+        train_chunk_cached
+    from vit_research_tpu_torch.utils.configs import preset
+
+    resolve_device(args.device)  # before the run directory exists
+    store, idx, chunks, train, val = _open_store(args)
+    encode_batch, encode_chunk = common._stage1_encode(
+        store, idx, args.ckpt, args.stage1_run_id, args.device)
+    cfg = preset("chunks_cached")
+    cfg = replace(
+        cfg,
+        head=replace(cfg.head, embed_dim=store.dim),
+        retrieval=replace(cfg.retrieval, top_k=args.top_k,
+                          collection=args.collection),
+        train=replace(cfg.train, num_epochs=args.epochs,
+                      batch_size=args.batch_size),
+        train_vids=tuple(args.train_vids), test_vids=tuple(args.val_vids))
+    r = cfg.retrieval
+
+    col = PersistentClient(args.db, autoflush=False, device=args.device) \
+        .get_or_create_collection(args.collection)
+    common._fence_store_collection(col, store, writes=False)
+    if os.path.exists(args.cache):
+        cache = CB.load_cache(args.cache)
+        print(f"loaded bin cache ({len(cache)} bins) from {args.cache}")
+    else:
+        cache = CB.build_bin_cache(
+            chunks, encode_chunk, col, train_vids=args.train_vids,
+            candidates_per_bin=r.candidates_per_bin,
+            query_mult=r.query_mult, max_per_video=r.per_video_cap,
+            max_global_appearances=r.global_cap,
+            min_time_gap=r.min_time_gap,
+            hard_negative_ratio=r.hard_negative_ratio,
+            lambda_global=r.lambda_global, delta_t=args.delta_t,
+            seed=cfg.train.seed, verbose=True)
+        CB.save_cache(cache, args.cache)
+        print(f"built bin cache ({len(cache)} bins) -> {args.cache}")
+
+    def chunk_embed(batch):
+        emb, _ = encode_batch(
+            store.gather_paths([ch["frames"] for ch in batch]))
+        emb = np.asarray(emb)
+        return emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-8)
+
+    run_id, mngr = _run_manager(args, cfg)
+    _, history = train_chunk_cached(
+        train, val, chunk_embed, cache, cfg=cfg, delta_t=args.delta_t,
+        ckpt_manager=mngr, resume=args.resume, verbose=True,
+        device=args.device)
+    _finish(run_id, mngr, history)
+
+
 def cmd_train_stage2(args):
     """Stage 2: RATTHeadV2 trained on the stage-2 cache (built from the
     frozen stage-1 run ``--stage1-run-id`` against ``--collection`` and
@@ -371,6 +435,28 @@ def register(sub):
     tt.add_argument("--resume", action="store_true")
     common.device_arg(tt)
     tt.set_defaults(fn=cmd_train_ratt)
+
+    tc = sub.add_parser("train-cached",
+                        help="train RATTHead over the label-conditioned "
+                             "bin cache")
+    common.split_args(tc)
+    tc.add_argument("--store", required=True)
+    tc.add_argument("--db", required=True)
+    tc.add_argument("--ckpt", required=True)
+    tc.add_argument("--collection", default="ratt_db_chunks")
+    tc.add_argument("--cache", required=True,
+                    help="bin-cache pickle; built (and saved) if missing")
+    tc.add_argument("--stage1-run-id", default=None)
+    tc.add_argument("--epochs", type=int, default=24)
+    tc.add_argument("--batch-size", type=int, default=8)
+    tc.add_argument("--top-k", type=int, default=8)
+    tc.add_argument("--delta-t", type=float, default=0.1)
+    tc.add_argument("--run-id", default=None,
+                    help="name the run dir (required to --resume it later)")
+    tc.add_argument("--resume", action="store_true",
+                    help="continue --run-id's latest checkpoint")
+    common.device_arg(tc)
+    tc.set_defaults(fn=cmd_train_cached)
 
     t2 = sub.add_parser("train-stage2",
                         help="train RATTHeadV2 over the stage-2 "

@@ -9,9 +9,11 @@
 // strides (the last dim has stride 1), so the backbone passes the q/k/v
 // projections in their (B, T, H, dh) order without a copy; o is written
 // through its own strides (the wrapper allocates it (B, T, H, dh)). Any T;
-// dh in {16, 32, 64, 96, 192} (96: the stage-1 chunk encoder, 768 wide
-// with 8 heads, at T = 9 to 25; 192: the RAG/RATT heads, 768 wide with 4
-// heads, at T = 5; a 64-row query tile is then mostly idle).
+// dh in {16, 32, 64, 96, 128, 192} (96: the stage-1 chunk encoder, 768
+// wide with 8 heads, at T = 9 to 25; 128: 768 wide with 6 heads or 1,024
+// with 8; 192: the RAG/RATT heads, 768 wide with 4 heads, at T = 5; a
+// 64-row query tile is then mostly idle). The wrapper runs a width
+// between two of these zero-padded to the next (ops/attention.py).
 //
 // Optional key bias (ToMe's proportional attention, models/vit.py's
 // ToMeEncoderBlock): a (B, T) f32 row per batch element, with its batch
@@ -419,16 +421,19 @@ attn_bf16(const Params<__nv_bfloat16> p) {
 
 // ----------------------------------------------------------------- f32
 
-// dh <= 96: 64 query rows, K/V double-buffered. dh = 96: (64*100 +
+// dh <= 128: 64 query rows, K/V double-buffered. dh = 96: (64*100 +
 // 2*64*100 + 2*64*96 + 64*72) * 4 = 144,384 bytes (plus 512 with the
-// bias), one block an SM. dh = 192: 32 query rows, one K/V buffer:
+// bias), one block an SM. dh = 128: (64*132 + 2*64*132 + 2*64*128 +
+// 64*72) * 4 = 185,344 bytes (plus 512), one block an SM; O is 4 x 16
+// registers a thread. dh = 192: 32 query rows, one K/V buffer:
 // (32*196 + 64*196 + 64*192 + 32*72) * 4 = 133,632 bytes (plus 256 with
 // the bias), one block an SM. Both under the 232,448 a block may opt into.
 template <int DH>
 struct F32Layout {
-  static constexpr int ROWS = DH > 96 ? 32 : 64;  // query rows a block
+  // the 64-row, double-buffered layout while it fits in 232,448 bytes
+  static constexpr int ROWS = DH > 128 ? 32 : 64;  // query rows a block
   static constexpr int RI = ROWS / 16;  // query rows a thread, 16 apart
-  static constexpr int STAGES = DH > 96 ? 1 : 2;  // K/V buffers
+  static constexpr int STAGES = DH > 128 ? 1 : 2;  // K/V buffers
   static constexpr int LDQ = DH + 4, LDK = DH + 4, LDV = DH, LDP = BK + 8;
   static constexpr int Q = 0;
   static constexpr int K = Q + ROWS * LDQ;
@@ -440,7 +445,9 @@ struct F32Layout {
   static constexpr int BIAS_BYTES = BYTES + STAGES * BK * 4;
 };
 static_assert(F32Layout<96>::BYTES == 144384, "dh = 96 layout");
+static_assert(F32Layout<128>::BYTES == 185344, "dh = 128 layout");
 static_assert(F32Layout<192>::BYTES == 133632, "dh = 192 layout");
+static_assert(Bf16Layout<128>::BYTES == 87040, "bf16 dh = 128 layout");
 static_assert(Bf16Layout<192>::BYTES == 128000, "bf16 dh = 192 layout");
 
 // O columns of thread tx: dh/8 of them, as float4 groups 32 apart (dh >=
@@ -731,7 +738,7 @@ int launch_bf16(const Params<__nv_bfloat16>& p, int batch, cudaStream_t s) {
 // element strides strides[0..2] (q), [3..5] (k), [6..8] (v) for batch,
 // head and token; o is written through strides[9..11]. The last dim has
 // stride 1; base pointers and strides are multiples of 16 bytes. dh in
-// {16, 32, 64, 96, 192}. bias: null, or a (batch, seq) f32 key bias whose
+// {16, 32, 64, 96, 128, 192}. bias: null, or a (batch, seq) f32 key bias whose
 // rows are bias_stride elements apart (stride 1 along seq). Returns
 // cudaGetLastError() after the launch.
 extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
@@ -750,6 +757,7 @@ extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
       case 32: return launch_bf16<32>(p, batch, s);
       case 64: return launch_bf16<64>(p, batch, s);
       case 96: return launch_bf16<96>(p, batch, s);
+      case 128: return launch_bf16<128>(p, batch, s);
       case 192: return launch_bf16<192>(p, batch, s);
     }
   } else {
@@ -760,6 +768,7 @@ extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
       case 32: return launch_f32<32>(p, batch, s);
       case 64: return launch_f32<64>(p, batch, s);
       case 96: return launch_f32<96>(p, batch, s);
+      case 128: return launch_f32<128>(p, batch, s);
       case 192: return launch_f32<192>(p, batch, s);
     }
   }

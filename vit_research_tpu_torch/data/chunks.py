@@ -1,13 +1,16 @@
-"""Sliding-window chunking of clips.
+"""Sliding-window chunking of clips, and class oversampling.
 
 Port of ``build_chunks`` / ``chunk_event_label`` from
 vit_research_tpu/data/chunks.py (reference: nba_proj/dataset.py:166-260)
 with identical windowing arithmetic (size/stride, ``t_center``,
 ``t_width``, ``start_idx``/``end_idx``) so chunk boundaries match
-frame-for-frame.
+frame-for-frame, and of ``oversample_chunk_samples``
+(nba_proj/dataset.py:26-73) with the JAX package's seeded numpy draws.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 # The reference's status strings are INCONSISTENT between levels:
 # per-frame samples say 'event-made' (nba_proj/dataset.py:130) but
@@ -70,3 +73,34 @@ def build_chunks(frame_samples, chunk_size: int = 12, chunk_stride: int = 4,
                 "end_idx": end - 1,
             })
     return chunk_samples
+
+
+def oversample_chunk_samples(chunk_samples, target="max", seed: int = 1234):
+    """Oversample by status_id to balance the event classes
+    (nba_proj/dataset.py:26-73). ``target='max'`` lifts every class to the
+    largest class's count; a number lifts to target * count(class 0).
+    The draws are ``np.random.default_rng(seed)``'s, in the JAX package's
+    order, so the list equals its list for list."""
+    rng = np.random.default_rng(seed)
+    by_class: dict = {0: [], 1: [], 2: []}
+    for c in chunk_samples:
+        by_class[int(c["status_id"])].append(c)
+    counts = {k: len(v) for k, v in by_class.items()}
+
+    if target == "max":
+        target_count = max(counts.values()) if counts else 0
+    else:
+        target_count = int(float(target) * counts[0])
+
+    out = []
+    for items in by_class.values():
+        if not items:
+            continue
+        if len(items) >= target_count:
+            out.extend(items)
+        else:
+            extra = rng.choice(len(items), size=target_count - len(items),
+                               replace=True)
+            out.extend(items + [items[i] for i in extra])
+    rng.shuffle(out)
+    return out

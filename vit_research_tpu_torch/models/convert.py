@@ -22,7 +22,12 @@ for ``ProjectionHead`` (768 -> 768 and 2304 -> 768), and
 ``rag_head_to_state_dict`` / ``rag_head_to_params`` and
 ``ratt_head_to_state_dict`` / ``ratt_head_to_params`` for ``RAGHead`` and
 ``RATTHead``, and ``ratt_v2_to_state_dict`` for stage 2's ``RATTHeadV2``
-(models/ratt_v2.py).
+(models/ratt_v2.py); ``temporal_head_to_state_dict`` /
+``temporal_head_to_params`` for the segmentation ``TemporalHead``
+(models/temporal_head.py: flax Conv kernels (k, in, out) -> Conv1d
+weights (out, in, k)), whose flax tree is the format of its
+``temporal_head.npz``; and ``rag_vit_to_state_dict`` /
+``rag_vit_to_params`` for ``RAGVisionTransformer`` (models/rag_vit.py).
 """
 
 from __future__ import annotations
@@ -333,3 +338,54 @@ def ratt_v2_to_state_dict(params) -> dict:
         flat.update(_block_to_flat(p[f"transformer_block_{i}"],
                                    f"blocks.{i}.", d))
     return _tensors(flat)
+
+
+_TEMPORAL_LAYERS = ("conv_0", "conv_1", "conv_2", "conv_3", "conv_out")
+
+
+def temporal_head_to_state_dict(params) -> dict:
+    """The JAX package's flax ``TemporalHead`` params (numpy, with or
+    without the outer ``{"params": ...}``) -> ``state_dict`` of
+    models/temporal_head.py::TemporalHead: each Conv kernel (k, in, out)
+    -> a Conv1d weight (out, in, k)."""
+    p = params.get("params", params)
+    return _tensors({f"{name}.{k}": v for name in _TEMPORAL_LAYERS
+                     for k, v in (
+                         ("weight", _np(p[name]["kernel"]).transpose(2, 1, 0)),
+                         ("bias", _np(p[name]["bias"])))})
+
+
+def temporal_head_to_params(state_dict) -> dict:
+    """``TemporalHead`` ``state_dict`` -> the flax tree ``{"params":
+    {"conv_0": {"kernel", "bias"}, ...}}`` of float32 numpy arrays (the
+    inverse of :func:`temporal_head_to_state_dict`)."""
+    t = _getter(state_dict)
+    return {"params": {
+        name: {"kernel": t(f"{name}.weight").transpose(2, 1, 0).copy(),
+               "bias": t(f"{name}.bias")}
+        for name in _TEMPORAL_LAYERS}}
+
+
+def rag_vit_to_state_dict(params, config: ViTConfig) -> dict:
+    """The JAX package's flax ``RAGVisionTransformer`` params (numpy, with
+    or without the outer ``{"params": ...}``) -> ``state_dict`` of
+    models/rag_vit.py::RAGVisionTransformer: the ViT's mapping (the
+    ``patch_embed`` Conv's HWIO kernel -> ``PatchEmbed.weight``) plus the
+    retrieval pooler's queries and ``ret_type``."""
+    p = params.get("params", params)
+    sd = params_to_state_dict(p, config)
+    sd["retrieval_pooler.retrieval_queries"] = torch.from_numpy(_np(
+        p["retrieval_pooler"]["retrieval_queries"]).copy())
+    sd["ret_type"] = torch.from_numpy(_np(p["ret_type"]).copy())
+    return sd
+
+
+def rag_vit_to_params(state_dict, config: ViTConfig) -> dict:
+    """``RAGVisionTransformer`` ``state_dict`` -> the flax tree
+    ``{"params": {...}}`` (the inverse of :func:`rag_vit_to_state_dict`)."""
+    t = _getter(state_dict)
+    p = state_dict_to_params(state_dict, config)["params"]
+    p["retrieval_pooler"] = {
+        "retrieval_queries": t("retrieval_pooler.retrieval_queries")}
+    p["ret_type"] = t("ret_type")
+    return {"params": p}

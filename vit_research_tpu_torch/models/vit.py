@@ -16,8 +16,9 @@ between them), so imported or converted weights give the same function:
 Attention runs through ops/attention.py (the hand-written CUDA kernel on
 a CUDA device) by default; the plain path serves attention-score outputs,
 attention dropout in training and a non-f32 softmax, the same split as
-the reference (vit.py:146-149). The reference's ``use_flash_attention``
-flag is therefore not read.
+the reference (vit.py:146-149), and heads wider than the kernel's widest
+compiled width (dh > 192, :func:`head_too_wide_for_kernel`). The
+reference's ``use_flash_attention`` flag is therefore not read.
 
 The fast profile's two backbone options, off the parity path:
 
@@ -160,6 +161,16 @@ class MlpBlock(nn.Module):
         return self.dropout(_dense(self.fc2, x, self.dot_general))
 
 
+def head_too_wide_for_kernel(dh: int) -> bool:
+    """The one width rule of the attention routing: kernel B takes head
+    widths up to its widest compiled one (192; a width between two
+    compiled ones runs zero-padded, ops/attention.py), so a wider head
+    (dh > 192, e.g. 768 wide with 2 heads) takes the plain path. The
+    reference's Pallas kernel takes any width (its block holds the full
+    dh); B at dh > 192 is a width the kernel still has to take."""
+    return attn_ops.kernel_head_dim(dh) is None
+
+
 class MultiHeadSelfAttention(nn.Module):
     """MHA with separate q/k/v projections. ``query``/``key``/``value`` are
     (H*dh, D) ``nn.Linear``s, ``out`` maps H*dh back to D."""
@@ -201,7 +212,8 @@ class MultiHeadSelfAttention(nn.Module):
         scores = None
         needs_plain = (output_scores
                        or self.softmax_dtype != torch.float32
-                       or (self.training and self.dropout.p > 0.0))
+                       or (self.training and self.dropout.p > 0.0)
+                       or head_too_wide_for_kernel(dh))
         if needs_plain:
             s = torch.einsum("bhqd,bhkd->bhqk", q, k) * (dh ** -0.5)
             if log_size is not None:

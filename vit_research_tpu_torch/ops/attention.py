@@ -31,9 +31,11 @@ import ctypes
 import torch
 
 #: head widths the kernel is compiled for (ViT-B: 64; the stage-1 chunk
-#: encoder, 768 wide with 8 heads: 96; the RAG/RATT heads, 768 wide with 4
-#: heads: 192; tiny test configs)
-KERNEL_HEAD_DIMS = (16, 32, 64, 96, 192)
+#: encoder, 768 wide with 8 heads: 96; 768 wide with 6 heads, or 1,024
+#: with 8: 128; the RAG/RATT heads, 768 wide with 4 heads: 192; tiny test
+#: configs). A width between two of them runs zero-padded to the next
+#: (:func:`kernel_head_dim`); a width above the last is not taken.
+KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128, 192)
 _DTYPES = (torch.float32, torch.bfloat16)
 _ALIGN = 16  # bytes: the kernel moves q, k, v and o in 16-byte copies
 
@@ -51,6 +53,25 @@ def attention_plain(q, k, v, *, scale=None, key_bias=None) -> torch.Tensor:
         scores = scores + key_bias[:, None, None, :].to(scores.dtype)
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def kernel_head_dim(d: int) -> int | None:
+    """The compiled width the kernel runs head width ``d`` at: ``d``
+    itself, or the next wider one, with q, k and v zero-padded to it;
+    None above the widest (192)."""
+    return next((w for w in KERNEL_HEAD_DIMS if w >= d), None)
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """(B, H, T, d) -> (B, H, T, width) with zeros in columns d..width-1,
+    as the ``transpose(1, 2)`` view of a contiguous (B, T, H, width)
+    tensor (the projections' order). Zero columns add nothing to q k^T,
+    and the output's first d columns are those of the unpadded inputs,
+    so attention at the true scale ``d ** -0.5`` is unchanged."""
+    b, h, t, d = x.shape
+    out = x.new_zeros(b, t, h, width).transpose(1, 2)
+    out[..., :d] = x
+    return out
 
 
 def _kernel_strides(x: torch.Tensor, name: str = "x") -> tuple:
@@ -100,17 +121,21 @@ def _launch(q, k, v, scale, key_bias):
     from vit_research_tpu_torch.ops import _build
 
     b, h, t, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attention kernel supports head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    width = kernel_head_dim(d)
+    if width is None:
+        raise ValueError(f"attention kernel supports head_dim up to "
+                         f"{KERNEL_HEAD_DIMS[-1]}, got {d}")
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device or x.dtype != q.dtype:
             raise ValueError(f"{name} is {x.dtype} on {x.device}, q is "
                              f"{q.dtype} on {q.device}")
+    if width != d:
+        # the scale stays the caller's (d ** -0.5 by default)
+        q, k, v = (pad_head_dim(x, width) for x in (q, k, v))
     strides = [s for name, x in (("q", q), ("k", k), ("v", v))
                for s in _kernel_strides(x, name)]
     # The output in projection order (B, T, H, dh), seen as (B, H, T, dh).
-    o = torch.empty(b, t, h, d, dtype=q.dtype, device=q.device) \
+    o = torch.empty(b, t, h, width, dtype=q.dtype, device=q.device) \
         .transpose(1, 2)
     strides += _kernel_strides(o, "o")
     lib = _build.library()
@@ -118,7 +143,7 @@ def _launch(q, k, v, scale, key_bias):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.vrt_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, t,
-            d, (ctypes.c_longlong * 12)(*strides), float(scale),
+            width, (ctypes.c_longlong * 12)(*strides), float(scale),
             int(q.dtype == torch.bfloat16),
             None if key_bias is None else key_bias.data_ptr(),
             0 if key_bias is None or b == 1 else key_bias.stride(0), stream)
@@ -126,6 +151,9 @@ def _launch(q, k, v, scale, key_bias):
     # a plain increment: exact because device work is serialized (the
     # serve daemon runs every forward under its one device lock)
     multi_head_attention.launches += 1
+    if width != d:
+        multi_head_attention.padded_launches += 1
+        o = o[..., :d]
     return o
 
 
@@ -185,7 +213,10 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     last dim has stride 1 and whose base and other strides are multiples
     of 16 bytes (see :func:`_kernel_strides`), and the output is the
     ``transpose(1, 2)`` view of a contiguous (B, T, H, head_dim) tensor.
-    It raises on a head width or layout the kernel does not take. A CPU
+    A head width between two compiled ones runs zero-padded to the next
+    (counted in ``multi_head_attention.padded_launches`` too; the output
+    is then a view of the first head_dim columns). It raises on a head
+    width above 192 or a layout the kernel does not take. A CPU
     input runs :func:`attention_plain`. When an input requires grad
     (and grad mode is on), the call goes through :class:`_Attention`, so
     the gradients are the plain version's."""
@@ -206,3 +237,4 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 multi_head_attention.launches = 0
+multi_head_attention.padded_launches = 0

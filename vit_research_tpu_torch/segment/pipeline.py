@@ -10,12 +10,15 @@ Port of the kNN orchestrations of vit_research_tpu/segment/pipeline.py:
    live form: per micro-batch top-k, StreamingViterbi, online clip
    extraction (the ``--follow`` loop and the daemon's segment sessions);
 3. :func:`segment_with_knn_streaks`, the pre-HMM sliding-window
-   classifier (nba_proj/generate_clips.py:99-368).
+   classifier (nba_proj/generate_clips.py:99-368);
 
-The TemporalHead pipeline waits for the port of the heads.
+and the TemporalHead orchestration, :func:`segment_with_temporal_head`
+(nba_proj/smarter_generate_clips.py:349-423).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -277,3 +280,56 @@ def segment_with_knn_streaks(frame_names, embeddings, corpus, *, device,
             decoded, list(frame_names), src_dir, out_root,
             min_len=min_len, pad=pad, vid=vid)
     return decoded, clip_dirs, intervals
+
+
+def segment_with_temporal_head(frame_names, embeddings, manual_intervals, *,
+                               device, out_root: str | None = None,
+                               src_dir: str | None = None,
+                               params_path: str | None = None,
+                               epochs: int = 3000, lr: float = 1e-5,
+                               min_len: int = 100, pad: int = 100,
+                               vid: int | None = None, seed: int = 0):
+    """The smarter_generate_clips path: a TemporalHead trained on ``device``
+    against the manual labels of ``frame_names`` (or restored from
+    ``params_path``), its per-frame probabilities smoothed by the Viterbi
+    decoder (segment/hmm.py::smooth_probabilities, the reference's
+    8192-frame routing) and cut into padded clips.
+
+    The trained weights are cached at ``params_path`` (.npz) under the
+    flax tree's keys (train/checkpoint.py::save_params_npz), as the
+    reference reuses its ``.pt``: a ``temporal_head.npz`` written by
+    either package loads in the other. Returns (decoded states, clip
+    dirs, (T, 3) probabilities)."""
+    from vit_research_tpu_torch.models import convert
+    from vit_research_tpu_torch.models.temporal_head import TemporalHead
+    from vit_research_tpu_torch.train.checkpoint import (load_params_npz,
+                                                         save_params_npz)
+    from vit_research_tpu_torch.train.train_temporal import (
+        predict_probs, train_temporal_head)
+
+    dev = resolve_device(device)
+    labels = np.asarray(manual_intervals.label_array(frame_names), np.int32)
+    dim = np.shape(embeddings)[-1]
+    if params_path and os.path.exists(params_path):
+        model = TemporalHead(dim)
+        template = convert.temporal_head_to_params(model.state_dict())
+        model.load_state_dict(convert.temporal_head_to_state_dict(
+            load_params_npz(template, params_path)))
+        model = model.to(dev)
+    else:
+        model, _ = train_temporal_head(embeddings, labels, epochs=epochs,
+                                       lr=lr, seed=seed, device=dev)
+        if params_path:
+            save_params_npz(convert.temporal_head_to_params(
+                model.state_dict()), params_path)
+
+    probs = predict_probs(model, embeddings)
+    path = smooth_probabilities(probs, device=dev)
+    decoded = [STATES[i] for i in path]
+
+    clip_dirs = []
+    if out_root is not None and src_dir is not None:
+        clip_dirs = clips_mod.save_clips_from_sequence(
+            decoded, list(frame_names), src_dir, out_root,
+            min_len=min_len, pad=pad, vid=vid)
+    return decoded, clip_dirs, probs

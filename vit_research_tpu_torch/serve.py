@@ -147,8 +147,9 @@ path) and error. Scoring runs on the engine's device under the device
 lock, like every other device op.
 
 Not ported, and refused (argparse refuses the flag): the mesh-sharded
-corpus of ``serve --shard-device``. ``segment --method temporal`` is
-not a choice of the port's CLI.
+corpus of ``serve --shard-device``. The daemon's segment sessions are
+the kNN+HMM path only, as the reference's: ``segment --method temporal``
+runs offline in the client's process (``--socket`` refuses it).
 
 Concurrency: requests are parsed and decoded on per-connection threads;
 device work (the engine's forward, corpus staging, the sessions' and
