@@ -126,15 +126,35 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      RAGHead train step card vs CPU (and with B's dq zeroed, which must
      fail), then its time at 4 chunks x 8 frames; RAG-ViT at full width
      card vs CPU;
+  5i. the last modules (phase 6's rows feed its mesh part): bf16 heads,
+     a ChunkEncoder at ChunkEncoderConfig() width from phase 5e's run on
+     phase 5's store chunks (B = 32; kernel B's attn_bf16<96>) and a
+     RAGHead (768 x 2, 4 heads; attn_bf16<192>) on phase 5f's store rows
+     (B = 8), 2 dropout-0 training steps each on the card against the same
+     steps on the CPU (and with B's first head zeroed, which must fail),
+     their step times beside the f32 heads' (the path ``bf16``); remat:
+     the joint ViT-B/16 step at 4 chunks x 8 frames and a training-mode
+     backbone step at dropout 0.1 (the dropout generator's masks
+     replayed), each with remat against without (losses and parameters
+     within 1e-6), peak memory and ms of both; the mesh: make_mesh() over
+     the visible cards, sharded_masked_topk and its int8 twin over 4
+     entries of cuda:0 against the flat path on phase 6's rows (with and
+     without a mask, tie-aware, both timed), the sharded Collection
+     against the unsharded one, a 2-entry mesh engine against the
+     single-device engine on phase 4's frames (the path ``mesh``),
+     ``serve --shard-device`` answering query as an unsharded daemon;
+     attn_layout 'bthd' against 'bhtd' on the card;
   6. a game-sized store: a seeded 200,000 x 768 cosine collection queried
      with 256 queries, k = 50, on the card in f32 and in int8, each held
-     against the CPU answer of the same rows, and timed;
+     against the CPU answer of the same rows, and timed (run before 5i's
+     mesh part, which takes its rows);
   7. one JSON line of kernel summaries (``launches`` sums the kernel's
      launches over the paths of phases 4-5f, ``launches_by_path`` lists
      them, ``fast`` being phase 5d's write-frame-db and segment,
      ``stage1`` phase 5e's verbs and ``rag`` phase 5f's train-rag and
      train-ratt, ``cached``, ``temporal``, ``joint`` and ``rag_vit``
-     phase 5h's; the attention entry's ``key_bias``
+     phase 5h's, ``bf16`` and ``mesh`` phase 5i's; the attention entry's
+     ``key_bias``
      holds phase 5d's rows, ``stage1_dh96`` phase 3c's, ``grad_rel_err``
      the gradient checks and ``stage1_path`` phase 5e's numbers,
      ``rag_dh192`` phase 3d's rows and ``rag_path`` phase 5f's), then the
@@ -175,6 +195,7 @@ import argparse
 import contextlib
 import csv
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -540,13 +561,15 @@ def phase_attention(smi: str) -> dict:
 
 
 # Stage 1's chunk encoder (768 wide, 8 heads): B = 256 chunks of 8 frames
-# + CLS (T = 9) and of 24 + CLS (T = 25, max_len).
+# + CLS (T = 9) and of 24 + CLS (T = 25, max_len), and the training batch
+# of 32 chunks (T = 9; phase 5i's bf16 steps).
 STAGE1_HEADS, STAGE1_DH, STAGE1_B = 8, 96, 256
 
 
 def phase_attention_stage1(smi: str) -> dict:
     """Kernel B at the stage-1 chunk encoder's shapes (dh = 96, H = 8, B =
-    256, T = 9 and 25; f32 and bf16), on contiguous inputs and on
+    256 at T = 9 and 25, B = 32 at T = 9; f32 and bf16), on contiguous
+    inputs and on
     projection-order views, each against the plain version of the same
     values; timed against the plain version and SDPA. The 64-row query
     tile holds T rows: at T = 9, 86% of it is idle."""
@@ -554,9 +577,9 @@ def phase_attention_stage1(smi: str) -> dict:
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
-    b, h, dh = STAGE1_B, STAGE1_HEADS, STAGE1_DH
+    h, dh = STAGE1_HEADS, STAGE1_DH
     rows = {}
-    for t in (9, 25):
+    for b, t in ((STAGE1_B, 9), (STAGE1_B, 25), (STAGE1_BATCH, 9)):
         q32, k32, v32 = (torch.randn(b, t, h, dh, generator=g).to(dev)
                          for _ in range(3))
         for dtype in (torch.float32, torch.bfloat16):
@@ -594,7 +617,8 @@ def phase_attention_stage1(smi: str) -> dict:
                 f"plain {plain_ms:.4f} ms | SDPA {sdpa_ms:.4f} ms | "
                 f"{bound_text(lim)} | query tile {100 * idle:.0f}% idle | "
                 f"{smi}")
-            rows[f"T{t}_{name}"] = dict(
+            key = f"T{t}_" if b == STAGE1_B else f"B{b}_T{t}_"
+            rows[key + name] = dict(
                 max_abs_err=max(e for e, _ in row.values()),
                 ms=row["contiguous"][1],
                 ms_projection_order=row["projection order"][1],
@@ -4395,14 +4419,14 @@ def phase_temporal_path(smi: str, root: str, main: dict) -> dict:
                 **{f"epoch_{k}": v for k, v in lim.items()})
 
 
-def _joint_models(dev):
-    """ViT-B/16 @224, ProjectionHead 768 and RAGHead (HeadConfig()) from
-    one seed, on ``dev``."""
+def _joint_models(dev, **vit_kw):
+    """ViT-B/16 @224 (``ViTConfig(**vit_kw)``), ProjectionHead 768 and
+    RAGHead (HeadConfig()) from one seed, on ``dev``."""
     from vit_research_tpu_torch.utils.configs import HeadConfig, ViTConfig
 
     gen = torch.Generator().manual_seed(0)
     return [m.to(dev) for m in (
-        vit_mod.VisionTransformer(ViTConfig(), generator=gen),
+        vit_mod.VisionTransformer(ViTConfig(**vit_kw), generator=gen),
         heads.ProjectionHead(768, generator=gen),
         heads.RAGHead(HeadConfig(), generator=gen))]
 
@@ -4543,9 +4567,10 @@ def phase_rag_vit_path(smi: str) -> dict:
 
 
 def phase_game_store(smi: str, n: int = 200_000, d: int = 768,
-                     n_q: int = 256, k: int = 50) -> None:
+                     n_q: int = 256, k: int = 50) -> dict:
     """A game's worth of frames as a seeded cosine collection, queried on
-    the card in f32 and int8 and held against the CPU answers."""
+    the card in f32 and int8 and held against the CPU answers; returns
+    the rows, the queries, k and the card collection (phase 5i's)."""
     rng = np.random.default_rng(0)
     embs = rng.standard_normal((n, d), dtype=np.float32)
     q = rng.standard_normal((n_q, d), dtype=np.float32)
@@ -4595,8 +4620,449 @@ def phase_game_store(smi: str, n: int = 200_000, d: int = 768,
         f"({cpu8_ms:.0f} ms): max|score err| {err8:.2e} (bound "
         f"{STORE_BOUND['int8']:.0e}), {differ8} of {n_q} queries differ "
         f"only in near-ties | {smi}")
-    del col, cpu
+    del cpu
     torch.cuda.empty_cache()
+    return dict(embs=embs, q=q, k=k, col=col)
+
+
+# ---- phase 5i: bf16 heads, remat, the mesh, attn_layout -----------------
+
+# Two dropout-0 training steps of a bf16 head on the card against the same
+# steps on the CPU, from one state: the two round their bf16 products at
+# other points (cuBLAS and kernel B against the CPU's matmuls and the
+# plain attention, which rounds the scores to bf16 before the softmax),
+# 8 significant bits through each layer, and Adam moves a weight by up to
+# lr whatever the size of its gradient, so a rounding-noise gradient's
+# sign decides a whole step. Per-step losses: relative BF16_LOSS_RTOL;
+# the trained head's outputs on a held-out batch: within BF16_OUT of
+# their scale (the chunk embedding and the fused row, both after the f32
+# final LayerNorm, and the logits): each of the ~20 roundings to bf16 on
+# a block's path may fall apart by an ulp (2^-8 of the value), and the
+# worst of a batch's outputs sums several of them. The parameters'
+# largest difference is printed, with no bound: the outputs carry their
+# effect. The card run with B's first head zeroed must fail: a head's
+# whole output is more than that.
+BF16_LOSS_RTOL = 2 ** -5
+BF16_OUT = 2 ** -3
+# remat against the same step without it: the recompute reruns the same
+# kernels on the same inputs (and replays the dropout generators).
+REMAT_BOUND = 1e-6
+MESH_ENTRIES = 4
+BF16_STEPS = 2
+
+
+def _bf16_head_steps(model, batches, lr: float, dev) -> tuple:
+    """``BF16_STEPS`` Adam steps of ``model`` (a ChunkEncoder or a
+    RAGHead) on ``batches`` (a list of (inputs, labels)), then its
+    outputs on the last batch in eval mode: (losses, outputs,
+    parameters), on the host."""
+    from vit_research_tpu_torch.train import losses
+    from vit_research_tpu_torch.train.optim import Optimizer
+
+    model = model.to(dev).train()
+    opt = Optimizer(list(model.parameters()), lr=lr)
+    out_losses = []
+    for inputs, labels in batches[:BF16_STEPS]:
+        xs = [x.to(dev) for x in inputs]
+        logits = model(*xs)[0 if isinstance(model, heads.RAGHead) else 1]
+        loss = losses.bce_with_logits(labels.to(dev), logits)
+        opt.step(torch.autograd.grad(loss, opt.params))
+        out_losses.append(float(loss))
+    model.eval()
+    with torch.no_grad():
+        outs = model(*(x.to(dev) for x in batches[-1][0]))
+    return (out_losses, [o.float().cpu() for o in outs[:2]],
+            {k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+def _bf16_errs(card, host, lr: float) -> dict:
+    loss = max(abs(a - b) / max(abs(b), 1e-12)
+               for a, b in zip(card[0], host[0]))
+    out = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(card[1], host[1]))
+    param = max(float((card[2][k] - host[2][k]).abs().max())
+                for k in host[2])
+    ok = loss <= BF16_LOSS_RTOL and out <= BF16_OUT
+    return dict(loss=loss, out=out, param=param, ok=ok)
+
+
+def _bf16_head_case(smi: str, name: str, make, batches, lr: float,
+                    kernel: str, f32_make) -> dict:
+    """One bf16 head: card vs CPU steps, the planted fault, the step ms
+    of the bf16 and the f32 head by CUDA events, and the kernel B
+    instantiation its training launched."""
+    dev = torch.device("cuda")
+    card_model = make()
+    counter = attn.multi_head_attention.launches_by_kernel
+    counter.clear()
+    pe.fused_patch_embed.launches = 0
+    attn.multi_head_attention.launches = 0
+    card = _bf16_head_steps(card_model, batches, lr, dev)
+    launches, launched = _launch_counts(), dict(counter)
+    host = _bf16_head_steps(make(), batches, lr, torch.device("cpu"))
+    with _planted_zero_head():
+        planted = _bf16_head_steps(make(), batches, lr, dev)
+    errs, bad = _bf16_errs(card, host, lr), _bf16_errs(planted, host, lr)
+
+    def step_ms(model):
+        from vit_research_tpu_torch.train import losses
+        from vit_research_tpu_torch.train.optim import Optimizer
+
+        model = model.to(dev).train()
+        opt = Optimizer(list(model.parameters()), lr=lr)
+        xs = [x.to(dev) for x in batches[0][0]]
+        y = batches[0][1].to(dev)
+        idx = 0 if isinstance(model, heads.RAGHead) else 1
+
+        def step():
+            loss = losses.bce_with_logits(y, model(*xs)[idx])
+            opt.step(torch.autograd.grad(loss, opt.params))
+        return cuda_ms(step, reps=3, n=5)
+
+    ms = {"bf16": step_ms(make()), "f32": step_ms(f32_make())}
+    log(f"[5i] {name} bf16, {BF16_STEPS} dropout-0 steps card vs CPU: losses "
+        f"relative {errs['loss']:.3e} (bound {BF16_LOSS_RTOL:.3e}), "
+        f"outputs {errs['out']:.3e} of their scale (bound {BF16_OUT:.3e}), "
+        f"parameters max|err| {errs['param']:.3e} (lr {lr:.0e}); B's first "
+        f"head zeroed (planted fault): "
+        f"losses {bad['loss']:.3e}, outputs {bad['out']:.3e}, parameters "
+        f"{bad['param']:.3e}; kernel B launches in the card's steps "
+        f"{launched}; step {ms['bf16']:.3f} ms bf16, {ms['f32']:.3f} ms "
+        f"f32 by CUDA events | {smi}")
+    if not errs["ok"]:
+        raise AssertionError(f"{name} bf16 card vs CPU: {errs}")
+    if bad["ok"]:
+        raise AssertionError(f"{name} bf16: the check passes B's first head "
+                             f"zeroed: {bad}")
+    if not launched.get(kernel):
+        raise AssertionError(f"{name} bf16 training launched {launched}, "
+                             f"not {kernel}")
+    return dict(step_ms_bf16=ms["bf16"], step_ms_f32=ms["f32"],
+                loss_rel_err=errs["loss"], out_rel_err=errs["out"],
+                planted_out_rel_err=bad["out"], launches=launches,
+                launches_by_kernel=launched)
+
+
+def phase_bf16_heads(smi: str, root: str) -> dict:
+    """bf16 heads on the card: a ChunkEncoder at ChunkEncoderConfig()
+    width (768, 3 layers, 8 heads: attn_bf16<96>) from phase 5e's trained
+    run on phase 5's store chunks (B = 32), and a RAGHead (768 x 2, 4
+    heads: attn_bf16<192>) on phase 5f's store rows (B = 8). Counted as
+    the path ``bf16``."""
+    from vit_research_tpu_torch.utils.configs import HeadConfig
+
+    t_phase = time.monotonic()
+    params = checkpoint.CheckpointManager(
+        os.path.join(root, "ckpt_s1"), "s1").restore_best()["params"]
+    max_len = params["pos_embedding"].shape[1] - 1
+
+    def encoder(dtype):
+        m = _stage1_encoder(ChunkEncoderConfig(max_len=max_len,
+                                               dropout_rate=0.0,
+                                               dtype=dtype))
+        m.load_state_dict(params)
+        return m
+
+    fs = FrameStore(os.path.join(root, "store")).open()
+    idx = load_chunk_index(os.path.join(root, "store"))
+    rng = np.random.default_rng(11)
+    batches = []
+    for _ in range(BF16_STEPS + 1):
+        ids = rng.choice(len(idx["label"]), STAGE1_BATCH, replace=False)
+        batches.append(([torch.from_numpy(gather_chunk_embedding_batch(
+            fs, idx, ids))], torch.from_numpy(
+                idx["label"][ids].astype(np.float32))))
+    out = {"chunk_encoder": _bf16_head_case(
+        smi, "ChunkEncoder 768x3, 8 heads, B=32", lambda: encoder("bfloat16"),
+        batches, 5e-5, "attn_bf16<96>", lambda: encoder("float32"))}
+
+    rag_fs = FrameStore(os.path.join(root, "store_rag")).open()
+    rows = rag_fs.gather(np.arange(rag_fs.n))
+    gen = torch.Generator().manual_seed(12)
+    rag_init = heads.RAGHead(HeadConfig(dtype="bfloat16", dropout_rate=0.0,
+                                        classifier_dropout=0.0),
+                             generator=gen).state_dict()
+
+    def rag(dtype):
+        m = heads.RAGHead(HeadConfig(dtype=dtype, dropout_rate=0.0,
+                                     classifier_dropout=0.0))
+        m.load_state_dict(rag_init)
+        return m
+
+    batches = []
+    for _ in range(BF16_STEPS + 1):
+        pick = rng.choice(len(rows), RAG_BATCH * (1 + RAG_TOP_K))
+        x = torch.from_numpy(rows[pick]).reshape(RAG_BATCH, 1 + RAG_TOP_K,
+                                                 -1)
+        batches.append(([x[:, 0], x[:, 1:]], torch.from_numpy(
+            (rng.random(RAG_BATCH) > 0.5).astype(np.float32))))
+    out["rag_head"] = _bf16_head_case(
+        smi, f"RAGHead 768x2, 4 heads, B={RAG_BATCH}", lambda: rag("bfloat16"),
+        batches, 1e-4, "attn_bf16<192>", lambda: rag("float32"))
+    # the path's launches: the two heads' card steps
+    out["launches"] = {k: sum(out[h]["launches"][k] for h in
+                              ("chunk_encoder", "rag_head"))
+                       for k in ("patch_embed", "attention")}
+    log(f"[5i] bf16 heads part: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+def _remat_run(mods, init, remat: bool, frames, retrieved, labels,
+               train_mode: bool):
+    """From the state ``init``: the joint step (eval mode, as
+    train_step.py runs it) or, with ``train_mode``, a backbone step in
+    training mode at dropout 0.1 whose masks come from a seeded
+    generator; 2 steps with ``remat`` set or not: (losses, parameters on
+    the host, peak bytes above the models', ms a step by CUDA events)."""
+    from vit_research_tpu_torch.train.optim import Optimizer
+    from vit_research_tpu_torch.train.train_step import \
+        make_joint_train_step
+
+    dev = torch.device("cuda")
+    for m, sd in zip(mods, init):
+        m.load_state_dict(sd)
+    vit = mods[0]
+    vit.config = dataclasses.replace(vit.config, remat=remat)
+    if train_mode:
+        vit.train()
+        vit_mod.set_dropout_generator(
+            vit, torch.Generator(device=dev).manual_seed(21))
+        w = torch.randn(frames.shape[0] * frames.shape[1], 768,
+                        generator=torch.Generator(device=dev).manual_seed(22),
+                        device=dev)
+        flat = frames.reshape(-1, *frames.shape[2:])
+        opt = Optimizer(list(vit.parameters()), lr=JOINT_LR)
+
+        def step():
+            loss = (vit(flat)["pooled"] * w).sum() / w.shape[0]
+            opt.step(torch.autograd.grad(loss, opt.params))
+            return loss.detach()
+    else:
+        opt = Optimizer([p for m in mods for p in m.parameters()],
+                        lr=JOINT_LR)
+        step = functools.partial(make_joint_train_step(*mods, opt), frames,
+                                 retrieved, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses = [float(step()) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() - base
+    params = {f"{i}.{k}": v.detach().cpu() for i, m in enumerate(mods)
+              for k, v in m.state_dict().items()}
+    ms = cuda_ms(step, reps=3, n=2)
+    vit_mod.set_dropout_generator(vit, None)
+    del opt, step
+    torch.cuda.empty_cache()
+    return losses, params, peak, ms
+
+
+def phase_remat(smi: str) -> dict:
+    """ViTConfig.remat on the card: the joint ViT-B/16 step
+    (train/train_step.py, 4 chunks x 8 frames; dropout 0.1 in the
+    config, which the step's eval mode does not draw) with remat against
+    the same step without it over 2 steps (losses and parameters within
+    REMAT_BOUND), then a backbone step in training mode at dropout 0.1
+    with the masks from a seeded generator (the recompute must replay
+    them); peak memory and ms a step of each."""
+    t_phase = time.monotonic()
+    dev = torch.device("cuda")
+    mods = _joint_models(dev, dropout_rate=0.1, attention_dropout_rate=0.1)
+    init = [{k: v.clone() for k, v in m.state_dict().items()} for m in mods]
+    gd = torch.Generator(device=dev).manual_seed(20)
+    frames = torch.randn(4, 8, 224, 224, 3, generator=gd, device=dev)
+    retrieved = torch.randn(4, 5, 768, generator=gd, device=dev)
+    labels = torch.tensor([0.0, 1.0, 0.0, 1.0], device=dev)
+    out = {}
+    for what, train_mode in (("joint step", False),
+                             ("backbone train step, dropout 0.1", True)):
+        runs = {r: _remat_run(mods, init, r, frames, retrieved, labels,
+                              train_mode) for r in (False, True)}
+        loss_err = max(abs(a - b) for a, b in zip(runs[True][0],
+                                                  runs[False][0]))
+        param_err = max(float((runs[True][1][k] - runs[False][1][k])
+                              .abs().max()) for k in runs[False][1])
+        log(f"[5i] remat, {what}, 4 chunks x 8 frames of ViT-B/16 @224: "
+            f"losses max|err| {loss_err:.3e}, parameters max|err| "
+            f"{param_err:.3e} after 2 steps (bound {REMAT_BOUND:.0e}); peak "
+            f"memory {runs[False][2] / 2**30:.3f} GiB without remat, "
+            f"{runs[True][2] / 2**30:.3f} GiB with; {runs[False][3]:.2f} ms "
+            f"a step without, {runs[True][3]:.2f} ms with (CUDA events) | "
+            f"{smi}")
+        if max(loss_err, param_err) > REMAT_BOUND:
+            raise AssertionError(f"remat {what}: losses {loss_err}, "
+                                 f"parameters {param_err}")
+        out["train_dropout" if train_mode else "joint"] = dict(
+            peak_gib=runs[False][2] / 2**30,
+            peak_gib_remat=runs[True][2] / 2**30, step_ms=runs[False][3],
+            step_ms_remat=runs[True][3], loss_err=loss_err,
+            param_err=param_err)
+    del mods, init, frames
+    torch.cuda.empty_cache()
+    log(f"[5i] remat part: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+def phase_mesh(smi: str, root: str, main: dict, game: dict) -> dict:
+    """The mesh on the one card: make_mesh() over the visible cards; a
+    4-entry mesh on cuda:0 under sharded_masked_topk and its int8 twin
+    over phase 6's 200,000 x 768 cosine rows (256 queries, k = 50, with
+    and without a mask) against the flat device path (tie-aware), the
+    sharded Collection against the unsharded one, both timed; a 2-entry
+    mesh engine on phase 4's frames against the single-device engine
+    (EMBED_BOUND; its launches, the path ``mesh``); serve --shard-device
+    answering query as an unsharded daemon; attn_layout 'bthd' against
+    'bhtd' on the card."""
+    from vit_research_tpu_torch.ops import sharded_topk as st
+    from vit_research_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.monotonic()
+    dev = torch.device("cuda")
+    whole = make_mesh()
+    if whole.size != torch.cuda.device_count() or whole.shape != {
+            "data": torch.cuda.device_count()}:
+        raise AssertionError(f"make_mesh() on this machine: {whole}")
+    mesh = make_mesh(devices=["cuda:0"] * MESH_ENTRIES)
+    embs, q, col, k = game["embs"], game["q"], game["col"], game["k"]
+    corpus = topk.l2_normalize(torch.from_numpy(embs).to(dev))
+    qd = topk.l2_normalize(torch.from_numpy(q).to(dev))
+    g = torch.Generator(device=dev).manual_seed(30)
+    mask = torch.rand(len(q), len(embs), generator=g, device=dev) > 0.5
+    placed = st.place_sharded(st.pad_corpus(corpus, MESH_ENTRIES)[0], mesh)
+    cq, cs = topk.quantize_int8(corpus)
+    qq, qs = topk.quantize_int8(qd)
+    placed_q = st.place_sharded(st.pad_corpus(cq, MESH_ENTRIES)[0], mesh)
+    placed_s = st.place_sharded(st.pad_corpus(cs, MESH_ENTRIES)[0], mesh)
+    n = len(embs)
+    timings = {}
+    for m in (None, mask):
+        cases = {
+            "f32": (lambda: st.sharded_masked_topk(
+                        qd, placed, m, k=k, mesh=mesh, metric="ip",
+                        n_valid=n),
+                    lambda: topk.masked_topk(qd, corpus, m, k=k,
+                                             metric="ip")),
+            "int8": (lambda: st.sharded_masked_topk_int8(
+                         qq, qs, placed_q, placed_s, m, k=k, mesh=mesh,
+                         n_valid=n),
+                     lambda: topk.masked_topk_int8(qq, qs, cq, cs, m, k=k))}
+        for name, (sharded, flat) in cases.items():
+            (gs, gi), (ws, wi) = sharded(), flat()
+            differ = _same_neighbours(gi.cpu().numpy(), gs.cpu().numpy(),
+                                      wi.cpu().numpy(), ws.cpu().numpy(),
+                                      1e-5)
+            what = f"{name}, {'masked' if m is not None else 'unmasked'}"
+            timings[what] = (cuda_ms(sharded, reps=3, n=3),
+                             cuda_ms(flat, reps=3, n=3))
+            log(f"[5i] sharded top-k over {MESH_ENTRIES} entries of cuda:0, "
+                f"{what}, {n} x 768 rows, {len(q)} queries, k={k}: equal to "
+                f"the flat path ({differ} of {len(q)} queries differ only in "
+                f"near-ties within 1e-5); {timings[what][0]:.3f} ms sharded, "
+                f"{timings[what][1]:.3f} ms flat (CUDA events) | {smi}")
+    del placed, placed_q, placed_s, cq, cs, mask
+
+    # the Collection: unsharded and sharded over the 4 entries, f32 and int8
+    col_ms = {}
+    for quant in (None, "int8"):
+        col.shard_device(None)
+        col.set_device_quantization(quant)
+        want, _, flat_ms = _timed_query(col, q, k)
+        col.shard_device(mesh)
+        got, first, ms = _timed_query(col, q, k)
+        ws, gs = (1.0 - np.asarray(a["distances"]) for a in (want, got))
+        # the sharded corpus is normalised (and quantized) on the host, the
+        # flat one on the card: an ulp of the norm can move an int8 value
+        differ = _same_neighbours(got["ids"], gs, want["ids"], ws,
+                                  STORE_BOUND[quant or "f32"])
+        col_ms[quant or "f32"] = (ms, flat_ms)
+        log(f"[5i] Collection.query sharded over {MESH_ENTRIES} entries "
+            f"({quant or 'f32'}): {ms:.1f} ms (first, with the shards' "
+            f"upload: {first:.1f} ms) against {flat_ms:.1f} ms unsharded, "
+            f"host clock; equal ({differ} of {len(q)} queries differ only in"
+            f" near-ties) | {smi}")
+    col.shard_device(None)
+    del corpus
+
+    # the mesh engine on phase 4's frames
+    paths = sorted(os.path.join(main["query_dir"], f)
+                   for f in os.listdir(main["query_dir"]))[:BATCH]
+    frames = load_frames(paths, SPEC)
+    single = embed.make_hf_frame_embedder(device="cuda", batch_size=BATCH)
+    want = single.embed_batch(frames)
+    eng = embed.EmbeddingEngine(single.model, SPEC, mesh=make_mesh(
+        devices=["cuda:0"] * 2), batch_size=BATCH)
+    pe.fused_patch_embed.launches = 0
+    attn.multi_head_attention.launches = 0
+    got = eng.embed_batch(frames)
+    launches = _launch_counts()
+    err = _max_err(got, want)
+    log(f"[5i] mesh engine, 2 entries of cuda:0, {len(frames)} frames of "
+        f"phase 4's game: max|err| {err:.2e} against the single-device "
+        f"engine (bound {EMBED_BOUND:.0e}); launches {launches} (a share "
+        f"a device) | {smi}")
+    if err > EMBED_BOUND or launches != {"patch_embed": 2,
+                                         "attention": 24}:
+        raise AssertionError(f"mesh engine: err {err}, launches {launches}")
+
+    # attn_layout='bthd' against 'bhtd' on the card (the plain path)
+    x = single.encode  # the engine's model, kernel A then the encoder
+    small = torch.from_numpy(frames[:8]).to(dev)
+    base = x(small)["pooled"].float()
+    for blk in single.model.blocks:
+        blk.attn.attn_layout = "bthd"
+    try:
+        bthd = x(small)["pooled"].float()
+    finally:
+        for blk in single.model.blocks:
+            blk.attn.attn_layout = "bhtd"
+    bthd_err = float((bthd - base).abs().max())
+    log(f"[5i] attn_layout 'bthd' (plain path) against 'bhtd' (kernel B), "
+        f"ViT-B/16 @224 on 8 frames: max|err| {bthd_err:.2e} (bound "
+        f"{EMBED_BOUND:.0e})")
+    if bthd_err > EMBED_BOUND:
+        raise AssertionError(f"bthd vs bhtd: {bthd_err}")
+    del single, eng, small
+    torch.cuda.empty_cache()
+
+    # serve --shard-device against an unsharded daemon on phase 4's db
+    socks = {name: os.path.join(root, f"{name}.sock")
+             for name in ("plain", "shard")}
+    socks = {k: min(v, os.path.relpath(v), key=len) for k, v in socks.items()}
+    threads = {name: _serve_thread(
+        ["serve", "--socket", sock, "--db", main["db"], "--collection",
+         "corpus", "--batch-size", "16", "--device", "cuda"]
+        + (["--shard-device"] if name == "shard" else []))
+        for name, sock in socks.items()}
+    try:
+        for name, (t, errors) in threads.items():
+            _await_ready(socks[name], errors)
+        req = {"op": "query", "paths": paths[::16], "n_results": 10}
+        want = serve.request(socks["plain"], req, timeout=120.0)
+        got = serve.request(socks["shard"], req, timeout=120.0)
+        stats = serve.request(socks["shard"], {"op": "stats"}, timeout=30.0)
+        if not (got["ok"] and want["ok"] and stats["sharded"]):
+            raise AssertionError(f"serve --shard-device: {got}, {stats}")
+        differ = _same_neighbours(got["ids"], 1 - np.asarray(got["distances"]),
+                                  want["ids"],
+                                  1 - np.asarray(want["distances"]), 1e-5)
+        log(f"[5i] serve --shard-device (stats: sharded "
+            f"{stats['sharded']}) answers {len(req['paths'])} queries as "
+            f"the unsharded daemon ({differ} differ only in near-ties)")
+    finally:
+        for name, (t, errors) in threads.items():
+            try:
+                serve.request(socks[name], {"op": "shutdown"}, timeout=30.0)
+            except (OSError, ConnectionError):
+                pass
+            t.join(timeout=60.0)
+            if t.is_alive() or errors:
+                raise RuntimeError(f"{name} daemon: {errors}")
+    log(f"[5i] mesh part: {time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches, engine_max_abs_err=err,
+                bthd_max_abs_err=bthd_err,
+                sharded_topk_ms={k: v[0] for k, v in timings.items()},
+                flat_topk_ms={k: v[1] for k, v in timings.items()},
+                sharded_query_ms={k: v[0] for k, v in col_ms.items()},
+                flat_query_ms={k: v[1] for k, v in col_ms.items()})
 
 
 def profile_forward(smi: str, dtype: str, batch: int, steps: int = 3,
@@ -4809,9 +5275,13 @@ def main() -> int:
         stage2 = phase_stage2_path(smi, root, main_path)
         cached = phase_cached_path(smi, root)
         temporal = phase_temporal_path(smi, root, main_path)
-    joint = phase_joint_path(smi)
-    rag_vit = phase_rag_vit_path(smi)
-    phase_game_store(smi)
+        bf16_heads = phase_bf16_heads(smi, root)
+        joint = phase_joint_path(smi)
+        rag_vit = phase_rag_vit_path(smi)
+        remat = phase_remat(smi)
+        game = phase_game_store(smi)
+        mesh = phase_mesh(smi, root, main_path, game)
+        del game
     # each main path's launches, counted from 0 just before it ran; a
     # kernel's "launches" is their sum
     by_path = {"segment": main_path["launches"], "store": store_launches,
@@ -4822,7 +5292,8 @@ def main() -> int:
                "stage1": stage1["launches"], "rag": rag["launches"],
                **stage2["launches_by_path"], "cached": cached["launches"],
                "temporal": temporal["launches"], "joint": joint["launches"],
-               "rag_vit": rag_vit["launches"]}
+               "rag_vit": rag_vit["launches"],
+               "bf16": bf16_heads["launches"], "mesh": mesh["launches"]}
 
     def launches(kernel: str) -> dict:
         per = {path: counts[kernel] for path, counts in by_path.items()}
@@ -4863,7 +5334,9 @@ def main() -> int:
                                  if k != "launches"}
                 for name, part in (("cached", cached),
                                    ("temporal", temporal),
-                                   ("joint", joint), ("rag_vit", rag_vit))}),
+                                   ("joint", joint), ("rag_vit", rag_vit),
+                                   ("bf16", bf16_heads), ("mesh", mesh))},
+             remat=remat),
         dict(name="ln_matmul", route="cuda",
              source="vit_research_tpu_torch/csrc/fused_ln.cu",
              replaces="vit_research_tpu/ops/fused_ln.py:62",

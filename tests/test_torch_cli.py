@@ -122,7 +122,9 @@ def test_port_imports_no_jax():
               "retrieval.cache_bins", "train.train_chunk_cached",
               "models.temporal_head", "train.train_temporal",
               "train.train_step", "models.rag_vit", "models.reranker",
-              "data.pipeline", "db.writers"):
+              "data.pipeline", "db.writers", "parallel.mesh",
+              "parallel.distributed", "ops.sharded_topk",
+              "data.synthetic"):
         assert f"vit_research_tpu_torch.{m}" in mods
     # chip_smoke.py is imported as a module: its top-level imports run.
     mods.append("chip_smoke")
@@ -201,8 +203,8 @@ def test_cli_build_frame_store_search_db_info(world, tmp_path):
 
 
 def test_port_has_every_jax_verb():
-    """The JAX package's 28 verbs, each with its flags (the port adds
-    ``--device``; ``serve --shard-device`` is the one flag it refuses)."""
+    """The JAX package's 28 verbs, each with every one of its flags (the
+    port adds ``--device``)."""
     import argparse
 
     from vit_research_tpu.cli import (db_cmds, eval_cmds, ingest,
@@ -232,5 +234,4 @@ def test_port_has_every_jax_verb():
     port_flags, jax_flags = flags(build_parser()), flags(jax_parser)
     for verb in jax_verbs:
         missing = jax_flags[verb] - port_flags[verb]
-        assert missing == ({"--shard-device"} if verb == "serve" else set()),\
-            (verb, missing)
+        assert missing == set(), (verb, missing)

@@ -1053,3 +1053,110 @@ def test_joint_train_step_on_card_matches_cpu(cuda):
         for (name, p), q in zip(a.state_dict().items(),
                                 b.state_dict().values()):
             assert (p.cpu() - q).abs().max() <= 2e-3, name
+
+
+# bf16 heads on the card, kernel B (attn_bf16 through _Attention) against
+# the same module with B's launch swapped for the plain version: the
+# kernel keeps the scores in f32 where the plain version rounds them to
+# bf16 before the softmax (2^-9 of scores of order 10), and every later
+# bf16 rounding may then fall apart by an ulp, so outputs are held to
+# 2^-3 of their scale and the f32 parameters' gradients (the plain VJP on
+# both sides) to a relative L2 error of 2^-3 over all of them (the key
+# biases, whose true gradient is zero, left out): a wrong head, layout or
+# VJP moves them by their whole size.
+BF16_OUT, BF16_GRAD = 2 ** -3, 2 ** -3
+
+
+@pytest.mark.parametrize("kind,dh", [("chunk", 96), ("rag", 192)])
+def test_bf16_head_grads_through_attention_on_card(cuda, kind, dh,
+                                                    monkeypatch):
+    from vit_research_tpu_torch.models import heads
+    from vit_research_tpu_torch.utils.configs import (ChunkEncoderConfig,
+                                                      HeadConfig)
+
+    d = 2 * dh
+    g = torch.Generator().manual_seed(0)
+    if kind == "chunk":
+        model = heads.ChunkEncoder(ChunkEncoderConfig(
+            embed_dim=d, num_layers=2, num_heads=2, mlp_dim=2 * d,
+            max_len=8, dtype="bfloat16", dropout_rate=0.0), generator=g)
+        model.class_head.dropout.p = 0.0  # the reference's fixed 0.2
+        inputs = [torch.randn(6, 8, d, generator=g)]
+    else:
+        model = heads.RAGHead(HeadConfig(
+            embed_dim=d, num_layers=2, num_heads=2, dtype="bfloat16",
+            dropout_rate=0.0, classifier_dropout=0.0), generator=g)
+        inputs = [torch.randn(6, d, generator=g),
+                  torch.randn(6, 10, d, generator=g)]
+    model = model.to(cuda).train()
+
+    def run():
+        model.zero_grad()
+        xs = [x.to(cuda).requires_grad_(True) for x in inputs]
+        outs = model(*xs)
+        sum(o.float().sum() for o in outs).backward()
+        return ([o.detach().float() for o in outs],
+                {n: p.grad.clone() for n, p in model.named_parameters()})
+
+    before = dict(attn.multi_head_attention.launches_by_kernel)
+    kernel_out, kernel_grad = run()
+    key = f"attn_bf16<{dh}>"
+    assert attn.multi_head_attention.launches_by_kernel[key] == \
+        before.get(key, 0) + 2
+    monkeypatch.setattr(attn, "_launch", lambda q, k, v, scale, bias:
+                        attn.attention_plain(q, k, v, scale=scale,
+                                             key_bias=bias))
+    plain_out, plain_grad = run()
+    for a, b in zip(kernel_out, plain_out):
+        assert (a - b).abs().max() <= BF16_OUT * b.abs().max()
+    names = [n for n in plain_grad if not n.endswith("attn.key.bias")]
+    a = torch.cat([kernel_grad[n].ravel() for n in names])
+    b = torch.cat([plain_grad[n].ravel() for n in names])
+    assert (a - b).norm() <= BF16_GRAD * b.norm()
+
+
+def test_sharded_topk_on_a_4_entry_mesh_matches_flat(cuda):
+    """The corpus split over 4 entries of the one card: the flat device
+    path's answers (the same indices, scores within 1e-5), f32 and int8,
+    with and without a mask."""
+    from vit_research_tpu_torch.ops import sharded_topk as st
+    from vit_research_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * 4)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    c = topk.l2_normalize(torch.randn(5003, 64, device=cuda, generator=g))
+    q = topk.l2_normalize(torch.randn(33, 64, device=cuda, generator=g))
+    mask = torch.rand(33, 5003, device=cuda, generator=g) > 0.3
+    cq, cs = topk.quantize_int8(c)
+    qq, qs = topk.quantize_int8(q)
+    for m in (None, mask):
+        cases = [(st.sharded_masked_topk(q, c, m, k=20, mesh=mesh,
+                                         metric="ip"),
+                  topk.masked_topk(q, c, m, k=20, metric="ip")),
+                 (st.sharded_masked_topk_int8(qq, qs, cq, cs, m, k=20,
+                                              mesh=mesh),
+                  topk.masked_topk_int8(qq, qs, cq, cs, m, k=20))]
+        for (gs, gi), (ws, wi) in cases:
+            assert gs.device.type == "cuda"
+            torch.testing.assert_close(gs, ws, rtol=0, atol=1e-5)
+            assert torch.equal(gi, wi)
+
+
+def test_mesh_engine_on_card_matches_single_device(cuda):
+    """A 2-entry mesh engine on the one card: kernels A and B launch once
+    a share, and the embeddings equal the single-device engine's."""
+    from vit_research_tpu_torch.parallel.mesh import make_mesh
+
+    model = init_vit(TINY, seed=0, device="cpu")
+    spec = PreprocessSpec(size=(32, 32))
+    single = embed.EmbeddingEngine(model, spec, device=cuda, batch_size=8)
+    eng = embed.EmbeddingEngine(model, spec,
+                                mesh=make_mesh(devices=["cuda:0"] * 2),
+                                batch_size=8)
+    frames = np.random.default_rng(0).integers(0, 256, (13, 32, 32, 3),
+                                               dtype=np.uint8)
+    want = single.embed_batch(frames)
+    a0 = pe.fused_patch_embed.launches
+    got = eng.embed_batch(frames)
+    assert pe.fused_patch_embed.launches == a0 + 4  # 8 = 4 + 4, 5 = 3 + 2
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -341,8 +341,10 @@ def test_chunk_encoder_refuses_long_chunks_and_wrong_width():
         model(torch.zeros(1, 9, SMALL.embed_dim))
     with pytest.raises(ValueError, match="expected dim 192"):
         model(torch.zeros(1, 4, 64))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        heads.ChunkEncoder(dataclasses.replace(SMALL, dtype="bfloat16"))
+    # bf16 is a compute dtype, not a refusal: the checks hold there too
+    bf16 = heads.ChunkEncoder(dataclasses.replace(SMALL, dtype="bfloat16"))
+    with pytest.raises(ValueError, match="max_len is 8"):
+        bf16.eval()(torch.zeros(1, 9, SMALL.embed_dim))
 
 
 def test_chunk_encoder_params_round_trip():

@@ -16,7 +16,10 @@ and the clips must be equal. Rows of one process's three segment routes
 (the same weights and inputs through the same code): 1e-6.
 
 Sockets live under a short ``mkdtemp`` in /tmp; every client has a
-timeout of at most 30 s and every server thread is joined and checked.
+timeout of at most 30 s and every server thread is joined and checked. A
+client starts only once its daemon's socket is bound (an event, not a
+clock). The JAX references are built once a module (``jax_refs``), and
+so is the daemon tests' world (``daemon_world``).
 """
 
 import argparse
@@ -61,11 +64,12 @@ from vit_research_tpu_torch.db.frame_store import (FrameStore,
                                                    build_chunk_index)
 from vit_research_tpu_torch.evaluate import clip_sequences as cseq
 from vit_research_tpu_torch.evaluate import event_scoring, live, scoring
-from vit_research_tpu_torch.models import convert
+from vit_research_tpu_torch.models import convert, heads
 from vit_research_tpu_torch.models import vit as tvit
 from vit_research_tpu_torch.parallel import embed as tembed
 from vit_research_tpu_torch.store import vector_store as torch_store
 from vit_research_tpu_torch.train import checkpoint as ckpt
+from vit_research_tpu_torch.utils import configs
 from vit_research_tpu_torch.utils.configs import ViTConfig
 
 torch.set_num_threads(1)
@@ -89,11 +93,15 @@ def _np_tree(tree):
 def _jax_weights(dim, seed):
     """JAX stage-1 ChunkEncoder and stage-2 RATTHeadV2 of width ``dim``,
     as the port's loaders build them: (encode_batch, head_apply, encoder
-    params, head params). Init and apply are jitted (one compile each)."""
-    ce = jax_heads.ChunkEncoder(jax_configs.ChunkEncoderConfig(
-        embed_dim=dim, mlp_dim=4 * dim, max_len=CHUNK))
-    ce_p = _np_tree(jax.jit(ce.init)(jax.random.PRNGKey(seed),
-                                     jnp.zeros((1, CHUNK, dim))))
+    params, head params). The encoder's weights are the port's seeded
+    init brought over by models/convert.py (no JAX init to compile); the
+    head's come from a jitted flax init; apply is jitted."""
+    kw = dict(embed_dim=dim, mlp_dim=4 * dim, max_len=CHUNK)
+    ce = jax_heads.ChunkEncoder(jax_configs.ChunkEncoderConfig(**kw))
+    ce_p = convert.chunk_encoder_to_params(
+        heads.ChunkEncoder(configs.ChunkEncoderConfig(**kw),
+                           generator=torch.Generator().manual_seed(seed))
+        .state_dict(), configs.ChunkEncoderConfig(**kw))
     head = jax_ratt_v2.RATTHeadV2(jax_configs.HeadConfig(embed_dim=dim, **K))
     hp = _np_tree(jax.jit(head.init)(
         jax.random.PRNGKey(seed + 1), jnp.zeros((1, dim)),
@@ -101,6 +109,19 @@ def _jax_weights(dim, seed):
     return (jax_tce.make_encode_fn(ce, ce_p),
             jax.jit(lambda q, s, c, t: head.apply(hp, q, s, c, t)[0]),
             ce_p, hp)
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """``_jax_weights`` of each width, built once a module (the jitted
+    functions keep their compiles across the tests): ``refs(dim)``."""
+    made = {}
+
+    def refs(dim):
+        if dim not in made:
+            made[dim] = _jax_weights(dim, dim)
+        return made[dim]
+    return refs
 
 
 def _save_runs(root, ce_p, hp, s1="s1", s2="s2"):
@@ -200,14 +221,14 @@ def _same_rows(got, want, tol=TOL):
                 assert g[key] == w[key], key
 
 
-def test_live_scorer_matches_jax(tmp_path):
+def test_live_scorer_matches_jax(tmp_path, jax_refs):
     """score_clip with the same weights (restored by the port's loaders
     from its run checkpoints) and the same rows: the stage-1 proxy labels
     select the branches, the cap drops the stored twins, and frames
     evicted from a 6-frame cache are embedded again through embed_fn in
     one call a clip, in both packages."""
-    d = 32
-    jenc, jhead, ce_p, hp = _jax_weights(d, 0)
+    d = 64  # the daemon tests' width: one JAX reference for the module
+    jenc, jhead, ce_p, hp = jax_refs(d)
     _save_runs(str(tmp_path), ce_p, hp)
     stack = scoring.load_scorer_stack(
         dim=d, ckpt=str(tmp_path), stage1_run_id="s1", stage2_run_id="s2",
@@ -251,13 +272,13 @@ def test_live_scorer_matches_jax(tmp_path):
     assert uncapped["raw_sequence"] != first["raw_sequence"]
 
 
-def test_clip_sequences_and_event_scoring_match_jax(tmp_path):
+def test_clip_sequences_and_event_scoring_match_jax(tmp_path, jax_refs):
     """infer_clip_sequences over stored chunks (coordinate self-exclusion,
     the zeroed-query ablation), then score_event_localization against an
     event template and against the chunks' status ids, and save_results'
     files, against the JAX package."""
-    d = 32
-    jenc, jhead, ce_p, hp = _jax_weights(d, 2)
+    d = 64  # the daemon tests' width: one JAX reference for the module
+    jenc, jhead, ce_p, hp = jax_refs(d)
     _save_runs(str(tmp_path), ce_p, hp)
     enc = scoring.stage1_encode_batch(d, CHUNK, str(tmp_path), "s1",
                                       strict=True, device="cpu")
@@ -350,24 +371,12 @@ def _verb_world(root, d=32):
 
 
 def _start(argv, cwd):
-    """The port's CLI started as a subprocess (two threads: several run at
-    once)."""
+    """The port's CLI started as a subprocess (two threads)."""
     return subprocess.Popen(
         [sys.executable, "-m", "vit_research_tpu_torch.cli", *argv], cwd=cwd,
         env=dict(os.environ, PYTHONPATH=REPO, VRT_TINY="1",
                  OMP_NUM_THREADS="2"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-
-def _output(proc):
-    """A subprocess's standard output, once it exited with 0."""
-    out, err = proc.communicate(timeout=300)
-    assert proc.returncode == 0, err[-3000:]
-    return out
-
-
-def _run(argv, cwd):
-    return _output(_start(argv, cwd))
 
 
 def _jax_verb(fn, capsys, **args):
@@ -377,16 +386,38 @@ def _jax_verb(fn, capsys, **args):
     return capsys.readouterr().out
 
 
-def test_verbs_on_cpu(tmp_path, capsys):
+@pytest.fixture(scope="module", autouse=True)
+def smoke_proc(tmp_path_factory):
+    """``smoke`` through the command line as a subprocess, started as the
+    module starts: it needs nothing of the tests' worlds, so its process
+    start and full-width init run beside the other tests."""
+    proc = _start(["smoke", "--device", "cpu"],
+                  str(tmp_path_factory.mktemp("smoke")))
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _main(argv, capsys):
+    """The port's CLI called in this process: its standard output."""
+    capsys.readouterr()
+    cli.main(argv)
+    return capsys.readouterr().out
+
+
+def test_verbs_on_cpu(tmp_path, capsys, monkeypatch, smoke_proc):
     """train-stage2 (2 epochs, then --resume, then the stage3 preset from
     its best weights with --cached-val), eval-clips, score-events, metrics
-    and smoke, the five as subprocesses with VRT_TINY=1 --device cpu;
+    and smoke with VRT_TINY=1 --device cpu (smoke as a subprocess, the
+    command line's start-up included, started with the module; the rest
+    in this process);
     score-events, metrics and smoke print what the JAX package's verbs
     print (called in this process, on the port's results file, run ledgers
     and frame)."""
     root = str(tmp_path)
-    # smoke needs nothing of the world: it runs beside the rest
-    smoke = _start(["smoke", "--device", "cpu"], root)
+    monkeypatch.setenv("VRT_TINY", "1")
+    monkeypatch.chdir(root)
     store_dir, events = _verb_world(root)
     ck, db = os.path.join(root, "ck"), os.path.join(root, "db")
     cache = os.path.join(root, "s2.pkl")
@@ -400,8 +431,8 @@ def test_verbs_on_cpu(tmp_path, capsys):
           "--train-vids", "1", "--val-vids", "2", "--batch-size", "4",
           "--k-sim", "2", "--k-contrast", "2", "--k-temporal", "2",
           "--device", "cpu"]
-    out = _run(t2 + ["--cache", cache, "--epochs", "2", "--run-id", "s2"],
-               root)
+    out = _main(t2 + ["--cache", cache, "--epochs", "2", "--run-id", "s2"],
+                capsys)
     assert "built stage-2 cache (" in out and "epoch 1:" in out
     assert "run s2: best val acc" in out and "best f1" in out
     capsys.readouterr()
@@ -420,20 +451,19 @@ def test_verbs_on_cpu(tmp_path, capsys):
         cli.main(t2 + ["--cache", cache, "--init-run-id", "nope"])
 
     run = os.path.join(ck, "s2")
-    metrics = _start(["metrics", run], root)
-    out = _run(["eval-clips", "--store", store_dir, "--ckpt", ck, "--db", db,
-                "--collection", "ratt_db", "--vids", "2", "--out", "res",
-                "--stage1-run-id", "s1", "--stage2-run-id", "s2", "--k-sim",
-                "2", "--k-contrast", "2", "--k-temporal", "2",
-                "--device", "cpu"], root)
+    out = _main(["eval-clips", "--store", store_dir, "--ckpt", ck, "--db",
+                 db, "--collection", "ratt_db", "--vids", "2", "--out", "res",
+                 "--stage1-run-id", "s1", "--stage2-run-id", "s2", "--k-sim",
+                 "2", "--k-contrast", "2", "--k-temporal", "2",
+                 "--device", "cpu"], capsys)
     assert "wrote 3 clip rows to res" in out
     results = os.path.join(root, "res", "logit_sequences.json")
     with open(results) as f:
         assert [r["clip_key"] for r in json.load(f)] == \
             ["vid2_clip1", "vid2_clip2", "vid2_clip3"]
     p_json, j_json = (os.path.join(root, f) for f in ("p.json", "j.json"))
-    got = _run(["score-events", results, "--events", events, "--ks", "1,2",
-                "--out", p_json], root)
+    got = _main(["score-events", results, "--events", events, "--ks", "1,2",
+                 "--out", p_json], capsys)
     want = _jax_verb(jax_eval_cmds.cmd_score_events, capsys,
                      results=results, events=events, ks="1,2", out=j_json)
     assert got.replace(p_json, "") == want.replace(j_json, "")
@@ -441,7 +471,7 @@ def test_verbs_on_cpu(tmp_path, capsys):
     with open(p_json) as a, open(j_json) as b:
         assert json.load(a) == json.load(b)
 
-    got = _output(metrics)
+    got = _main(["metrics", run], capsys)
     assert got == _jax_verb(jax_eval_cmds.cmd_metrics, capsys, dir=run,
                             csv=None)
     assert got.count("epoch ") == 3 and "val_best_f1=" in got
@@ -453,8 +483,8 @@ def test_verbs_on_cpu(tmp_path, capsys):
     assert "wrote 3 rows" in capsys.readouterr().out
 
     # the JAX smoke prints these shapes for VIT_P32_432x768
-    out, err = smoke.communicate(timeout=300)
-    assert smoke.returncode == 0, err[-3000:]
+    out, err = smoke_proc.communicate(timeout=300)
+    assert smoke_proc.returncode == 0, err[-3000:]
     assert out.splitlines() == [
         "tokens_before_encoder: (1, 313, 768)",
         "encoded_tokens: (1, 313, 768)", "pooled: (1, 768)",
@@ -546,13 +576,32 @@ def scored_world(sockdir, monkeypatch):
     return seg, score
 
 
+class _BoundEvent:
+    """``serve.WarmingServer`` that sets ``bound`` once the daemon's
+    socket is bound: a client started after ``bound.wait()`` finds the
+    socket (a client that finds none exits at once, by design)."""
+
+    def __init__(self, monkeypatch):
+        self.bound = threading.Event()
+        outer, base = self, serve.WarmingServer
+
+        class Announcing(base):
+            def __init__(self, socket_path):
+                super().__init__(socket_path)
+                outer.bound.set()
+
+        monkeypatch.setattr(serve, "WarmingServer", Announcing)
+
+
 def test_segment_score_events_offline_follow_and_socket(scored_world,
-                                                        sockdir, capsys):
+                                                        sockdir, capsys,
+                                                        monkeypatch):
     """The offline rows (events.json, from the written clip dirs) equal
     the in-process --follow rows and the --follow --socket rows
     (events.jsonl, scored by a serve daemon), and score-events reads
     them; --score-events without its runs exits before any embed."""
     seg, score = scored_world
+    daemon_up = _BoundEvent(monkeypatch)
     capsys.readouterr()
     cli.main(["segment", "frames", "--method", "knn-hmm", "--db", "db",
               "--corpus-collection", "corpus", "--out", "scored", *seg,
@@ -575,6 +624,9 @@ def test_segment_score_events_offline_follow_and_socket(scored_world,
         "--batch-size", "16", "--warmup", "--device", "cpu"],), daemon=True)
     t.start()
     try:
+        # the client waits through the daemon's warming by itself, but it
+        # needs the socket: started before the bind, it exits
+        assert daemon_up.bound.wait(TIMEOUT)
         cli.main(["segment", _live_frames("frames", "live_b"), "--method",
                   "knn-hmm", "--socket", sock, "--out", "daemon", *follow])
         capsys.readouterr()
@@ -608,21 +660,35 @@ def test_segment_score_events_offline_follow_and_socket(scored_world,
 
 @pytest.fixture(scope="module")
 def engines():
-    """(JAX engine, port engine) with equal weights, batch size 4."""
-    jcfg = jax_configs.ViTConfig(**TINY)
-    model, params = jax_vit.init_vit(jcfg, seed=0)
-    jeng = jax_embed.EmbeddingEngine(model, params, JaxSpec(size=(32, 32)),
-                                     batch_size=4,
-                                     use_fused_patch_embed=False)
+    """(JAX engine, port engine) with equal weights, batch size 4: the
+    port's seeded init, brought to the flax tree by models/convert.py."""
     tcfg = ViTConfig(**TINY)
-    tm = tvit.VisionTransformer(tcfg)
-    tm.load_state_dict(convert.params_to_state_dict(params, tcfg))
+    tm = tvit.init_vit(tcfg, seed=0, device="cpu")
+    params = convert.state_dict_to_params(tm.state_dict(), tcfg)
+    jeng = jax_embed.EmbeddingEngine(
+        jax_vit.VisionTransformer(jax_configs.ViTConfig(**TINY)), params,
+        JaxSpec(size=(32, 32)), batch_size=4, use_fused_patch_embed=False)
     teng = tembed.EmbeddingEngine(tm.eval(), PreprocessSpec(size=(32, 32)),
                                   device="cpu", batch_size=4)
     return jeng, teng
 
 
-def _daemon_world(root, teng):
+@pytest.fixture(scope="module")
+def daemon_world(engines, jax_refs, tmp_path_factory):
+    """``_daemon_world`` built once a module; ``world(root)`` copies its
+    runs and stored collection under ``root`` (a test may write there)
+    and returns (frame paths, corpus rows, JAX weights)."""
+    base = str(tmp_path_factory.mktemp("daemon_world"))
+    paths, corpus, w = _daemon_world(base, engines[1], jax_refs)
+
+    def world(root):
+        for sub in ("ck", "sdb"):
+            shutil.copytree(os.path.join(base, sub), os.path.join(root, sub))
+        return paths, corpus, w
+    return world
+
+
+def _daemon_world(root, teng, jax_refs):
     """Frames of one game on disk, its labelled corpus rows (the port
     engine's embeddings) and a stored scoring collection on disk: the
     same game's chunks encoded by the stage-1 weights, labelled by side.
@@ -636,7 +702,7 @@ def _daemon_world(root, teng):
               [{"label": s, **{f"{t}_prob": 0.9 if t == s else 0.05
                                for t in ("left", "right", "none")}}
                for s in sides])
-    w = _jax_weights(teng.out_dim, 4)
+    w = jax_refs(teng.out_dim)
     _save_runs(os.path.join(root, "ck"), *w[2:])
     table = {os.path.basename(p): e for p, e in zip(paths, embs)}
     names = [os.path.basename(p) for p in paths]
@@ -701,13 +767,14 @@ def _events(replies):
     return clips, rows
 
 
-def test_daemon_scoring_sessions_match_the_jax_daemon(engines, sockdir):
+def test_daemon_scoring_sessions_match_the_jax_daemon(engines, daemon_world,
+                                                      sockdir):
     """A score_events session on the port's daemon (stacks restored from
     the port's runs) and on the JAX daemon (the same weights, its stack
     cache seeded): the same reply keys, clips and event rows, a clip
     mid-game; the stats counters."""
     jeng, teng = engines
-    paths, corpus, w = _daemon_world(sockdir, teng)
+    paths, corpus, w = daemon_world(sockdir)
     tcol = torch_store.Collection("corpus", device="cpu")
     jcol = jax_store.Collection("corpus")
     for c in (tcol, jcol):
@@ -738,14 +805,14 @@ def test_daemon_scoring_sessions_match_the_jax_daemon(engines, sockdir):
 
 
 def test_reload_weights_pins_sessions_and_swaps_all_or_nothing(
-        engines, sockdir, capsys):
+        engines, daemon_world, sockdir, capsys):
     """reload_weights: an open session keeps generation 0 and its scores
     while a session opened after the reload scores with the new best
     weights; a failed restore swaps nothing; ids narrow the reload; the
     dims without the full id triple are refused; serve-ctl reload-weights
     answers end to end."""
     _, teng = engines
-    paths, corpus, _ = _daemon_world(sockdir, teng)
+    paths, corpus, _ = daemon_world(sockdir)
     tcol = torch_store.Collection("corpus", device="cpu")
     tcol.upsert(*corpus)
     ck = os.path.join(sockdir, "ck")

@@ -137,9 +137,15 @@ def test_ratt_head_refuses_a_sequence_past_max_tokens():
 
 @pytest.mark.parametrize("head", ["RAGHead", "RATTHead"])
 def test_heads_refuse_bfloat16(head):
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        getattr(heads, head)(configs.HeadConfig(embed_dim=D, num_heads=2,
-                                                dtype="bfloat16"))
+    """bf16 is no longer refused: it is a compute dtype over f32
+    parameters (tests/test_torch_precision.py holds it against JAX)."""
+    m = getattr(heads, head)(configs.HeadConfig(embed_dim=D, num_heads=2,
+                                                dtype="bfloat16")).eval()
+    assert {p.dtype for p in m.parameters()} == {torch.float32}
+    cls, ret = _inputs()
+    out = m(_t(cls), _t(ret))
+    assert out[0].dtype == torch.bfloat16  # the logits
+    assert out[-2 if head == "RATTHead" else 1].dtype == torch.float32
 
 
 @pytest.mark.parametrize("in_dim,hidden", [(D, 768), (3 * D, D)])

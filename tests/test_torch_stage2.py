@@ -17,6 +17,7 @@ bounds). A resumed run equals the uninterrupted one exactly.
 """
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -73,7 +74,7 @@ def test_ratt_v2_matches_jax(ks, kc, kt):
     kw = dict(HEAD_KW, k_sim=ks, k_contrast=kc, k_temporal=kt)
     inputs = _head_inputs(1, ks=ks, kc=kc, kt=kt)
     jhead = jax_ratt_v2.RATTHeadV2(jax_configs.HeadConfig(**kw))
-    params = jax.jit(jhead.init)(jax.random.PRNGKey(3), *inputs)
+    params = _jax_init(3, ks, kc, kt)
     jl, jc, ja = jax.jit(jhead.apply)(params, *inputs)
     head = ratt_v2.RATTHeadV2(configs.HeadConfig(**kw))
     head.load_state_dict(convert.ratt_v2_to_state_dict(_np_tree(params)))
@@ -105,9 +106,7 @@ def test_ratt_v2_matches_jax(ks, kc, kt):
 def test_ratt_v2_weight_map_covers_every_parameter():
     """Every flax leaf maps to one port parameter of its shape, and every
     port parameter is mapped: the converted dict loads strictly."""
-    jhead = jax_ratt_v2.RATTHeadV2(jax_configs.HeadConfig(**HEAD_KW))
-    params = _np_tree(jax.jit(jhead.init)(jax.random.PRNGKey(0),
-                                          *_head_inputs(0)))
+    params = _np_tree(_jax_init(0))
     sd = convert.ratt_v2_to_state_dict(params)
     head = ratt_v2.RATTHeadV2(configs.HeadConfig(**HEAD_KW))
     want = head.state_dict()
@@ -122,8 +121,15 @@ def test_ratt_v2_weight_map_covers_every_parameter():
 
 
 def test_ratt_v2_refuses_bfloat16():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ratt_v2.RATTHeadV2(configs.HeadConfig(**HEAD_KW, dtype="bfloat16"))
+    """bf16 is no longer refused: it is a compute dtype over f32
+    parameters (tests/test_torch_precision.py holds it against JAX)."""
+    head = ratt_v2.RATTHeadV2(configs.HeadConfig(**HEAD_KW, dtype="bfloat16"))
+    assert {p.dtype for p in head.parameters()} == {torch.float32}
+    d = HEAD_KW["embed_dim"]
+    logit, cls_out, aux = head.eval()(torch.zeros(2, d), torch.zeros(2, 3, d),
+                                      torch.zeros(2, 3, d),
+                                      torch.zeros(2, 2, d))
+    assert logit.dtype == torch.bfloat16 and cls_out.dtype == torch.float32
 
 
 # ------------------------------------------------------- the stage-2 cache
@@ -303,11 +309,18 @@ def _cfgs(**train):
     return out
 
 
-def _jax_init(seed):
-    head = jax_ratt_v2.RATTHeadV2(jax_configs.HeadConfig(**HEAD_KW))
-    return jax.jit(head.init)(jax.random.PRNGKey(seed), jnp.zeros((1, D)),
-                              jnp.zeros((1, KS, D)), jnp.zeros((1, KC, D)),
-                              jnp.zeros((1, KT, D)))
+@functools.lru_cache(maxsize=None)
+def _jax_head_init(ks, kc, kt):
+    """One jitted flax init a branch size: it compiles once, whatever the
+    seed (the weights do not depend on the batch)."""
+    return jax.jit(jax_ratt_v2.RATTHeadV2(jax_configs.HeadConfig(
+        **dict(HEAD_KW, k_sim=ks, k_contrast=kc, k_temporal=kt))).init)
+
+
+def _jax_init(seed, ks=KS, kc=KC, kt=KT):
+    return _jax_head_init(ks, kc, kt)(
+        jax.random.PRNGKey(seed), jnp.zeros((1, D)), jnp.zeros((1, ks, D)),
+        jnp.zeros((1, kc, D)), jnp.zeros((1, kt, D)))
 
 
 @pytest.mark.parametrize("live", [True, False])
@@ -412,3 +425,28 @@ def test_stage3_continuation_starts_from_the_pinned_weights():
     for name, p in head.state_dict().items():
         assert torch.equal(p, sd[name]), name
     assert not torch.equal(head.state_dict()["cls_token"], fresh["cls_token"])
+
+
+def test_train_stage2_runs_a_bf16_head():
+    """HeadConfig(dtype='bfloat16'): train_stage2 steps the f32 weights
+    through bf16 compute, its validation probabilities reach the host as
+    f32, and its losses stay within bf16's reach of the f32 run's."""
+    chunks, train, val = _world()
+    col, _ = _collections(chunks, 0)
+    cache = cs.build_stage2_cache(chunks, _emb, col, **BRANCH_KW)
+    runs, probs = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg, _ = _cfgs(num_epochs=1)
+        cfg = dataclasses.replace(cfg, head=dataclasses.replace(
+            cfg.head, dtype=dtype))
+        runs[dtype] = train_stage2.train_stage2(
+            train, val, cache, encode_fn=None, collection=None, cfg=cfg,
+            seed=5, device="cpu", log_probs_fn=lambda e, lab, p, d=dtype:
+            probs.setdefault(d, p))
+    head, hist = runs["bfloat16"]
+    assert {p.dtype for p in head.parameters()} == {torch.float32}
+    assert probs["bfloat16"].dtype == np.float32
+    for key in ("train_loss", "val_loss"):
+        assert np.isfinite(hist[0][key])
+        np.testing.assert_allclose(hist[0][key], runs["float32"][1][0][key],
+                                   rtol=2 ** -5, err_msg=key)

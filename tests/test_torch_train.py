@@ -658,3 +658,32 @@ def test_train_stage1_then_write_ratt_db_cli(tmp_path, capsys):
     with pytest.raises(SystemExit, match="pos_embedding"):
         cli.main(["write-ratt-db", "--store", other, "--ckpt", ck, "--db",
                   db, "--run-id", "s1", "--device", "cpu"])
+
+
+def test_bf16_encoder_trains_f32_weights_and_encodes(tmp_path):
+    """ChunkEncoderConfig(dtype='bfloat16'): stage 1 trains the f32
+    weights through bf16 compute (the losses take their f32 casts) to the
+    f32 run's metrics within bf16's reach, and make_encode_fn reads the
+    bf16 logits back as f32."""
+    store, idx, n = _world(str(tmp_path / "store"))
+    train_ids, val_ids = list(range(n - 5)), list(range(n - 5, n))
+    kw = dict(num_epochs=1, batch_size=4, lr=1e-3, seed=3, device="cpu")
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(CE, dtype=dtype)
+        runs[dtype] = tce.train_chunk_encoder(store, idx, train_ids, val_ids,
+                                              config=cfg, **kw)
+    model, best, hist = runs["bfloat16"]
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    assert {v.dtype for v in best.values()} == {torch.float32}
+    ref = runs["float32"][2]
+    assert hist[0].keys() == ref[0].keys()
+    for key in ("train_loss", "val_loss"):
+        assert np.isfinite(hist[0][key])
+        # 8 significant bits through one block: a loss within 2^-5
+        np.testing.assert_allclose(hist[0][key], ref[0][key], rtol=2 ** -5,
+                                   err_msg=key)
+    emb, logit = tce.make_encode_fn(model)(
+        store.gather(idx["frame_idx"][:3].reshape(-1)).reshape(3, T, D))
+    assert emb.dtype == logit.dtype == np.float32
+    assert emb.shape == (3, D) and logit.shape == (3, 1)

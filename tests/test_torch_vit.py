@@ -227,10 +227,17 @@ def test_seeded_init_is_deterministic_with_reference_initialisers():
 
 
 def test_unported_options_are_refused():
-    # ToMe and the int8 GEMMs are ported (tests/test_torch_fast_profile.py)
+    # every option of the reference is ported now (remat and 'bthd':
+    # tests/test_torch_precision.py); what stays refused is what the
+    # reference refuses
     for kw in (dict(remat=True), dict(attn_layout="bthd")):
-        with pytest.raises(NotImplementedError):
-            tvit.VisionTransformer(dataclasses.replace(TINY_1, **kw))
+        tvit.VisionTransformer(dataclasses.replace(TINY_1, **kw))
+    with pytest.raises(ValueError, match="attn_layout"):
+        tvit.VisionTransformer(dataclasses.replace(TINY_1,
+                                                   attn_layout="bhdt"))
+    with pytest.raises(ValueError, match="incompatible with remat"):
+        tvit.VisionTransformer(dataclasses.replace(TINY_1, tome_r=2,
+                                                   remat=True))
 
 
 def test_hf_config_matches_reference():

@@ -2,9 +2,9 @@
 client (serve, serve-ctl).
 
 Port of vit_research_tpu/cli/serve_cmds.py with the reference's flags
-plus ``--device``. ``serve --shard-device`` (a collection sharded over
-several cards) waits for the port of the mesh (ROADMAP §1, multi-GPU) and is
-not a flag of this parser.
+plus ``--device``. ``serve --shard-device`` splits the collection's rows
+over a mesh of every visible card (parallel/mesh.py::make_mesh; with
+``--device cpu``, of the one CPU).
 """
 
 from __future__ import annotations
@@ -24,9 +24,12 @@ def cmd_serve(args):
     # socket an operator cannot tell "initializing" from "dead".
     # ping/stats answer with warming/phase/elapsed; engine ops get a
     # warming_up error.
+    if args.shard_device and not args.db:
+        raise SystemExit("--shard-device shards the daemon's collection: "
+                         "it needs --db and --collection")
     warm = WarmingServer(args.socket)
     try:
-        coll = None
+        coll, mesh = None, None
         if args.db:
             warm.phase = "loading collection"
             if not args.collection:
@@ -40,13 +43,23 @@ def cmd_serve(args):
             # for its whole lifetime: a cross-profile mismatch deserves
             # a loud startup warning
             common.check_embedding_profile(coll, what="daemon collection")
-            # at IVF scale the first unfiltered query pays a one-time
-            # k-means fit — do it here, while the warming socket reports
-            # the phase, not on a user's first request
-            warm.phase = f"store index prewarm ({coll.count():,} rows)"
-            if coll.prewarm_index():
-                print(f"IVF index ready for {args.collection} "
-                      f"({coll.count():,} rows)", flush=True)
+            if args.shard_device:
+                from vit_research_tpu_torch.parallel.mesh import make_mesh
+
+                # every visible card; a CPU daemon's mesh is its one CPU
+                mesh = make_mesh(devices=None if args.device.startswith(
+                    "cuda") else [args.device])
+                coll.shard_device(mesh)
+                print(f"collection {args.collection} sharded over "
+                      f"{mesh.size} device(s)", flush=True)
+            else:
+                # at IVF scale the first unfiltered query pays a one-time
+                # k-means fit — do it here, while the warming socket
+                # reports the phase, not on a user's first request
+                warm.phase = f"store index prewarm ({coll.count():,} rows)"
+                if coll.prewarm_index():
+                    print(f"IVF index ready for {args.collection} "
+                          f"({coll.count():,} rows)", flush=True)
         if warm.shutdown_requested:
             print("shutdown requested while warming; exiting before "
                   "engine build", flush=True)
@@ -81,7 +94,8 @@ def cmd_serve(args):
                              coalesce_ms=args.coalesce_ms,
                              # the reload op's defaults: serve-ctl reload
                              collection_source=((args.db, args.collection)
-                                                if args.db else None))
+                                                if args.db else None),
+                             shard_mesh=mesh)
     finally:
         # idempotent; also runs on startup failure (no card, bad
         # collection, SystemExit) so the placeholder never outlives the
@@ -149,6 +163,10 @@ def register(sub):
                          "batch before accepting connections (first-"
                          "request latency becomes flat; startup pays the "
                          "build instead)")
+    sv.add_argument("--shard-device", action="store_true",
+                    help="split the collection's device corpus over every "
+                         "visible card (exact top-k, each card scores its "
+                         "shard — ops/sharded_topk.py)")
     sv.add_argument("--coalesce-ms", type=float, default=2.0,
                     help="micro-batch concurrent embed requests arriving "
                          "within this window into one device batch "

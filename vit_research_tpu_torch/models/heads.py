@@ -28,8 +28,17 @@ B on a CUDA device in eval mode and in dropout-0 training (dh = 96 in the
 chunk encoder, 768 / 8 heads; dh = 192 in RAGHead, 768 / 4 heads, at T =
 1 + num_queries = 5), the plain path where scores are returned (every
 RATTHead layer) or attention dropout is on. Dropout masks come from the
-generator that models/vit.py::set_dropout_generator sets. The heads
-compute in float32; ``dtype='bfloat16'`` is not ported and is refused.
+generator that models/vit.py::set_dropout_generator sets.
+
+``dtype='bfloat16'`` (``ChunkEncoderConfig`` / ``HeadConfig``) computes
+in bf16 over f32 parameters, as the reference's flax modules do: the
+inputs, the CLS token, the type and position embeddings and the retrieved
+rows are cast to bf16, the dense layers and the pooler's einsums run in
+bf16, the blocks follow models/vit.py's compute-dtype rule, and the final
+LayerNorm promotes to f32 (the chunk embedding and the fused CLS row are
+f32, the logits bf16). The f32 parameters are what an optimizer steps and
+a checkpoint holds. In bf16, kernel B runs its ``attn_bf16``
+instantiations (dh = 96 in the chunk encoder, 192 in RAGHead).
 """
 
 from __future__ import annotations
@@ -40,7 +49,8 @@ import torch
 from torch import nn
 
 from vit_research_tpu_torch.models.vit import (Dropout, EncoderBlock,
-                                               _lecun_normal_)
+                                               _dense as _run_dense, _dtype,
+                                               _lecun_normal_, _norm)
 from vit_research_tpu_torch.ops.topk import l2_normalize
 from vit_research_tpu_torch.utils.configs import (ChunkEncoderConfig,
                                                   HeadConfig)
@@ -91,25 +101,29 @@ class ProjectionHead(nn.Module):
 
 
 class ClassifierMLP(nn.Module):
-    """Dense(hidden, relu) -> Dropout -> Dense(1)."""
+    """Dense(hidden, relu) -> Dropout -> Dense(1), in the compute
+    ``dtype`` over f32 weights (None: the weights' dtype)."""
 
     def __init__(self, in_features: int, hidden_dim: int = 256,
                  dropout_rate: float = 0.2, *,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.fc = _dense(in_features, hidden_dim, generator)
         self.dropout = Dropout(dropout_rate)
         self.logit = _dense(hidden_dim, 1, generator)
+        self.dtype = dtype
 
     def forward(self, x):
-        return self.logit(self.dropout(torch.relu(self.fc(x))))
+        h = torch.relu(_run_dense(self.fc, x, dtype=self.dtype))
+        return _run_dense(self.logit, self.dropout(h), dtype=self.dtype)
 
 
-def _require_f32(config, what: str) -> None:
-    if config.dtype != "float32":
-        raise NotImplementedError(
-            f"{what}.dtype={config.dtype!r} is not ported; the port's "
-            "heads compute in float32")
+def compute_dtype(config) -> torch.dtype | None:
+    """The heads' compute dtype over f32 parameters: bf16 for
+    ``dtype='bfloat16'``, None (the parameters' own f32) otherwise."""
+    dt = _dtype(config.dtype)
+    return None if dt == torch.float32 else dt
 
 
 @torch.no_grad()
@@ -127,28 +141,29 @@ def _init_dense_and_norms(module: nn.Module, generator) -> None:
 
 def _head_blocks(c: HeadConfig) -> nn.ModuleList:
     """The heads' pre-norm blocks: the backbone's EncoderBlock, MLP 4x
-    wide, tanh GELU."""
+    wide, tanh GELU, in the config's compute dtype."""
     return nn.ModuleList(
         EncoderBlock(c.embed_dim, c.num_heads, 4 * c.embed_dim,
                      dropout_rate=c.dropout_rate,
                      attention_dropout_rate=c.dropout_rate,
-                     layer_norm_eps=1e-6, gelu_approximate=True)
+                     layer_norm_eps=1e-6, gelu_approximate=True,
+                     dtype=compute_dtype(c))
         for _ in range(c.num_layers))
+
 
 
 class ChunkEncoder(nn.Module):
     """(B, T, D) frame embeddings -> (chunk embedding (B, D), class logit
     (B, 1)[, per-layer attention probabilities]).
 
-    The class head's dropout is the reference's fixed 0.2. Only
-    ``dtype='float32'`` is ported."""
+    The class head's dropout is the reference's fixed 0.2."""
 
     def __init__(self, config: ChunkEncoderConfig, *,
                  generator: torch.Generator | None = None):
         super().__init__()
         c = config
-        _require_f32(c, "ChunkEncoderConfig")
         self.config = c
+        self.dtype = compute_dtype(c)
         d = c.embed_dim
         self.cls_token = nn.Parameter(torch.empty(1, 1, d))
         self.pos_embedding = nn.Parameter(torch.empty(1, 1 + c.max_len, d))
@@ -156,10 +171,12 @@ class ChunkEncoder(nn.Module):
             EncoderBlock(d, c.num_heads, c.mlp_dim,
                          dropout_rate=c.dropout_rate,
                          attention_dropout_rate=c.dropout_rate,
-                         layer_norm_eps=1e-6, gelu_approximate=True)
+                         layer_norm_eps=1e-6, gelu_approximate=True,
+                         dtype=self.dtype)
             for _ in range(c.num_layers))
         self.norm = nn.LayerNorm(d, eps=1e-6)
-        self.class_head = ClassifierMLP(d, generator=generator)
+        self.class_head = ClassifierMLP(d, generator=generator,
+                                        dtype=self.dtype)
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -182,15 +199,16 @@ class ChunkEncoder(nn.Module):
             raise ValueError(
                 f"chunk has {t} frames but ChunkEncoderConfig.max_len is "
                 f"{c.max_len}; raise max_len (the pos table is sized to it)")
-        x = frame_embeddings.to(torch.float32)
-        x = torch.cat([self.cls_token.expand(b, -1, -1), x], dim=1)
-        x = x + self.pos_embedding[:, : t + 1]
+        dt = self.dtype or torch.float32
+        x = frame_embeddings.to(dt)
+        x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
+        x = x + self.pos_embedding[:, : t + 1].to(dt)
         scores_all = []
         for block in self.blocks:
             x, scores = block(x, return_attention)
             if scores is not None:
                 scores_all.append(scores)
-        x = self.norm(x)
+        x = _norm(self.norm, x, self.dtype)
         chunk_emb = x[:, 0]
         class_logit = self.class_head(chunk_emb)
         if return_attention:
@@ -208,8 +226,8 @@ class RAGHead(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         c = config
-        _require_f32(c, "HeadConfig")
         self.config = c
+        self.dtype = compute_dtype(c)
         d = c.embed_dim
         self.pooler = RetrievalMultiQueryPooler(d, c.num_queries,
                                                 generator=generator)
@@ -220,20 +238,22 @@ class RAGHead(nn.Module):
         self.blocks = _head_blocks(c)
         self.norm = nn.LayerNorm(d, eps=1e-6)
         self.classifier = ClassifierMLP(d, c.hidden_dim,
-                                        c.classifier_dropout)
+                                        c.classifier_dropout,
+                                        dtype=self.dtype)
         with torch.no_grad():
             nn.init.normal_(self.pos_embedding, std=0.02,
                             generator=generator)
         _init_dense_and_norms(self, generator)
 
     def forward(self, cls_embeddings, retrieved_embeddings):
-        pooled = self.pooler(retrieved_embeddings.to(torch.float32))
-        cls_tok = cls_embeddings[:, None].to(torch.float32) + self.cls_type
-        x = torch.cat([cls_tok, pooled + self.ret_type], dim=1) \
-            + self.pos_embedding
+        dt = self.dtype or torch.float32
+        pooled = self.pooler(retrieved_embeddings.to(dt))
+        cls_tok = cls_embeddings[:, None].to(dt) + self.cls_type.to(dt)
+        x = torch.cat([cls_tok, pooled + self.ret_type.to(dt)], dim=1) \
+            + self.pos_embedding.to(dt)
         for block in self.blocks:
             x, _ = block(x)
-        fused_cls = self.norm(x)[:, 0]
+        fused_cls = _norm(self.norm, x, self.dtype)[:, 0]
         return self.classifier(fused_cls), fused_cls
 
 
@@ -247,17 +267,19 @@ class RATTHead(nn.Module):
                  *, generator: torch.Generator | None = None):
         super().__init__()
         c = config
-        _require_f32(c, "HeadConfig")
         self.config = c
+        self.dtype = compute_dtype(c)
         d = c.embed_dim
         self.cls_type = nn.Parameter(torch.zeros(1, 1, d))
         self.ret_type = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embedding = nn.Parameter(torch.empty(1, c.max_tokens, d))
         self.blocks = _head_blocks(c)
         self.norm = nn.LayerNorm(d, eps=1e-6)
-        self.class_head = ClassifierMLP(d, c.hidden_dim, c.classifier_dropout)
+        self.class_head = ClassifierMLP(d, c.hidden_dim, c.classifier_dropout,
+                                        dtype=self.dtype)
         self.relevance_head = (ClassifierMLP(d, c.hidden_dim,
-                                             c.classifier_dropout)
+                                             c.classifier_dropout,
+                                             dtype=self.dtype)
                                if use_relevance_head else None)
         with torch.no_grad():
             nn.init.normal_(self.pos_embedding, std=0.02,
@@ -267,20 +289,21 @@ class RATTHead(nn.Module):
     def forward(self, cls_embeddings, retrieved_embeddings, *,
                 use_retrieval: bool = True):
         c = self.config
-        x = cls_embeddings[:, None].to(torch.float32) + self.cls_type
+        dt = self.dtype or torch.float32
+        x = cls_embeddings[:, None].to(dt) + self.cls_type.to(dt)
         if use_retrieval:
-            x = torch.cat([x, retrieved_embeddings.to(torch.float32)
-                           + self.ret_type], dim=1)
+            x = torch.cat([x, retrieved_embeddings.to(dt)
+                           + self.ret_type.to(dt)], dim=1)
         seq = x.shape[1]
         if seq > c.max_tokens:
             raise ValueError(f"sequence {seq} exceeds max_tokens "
                              f"{c.max_tokens}")
-        x = x + self.pos_embedding[:, :seq]
+        x = x + self.pos_embedding[:, :seq].to(dt)
         scores_all = []
         for block in self.blocks:
             x, scores = block(x, True)
             scores_all.append(scores)
-        fused = self.norm(x)[:, 0]
+        fused = _norm(self.norm, x, self.dtype)[:, 0]
         relevance = (self.relevance_head(fused)
                      if self.relevance_head is not None else None)
         return self.class_head(fused), relevance, fused, scores_all

@@ -22,8 +22,10 @@ computation and a parameter layout that models/convert.py
 
 Every block returns its scores, so attention takes the plain path
 (models/vit.py's ``needs_plain``), as the JAX package's XLA attention
-does whenever scores are returned: this head launches no kernel. It
-computes in float32; ``dtype='bfloat16'`` is not ported and is refused.
+does whenever scores are returned: this head launches no kernel.
+``dtype='bfloat16'`` computes in bf16 over f32 parameters (the inputs
+and the learned tokens cast to bf16, bf16 dense layers, f32 final
+LayerNorm), as models/heads.py's heads do.
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ import torch
 from torch import nn
 
 from vit_research_tpu_torch.models.heads import (_init_dense_and_norms,
-                                                 _require_f32)
-from vit_research_tpu_torch.models.vit import Dropout, EncoderBlock
+                                                 compute_dtype)
+from vit_research_tpu_torch.models.vit import (Dropout, EncoderBlock, _dense,
+                                               _norm)
 from vit_research_tpu_torch.utils.configs import HeadConfig
 
 #: the twelve learned (1, 1, D) tokens, in the flax tree's names
@@ -46,15 +49,19 @@ BRANCHES = ("support_proj", "contrast_proj", "temporal_proj")
 
 
 class BranchProjection(nn.Module):
-    """Dense(2D, relu) -> Dense(D)."""
+    """Dense(2D, relu) -> Dense(D), in the compute ``dtype`` over f32
+    weights (None: the weights' dtype)."""
 
-    def __init__(self, hidden_size: int):
+    def __init__(self, hidden_size: int,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.fc1 = nn.Linear(hidden_size, 2 * hidden_size)
         self.fc2 = nn.Linear(2 * hidden_size, hidden_size)
+        self.dtype = dtype
 
     def forward(self, x):
-        return self.fc2(torch.relu(self.fc1(x)))
+        h = torch.relu(_dense(self.fc1, x, dtype=self.dtype))
+        return _dense(self.fc2, h, dtype=self.dtype)
 
 
 def token_indices(ks: int, kc: int, kt: int) -> dict:
@@ -71,19 +78,19 @@ class RATTHeadV2(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         c = config
-        _require_f32(c, "HeadConfig")
         self.config = c
+        self.dtype = dt = compute_dtype(c)
         d = c.embed_dim
         self.query_proj = nn.Linear(d, d)
-        self.support_proj = BranchProjection(d)
-        self.contrast_proj = BranchProjection(d)
-        self.temporal_proj = BranchProjection(d)
+        self.support_proj = BranchProjection(d, dt)
+        self.contrast_proj = BranchProjection(d, dt)
+        self.temporal_proj = BranchProjection(d, dt)
         for name in TOKENS:
             self.register_parameter(name, nn.Parameter(torch.empty(1, 1, d)))
         self.blocks = nn.ModuleList(
             EncoderBlock(d, c.num_heads, 4 * d, dropout_rate=c.dropout_rate,
                          attention_dropout_rate=c.dropout_rate,
-                         layer_norm_eps=1e-6)
+                         layer_norm_eps=1e-6, dtype=dt)
             for _ in range(c.num_layers))
         self.norm = nn.LayerNorm(d, eps=1e-6)
         self.classifier_fc = nn.Linear(d, 2 * c.mlp_dim)
@@ -102,14 +109,15 @@ class RATTHeadV2(nn.Module):
         b = chunk_embs.shape[0]
         ks, kc, kt = (support_tokens.shape[1], contrast_tokens.shape[1],
                       temporal_tokens.shape[1])
-        q_raw = chunk_embs[:, None].to(torch.float32)
-        local = q_raw + self.query_proj(q_raw)
-        sup = self.support_proj(support_tokens.to(torch.float32))
-        con = self.contrast_proj(contrast_tokens.to(torch.float32))
-        tmp = self.temporal_proj(temporal_tokens.to(torch.float32))
+        dt = self.dtype or torch.float32
+        q_raw = chunk_embs[:, None].to(dt)
+        local = q_raw + _dense(self.query_proj, q_raw, dtype=self.dtype)
+        sup = self.support_proj(support_tokens.to(dt))
+        con = self.contrast_proj(contrast_tokens.to(dt))
+        tmp = self.temporal_proj(temporal_tokens.to(dt))
 
         def tok(name, n=1):
-            return getattr(self, name).expand(b, n, -1)
+            return getattr(self, name).to(dt).expand(b, n, -1)
 
         x = torch.cat([tok("cls_token"), tok("support_token"), sup,
                        tok("contrast_token"), con, tok("temporal_token"),
@@ -123,14 +131,16 @@ class RATTHeadV2(nn.Module):
         for block in self.blocks:
             x, scores = block(x, True)
             scores_all.append(scores)
-        x = self.norm(x)
+        x = _norm(self.norm, x, self.dtype)
         cls_out = x[:, 0]
-        h = self.classifier_dropout(torch.relu(self.classifier_fc(cls_out)))
+        h = self.classifier_dropout(torch.relu(
+            _dense(self.classifier_fc, cls_out, dtype=self.dtype)))
         aux = {name: x[:, i] for name, i in
                token_indices(ks, kc, kt).items()}
         aux["local_out"] = aux.pop("local")
         aux["attn_scores"] = scores_all
-        return self.classifier_logit(h), cls_out, aux
+        return (_dense(self.classifier_logit, h, dtype=self.dtype), cls_out,
+                aux)
 
 
 def branch_attention_diagnostics(scores_all, ks: int, kc: int,

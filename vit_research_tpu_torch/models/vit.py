@@ -32,16 +32,35 @@ The fast profile's two backbone options, off the parity path:
   layers keep their ``nn.Linear`` parameters, so the ``state_dict`` is
   the plain model's and the same converted weights load.
 
-``remat`` and ``attn_layout='bthd'`` are not ported and are refused.
+Options of the reference's backbone that change how, not what, it
+computes:
+
+- ``remat``: each encoder block runs under
+  ``torch.utils.checkpoint`` (the reference's ``nn.remat``), so a backward
+  recomputes the block's activations instead of keeping them. The
+  recompute replays the block's dropout masks from the state its
+  :class:`Dropout` generators had in the forward (:func:`_checkpointed`).
+- ``attn_layout='bthd'``: the attention einsums read q, k and v in the
+  projections' (B, T, H, dh) order. As in the reference, that layout
+  takes the plain path, kernel or not.
+
+The heads (models/heads.py) run these blocks in a compute dtype over f32
+parameters (``EncoderBlock(dtype=torch.bfloat16)``), flax's rule: a dense
+layer casts its input and its f32 weight to the compute dtype, a
+LayerNorm promotes to f32, and the residual stream keeps the dtype the
+arithmetic gives it. The backbone's own bf16 route casts the whole model
+(``init_vit``), and its LayerNorms run in bf16.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vit_research_tpu_torch.utils.configs import ViTConfig
 from vit_research_tpu_torch.ops import attention as attn_ops
@@ -96,13 +115,26 @@ def set_dropout_generator(module: nn.Module, generator) -> None:
             mod.generator = generator
 
 
-def _dense(lin: nn.Linear, x: torch.Tensor, qdg) -> torch.Tensor:
-    """``lin(x)``, or its int8 product through ``qdg`` (ops/quant.py) plus
-    the bias: the reference injects its int8 ``dot_general`` into the same
-    Dense layers, which add the bias after the product."""
-    if qdg is None:
+def _dense(lin: nn.Linear, x: torch.Tensor, qdg=None,
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``lin(x)``; its int8 product through ``qdg`` (ops/quant.py) plus the
+    bias (the reference injects its int8 ``dot_general`` into the same
+    Dense layers, which add the bias after the product); or, with a
+    compute ``dtype``, flax's ``Dense(dtype=...)``: input, weight and bias
+    cast to ``dtype``, the product rounded to it, then the bias added."""
+    if qdg is not None:
+        return qdg(x, lin.weight) + lin.bias
+    if dtype is None:
         return lin(x)
-    return qdg(x, lin.weight) + lin.bias
+    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+
+
+def _norm(ln: nn.LayerNorm, x: torch.Tensor,
+          dtype: torch.dtype | None) -> torch.Tensor:
+    """``ln(x)``; with a compute ``dtype``, flax's LayerNorm without one:
+    it promotes to its f32 parameters, so the input is taken in f32 and
+    the output is f32."""
+    return ln(x if dtype is None else x.to(torch.float32))
 
 
 def interpolate_pos_embedding(pos: torch.Tensor, grid_from: tuple,
@@ -146,19 +178,22 @@ class PatchEmbed(nn.Module):
 
 class MlpBlock(nn.Module):
     def __init__(self, dim: int, mlp_dim: int, dropout_rate: float = 0.0,
-                 gelu_approximate: bool = False, dot_general=None):
+                 gelu_approximate: bool = False, dot_general=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.fc1 = nn.Linear(dim, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, dim)
         self.dropout = Dropout(dropout_rate)
         self.gelu_approximate = "tanh" if gelu_approximate else "none"
         self.dot_general = dot_general  # None, or an ops/quant.py product
+        self.dtype = dtype  # compute dtype over f32 weights (None: theirs)
 
     def forward(self, x):
-        x = F.gelu(_dense(self.fc1, x, self.dot_general),
+        x = F.gelu(_dense(self.fc1, x, self.dot_general, self.dtype),
                    approximate=self.gelu_approximate)
         x = self.dropout(x)
-        return self.dropout(_dense(self.fc2, x, self.dot_general))
+        return self.dropout(_dense(self.fc2, x, self.dot_general,
+                                   self.dtype))
 
 
 def head_too_wide_for_kernel(dh: int) -> bool:
@@ -173,16 +208,24 @@ def head_too_wide_for_kernel(dh: int) -> bool:
 
 class MultiHeadSelfAttention(nn.Module):
     """MHA with separate q/k/v projections. ``query``/``key``/``value`` are
-    (H*dh, D) ``nn.Linear``s, ``out`` maps H*dh back to D."""
+    (H*dh, D) ``nn.Linear``s, ``out`` maps H*dh back to D. ``attn_layout``
+    is ``'bhtd'`` (the kernel's route) or ``'bthd'`` (einsums on the
+    projections' order, always the plain path)."""
 
     def __init__(self, dim: int, num_heads: int, dropout_rate: float = 0.0,
                  softmax_dtype: torch.dtype = torch.float32,
-                 dot_general=None):
+                 dot_general=None, dtype: torch.dtype | None = None,
+                 attn_layout: str = "bhtd"):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"width {dim} is not divisible by {num_heads} "
                              "heads")
+        if attn_layout not in ("bhtd", "bthd"):
+            raise ValueError(f"attn_layout must be 'bhtd' or 'bthd', got "
+                             f"{attn_layout!r}")
         self.num_heads = num_heads
+        self.dtype = dtype  # compute dtype over f32 weights (None: theirs)
+        self.attn_layout = attn_layout
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
@@ -201,39 +244,49 @@ class MultiHeadSelfAttention(nn.Module):
         h = self.num_heads
         dh = d // h
 
-        # (B, T, D) -> (B, H, T, dh) as a view of the projection's
-        # (B, T, H, dh) order: the kernel reads it through its strides and
-        # writes its output in that order, so no layout copy is made.
+        bthd = self.attn_layout == "bthd"
+
+        # (B, T, D) -> (B, T, H, dh), the projection's order. 'bhtd' sees
+        # it as the (B, H, T, dh) view: the kernel reads that through its
+        # strides and writes its output in the same order, so no layout
+        # copy is made.
         def heads(lin):
-            return _dense(lin, x, self.dot_general).reshape(
-                b, t, h, dh).transpose(1, 2)
+            y = _dense(lin, x, self.dot_general, self.dtype).reshape(
+                b, t, h, dh)
+            return y if bthd else y.transpose(1, 2)
 
         q, k, v = heads(self.query), heads(self.key), heads(self.value)
         scores = None
-        needs_plain = (output_scores
+        needs_plain = (output_scores or bthd
                        or self.softmax_dtype != torch.float32
                        or (self.training and self.dropout.p > 0.0)
                        or head_too_wide_for_kernel(dh))
         if needs_plain:
-            s = torch.einsum("bhqd,bhkd->bhqk", q, k) * (dh ** -0.5)
+            s = torch.einsum("bqhd,bkhd->bhqk" if bthd else
+                             "bhqd,bhkd->bhqk", q, k) * (dh ** -0.5)
             if log_size is not None:
                 s = s + log_size[:, None, None, :].to(s.dtype)
             probs = torch.softmax(s.to(self.softmax_dtype), dim=-1)
             if output_scores:
                 scores = probs.to(torch.float32)
             probs = self.dropout(probs)
-            o = torch.einsum("bhqk,bhkd->bhqd", probs.to(q.dtype), v)
+            o = torch.einsum("bhqk,bkhd->bqhd" if bthd else
+                             "bhqk,bhkd->bhqd", probs.to(q.dtype), v)
         else:
             o = attn_ops.multi_head_attention(q, k, v, key_bias=log_size)
-        o = o.transpose(1, 2).reshape(b, t, d)
-        out = _dense(self.out, o, self.dot_general)
+        if not bthd:
+            o = o.transpose(1, 2)
+        out = _dense(self.out, o.reshape(b, t, d), self.dot_general,
+                     self.dtype)
         if output_metric:
-            return out, scores, k.mean(dim=1)
+            return out, scores, k.mean(dim=2 if bthd else 1)
         return out, scores
 
 
 class EncoderBlock(nn.Module):
-    """Pre-norm transformer block."""
+    """Pre-norm transformer block. ``dtype``: a compute dtype over the f32
+    parameters (flax's rule, see the module docstring); None computes in
+    the parameters' dtype."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int, *,
                  dropout_rate: float = 0.0,
@@ -241,21 +294,24 @@ class EncoderBlock(nn.Module):
                  layer_norm_eps: float = 1e-6,
                  gelu_approximate: bool = False,
                  softmax_dtype: torch.dtype = torch.float32,
-                 dot_general=None):
+                 dot_general=None, dtype: torch.dtype | None = None,
+                 attn_layout: str = "bhtd"):
         super().__init__()
+        self.dtype = dtype
         self.ln1 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.attn = MultiHeadSelfAttention(dim, num_heads,
                                            attention_dropout_rate,
-                                           softmax_dtype, dot_general)
+                                           softmax_dtype, dot_general, dtype,
+                                           attn_layout)
         self.ln2 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.mlp = MlpBlock(dim, mlp_dim, dropout_rate, gelu_approximate,
-                            dot_general)
+                            dot_general, dtype)
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x, output_scores: bool = False):
-        y, scores = self.attn(self.ln1(x), output_scores)
+        y, scores = self.attn(_norm(self.ln1, x, self.dtype), output_scores)
         x = x + self.dropout(y)
-        return x + self.mlp(self.ln2(x)), scores
+        return x + self.mlp(_norm(self.ln2, x, self.dtype)), scores
 
 
 class ToMeEncoderBlock(EncoderBlock):
@@ -291,12 +347,6 @@ class VisionTransformer(nn.Module):
                 "tome_r is incompatible with remat (an inference-speed "
                 "knob) and with output_attention_scores (per-layer "
                 "score shapes differ once tokens merge)")
-        for flag, bad in (("remat", c.remat),
-                          ("attn_layout", c.attn_layout != "bhtd")):
-            if bad:
-                raise NotImplementedError(
-                    f"ViTConfig.{flag} is not ported to the torch backbone "
-                    "yet")
         if c.pooler not in ("token", "gap", "none"):
             raise ValueError(f"unknown pooler {c.pooler!r}")
         self.config = c
@@ -317,6 +367,7 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             ToMeEncoderBlock(d, c.num_heads, c.mlp_dim, c.tome_r, **block_kw)
             if c.tome_r else EncoderBlock(d, c.num_heads, c.mlp_dim,
+                                          attn_layout=c.attn_layout,
                                           **block_kw)
             for _ in range(c.num_layers))
         self.encoder_norm = nn.LayerNorm(d, eps=c.layer_norm_eps)
@@ -378,7 +429,11 @@ class VisionTransformer(nn.Module):
                 x, sizes = block(x, sizes)
         else:
             for block in self.blocks:
-                x, scores = block(x, c.output_attention_scores)
+                if c.remat and torch.is_grad_enabled():
+                    x, scores = _checkpointed(block, x,
+                                              c.output_attention_scores)
+                else:
+                    x, scores = block(x, c.output_attention_scores)
                 if scores is not None:
                     all_scores.append(scores)
         x = self.encoder_norm(x)
@@ -404,6 +459,39 @@ class VisionTransformer(nn.Module):
         if all_scores:
             endpoints["attention_scores"] = torch.stack(all_scores, dim=1)
         return endpoints
+
+
+def _checkpointed(block: nn.Module, *args):
+    """``block(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are recomputed in the backward. ``preserve_rng_state``
+    replays torch's default generators only, and a :class:`Dropout` may
+    draw from a generator of its own: the recompute would draw new masks
+    and the gradients would be wrong, with no error. So the recompute
+    first sets every such generator to the state it had when the forward
+    ran, and afterwards gives it back the state it has at the backward."""
+    gens = list({id(m.generator): m.generator for m in block.modules()
+                 if isinstance(m, Dropout) and m.generator is not None
+                 }.values())
+    at_forward: list = []
+
+    @contextlib.contextmanager
+    def forward_ctx():
+        at_forward[:] = [g.get_state() for g in gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute_ctx():
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, at_forward):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    return checkpoint(block, *args, use_reentrant=False,
+                      context_fn=lambda: (forward_ctx(), recompute_ctx()))
 
 
 def _quant_dot_general(c: ViTConfig):

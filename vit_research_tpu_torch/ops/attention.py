@@ -26,6 +26,7 @@ kernel (the plain version on the CPU) and whose backward is the VJP of
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -151,6 +152,8 @@ def _launch(q, k, v, scale, key_bias):
     # a plain increment: exact because device work is serialized (the
     # serve daemon runs every forward under its one device lock)
     multi_head_attention.launches += 1
+    multi_head_attention.launches_by_kernel[
+        f"attn_{'bf16' if q.dtype == torch.bfloat16 else 'f32'}<{width}>"] += 1
     if width != d:
         multi_head_attention.padded_launches += 1
         o = o[..., :d]
@@ -209,9 +212,10 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (else ValueError). The output has the input dtype.
 
     A CUDA input launches the kernel (counted in
-    ``multi_head_attention.launches``); q, k and v may be any views whose
-    last dim has stride 1 and whose base and other strides are multiples
-    of 16 bytes (see :func:`_kernel_strides`), and the output is the
+    ``multi_head_attention.launches``, and by instantiation in
+    ``multi_head_attention.launches_by_kernel``); q, k and v may be any
+    views whose last dim has stride 1 and whose base and other strides are
+    multiples of 16 bytes (see :func:`_kernel_strides`), and the output is the
     ``transpose(1, 2)`` view of a contiguous (B, T, H, head_dim) tensor.
     A head width between two compiled ones runs zero-padded to the next
     (counted in ``multi_head_attention.padded_launches`` too; the output
@@ -238,3 +242,5 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 multi_head_attention.launches = 0
 multi_head_attention.padded_launches = 0
+#: the same launches by instantiation, e.g. ``attn_bf16<96>``
+multi_head_attention.launches_by_kernel = collections.Counter()

@@ -1,4 +1,4 @@
-"""Batched frame-embedding engine on one device.
+"""Batched frame-embedding engine on one device or a mesh of them.
 
 Port of vit_research_tpu/parallel/embed.py::EmbeddingEngine for the
 embedding main path:
@@ -16,6 +16,14 @@ Ragged tails run at their true size. The reference pads them to
 power-of-two transfer buckets (``_transfer_bucket``) only to bound jit
 retraces; eager PyTorch traces nothing, so the port has no buckets.
 
+With ``mesh=`` (parallel/mesh.py) the engine is data-parallel, as the
+reference's batch-sharded jit: the batch size is padded to a multiple of
+the ``data`` axis, every device of that axis holds a replica of the model
+(one replica a distinct device), each batch is split into one contiguous
+share a device (a ragged batch at its true size: the shares differ by at
+most a frame), each share runs kernels A and B on its device, and the
+outputs come back in order on the mesh's first device.
+
 The fast profile's models (ToMe, int8 GEMMs) run through the same
 engine: kernel A, then ``encode_patch_tokens``. :func:`embed_video_strided`
 embeds every Nth frame and interpolates between, with novelty-gated
@@ -25,6 +33,7 @@ code on any device.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import queue
 import threading
@@ -40,10 +49,10 @@ from vit_research_tpu_torch.data.preprocess import (
     load_frames,
 )
 from vit_research_tpu_torch.utils.configs import ViTConfig
-from vit_research_tpu_torch.device import resolve_device
 from vit_research_tpu_torch.models.hf_import import HF_VIT_B16_224
 from vit_research_tpu_torch.ops.patch_embed import fused_patch_embed
 from vit_research_tpu_torch.ops.tome import merged_token_counts
+from vit_research_tpu_torch.parallel import mesh as mesh_lib
 
 
 def grayscale_u8(images: torch.Tensor) -> torch.Tensor:
@@ -70,16 +79,35 @@ class EmbeddingEngine:
       model: models/vit.py::VisionTransformer (moved to ``device``).
       spec: host preprocessing spec; ``spec.size`` is the frame size.
       device: where the model runs (``'cuda'`` runs the CUDA kernels).
+      mesh: in place of ``device``, a parallel/mesh.py ``Mesh`` with a
+        ``data`` axis: the batch is split over its devices, each with a
+        replica of the model.
       endpoint: which endpoint of the model to return.
     """
 
-    def __init__(self, model, spec: PreprocessSpec, *, device,
-                 batch_size: int = 256, endpoint: str = "pooled",
+    def __init__(self, model, spec: PreprocessSpec, *, device=None,
+                 mesh=None, batch_size: int = 256, endpoint: str = "pooled",
                  l2_normalize: bool = True):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        self.device = resolve_device(device)
+        if (mesh is None) == (device is None):
+            raise TypeError("EmbeddingEngine takes a device or a mesh")
+        self.mesh = mesh
+        #: the data-axis devices a batch is split over ([device] without
+        #: a mesh); outputs gather on the first
+        self.devices = ([mesh_lib.canonical_device(device)] if mesh is None
+                        else mesh.axis_devices("data"))
+        if mesh is not None:
+            # whole per-device shares of a full batch
+            batch_size = mesh_lib.pad_to_multiple(batch_size,
+                                                  len(self.devices))
+        self.device = self.devices[0]
         self.model = model.to(self.device).eval()
+        #: one replica a distinct device (the first is ``model`` itself)
+        self.replicas = {self.device: self.model}
+        for dev in self.devices[1:]:
+            if dev not in self.replicas:
+                self.replicas[dev] = copy.deepcopy(self.model).to(dev)
         self.spec = spec
         self.batch_size = batch_size
         self.endpoint = endpoint
@@ -116,10 +144,11 @@ class EmbeddingEngine:
 
     @torch.inference_mode()
     def encode(self, images_u8: torch.Tensor) -> dict:
-        """(B, H, W, 3) uint8 on the engine's device -> the model's
-        endpoints dict (kernel A, then the encoder)."""
+        """(B, H, W, 3) uint8 on one of the engine's devices -> the
+        endpoints dict of that device's replica (kernel A, then the
+        encoder)."""
         spec = self.spec
-        model = self.model
+        model = self.replicas[images_u8.device]
         if spec.grayscale:
             images_u8 = grayscale_u8(images_u8)
         pe = model.patch_embed
@@ -165,13 +194,23 @@ class EmbeddingEngine:
         if tuple(batch_u8.shape[1:]) != (*self.spec.size, 3):
             raise ValueError(f"frames must be {(*self.spec.size, 3)}, got "
                              f"{tuple(batch_u8.shape[1:])}")
-        return self._forward(self._to_device(batch_u8)), len(batch_u8)
+        if self.mesh is None:
+            return self._forward(self._to_device(batch_u8)), len(batch_u8)
+        # one contiguous share a data-axis device, each embedded on its
+        # device, gathered in order on the first
+        outs = [self._forward(torch.from_numpy(
+                    np.ascontiguousarray(share, np.uint8)).to(dev))
+                for share, dev in zip(
+                    np.array_split(batch_u8, len(self.devices)),
+                    self.devices) if len(share)]
+        return torch.cat([o.to(self.device) for o in outs]), len(batch_u8)
 
     # --------------------------------------------------------------- entry
 
     def warmup(self) -> None:
-        """Run one full zero batch: builds the CUDA kernels and the
-        library handles before the first real batch is timed."""
+        """Run one full zero batch (a share on every device of a mesh):
+        builds the CUDA kernels and the library handles before the first
+        real batch is timed."""
         self.embed_batch(np.zeros((self.batch_size, *self.spec.size, 3),
                                   np.uint8))
 

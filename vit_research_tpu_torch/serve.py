@@ -146,9 +146,13 @@ frames pushed as b64 that leave the cache cannot be embedded again (no
 path) and error. Scoring runs on the engine's device under the device
 lock, like every other device op.
 
-Not ported, and refused (argparse refuses the flag): the mesh-sharded
-corpus of ``serve --shard-device``. The daemon's segment sessions are
-the kNN+HMM path only, as the reference's: ``segment --method temporal``
+``serve --shard-device`` splits the daemon's collection over a mesh of
+every visible card (``shard_mesh``; parallel/mesh.py): its ``query``
+answers come from the sharded device path, a ``reload`` re-shards the
+reopened collection, and ``stats`` and the reload reply say
+``"sharded"``. The segment sessions rank against their own staged
+snapshot of the rows, as in the reference. The daemon's segment sessions
+are the kNN+HMM path only, as the reference's: ``segment --method temporal``
 runs offline in the client's process (``--socket`` refuses it).
 
 Concurrency: requests are parsed and decoded on per-connection threads;
@@ -428,7 +432,7 @@ class EmbedServer:
 
     def __init__(self, engine, *, collection=None, coalesce_ms: float = 2.0,
                  collection_source: tuple[str, str] | None = None,
-                 engine_profile: str | None = None):
+                 shard_mesh=None, engine_profile: str | None = None):
         self.engine = engine
         #: which embedding settings the engine runs (operator
         #: observability — cli/common.engine_profile); shown by
@@ -448,6 +452,9 @@ class EmbedServer:
         # collection: they hold the object and upsert into it, so a swap
         # would leave two live generations appending to one directory.
         self._collection_source = collection_source  # (db_path, name)
+        # the mesh a reopened collection is sharded over again (serve
+        # --shard-device), or None
+        self._shard_mesh = shard_mesh
         self._collection_lock = threading.Lock()
         self._reload_lock = threading.Lock()  # one reload at a time
         self._write_back_sessions = 0
@@ -965,6 +972,11 @@ class EmbedServer:
                       f"this daemon's engine runs "
                       f"{self.engine_profile!r} — distances across "
                       "profiles are not comparable", file=sys.stderr)
+            if self._shard_mesh is not None:
+                # placement only (the mesh recorded, the corpus cache
+                # cleared): the shards are staged at the first query,
+                # which runs under the device lock
+                new.shard_device(self._shard_mesh)
             carried = 0
             with self._collection_lock:
                 # Re-check under the lock: a write-back session may have
@@ -1022,7 +1034,7 @@ class EmbedServer:
                                       else None),
                     "carried_pending": carried,
                     "carried_flushed": carried_flushed,
-                    "sharded": False}
+                    "sharded": self._shard_mesh is not None}
 
     def _reload_weights(self, req) -> dict:
         """Restore scorer stacks from disk again and swap them in for NEW
@@ -1119,6 +1131,7 @@ class EmbedServer:
                     "engine_profile": self.engine_profile,
                     "weights_generation": wgen,
                     "scorer_stacks": n_stacks,
+                    "sharded": self._shard_mesh is not None,
                     "batch_size": self.engine.batch_size,
                     "out_dim": self.engine.out_dim}
         if op == "segment_start":

@@ -15,8 +15,9 @@ of at least ``ivf_threshold`` rows goes through the IVF index
 (a torch device, ``'cuda'`` by default) in f32, or in int8 after
 ``set_device_quantization('int8')``. Unlike the reference, a failure on
 the device raises: there is no fallback to a host answer that would
-hide it. The reference's mesh-sharded corpus (``shard_device``) is not
-ported yet.
+hide it. ``shard_device(mesh)`` splits the device corpus by rows over a
+mesh axis (parallel/mesh.py, ops/sharded_topk.py): each device holds its
+shard, and every query then takes the exact device path.
 
 Durability: snapshot + append-log under ``{path}/{collection}/``.
 A base snapshot (``snapshot.npz``, or the legacy embeddings.npy +
@@ -154,6 +155,10 @@ class Collection:
         # Device-resident corpus: f32 tensor, or (int8 rows, f32
         # per-row scales) when device_quant == "int8".
         self._device_cache = None
+        # shard_device: the mesh (and its axis) the device corpus is split
+        # over, or None for the one ``device``; runtime placement only
+        self._device_mesh = None
+        self._device_axis = "data"
         self._dirty = False
         self._mutations = 0  # bumped by _invalidate; snapshot cache key
         self._lock = threading.RLock()
@@ -822,14 +827,69 @@ class Collection:
                                  device=self.device),
                     {f: self._column(f) for f in fields})
 
+    def shard_device(self, mesh, axis: str = "data") -> None:
+        """Split the device corpus by rows over ``mesh[axis]`` (a
+        parallel/mesh.py ``Mesh``): each device holds a shard and scores
+        it, and the per-shard winners merge exactly
+        (ops/sharded_topk.py). While a mesh is set every query takes the
+        device path. Runtime placement only (not persisted); ``None``
+        goes back to the one ``device``."""
+        with self._lock:
+            self._device_mesh = mesh
+            self._device_axis = axis
+            self._device_cache = None
+
     def _device_corpus(self):
         if self._device_cache is None:
-            emb = torch.from_numpy(self._embeddings).to(self.device)
-            if self.space == "cosine":
-                emb = l2_normalize(emb)
-            self._device_cache = (quantize_int8(emb)
-                                  if self.device_quant == "int8" else emb)
+            if self._device_mesh is not None:
+                self._device_cache = self._sharded_corpus()
+            else:
+                emb = torch.from_numpy(self._embeddings).to(self.device)
+                if self.space == "cosine":
+                    emb = l2_normalize(emb)
+                self._device_cache = (quantize_int8(emb)
+                                      if self.device_quant == "int8"
+                                      else emb)
         return self._device_cache
+
+    def _sharded_corpus(self, block: int = 1 << 20):
+        """The corpus split over the mesh: normalised (cosine) and
+        quantized (int8) on the host in blocks of ``block`` rows, with
+        numpy's half-to-even rounding as ``torch.round``'s, each shard
+        zero-padded to an equal row count and copied to its own device.
+        The corpus is never staged whole on one device: at the row counts
+        this path is for, that copy would fill the device the sharding is
+        meant to relieve. Returns ShardedRows, or (rows, scales) in int8."""
+        from vit_research_tpu_torch.ops.sharded_topk import ShardedRows
+
+        mesh, axis = self._device_mesh, self._device_axis
+        devices = mesh.axis_devices(axis)
+        emb = self._embeddings
+        n, d = emb.shape
+        per = -(-n // len(devices))
+        int8 = self.device_quant == "int8"
+        rows, scales = [], []
+        for i, dev in enumerate(devices):
+            out = np.zeros((per, d), np.int8 if int8 else np.float32)
+            scale = np.zeros(per, np.float32)
+            for s in range(i * per, min((i + 1) * per, n), block):
+                blk = np.asarray(emb[s:min(s + block, (i + 1) * per, n)],
+                                 np.float32)
+                if self.space == "cosine":
+                    blk = blk / np.maximum(
+                        np.linalg.norm(blk, axis=1, keepdims=True), 1e-12)
+                at = slice(s - i * per, s - i * per + len(blk))
+                if int8:
+                    sc = np.max(np.abs(blk), axis=1) / np.float32(127.0)
+                    out[at] = np.round(
+                        blk / np.maximum(sc, 1e-12)[:, None]).astype(np.int8)
+                    scale[at] = sc
+                else:
+                    out[at] = blk
+            rows.append(torch.from_numpy(out).to(dev))
+            scales.append(torch.from_numpy(scale).to(dev))
+        placed = ShardedRows(rows, mesh, axis)
+        return (placed, ShardedRows(scales, mesh, axis)) if int8 else placed
 
     def query(self, query_embeddings, n_results: int = 10, where=None,
               include=("metadatas", "distances")) -> dict:
@@ -849,7 +909,10 @@ class Collection:
             k = min(n_results, n)
             mask = self._where_mask(where)
 
-            if (self.ivf_threshold is not None and not where
+            if self._device_mesh is not None:
+                # the corpus lives on the mesh: answer there, exactly
+                scores, idx = self._query_device(q, mask, k)
+            elif (self.ivf_threshold is not None and not where
                     and self.space == "cosine"
                     # device_quant exists precisely to keep huge corpora
                     # on the exact device path — IVF must not override it.
@@ -883,6 +946,8 @@ class Collection:
 
     def _query_device(self, q, mask, k):
         corpus = self._device_corpus()
+        if self._device_mesh is not None:
+            return self._query_sharded(corpus, q, mask, k)
         qd = torch.from_numpy(q).to(self.device)
         if self.space == "cosine":
             qd = l2_normalize(qd)
@@ -897,6 +962,32 @@ class Collection:
         else:
             metric = "ip" if self.space == "cosine" else self.space
             scores, idx = masked_topk(qd, corpus, m, k=k, metric=metric)
+        return scores.cpu().numpy(), idx.cpu().numpy()
+
+    def _query_sharded(self, corpus, q, mask, k):
+        """``_query_device`` on the mesh: the queries normalised (and
+        quantized) on the mesh's first device, each shard's slice of the
+        mask sent to its device; an unfiltered query ships no mask, the
+        padding rows are rejected by ``n_valid`` inside the shards."""
+        from vit_research_tpu_torch.ops.sharded_topk import (
+            sharded_masked_topk, sharded_masked_topk_int8)
+
+        mesh, axis = self._device_mesh, self._device_axis
+        qd = torch.from_numpy(q).to(mesh.axis_devices(axis)[0])
+        if self.space == "cosine":
+            qd = l2_normalize(qd)
+        m = None if mask.all() else torch.from_numpy(mask)[None, :]
+        n = len(self._ids)
+        if self.device_quant == "int8":
+            qq, qscale = quantize_int8(qd)
+            scores, idx = sharded_masked_topk_int8(
+                qq, qscale, *corpus, m, k=k, mesh=mesh, axis=axis,
+                n_valid=n)
+        else:
+            metric = "ip" if self.space == "cosine" else self.space
+            scores, idx = sharded_masked_topk(
+                qd, corpus, m, k=k, mesh=mesh, axis=axis, metric=metric,
+                n_valid=n)
         return scores.cpu().numpy(), idx.cpu().numpy()
 
     #: persisted-fit filename beside the snapshot (see prewarm_index)

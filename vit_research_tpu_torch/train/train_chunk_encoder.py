@@ -179,6 +179,7 @@ def make_encode_fn(model: ChunkEncoder, params: dict | None = None):
     def encode(frame_embs):
         x = torch.as_tensor(np.asarray(frame_embs, np.float32)).to(dev)
         emb, logit = model(x)
-        return emb.cpu().numpy(), logit.cpu().numpy()
+        # a bf16 encoder's logits read back as f32 (numpy has no bf16)
+        return emb.cpu().numpy(), logit.float().cpu().numpy()
 
     return encode

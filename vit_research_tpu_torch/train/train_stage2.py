@@ -66,7 +66,9 @@ def make_step_fns(head: RATTHeadV2, optimizer, pos_weight: float):
         return {"val_loss": losses.bce_with_logits(labels, logit,
                                                    pos_weight=pos_weight),
                 "val_acc": losses.compute_accuracy(labels, logit),
-                "probs": torch.sigmoid(logit.reshape(-1))}
+                # in the head's dtype, then f32 for the host (a bf16
+                # head's probabilities are exact in f32)
+                "probs": torch.sigmoid(logit.reshape(-1)).float()}
 
     return train_step, eval_step
 

@@ -1,10 +1,11 @@
-"""Structured timing spans.
+"""Structured timing spans and a device trace.
 
-Port of the span part of vit_research_tpu/utils/profiling.py: a context
-manager that aggregates wall time per span name into a report. Spans are
-no-ops unless ``VRT_PROFILE`` is set; the CLI prints the report at exit.
-Device time is read with ``torch.profiler`` (``chip_smoke.py
---profile``), not here.
+Port of vit_research_tpu/utils/profiling.py: a context manager that
+aggregates wall time per span name into a report (no-ops unless
+``VRT_PROFILE`` is set; the CLI prints the report at exit), a one-off
+:func:`timed` span that prints, and :func:`device_trace`, which records
+a ``torch.profiler`` trace of a region (the reference's
+``jax.profiler.trace``) and writes it to a directory.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import contextlib
 import os
 import time
 from collections import defaultdict
+
+import torch
 
 
 class Profiler:
@@ -47,6 +50,10 @@ class Profiler:
             print(f"[prof] {name}: total={row['total_s']}s "
                   f"n={row['count']} mean={row['mean_ms']}ms")
 
+    def reset(self) -> None:
+        self.totals.clear()
+        self.counts.clear()
+
 
 _GLOBAL: Profiler | None = None
 
@@ -74,3 +81,31 @@ def span(name: str):
 def print_global_report() -> None:
     if _GLOBAL is not None and _GLOBAL.totals:
         _GLOBAL.print_report()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """A ``torch.profiler`` trace of the region, CPU and (where there is
+    a card) CUDA activity, written to ``log_dir`` as a Chrome trace
+    (``trace.json``; open it in chrome://tracing or Perfetto)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def timed(name: str, verbose: bool = True):
+    """One-off span that prints its wall time, as the reference's inline
+    prints."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if verbose:
+            print(f"[prof] {name}: {time.perf_counter() - t0:.3f}s")
