@@ -143,7 +143,21 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      against the unsharded one, a 2-entry mesh engine against the
      single-device engine on phase 4's frames (the path ``mesh``),
      ``serve --shard-device`` answering query as an unsharded daemon;
-     attn_layout 'bthd' against 'bhtd' on the card;
+     attn_layout 'bthd' against 'bhtd' on the card; and S2's bisection of
+     the bf16 heads' card-vs-CPU gap (the forward at step 0, one plain
+     SGD step, one AdamW step, from equal weights and inputs);
+  5j. the walkthroughs of vit_research_tpu_torch/examples/ at full width
+     on the card, each through its ``main`` in this process (the path
+     ``examples``): full_pipeline (the planted sides in every game's
+     clips, a row for every validation clip), live_segmentation (streamed
+     clips = offline = daemon), serving (daemon embeddings against the
+     engine, both --follow --socket followers), sharded_search (8 entries
+     of cuda:0 against the flat path), pod_embedding (two processes over
+     gloo on the one card against one process's engine) and the quality
+     dossier at its default size (every JAX key, parity's clip F1 1.0,
+     the unstrided int8-static rows' fidelity >= 0.999; each row printed);
+     then the IVF spill of phase 6's rows, loaded back and searched out of
+     core, against the in-RAM IVF;
   6. a game-sized store: a seeded 200,000 x 768 cosine collection queried
      with 256 queries, k = 50, on the card in f32 and in int8, each held
      against the CPU answer of the same rows, and timed (run before 5i's
@@ -153,7 +167,8 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      them, ``fast`` being phase 5d's write-frame-db and segment,
      ``stage1`` phase 5e's verbs and ``rag`` phase 5f's train-rag and
      train-ratt, ``cached``, ``temporal``, ``joint`` and ``rag_vit``
-     phase 5h's, ``bf16`` and ``mesh`` phase 5i's; the attention entry's
+     phase 5h's, ``bf16`` and ``mesh`` phase 5i's, ``examples`` phase
+     5j's; the attention entry's
      ``key_bias``
      holds phase 5d's rows, ``stage1_dh96`` phase 3c's, ``grad_rel_err``
      the gradient checks and ``stage1_path`` phase 5e's numbers,
@@ -4686,6 +4701,69 @@ def _bf16_errs(card, host, lr: float) -> dict:
     return dict(loss=loss, out=out, param=param, ok=ok)
 
 
+# S2's fault line: a forward at step 0 with equal weights and inputs that
+# is already beyond a few bf16 ulps (2^-8 of a value each) of its scale
+# on the card against the CPU is a fault, not rounding.
+S2_FORWARD_FAULT = 2 ** -6
+
+
+def _s2_bisection(make, batches, lr: float) -> dict:
+    """Where the bf16 heads' card-vs-CPU output gap after two steps comes
+    from: the held-out outputs of (1) the forward at step 0, and the same
+    with kernel B swapped for its plain version on the card, (2) one
+    plain SGD step (scaled so that the CPU's largest step is ``lr``, as
+    large as Adam's), (3) one step of the training Optimizer (AdamW),
+    each on the card against the CPU from the same weights and inputs,
+    as a share of the outputs' scale; and the first step's gradients."""
+    from vit_research_tpu_torch.train import losses
+    from vit_research_tpu_torch.train.optim import Optimizer
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def outputs(model, dev):
+        model.eval()
+        with torch.no_grad():
+            outs = model(*(x.to(dev) for x in batches[-1][0]))
+        return [o.float().cpu() for o in outs[:2]]
+
+    def grads(model, dev):
+        model.train()
+        inputs, labels = batches[0]
+        idx = 0 if isinstance(model, heads.RAGHead) else 1
+        loss = losses.bce_with_logits(
+            labels.to(dev), model(*(x.to(dev) for x in inputs))[idx])
+        return torch.autograd.grad(loss, list(model.parameters()))
+
+    def rel(a, b):
+        return max(float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(a, b))
+
+    def sgd(dev, scale):
+        model = make().to(dev)
+        step = grads(model, dev)
+        with torch.no_grad():
+            for p, g in zip(model.parameters(), step):
+                p -= scale * g
+        return outputs(model, dev)
+
+    def adamw(dev):
+        model = make().to(dev)
+        Optimizer(list(model.parameters()), lr=lr).step(grads(model, dev))
+        return outputs(model, dev)
+
+    host_g = grads(make().to(cpu), cpu)
+    card_g = [g.float().cpu() for g in grads(make().to(cuda), cuda)]
+    scale = lr / max(float(g.abs().max()) for g in host_g)
+    host = outputs(make().to(cpu), cpu)
+    with _plain_attention():
+        plain = outputs(make().to(cuda), cuda)
+    return dict(forward=rel(outputs(make().to(cuda), cuda), host),
+                forward_plain=rel(plain, host),
+                sgd=rel(sgd(cuda, scale), sgd(cpu, scale)),
+                adamw=rel(adamw(cuda), adamw(cpu)),
+                grad=rel(card_g, [g.float() for g in host_g]))
+
+
 def _bf16_head_case(smi: str, name: str, make, batches, lr: float,
                     kernel: str, f32_make) -> dict:
     """One bf16 head: card vs CPU steps, the planted fault, the step ms
@@ -4720,6 +4798,14 @@ def _bf16_head_case(smi: str, name: str, make, batches, lr: float,
         return cuda_ms(step, reps=3, n=5)
 
     ms = {"bf16": step_ms(make()), "f32": step_ms(f32_make())}
+    s2 = _s2_bisection(make, batches, lr)
+    log(f"[5i] S2 bisection, {name} bf16, card vs CPU from equal weights "
+        f"and inputs, held-out outputs as a share of their scale: forward "
+        f"at step 0 {s2['forward']:.3e} (a fault above "
+        f"{S2_FORWARD_FAULT:.3e}; {s2['forward_plain']:.3e} with B's plain "
+        f"version on the card), after one plain SGD step "
+        f"{s2['sgd']:.3e}, after one AdamW step {s2['adamw']:.3e}; the "
+        f"first step's gradients {s2['grad']:.3e} of their scale | {smi}")
     log(f"[5i] {name} bf16, {BF16_STEPS} dropout-0 steps card vs CPU: losses "
         f"relative {errs['loss']:.3e} (bound {BF16_LOSS_RTOL:.3e}), "
         f"outputs {errs['out']:.3e} of their scale (bound {BF16_OUT:.3e}), "
@@ -4740,7 +4826,7 @@ def _bf16_head_case(smi: str, name: str, make, batches, lr: float,
     return dict(step_ms_bf16=ms["bf16"], step_ms_f32=ms["f32"],
                 loss_rel_err=errs["loss"], out_rel_err=errs["out"],
                 planted_out_rel_err=bad["out"], launches=launches,
-                launches_by_kernel=launched)
+                launches_by_kernel=launched, s2_bisection=s2)
 
 
 def phase_bf16_heads(smi: str, root: str) -> dict:
@@ -5065,6 +5151,209 @@ def phase_mesh(smi: str, root: str, main: dict, game: dict) -> dict:
                 flat_query_ms={k: v[1] for k, v in col_ms.items()})
 
 
+# ---- phase 5j: the walkthroughs and the dossier ----------------------
+
+#: the keys of every JAX dossier row, and of its quantized and refined rows
+DOSSIER_KEYS = {
+    "variant", "tome_r", "stride", "gemm_quant", "world_entropy",
+    "fidelity_cos_mean", "fidelity_cos_p5", "clip_f1", "clip_precision",
+    "clip_recall", "frame_accuracy", "boundary_drift_frames", "n_pred",
+    "n_true", "retrieval_top8_overlap", "event_hit@1", "event_hit@3",
+    "event_center_err", "scored_clips", "metric_wall_s"}
+DOSSIER_QUANT_KEYS = {"calibration"}
+DOSSIER_REFINE_KEYS = {"stride_refine", "refined_frame_frac", "refine_gaps",
+                       "refine_keys", "refine_refined_gaps",
+                       "refine_refined_frames", "exact_embed_frac"}
+#: phase 5d's per-frame cosine bound for an int8 engine, held by the
+#: dossier's unstrided int8-static rows against the parity engine
+INT8_FIDELITY = 0.999
+#: the sharded search's scores against the flat path's (the same int8
+#: products, merged)
+SHARDED_SCORE_BOUND = 1e-6
+#: the pod's gathered rows against one process's: the same kernels over
+#: other batch shapes (48-frame shards against 64 + 32 frames)
+POD_BOUND = 1e-5
+
+
+def _walkthrough(fn, argv: list) -> tuple:
+    """``fn(argv)`` with its prints on stderr, and the kernels' launches
+    it made (and kernel B's by instantiation), counted from 0 just before
+    it ran."""
+    pe.fused_patch_embed.launches = 0
+    attn.multi_head_attention.launches = 0
+    attn.multi_head_attention.launches_by_kernel.clear()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = fn(argv)
+    return (out, _launch_counts(),
+            dict(attn.multi_head_attention.launches_by_kernel),
+            time.monotonic() - t0)
+
+
+def phase_examples(smi: str, root: str, game: dict) -> dict:
+    """The walkthroughs of vit_research_tpu_torch/examples/ in this
+    process through their ``main`` at full width on the card (the path
+    ``examples``), then the IVF spill on phase 6's rows. Each
+    walkthrough is held to its result: full_pipeline's clips carry the
+    planted sides and every validation clip has a row;
+    live_segmentation's streamed clips equal the offline clips of the
+    same embeddings and the daemon session's; serving's embeddings are
+    within EMBED_BOUND of the in-process engine's, and both followers
+    finish with their clips; sharded_search's ids equal
+    the flat path's (tie order included) and its scores are within
+    SHARDED_SCORE_BOUND; pod_embedding's gathered rows are within
+    POD_BOUND of one process's engine; the dossier's rows have every JAX
+    key, parity's clip F1 is 1.0 and the unstrided int8-static rows reach
+    INT8_FIDELITY. The spill: an IVF fit of the 200,000 x 768 rows,
+    spilled to disk, loaded back and searched out of core, equal to the
+    in-RAM IVF's answers."""
+    from vit_research_tpu_torch.examples import (full_pipeline,
+                                                 live_segmentation,
+                                                 pod_embedding,
+                                                 quality_fast_profile,
+                                                 serving, sharded_search)
+    from vit_research_tpu_torch.segment.clips import (
+        clip_intervals_from_decoded)
+    from vit_research_tpu_torch.segment.pipeline import segment_with_knn_hmm
+    from vit_research_tpu_torch.store.ivf import IVFIndex
+
+    t_phase = time.monotonic()
+    wd = os.path.join(root, "ex")
+    launches = {"patch_embed": 0, "attention": 0}
+    by_kernel = {}
+    times = {}
+
+    def run(name, fn, argv):
+        out, counts, b_counts, secs = _walkthrough(fn, argv)
+        for kname, v in counts.items():
+            launches[kname] += v
+        for kname, v in b_counts.items():
+            by_kernel[kname] = by_kernel.get(kname, 0) + v
+        times[name] = secs
+        log(f"[5j] {name}: {secs:.1f} s, kernel launches {counts}, B by "
+            f"instantiation {b_counts}")
+        return out
+
+    fp = run("full_pipeline", full_pipeline.main, [os.path.join(wd, "fp")])
+    for vid, dirs in fp["clip_dirs"].items():
+        sides = sorted(CLIP_RE.match(os.path.basename(d)).group(2)
+                       for d in dirs)
+        if set(sides) != {"left", "right"}:
+            raise AssertionError(f"full_pipeline vid {vid}: clips {sides}")
+    want = {(c["vid"], c["clip"]) for c in fp["val_chunks"]}
+    got = {(r["vid"], r["clip"]) for r in fp["rows"]}
+    if got != want:
+        raise AssertionError(f"full_pipeline rows {sorted(got)} for the "
+                             f"validation clips {sorted(want)}")
+    n_clips = [len(d) for d in fp["clip_dirs"].values()]
+    log(f"[5j] full_pipeline: {n_clips} clips a game (left and right), "
+        f"{len(fp['rows'])} rows for {len(want)} validation clips")
+
+    ls = run("live_segmentation", live_segmentation.main,
+             [os.path.join(wd, "ls")])
+    batches = list(live_segmentation.stream_batches(ls["engine"],
+                                                    ls["paths"]))
+    decoded, _, _ = segment_with_knn_hmm(
+        [n for names, _ in batches for n in names],
+        np.concatenate([e for _, e in batches]),
+        knn.corpus_from_collection(ls["collection"]), k=5,
+        device=ls["engine"].device)
+    offline = [(c.side, c.start, c.end) for c in
+               clip_intervals_from_decoded(decoded, min_len=100, pad=20)]
+    streamed = [(c.side, c.start, c.end) for c in ls["streamed"]]
+    served = [(c["side"], c["start"], c["end"]) for c in ls["served"]]
+    if not streamed or streamed != offline or served != streamed:
+        raise AssertionError(f"live_segmentation: streamed {streamed}, "
+                             f"offline {offline}, daemon {served}")
+    log(f"[5j] live_segmentation: streamed = offline = daemon clips "
+        f"{streamed}")
+
+    sv = run("serving", serving.main, [os.path.join(wd, "sv")])
+    paths = [sv["paths"][s] for s in live_segmentation.SIDES]
+    err = _max_err(np.asarray(sv["ops"]["embed"]["embeddings"], np.float32),
+                   sv["engine"].embed_paths(paths))
+    followed = sv["followed"]
+    if err > EMBED_BOUND or any(len(followed[v]) != 2 for v in (1, 2)):
+        raise AssertionError(f"serving: embed max|err| {err:.2e}, "
+                             f"followers' clips {followed}")
+    log(f"[5j] serving: daemon embeddings max|err| {err:.2e} against the "
+        f"engine (bound {EMBED_BOUND:.0e}); both followers finished: "
+        f"{followed}; sessions {sv['stats']['segment']}")
+
+    ss = run("sharded_search", sharded_search.main, [])
+    s_err = _max_err(np.asarray(ss["sharded"]["distances"]),
+                     np.asarray(ss["flat"]["distances"]))
+    if ss["sharded"]["ids"] != ss["flat"]["ids"] or \
+            s_err > SHARDED_SCORE_BOUND:
+        raise AssertionError(f"sharded_search: ids differ or scores "
+                             f"{s_err:.2e}")
+    log(f"[5j] sharded_search: {ss['mesh'].devices.size} entries, ids equal "
+        f"the flat path's, scores max|err| {s_err:.2e} (bound "
+        f"{SHARDED_SCORE_BOUND:.0e})")
+
+    pod = run("pod_embedding", pod_embedding.main,
+              ["--out", os.path.join(root, "pod.npy")])
+    one = pod_embedding.build_engine("cuda", False).embed_batch(
+        pod["frames"])
+    p_err = _max_err(pod["gathered"], one)
+    if pod["gathered"].shape != one.shape or p_err > POD_BOUND:
+        raise AssertionError(f"pod_embedding: {pod['gathered'].shape} "
+                             f"max|err| {p_err:.2e}")
+    log(f"[5j] pod_embedding: 2 processes over gloo, gathered "
+        f"{pod['gathered'].shape} within {p_err:.2e} of one process's "
+        f"engine (bound {POD_BOUND:.0e})")
+
+    q = run("quality_fast_profile", quality_fast_profile.main,
+            ["--root", os.path.join(wd, "q"),
+             "--out", os.path.join(wd, "q.jsonl")])
+    for row in q["rows"]:
+        need = set(DOSSIER_KEYS)
+        if row["gemm_quant"]:
+            need |= DOSSIER_QUANT_KEYS
+        if "stride_refine" in row:
+            need |= DOSSIER_REFINE_KEYS
+        if need - set(row):
+            raise AssertionError(f"dossier row {row['variant']} lacks "
+                                 f"{sorted(need - set(row))}")
+        log(f"[5j] dossier row {json.dumps(row)}")
+    rows = {r["variant"]: r for r in q["rows"]}
+    low = {n: r["fidelity_cos_mean"] for n, r in rows.items()
+           if r["gemm_quant"] and r["stride"] == 1
+           and r["fidelity_cos_mean"] < INT8_FIDELITY}
+    if rows["parity"]["clip_f1"] != 1.0 or low:
+        raise AssertionError(f"dossier: parity clip_f1 "
+                             f"{rows['parity']['clip_f1']}, int8-static "
+                             f"fidelity below {INT8_FIDELITY}: {low}")
+
+    t0 = time.monotonic()
+    embs, qs, k = game["embs"], game["q"], game["k"]
+    ivf = IVFIndex(seed=0).fit(embs)
+    ram_s, ram_i = ivf.search(qs, embs, k)
+    prefix = os.path.join(root, "game_ivf")
+    ivf.spill(embs, prefix)
+    disk_s, disk_i = IVFIndex.load(prefix).search(qs, None, k)
+    spill_err = _max_err(disk_s, ram_s)
+    if not np.array_equal(disk_i, ram_i) or spill_err > 1e-6:
+        raise AssertionError(f"IVF spill: ids differ or scores "
+                             f"{spill_err:.2e}")
+    times["ivf_spill"] = time.monotonic() - t0
+    log(f"[5j] IVF spill of {embs.shape[0]} x {embs.shape[1]} rows "
+        f"({len(ivf.cells)} cells): loaded from disk, {len(qs)} queries "
+        f"k={k} equal the in-RAM IVF's (scores max|err| {spill_err:.2e}); "
+        f"fit, spill, load and both searches {times['ivf_spill']:.1f} s")
+    if not (launches["patch_embed"] and launches["attention"]):
+        raise AssertionError(f"examples: kernel launches {launches}")
+    times["phase"] = time.monotonic() - t_phase
+    log(f"[5j] examples phase: {times['phase']:.1f} s, kernel launches "
+        f"{launches}, B by instantiation {by_kernel} | {smi}")
+    return dict(launches=launches, launches_by_kernel=by_kernel,
+                seconds=times,
+                dossier={n: {k2: r[k2] for k2 in (
+                    "clip_f1", "fidelity_cos_mean", "retrieval_top8_overlap",
+                    "event_hit@1", "metric_wall_s")}
+                    for n, r in rows.items()})
+
+
 def profile_forward(smi: str, dtype: str, batch: int, steps: int = 3,
                     top: int = 10, **kw) -> None:
     """torch.profiler over ``steps`` steady batches of the engine's forward
@@ -5281,6 +5570,7 @@ def main() -> int:
         remat = phase_remat(smi)
         game = phase_game_store(smi)
         mesh = phase_mesh(smi, root, main_path, game)
+        examples = phase_examples(smi, root, game)
         del game
     # each main path's launches, counted from 0 just before it ran; a
     # kernel's "launches" is their sum
@@ -5293,7 +5583,8 @@ def main() -> int:
                **stage2["launches_by_path"], "cached": cached["launches"],
                "temporal": temporal["launches"], "joint": joint["launches"],
                "rag_vit": rag_vit["launches"],
-               "bf16": bf16_heads["launches"], "mesh": mesh["launches"]}
+               "bf16": bf16_heads["launches"], "mesh": mesh["launches"],
+               "examples": examples["launches"]}
 
     def launches(kernel: str) -> dict:
         per = {path: counts[kernel] for path, counts in by_path.items()}
@@ -5335,7 +5626,8 @@ def main() -> int:
                 for name, part in (("cached", cached),
                                    ("temporal", temporal),
                                    ("joint", joint), ("rag_vit", rag_vit),
-                                   ("bf16", bf16_heads), ("mesh", mesh))},
+                                   ("bf16", bf16_heads), ("mesh", mesh),
+                                   ("examples", examples))},
              remat=remat),
         dict(name="ln_matmul", route="cuda",
              source="vit_research_tpu_torch/csrc/fused_ln.cu",

@@ -344,7 +344,8 @@ def test_random_vit_weights_cross_both_ways(tmp_path):
     np.testing.assert_allclose(
         np.asarray(jmodel.apply(loaded, jnp.asarray(imgs))["pooled"]), mine,
         **TOL)
-    other = writers.load_random_vit_weights(j_path, config=TINY)
+    other = writers.load_random_vit_weights(j_path, config=TINY,
+                                            device="cpu")
     with torch.no_grad():
         np.testing.assert_allclose(
             other(torch.from_numpy(imgs))["pooled"].numpy(),

@@ -56,15 +56,17 @@ def save_random_vit_weights(path: str, *, config: ViTConfig | None = None,
 
 
 def load_random_vit_weights(path: str, *, config: ViTConfig | None = None,
-                            device="cpu"):
+                            device="cuda"):
     """The ViT of ``config`` (``VIT_P32_432x768`` by default) with the
-    weights of ``path``, a file of either package, on ``device``."""
+    weights of ``path``, a file of either package, on ``device`` (the
+    card by default: raises without one, like every entry point)."""
     from vit_research_tpu_torch.device import resolve_device
     from vit_research_tpu_torch.models.vit import init_vit
 
+    dev = resolve_device(device)
     config = config or VIT_P32_432x768
     model = init_vit(config, seed=0, device="cpu")
     template = convert.state_dict_to_params(model.state_dict(), config)
     model.load_state_dict(convert.params_to_state_dict(
         load_params_npz(template, path), config))
-    return model.to(resolve_device(device))
+    return model.to(dev)

@@ -48,16 +48,21 @@ def _backend() -> str:
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None,
-               local_device_ids=None, auto: bool = False) -> bool:
+               local_device_ids=None, auto: bool = False,
+               backend: str | None = None) -> bool:
     """Join the process group when running multi-process.
 
     Arguments fall back to the ``VRT_*`` env vars above; the coordinator
     is ``host:port`` of rank 0's TCP store. ``auto=True`` (or
     ``VRT_AUTO_CLUSTER=1``) with no explicit configuration takes
     torchrun's env. ``local_device_ids`` pins this process's card (first
-    entry) on CUDA; by default rank % visible cards. Returns True when a
-    multi-process group was joined, False for the single-process no-op.
+    entry) on CUDA; by default rank % visible cards. ``backend``: the
+    process group's, by default NCCL with a card and gloo without; gloo
+    also serves several processes on one card, which NCCL refuses.
+    Returns True when a multi-process group was joined, False for the
+    single-process no-op.
     """
+    backend = backend or _backend()
     coordinator_address = coordinator_address or os.environ.get(_ENV_COORD)
     if num_processes is None and os.environ.get(_ENV_NPROC):
         num_processes = int(os.environ[_ENV_NPROC])
@@ -68,7 +73,7 @@ def initialize(coordinator_address: str | None = None,
         if (auto or env_auto not in ("", "0", "false", "no", "off")) \
                 and int(os.environ.get("WORLD_SIZE", "1")) > 1:
             _pin_device(int(os.environ["RANK"]), local_device_ids)
-            dist.init_process_group(_backend(), init_method="env://")
+            dist.init_process_group(backend, init_method="env://")
             return dist.get_world_size() > 1
         return False  # single process, nothing to do
     if coordinator_address is None or num_processes is None \
@@ -77,7 +82,7 @@ def initialize(coordinator_address: str | None = None,
                          "address, the process count and this process's "
                          "id (arguments or VRT_* env vars)")
     _pin_device(process_id, local_device_ids)
-    dist.init_process_group(_backend(),
+    dist.init_process_group(backend,
                             init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id)
     return True
