@@ -14,13 +14,19 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      B=64 and B=256 @224 P=16, B=16 @432x768 P=32, f32 and bf16 out; and
      the bf16 engine's shape, B=512 @224 with bf16 out), and the nearest
      library call, F.conv2d over the normalised f32 batch;
-  3. the attention kernel against its plain version (T = 197, 325, 1297,
-     dh = 64; f32 and bf16), on contiguous (B, H, T, dh) inputs and on the
-     (B, H, T, dh) views of (B, T, H, dh) tensors that the backbone's
-     projections give, and F.scaled_dot_product_attention;
+  3. the attention kernel against its plain version in the same dtype
+     (T = 197, 325, 1297, dh = 64; f32 and bf16), on contiguous (B, H, T,
+     dh) inputs and on the (B, H, T, dh) views of (B, T, H, dh) tensors
+     that the backbone's projections give, and
+     F.scaled_dot_product_attention; every bf16 check also prints the
+     error of f32 scores (``attention_f32_scores``) and of the f32 plain
+     version, and at B = 256, T = 197 the f32 scores must fail the bound;
+     the T > 64 residual with large scores;
   3c. the attention kernel at the stage-1 chunk encoder's shapes (dh = 96,
      H = 8, B = 256, T = 9 and 25; f32 and bf16, contiguous and
-     projection order) against its plain version, SDPA and its bound; then
+     projection order) against its plain version, SDPA and its bound, and
+     at T = 9 with large scores (max|S| >= 10), where f32 scores must fail
+     the bound; then
      the kernels' gradients: B's q/k/v and key-bias gradients through its
      autograd Function on the card (dh = 64 and 96, f32 and bf16) and A's
      w and bias gradients, against torch.autograd of the plain versions;
@@ -33,7 +39,9 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      and 256 at T = 5, B = 32 at T = 65 and 130; f32 and bf16, with and
      without a key bias, contiguous and projection order) against its
      plain version, the plain version's time, SDPA (with the bias as a
-     float mask) and its bound; gradients through its Function against
+     float mask) and its bound; with large scores at T = 5 and 21 (f32
+     scores must fail the bound) and the T > 64 residual at T = 65 and
+     130; gradients through its Function against
      the plain VJP; ptxas's registers and spills of the dh = 192 kernels;
   3b. the fused LayerNorm + projection kernel, driven through its public
      entry ``ln_matmul`` at ViT-B shapes (M = 256*197, K = 768, N = 768
@@ -145,7 +153,9 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      ``serve --shard-device`` answering query as an unsharded daemon;
      attn_layout 'bthd' against 'bhtd' on the card; and S2's bisection of
      the bf16 heads' card-vs-CPU gap (the forward at step 0, one plain
-     SGD step, one AdamW step, from equal weights and inputs);
+     SGD step, one AdamW step, from equal weights and inputs; the forward
+     fails the run above 2^-6 of scale, or where B moves it from its plain
+     version on the card by over 2^-8);
   5j. the walkthroughs of vit_research_tpu_torch/examples/ at full width
      on the card, each through its ``main`` in this process (the path
      ``examples``): full_pipeline (the planted sides in every game's
@@ -258,9 +268,11 @@ HF_AFFINE = dict(rescale=SPEC.rescale, mean=SPEC.mean, std=SPEC.std)
 # Tolerances. f32: the kernels and the plain versions sum the same
 # products in other orders, ~1e-6 on outputs of order 1. bf16 patch embed:
 # one bf16 rounding of outputs < 8 (2^-5). bf16 attention, against the
-# f32 plain version of the bf16 inputs: the kernel rounds the
-# probabilities to bf16 (as the JAX package's xla_attention does) and the
-# output (outputs < 4: 1e-2).
+# bf16 plain version of the same inputs (the JAX package's bf16 attention:
+# S, S * bf16(scale), + bf16(bias) and P each rounded to bf16): the two
+# differ in summation order and in the exp, so an output falls apart by
+# one bf16 ulp where a sum straddles a rounding boundary (below 1e-2 for
+# outputs under 2).
 PE_BOUND = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5}
 ATTN_BOUND = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # 8 frames through 12 f32 layers on the card vs on the CPU: different
@@ -294,6 +306,61 @@ FRAME_RE = re.compile(r"^vid\d+_frame_(\d+)\.jpg$")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def attention_f32_scores(q, k, v, key_bias=None) -> torch.Tensor:
+    """bf16 attention with f32 scores: S = q k^T * scale (+ bias) of the
+    bf16 values in f32, the f32 softmax, P and the output rounded to bf16.
+    Kernel B's bf16 path computed this before it rounded S as the JAX
+    package does; each bf16 check of B computes it too, to show that the
+    check tells it from the bf16 plain version."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        * q.shape[-1] ** -0.5
+    if key_bias is not None:
+        s = s + key_bias[:, None, None, :]
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16)
+    return torch.einsum("bhqk,bhkd->bhqd", p.float(),
+                        v.float()).to(torch.bfloat16)
+
+
+def bf16_attention_errs(got, q, k, v, key_bias=None) -> dict:
+    """max|err| against the bf16 plain version of (q, k, v, key_bias) of
+    ``got`` (the kernel's bf16 output, or a list of them: ``err``), of
+    :func:`attention_f32_scores` (``f32_scores``) and of the f32 plain
+    version (``f32_plain``), with max|v| and max|S|."""
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    want = attn.attention_plain(qc, kc, vc, key_bias=key_bias).float()
+
+    def err(x):
+        return (x.float() - want).abs().max().item()
+
+    s = torch.einsum("bhqd,bhkd->bhqk", qc.float(), kc.float())
+    gots = got if isinstance(got, (list, tuple)) else [got]
+    return dict(err=max(err(x) for x in gots),
+                f32_scores=err(attention_f32_scores(
+                    qc, kc, vc, key_bias)),
+                f32_plain=err(attn.attention_plain(
+                    qc.float(), kc.float(), vc.float(), key_bias=key_bias)),
+                max_v=vc.float().abs().max().item(),
+                max_s=(s.abs().max() * q.shape[-1] ** -0.5).item())
+
+
+def check_bf16_attention(errs: dict, bound_err: float, what: str, *,
+                         tells_apart: bool = False, full: bool = True) -> str:
+    """Raise unless the kernel's bf16 output is within ``bound_err`` of
+    the bf16 plain version and, with ``tells_apart``, the f32-score
+    semantics is not; the log text of the three errors (``full``: with
+    the kernel's error and the bound)."""
+    text = (f"f32 scores {errs['f32_scores']:.3e}, f32 plain "
+            f"{errs['f32_plain']:.3e}; max|S| {errs['max_s']:.1f}")
+    if full:
+        text = f"max|err| {errs['err']:.3e} (bound {bound_err:.2e}; {text})"
+    if not errs["err"] <= bound_err:
+        raise AssertionError(f"bf16 attention {what}: {text}")
+    if tells_apart and not errs["f32_scores"] > bound_err:
+        raise AssertionError(f"bf16 attention {what}: the check cannot tell "
+                             f"f32 scores apart: {text}")
+    return text
 
 
 def cuda_ms(fn, reps: int = 5, n: int = 10) -> float:
@@ -516,24 +583,42 @@ def phase_attention(smi: str) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             views = [x.to(dtype).transpose(1, 2) for x in (q32, k32, v32)]
             contig = [x.contiguous() for x in views]
-            want = attn.attention_plain(*(x.float() for x in contig))
+            f32 = dtype == torch.float32
+            # f32 against the f32 plain version; bf16 against the bf16
+            # plain version (bf16_attention_errs, after both layouts)
+            want = attn.attention_plain(*contig) if f32 else None
             name = str(dtype).split(".")[-1]
             bound_err = ATTN_BOUND[dtype]
-            row = {}
+            row, outs = {}, []
             for layout, (q, k, v) in (("contiguous", contig),
                                       ("projection order", views)):
                 got = attn.multi_head_attention(q, k, v)
                 torch.cuda.synchronize()
-                err = (got.float() - want).abs().max().item()
                 ms = cuda_ms(lambda: attn.multi_head_attention(q, k, v))
-                log(f"[3] attention B={b} H=12 T={t} dh=64 {name} {layout}: "
-                    f"max|err| {err:.3e} (bound {bound_err:.1e}) | kernel "
-                    f"{ms:.4f} ms | {smi}")
-                if not err <= bound_err:
-                    raise AssertionError(f"attention kernel disagrees "
-                                         f"({layout}): {err}")
+                if f32:
+                    err = (got - want).abs().max().item()
+                    log(f"[3] attention B={b} H=12 T={t} dh=64 {name} "
+                        f"{layout}: max|err| {err:.3e} (bound "
+                        f"{bound_err:.1e}) | kernel {ms:.4f} ms | {smi}")
+                    if not err <= bound_err:
+                        raise AssertionError(f"attention kernel disagrees "
+                                             f"({layout}): {err}")
+                else:
+                    outs.append(got)
+                    log(f"[3] attention B={b} H=12 T={t} dh=64 {name} "
+                        f"{layout}: kernel {ms:.4f} ms | {smi}")
+                    err = None
                 row[layout] = (err, ms)
                 del got
+            if not f32:
+                # the backbone's shape must tell f32 scores apart
+                errs = bf16_attention_errs(outs, *contig)
+                log(f"[3] attention B={b} H=12 T={t} dh=64 bf16 against the "
+                    f"bf16 plain version, both layouts: " +
+                    check_bf16_attention(errs, bound_err, f"B={b} T={t}",
+                                         tells_apart=(b, t) == (BATCH, 197)))
+                row = {key: (errs["err"], ms) for key, (_, ms) in row.items()}
+                del outs
             del want
             q, k, v = contig
             plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v))
@@ -568,11 +653,29 @@ def phase_attention(smi: str) -> dict:
                     ms=row["contiguous"][1],
                     ms_projection_order=row["projection order"][1],
                     plain_ms=plain_ms, library_ms=sdpa_ms, **lim)
+                if not f32:
+                    summary[name].update(
+                        max_abs_err_f32_scores=errs["f32_scores"],
+                        max_abs_err_f32_plain=errs["f32_plain"])
             del views, contig, q, k, v
         del q32, k32, v32
         torch.cuda.empty_cache()
+    summary["bfloat16"]["t197_large_scores"] = _large_scores_case(
+        BATCH, 197, 12, 64, "3", g)
     return dict(summary["float32"], bf16=summary["bfloat16"],
                 smoke_t313=summary["smoke_t313"])
+
+
+# q and k scaled so that the scores reach those of trained heads (max|S|
+# 10 to 25; unit-normal q and k give 3 to 7).
+LARGE_QK = 2.0
+# Over several key tiles (T > 64) with large scores: an S that sits on a
+# bf16 rounding boundary rounds apart between the kernel's sums and
+# cuBLAS's (a few in 10^4 scores), and a rounding step of a score near 20
+# moves its probability by ~10%, so the few outputs that a row with such
+# a score feeds fall apart by more than an ulp: held to 2^-6 max|v|
+# (2^-6.9 measured at B = 256, T = 197, max|S| 25).
+LONG_ROWS_BOUND = 2 ** -6
 
 
 # Stage 1's chunk encoder (768 wide, 8 heads): B = 256 chunks of 8 frames
@@ -601,23 +704,34 @@ def phase_attention_stage1(smi: str) -> dict:
             name = str(dtype).split(".")[-1]
             views = [x.to(dtype).transpose(1, 2) for x in (q32, k32, v32)]
             contig = [x.contiguous() for x in views]
-            want = attn.attention_plain(*(x.float() for x in contig))
-            # bf16: P and the output rounded to bf16 (relative 2^-9 each),
-            # so |err| <= 2^-9 (|o| + max|v|) <= 2^-8 max|v|: averages of
-            # only 9 values are not small, so the bound scales with v
-            bound_err = ATTN_BOUND[dtype] if dtype == torch.float32 else \
+            f32 = dtype == torch.float32
+            # bf16, against the bf16 plain version: an output that falls
+            # apart by one ulp (2^-8 of |o| <= max|v|), so the bound scales
+            # with v: averages of only 9 values are not small
+            bound_err = ATTN_BOUND[dtype] if f32 else \
                 2 ** -8 * contig[2].float().abs().max().item()
-            row = {}
+            row, outs = {}, []
             for layout, (q, k, v) in (("contiguous", contig),
                                       ("projection order", views)):
                 got = attn.multi_head_attention(q, k, v)
                 torch.cuda.synchronize()
-                err = (got.float() - want).abs().max().item()
                 ms = cuda_ms(lambda: attn.multi_head_attention(q, k, v))
-                if not err <= bound_err:
-                    raise AssertionError(f"attention kernel dh=96 T={t} "
-                                         f"{name} {layout}: {err}")
+                err = None
+                if f32:
+                    err = (got - attn.attention_plain(*contig)).abs().max() \
+                        .item()
+                    if not err <= bound_err:
+                        raise AssertionError(f"attention kernel dh=96 T={t} "
+                                             f"{name} {layout}: {err}")
+                outs.append(got)
                 row[layout] = (err, ms)
+            errs_text = ""
+            if not f32:
+                errs = bf16_attention_errs(outs, *contig)
+                errs_text = "; " + check_bf16_attention(
+                    errs, bound_err, f"dh=96 B={b} T={t}", full=False)
+                row = {key: (errs["err"], ms) for key, (_, ms) in row.items()}
+            del outs
             q, k, v = contig
             plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v))
             sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
@@ -627,7 +741,8 @@ def phase_attention_stage1(smi: str) -> dict:
             idle = 1 - t / 64
             log(f"[3c] attention B={b} H={h} T={t} dh={dh} {name}: max|err| "
                 f"{max(e for e, _ in row.values()):.3e} (bound "
-                f"{bound_err:.2e}) | kernel {row['contiguous'][1]:.4f} ms "
+                f"{bound_err:.2e}{errs_text}) | kernel "
+                f"{row['contiguous'][1]:.4f} ms "
                 f"(projection order {row['projection order'][1]:.4f}) | "
                 f"plain {plain_ms:.4f} ms | SDPA {sdpa_ms:.4f} ms | "
                 f"{bound_text(lim)} | query tile {100 * idle:.0f}% idle | "
@@ -639,10 +754,50 @@ def phase_attention_stage1(smi: str) -> dict:
                 ms_projection_order=row["projection order"][1],
                 plain_ms=plain_ms, library_ms=sdpa_ms,
                 query_tile_idle=idle, **lim)
-            del views, contig, want, q, k, v
+            if not f32:
+                rows[key + name].update(
+                    max_abs_err_f32_scores=errs["f32_scores"],
+                    max_abs_err_f32_plain=errs["f32_plain"])
+            del views, contig, q, k, v
         del q32, k32, v32
     torch.cuda.empty_cache()
+    for b in (STAGE1_B, STAGE1_BATCH):
+        rows[f"B{b}_T9_bfloat16_large_scores"] = _large_scores_case(
+            b, 9, h, dh, "3c", g)
     return rows
+
+
+def _large_scores_case(b: int, t: int, h: int, dh: int, tag: str,
+                       g: torch.Generator) -> dict:
+    """The bf16 kernel with the scores of a trained head (q and k scaled by
+    LARGE_QK: max|S| >= 10, checked), with and without a key bias, in
+    projection order, against the bf16 plain version. In one key tile (T
+    <= 64, the heads' shapes) within 2^-8 max|v|, while the f32-score
+    semantics is not (a score's bf16 rounding moves a probability by up
+    to 2^-9 |S|, 2% at |S| = 10); past it within LONG_ROWS_BOUND of
+    max|v|, the residual logged."""
+    dev = torch.device("cuda")
+    q, k, v = ((torch.randn(b, t, h, dh, generator=g) * scale).to(
+        dev, torch.bfloat16).transpose(1, 2)
+        for scale in (LARGE_QK, LARGE_QK, 1.0))
+    bias = torch.log(torch.randint(1, 9, (b, t), generator=g).float()).to(dev)
+    one_tile = t <= 64
+    out = {}
+    for kb in (None, bias):
+        errs = bf16_attention_errs(attn.multi_head_attention(
+            q, k, v, key_bias=kb), q, k, v, kb)
+        with_kb = " + key bias" if kb is not None else ""
+        what = f"B={b} H={h} T={t} dh={dh} bf16{with_kb}, large scores"
+        if not errs["max_s"] >= 10:
+            raise AssertionError(f"{what}: max|S| {errs['max_s']:.2f} < 10")
+        bound_err = (2 ** -8 if one_tile else LONG_ROWS_BOUND) * errs["max_v"]
+        log(f"[{tag}] attention {'' if one_tile else 'T > 64 residual, '}"
+            f"{what}: " + check_bf16_attention(errs, bound_err, what,
+                                               tells_apart=one_tile))
+        out["bias" if kb is not None else "plain"] = errs
+    del q, k, v, bias
+    torch.cuda.empty_cache()
+    return out
 
 
 # Head widths other than the compiled ones (F4): dh = 128 natively (768
@@ -675,7 +830,6 @@ def phase_attention_widths(smi: str) -> dict:
                 name = str(dtype).split(".")[-1]
                 q, k, v = (x.to(dtype).transpose(1, 2)
                            for x in (q32, k32, v32))
-                want = attn.attention_plain(q.float(), k.float(), v.float())
                 bound_err = ATTN_BOUND[dtype] if dtype == torch.float32 \
                     else 2 ** -8 * v.float().abs().max().item()
                 launches = attn.multi_head_attention.launches
@@ -684,7 +838,15 @@ def phase_attention_widths(smi: str) -> dict:
                 torch.cuda.synchronize()
                 n_launch = attn.multi_head_attention.launches - launches
                 n_pad = attn.multi_head_attention.padded_launches - padded
-                err = (got.float() - want).abs().max().item()
+                errs_text = ""
+                if dtype == torch.float32:
+                    err = (got - attn.attention_plain(q, k, v)).abs().max() \
+                        .item()
+                else:  # against the bf16 plain version
+                    errs = bf16_attention_errs(got, q, k, v)
+                    err = errs["err"]
+                    errs_text = "; " + check_bf16_attention(
+                        errs, bound_err, f"dh={dh} T={t}", full=False)
                 if not (err <= bound_err and got.shape == q.shape
                         and (n_launch, n_pad) == (1, int(width != dh))):
                     raise AssertionError(
@@ -704,7 +866,8 @@ def phase_attention_widths(smi: str) -> dict:
                             "f32" if dtype == torch.float32 else "bf16")
                 log(f"[3c] F4 attention B={b} H={h} T={t} dh={dh}"
                     f"{'' if width == dh else f' (padded to {width})'} "
-                    f"{name}: max|err| {err:.3e} (bound {bound_err:.2e}) | "
+                    f"{name}: max|err| {err:.3e} (bound {bound_err:.2e}"
+                    f"{errs_text}) | "
                     f"kernel {ms:.4f} ms (padding copies {pad_ms:.4f}) | "
                     f"plain {plain_ms:.4f} ms | SDPA {sdpa_ms:.4f} ms | "
                     f"{bound_text(lim)} | padded_launches +{n_pad} | {smi}")
@@ -712,7 +875,7 @@ def phase_attention_widths(smi: str) -> dict:
                     max_abs_err=err, ms=ms, padding_ms=pad_ms,
                     plain_ms=plain_ms, library_ms=sdpa_ms,
                     padded=width != dh, **lim)
-                del q, k, v, qc, kc, vc, want, got
+                del q, k, v, qc, kc, vc, got
             del q32, k32, v32
     torch.cuda.empty_cache()
 
@@ -779,14 +942,21 @@ def phase_kernel_grads(smi: str) -> dict:
                    for x in (*leaves, bias)]
             want = attn.attention_plain(*ref[:3], key_bias=ref[3])
             want_grads = torch.autograd.grad(want, ref, gout)
-            # the forward against the f32 plain version of the same values
-            # (phase 3c's bounds)
-            with torch.no_grad():
-                want_f32 = attn.attention_plain(
-                    *(x.float() for x in leaves), key_bias=bias)
-            fwd = (got.float() - want_f32).abs().max().item()
+            # the forward against the plain version of the same values in
+            # the same dtype (phase 3c's bounds)
             fwd_bound = ATTN_BOUND[dtype] if dtype == torch.float32 else \
                 2 ** -8 * leaves[2].float().abs().max().item()
+            with torch.no_grad():
+                if dtype == torch.float32:
+                    fwd = (got - want).abs().max().item()
+                else:
+                    errs = bf16_attention_errs(
+                        got, *(x.detach() for x in leaves), bias.detach())
+                    fwd = errs["err"]
+                    log(f"[3c] attention grads dh={dh} T={t} bf16, the "
+                        f"forward against the bf16 plain version: " +
+                        check_bf16_attention(errs, fwd_bound,
+                                             f"grads dh={dh} T={t}"))
             errs = [_rel_err(x, y) for x, y in zip(grads, want_grads)]
             log(f"[3c] attention grads dh={dh} T={t} {name}: forward "
                 f"max|err| {fwd:.3e} (bound {fwd_bound:.2e}); relative "
@@ -905,27 +1075,37 @@ def phase_attention_rag(smi: str) -> dict:
             name = str(dtype).split(".")[-1]
             views = [x.to(dtype).transpose(1, 2) for x in (q32, k32, v32)]
             contig = [x.contiguous() for x in views]
-            # bf16: P and the output rounded to bf16 (phase 3c's bound)
-            bound_err = ATTN_BOUND[dtype] if dtype == torch.float32 else \
+            f32 = dtype == torch.float32
+            # bf16, against the bf16 plain version (phase 3c's bound)
+            bound_err = ATTN_BOUND[dtype] if f32 else \
                 2 ** -8 * contig[2].float().abs().max().item()
             for kb in (None, bias):
-                want = attn.attention_plain(*(x.float() for x in contig),
-                                            key_bias=kb)
-                row = {}
+                row, outs = {}, []
                 for layout, (q, k, v) in (("contiguous", contig),
                                           ("projection order", views)):
                     before = attn.multi_head_attention.launches
                     got = attn.multi_head_attention(q, k, v, key_bias=kb)
                     torch.cuda.synchronize()
-                    err = (got.float() - want).abs().max().item()
+                    err = (got - attn.attention_plain(*contig, key_bias=kb)
+                           ).abs().max().item() if f32 else 0.0
                     if attn.multi_head_attention.launches != before + 1 \
                             or not err <= bound_err:
                         raise AssertionError(
                             f"attention kernel dh=192 B={b} T={t} {name} "
                             f"{layout} bias={kb is not None}: {err}")
+                    outs.append(got)
                     row[layout] = (err, cuda_ms(
                         lambda: attn.multi_head_attention(q, k, v,
                                                           key_bias=kb)))
+                errs_text = ""
+                if not f32:
+                    errs = bf16_attention_errs(outs, *contig, kb)
+                    errs_text = "; " + check_bf16_attention(
+                        errs, bound_err, f"dh=192 B={b} T={t} "
+                        f"bias={kb is not None}", full=False)
+                    row = {key: (errs["err"], ms)
+                           for key, (_, ms) in row.items()}
+                del outs
                 q, k, v = contig
                 plain_ms = cuda_ms(lambda: attn.attention_plain(
                     q, k, v, key_bias=kb))
@@ -955,7 +1135,8 @@ def phase_attention_rag(smi: str) -> dict:
                 log(f"[3d] attention B={b} H={h} T={t} dh={dh} {name}"
                     f"{' + key bias' if kb is not None else ''}: max|err| "
                     f"{max(e for e, _ in row.values()):.3e} (bound "
-                    f"{bound_err:.2e}) | kernel {row['contiguous'][1]:.4f} "
+                    f"{bound_err:.2e}{errs_text}) | kernel "
+                    f"{row['contiguous'][1]:.4f} "
                     f"ms (projection order {row['projection order'][1]:.4f})"
                     f" | plain {plain_ms:.4f} ms | SDPA"
                     f"{'+mask' if kb is not None else ''} {sdpa_ms:.4f} ms | "
@@ -965,10 +1146,22 @@ def phase_attention_rag(smi: str) -> dict:
                     ms=row["contiguous"][1],
                     ms_projection_order=row["projection order"][1],
                     plain_ms=plain_ms, library_ms=sdpa_ms, **device, **lim)
-                del want, mask
+                if not f32:
+                    rows[key].update(
+                        max_abs_err_f32_scores=errs["f32_scores"],
+                        max_abs_err_f32_plain=errs["f32_plain"])
+                del mask
             del views, contig, q, k, v
         del q32, k32, v32, bias
     torch.cuda.empty_cache()
+    # the heads' scores (max|S| >= 10) at T = 5 (RAGHead) and 21 (RATTHead),
+    # and past one key tile
+    for b, t in ((8, 5), (256, 5), (8, 21)):
+        rows[f"B{b}_T{t}_bfloat16_large_scores"] = _large_scores_case(
+            b, t, h, dh, "3d", g)
+    for b, t in RAG_ATTN_CASES[2:]:
+        rows[f"B{b}_T{t}_bfloat16_large_scores"] = _large_scores_case(
+            b, t, h, dh, "3d", g)
 
     grads = {}
     g = torch.Generator(device=dev).manual_seed(6)
@@ -2003,10 +2196,14 @@ def phase_attention_bias(smi: str) -> dict:
                 dev, dtype).transpose(1, 2) for _ in range(3))
             got = attn.multi_head_attention(q, k, v, key_bias=bias)
             qc, kc, vc = (x.contiguous() for x in (q, k, v))
-            want = attn.attention_plain(qc.float(), kc.float(), vc.float(),
-                                        key_bias=bias)
-            err = (got.float() - want).abs().max().item()
-            del got, want
+            errs = {}
+            if dtype == torch.float32:
+                err = (got - attn.attention_plain(qc, kc, vc, key_bias=bias)
+                       ).abs().max().item()
+            else:  # against the bf16 plain version
+                errs = bf16_attention_errs(got, qc, kc, vc, bias)
+                err = errs["err"]
+            del got
             if not err <= ATTN_BOUND[dtype]:
                 raise AssertionError(f"attention kernel with key bias "
                                      f"disagrees at T={t} {name}: {err}")
@@ -2021,12 +2218,19 @@ def phase_attention_bias(smi: str) -> dict:
                         4 * BATCH * 12 * t * t * 64 + BATCH * 12 * t * t,
                         "f32" if dtype == torch.float32 else "bf16")
             rows.append(dict(T=t, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=sdpa_ms, **lim))
+                             library_ms=sdpa_ms, **lim,
+                             **{f"max_abs_err_{key}": errs[key]
+                                for key in ("f32_scores", "f32_plain")
+                                if key in errs}))
             del q, k, v, qc, kc, vc, mask
         for r in rows:
+            old = "" if dtype == torch.float32 else (
+                f"; f32 scores {r['max_abs_err_f32_scores']:.3e}, f32 plain "
+                f"{r['max_abs_err_f32_plain']:.3e}")
             log(f"[5d] attention + key bias B={BATCH} H=12 T={r['T']} dh=64 "
                 f"{name}: max|err| {r['max_abs_err']:.3e} (bound "
-                f"{ATTN_BOUND[dtype]:.0e}) | kernel {r['ms']:.4f} ms | plain "
+                f"{ATTN_BOUND[dtype]:.0e}{old}) | kernel {r['ms']:.4f} ms | "
+                f"plain "
                 f"{r['plain_ms']:.4f} ms | SDPA+mask {r['library_ms']:.4f} ms"
                 f" | {bound_text(r)}")
         sums = {key: sum(r[key] for r in rows)
@@ -4701,10 +4905,14 @@ def _bf16_errs(card, host, lr: float) -> dict:
     return dict(loss=loss, out=out, param=param, ok=ok)
 
 
-# S2's fault line: a forward at step 0 with equal weights and inputs that
-# is already beyond a few bf16 ulps (2^-8 of a value each) of its scale
-# on the card against the CPU is a fault, not rounding.
+# S2's fault lines, which fail the run. The card's forward at step 0
+# against the CPU's from equal weights and inputs: beyond a few bf16 ulps
+# (2^-8 of a value each) of its scale is a fault, not rounding. Kernel
+# B's forward against the same forward with B's plain version on the
+# same card: one ulp of the scale (they round S, the scale, the bias and
+# P alike and differ only in summation order).
 S2_FORWARD_FAULT = 2 ** -6
+S2_KERNEL_FAULT = 2 ** -8
 
 
 def _s2_bisection(make, batches, lr: float) -> dict:
@@ -4714,7 +4922,9 @@ def _s2_bisection(make, batches, lr: float) -> dict:
     plain SGD step (scaled so that the CPU's largest step is ``lr``, as
     large as Adam's), (3) one step of the training Optimizer (AdamW),
     each on the card against the CPU from the same weights and inputs,
-    as a share of the outputs' scale; and the first step's gradients."""
+    as a share of the outputs' scale; the forward with kernel B against the
+    same with its plain version, both on the card; and the first step's
+    gradients."""
     from vit_research_tpu_torch.train import losses
     from vit_research_tpu_torch.train.optim import Optimizer
 
@@ -4757,8 +4967,9 @@ def _s2_bisection(make, batches, lr: float) -> dict:
     host = outputs(make().to(cpu), cpu)
     with _plain_attention():
         plain = outputs(make().to(cuda), cuda)
-    return dict(forward=rel(outputs(make().to(cuda), cuda), host),
-                forward_plain=rel(plain, host),
+    card = outputs(make().to(cuda), cuda)
+    return dict(forward=rel(card, host), forward_plain=rel(plain, host),
+                kernel_vs_plain=rel(card, plain),
                 sgd=rel(sgd(cuda, scale), sgd(cpu, scale)),
                 adamw=rel(adamw(cuda), adamw(cpu)),
                 grad=rel(card_g, [g.float() for g in host_g]))
@@ -4801,9 +5012,10 @@ def _bf16_head_case(smi: str, name: str, make, batches, lr: float,
     s2 = _s2_bisection(make, batches, lr)
     log(f"[5i] S2 bisection, {name} bf16, card vs CPU from equal weights "
         f"and inputs, held-out outputs as a share of their scale: forward "
-        f"at step 0 {s2['forward']:.3e} (a fault above "
-        f"{S2_FORWARD_FAULT:.3e}; {s2['forward_plain']:.3e} with B's plain "
-        f"version on the card), after one plain SGD step "
+        f"at step 0 {s2['forward']:.3e} (fails above {S2_FORWARD_FAULT:.3e}; "
+        f"{s2['forward_plain']:.3e} with B's plain version on the card; B "
+        f"against that plain forward on the card {s2['kernel_vs_plain']:.3e},"
+        f" fails above {S2_KERNEL_FAULT:.3e}), after one plain SGD step "
         f"{s2['sgd']:.3e}, after one AdamW step {s2['adamw']:.3e}; the "
         f"first step's gradients {s2['grad']:.3e} of their scale | {smi}")
     log(f"[5i] {name} bf16, {BF16_STEPS} dropout-0 steps card vs CPU: losses "
@@ -4817,6 +5029,9 @@ def _bf16_head_case(smi: str, name: str, make, batches, lr: float,
         f"f32 by CUDA events | {smi}")
     if not errs["ok"]:
         raise AssertionError(f"{name} bf16 card vs CPU: {errs}")
+    if not (s2["forward"] <= S2_FORWARD_FAULT
+            and s2["kernel_vs_plain"] <= S2_KERNEL_FAULT):
+        raise AssertionError(f"{name} bf16 forward at step 0: {s2}")
     if bad["ok"]:
         raise AssertionError(f"{name} bf16: the check passes B's first head "
                              f"zeroed: {bad}")

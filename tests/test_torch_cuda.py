@@ -7,9 +7,12 @@ so it also runs there without the JAX test harness:
 
 Tolerances. f32: the kernels and the plain versions sum the same products
 in other orders, ~1e-6 on outputs of order 1. bf16 patch embed: one bf16
-rounding of outputs < 8 (2^-5). bf16 attention, against the f32 plain
-version of the bf16-rounded inputs: the kernel rounds the probabilities
-and the output to bf16 (outputs < 4: 1e-2). Fused LN + projection: f32 1e-5 relative to the
+rounding of outputs < 8 (2^-5). bf16 attention, against the bf16 plain
+version of the same inputs (the JAX package's bf16 attention: S, S *
+bf16(scale), + bf16(bias) and P each rounded to bf16): the two sum in
+other orders and take the exp otherwise, so an output falls apart by one
+bf16 ulp (below 1e-2 for outputs under 2; 2^-8 max|v| where averages of
+few values are not small). Fused LN + projection: f32 1e-5 relative to the
 output's scale; with bf16 weights or output 2^-6 of it (a bf16 rounding of
 the LN output or the result can fall apart between two summation
 orders). The int8 store query: exact integer scores on both devices; the
@@ -97,6 +100,25 @@ def _attention_inputs(b, h, t, dh, dtype, layout, device, seed):
     return xs if layout == "contiguous" else [x.transpose(1, 2) for x in xs]
 
 
+def _plain(q, k, v, dtype, **kw):
+    """The kernel's reference in ``dtype``: the plain version on the same
+    values in that dtype (bf16: the JAX package's bf16 attention)."""
+    return attn.attention_plain(*(x.to(dtype) for x in (q, k, v)), **kw)
+
+
+def _f32_scores(q, k, v, key_bias=None):
+    """bf16 attention with f32 scores (the bf16 kernel's semantics before
+    it rounded S): S of the bf16 values in f32, P and the output rounded to
+    bf16. The bf16 checks must tell it from the bf16 plain version."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        * q.shape[-1] ** -0.5
+    if key_bias is not None:
+        s = s + key_bias[:, None, None, :]
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16)
+    return torch.einsum("bhqk,bhkd->bhqd", p.float(),
+                        v.float()).to(torch.bfloat16)
+
+
 @pytest.mark.parametrize("t", [1, 16, 17, 63, 64, 65, 197, 325, 1297])
 @pytest.mark.parametrize("dh", [16, 32, 64])
 @pytest.mark.parametrize("layout", ["contiguous", "projection_order"])
@@ -106,12 +128,12 @@ def test_attention_kernel_matches_plain(cuda, t, dh, layout, dtype):
     before = attn.multi_head_attention.launches
     got = attn.multi_head_attention(q, k, v)
     assert attn.multi_head_attention.launches == before + 1
-    want = attn.attention_plain(q.float(), k.float(), v.float())
+    want = _plain(q, k, v, dtype)
     assert got.dtype == dtype and got.shape == (2, 12, t, dh)
     # written in projection order: (B, T, H, dh) contiguous underneath
     assert got.transpose(1, 2).is_contiguous()
     atol = 1e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
 @pytest.mark.parametrize("scale", [-0.3, 0.0, 2.0])
@@ -120,9 +142,10 @@ def test_attention_kernel_takes_any_scale(cuda, scale, dtype):
     q, k, v = _attention_inputs(2, 3, 65, 32, dtype, "projection_order",
                                 cuda, 5)
     got = attn.multi_head_attention(q, k, v, scale=scale)
-    want = attn.attention_plain(q.float(), k.float(), v.float(), scale=scale)
+    # bf16: the scale rounded to bf16 on both sides (-0.3 -> -0.30078125)
+    want = _plain(q, k, v, dtype, scale=scale)
     atol = 1e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
 def test_attention_kernel_takes_a_transposed_view(cuda):
@@ -567,8 +590,7 @@ def test_attention_kernel_with_key_bias_matches_plain(cuda, t, dh, dtype):
     before = attn.multi_head_attention.launches
     got = attn.multi_head_attention(q, k, v, key_bias=bias)
     assert attn.multi_head_attention.launches == before + 1
-    want = attn.attention_plain(q.float(), k.float(), v.float(),
-                                key_bias=bias)
+    want = _plain(q, k, v, dtype, key_bias=bias).float()
     atol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
     # the bias moves the result: the unbiased kernel is further off
@@ -657,16 +679,15 @@ def test_fast_profile_engine_on_card_matches_cpu(cuda, kw):
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_attention_kernel_dh96_matches_plain(cuda, t, layout, dtype,
                                              with_bias):
-    """The stage-1 chunk encoder's head width (768 / 8 heads). bf16: P and
-    the output are rounded to bf16 (relative 2^-9 each), so the error is
-    at most 2^-8 max|v| (averages of 9 values are not small)."""
+    """The stage-1 chunk encoder's head width (768 / 8 heads). bf16,
+    against the bf16 plain version: an output that falls apart by one ulp
+    (2^-8 of |o| <= max|v|; averages of 9 values are not small)."""
     q, k, v = _attention_inputs(4, 8, t, 96, dtype, layout, cuda, t + 96)
     bias = _key_bias(4, t, t).to(cuda) if with_bias else None
     before = attn.multi_head_attention.launches
     got = attn.multi_head_attention(q, k, v, key_bias=bias)
     assert attn.multi_head_attention.launches == before + 1
-    want = attn.attention_plain(q.float(), k.float(), v.float(),
-                                key_bias=bias)
+    want = _plain(q, k, v, dtype, key_bias=bias).float()
     atol = 1e-5 if dtype == torch.float32 else \
         2 ** -8 * v.float().abs().max().item()
     torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
@@ -800,11 +821,89 @@ def test_attention_kernel_dh192_matches_plain(cuda, b, t, layout, dtype,
     got = attn.multi_head_attention(q, k, v, key_bias=bias)
     assert attn.multi_head_attention.launches == before + 1
     assert got.transpose(1, 2).is_contiguous()
-    want = attn.attention_plain(q.float(), k.float(), v.float(),
-                                key_bias=bias)
+    want = _plain(q, k, v, dtype, key_bias=bias).float()
     atol = 1e-5 if dtype == torch.float32 else \
         2 ** -8 * v.float().abs().max().item()
     torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("b,h,t,dh,qk", [
+    (256, 12, 197, 64, 1.0),  # the backbone (ViT-B/16 @224)
+    (8, 4, 5, 192, 2.0), (256, 4, 5, 192, 2.0),  # RAGHead
+    (8, 4, 21, 192, 2.0),  # RATTHead / RATTHeadV2
+    (32, 8, 9, 96, 2.0), (256, 8, 9, 96, 2.0)])  # the chunk encoder
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_bf16_attention_tells_f32_scores_apart(cuda, b, h, t, dh, qk,
+                                               with_bias):
+    """At the backbone's shape and at the heads' shapes with the scores of
+    trained heads (q and k scaled: max|S| >= 10), the bf16 kernel is
+    within the bound of the bf16 plain version and the f32-score
+    semantics is not: the check sees the difference that rounding S makes
+    (a score's bf16 rounding moves its probability by up to 2^-9 |S|)."""
+    q, k, v = _attention_inputs(b, h, t, dh, torch.float32,
+                                "projection_order", cuda, b + t + dh)
+    q, k, v = (x.to(torch.bfloat16) for x in (q * qk, k * qk, v))
+    bias = _key_bias(b, t, t + 1).to(cuda) if with_bias else None
+    got = attn.multi_head_attention(q, k, v, key_bias=bias).float()
+    want = _plain(q, k, v, torch.bfloat16, key_bias=bias).float()
+    old = _f32_scores(q, k, v, bias).float()
+    atol = 1e-2 if dh == 64 else 2 ** -8 * v.float().abs().max().item()
+    if dh != 64:
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+        assert s.abs().max() * dh ** -0.5 >= 10
+    assert (got - want).abs().max() <= atol
+    assert (old - want).abs().max() > atol
+
+
+@pytest.mark.parametrize("kind,dh", [("chunk", 96), ("rag", 192)])
+def test_bf16_attention_on_the_heads_inputs(cuda, kind, dh, monkeypatch):
+    """Kernel B on the q/k/v that the bf16 ChunkEncoder
+    (ChunkEncoderConfig(): 768 wide, 8 heads) and RAGHead (HeadConfig():
+    4 heads) hand it, their query and key weights doubled so that max|S|
+    >= 10, the scale of trained heads: each call within 2^-8 max|v| of
+    the bf16 plain version, and the f32-score semantics beyond it in at
+    least one call."""
+    from vit_research_tpu_torch.models import heads
+    from vit_research_tpu_torch.utils.configs import (ChunkEncoderConfig,
+                                                      HeadConfig)
+
+    g = torch.Generator().manual_seed(dh)
+    if kind == "chunk":
+        model = heads.ChunkEncoder(ChunkEncoderConfig(dtype="bfloat16"),
+                                   generator=g)
+        inputs = [torch.randn(32, 8, 768, generator=g)]
+    else:
+        model = heads.RAGHead(HeadConfig(dtype="bfloat16"), generator=g)
+        inputs = [torch.randn(8, 768, generator=g),
+                  torch.randn(8, 10, 768, generator=g)]
+    with torch.no_grad():
+        for block in model.blocks:
+            block.attn.query.weight *= 2
+            block.attn.key.weight *= 2
+    model = model.to(cuda).eval()
+    calls = []
+    launch = attn._launch
+
+    def recording(q, k, v, scale, key_bias):
+        out = launch(q, k, v, scale, key_bias)
+        calls.append((q, k, v, key_bias, out))
+        return out
+
+    monkeypatch.setattr(attn, "_launch", recording)
+    with torch.no_grad():
+        model(*(x.to(cuda) for x in inputs))
+    assert len(calls) == len(model.blocks)
+    olds = []
+    for q, k, v, bias, out in calls:
+        assert q.dtype == torch.bfloat16 and q.shape[-1] == dh
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+        assert s.abs().max() * dh ** -0.5 >= 10
+        want = _plain(q, k, v, torch.bfloat16, key_bias=bias).float()
+        atol = 2 ** -8 * v.float().abs().max().item()
+        assert (out.float() - want).abs().max() <= atol
+        olds.append((_f32_scores(q, k, v, bias).float() - want).abs().max()
+                    / atol)
+    assert max(olds) > 1
 
 
 def test_rag_head_on_card_matches_cpu(cuda):
@@ -932,8 +1031,7 @@ def test_attention_kernel_takes_every_width_to_192(cuda, dh, t, layout,
     assert attn.multi_head_attention.padded_launches == \
         padded + int(dh not in attn.KERNEL_HEAD_DIMS)
     assert got.shape == (2, 4, t, dh)
-    want = attn.attention_plain(q.float(), k.float(), v.float(),
-                                key_bias=bias)
+    want = _plain(q, k, v, dtype, key_bias=bias).float()
     atol = 1e-5 if dtype == torch.float32 else \
         2 ** -8 * v.float().abs().max().item()
     torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
@@ -1056,15 +1154,16 @@ def test_joint_train_step_on_card_matches_cpu(cuda):
 
 
 # bf16 heads on the card, kernel B (attn_bf16 through _Attention) against
-# the same module with B's launch swapped for the plain version: the
-# kernel keeps the scores in f32 where the plain version rounds them to
-# bf16 before the softmax (2^-9 of scores of order 10), and every later
-# bf16 rounding may then fall apart by an ulp, so outputs are held to
-# 2^-3 of their scale and the f32 parameters' gradients (the plain VJP on
-# both sides) to a relative L2 error of 2^-3 over all of them (the key
-# biases, whose true gradient is zero, left out): a wrong head, layout or
-# VJP moves them by their whole size.
-BF16_OUT, BF16_GRAD = 2 ** -3, 2 ** -3
+# the same module with B's launch swapped for the plain version: both
+# round the scores, the scale, the bias and P to bf16 at the same places,
+# one key tile at these T, so they differ only where a sum in another
+# order straddles a bf16 rounding boundary. Outputs are held to one ulp
+# of their scale (2^-8) and the f32 parameters' gradients (the plain VJP
+# on both sides) to a relative L2 error of 2^-8 over all of them (the key
+# biases, whose true gradient is zero, left out): a wrong head, layout,
+# rounding or VJP moves them by far more. (While the kernel kept f32
+# scores, both bounds were 2^-3.)
+BF16_OUT, BF16_GRAD = 2 ** -8, 2 ** -8
 
 
 @pytest.mark.parametrize("kind,dh", [("chunk", 96), ("rag", 192)])

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from vit_research_tpu.ops import attention as jax_attn
@@ -253,20 +254,88 @@ def test_kernel_strides_refuse_what_16_byte_loads_cannot_take(dtype, case,
         attn._kernel_strides(x, "q")
 
 
-def test_attention_plain_matches_xla_reference_bf16():
-    # bf16 inputs: scores and the product with v round to bf16 at the same
-    # places on both sides; the bound is two bf16 ulps of values < 4.
-    rng = np.random.default_rng(5)
-    q, k, v = (rng.standard_normal((1, 2, 33, 16)).astype(np.float32)
+def _jax_bf16_attention(q, k, v, log_size=None, scale=None):
+    """The JAX package's bf16 attention of numpy q, k, v (B, H, T, d):
+    ``xla_attention``, or with a (B, T) key bias the einsum path of its
+    ``MultiHeadSelfAttention`` (the bias added to the bf16 scores in their
+    dtype). Returns the output and the bf16 scores it took its softmax
+    of, both as f32 numpy."""
+    qj, kj, vj = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = jnp.einsum("bhqd,bhkd->bhqk", qj, kj) * scale
+    if log_size is None:
+        out = jax_attn.xla_attention(qj, kj, vj, scale=scale)
+    else:
+        s = s + jnp.asarray(log_size)[:, None, None, :].astype(s.dtype)
+        probs = jax.nn.softmax(s.astype(jnp.float32), axis=-1)
+        out = jnp.einsum("bhqk,bhkd->bhqd", probs.astype(qj.dtype), vj)
+    return np.asarray(out, np.float32), np.asarray(s, np.float32)
+
+
+def _hold_to_jax_bf16(got, want, s, q, k):
+    """``got`` within 2^-9 of max|want| in every query row where torch
+    and XLA agree on the bf16 rounding of q k^T and of the probabilities
+    of the reference's own scores ``s``. Where a sum or an f32 exp straddles a bf16 rounding
+    boundary the two libraries round it apart (~15 probabilities in a
+    million at T = 197); such rows, at most 5%, are held to 2^-8 of
+    max|want|."""
+    e_jax = np.asarray(jnp.einsum("bhqd,bhkd->bhqk",
+                                  *(jnp.asarray(a, jnp.bfloat16)
+                                    for a in (q, k))), np.float32)
+    e_torch = torch.einsum("bhqd,bhkd->bhqk", *(
+        torch.from_numpy(a).to(torch.bfloat16) for a in (q, k))).float()
+    p_jax = np.asarray(jax.nn.softmax(jnp.asarray(s), axis=-1).astype(
+        jnp.bfloat16), np.float32)
+    p_torch = torch.softmax(torch.from_numpy(s), dim=-1).to(
+        torch.bfloat16).float().numpy()
+    apart = ((e_torch.numpy() != e_jax) | (p_torch != p_jax)).any(-1)
+    assert apart.mean() <= 0.05
+    err = np.abs(got - want)
+    scale = np.abs(want).max()
+    assert err[~apart].max() <= 2 ** -9 * scale
+    assert err.max() <= 2 ** -8 * scale
+
+
+@pytest.mark.parametrize("dh", [16, 64, 96, 192])
+@pytest.mark.parametrize("t", [5, 9, 21, 197])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_attention_plain_matches_xla_reference_bf16(dh, t, with_bias):
+    """bf16 inputs at the heads' scale (q and k with std 1.8: max|S| 8
+    to 18): scores, their product with the scale rounded to bf16 (JAX's
+    weakly typed Python float), the key bias in bf16 and P round at the
+    same places on both sides. The parent, which scaled bf16 scores by
+    the f32 scale, was up to 6.47e-3 / 1.12e-2 / 1.81e-2 of the outputs'
+    scale away at dh = 192 and T = 5 / 9 / 21 (dh = 96: 2.40e-3 / 1.00e-2
+    / 1.85e-2), beyond 2^-9 = 1.95e-3 in 15 of the 16 dh = 96 and 192
+    cases; at dh = 16 and 64 the scale is a power of two and nothing
+    changed."""
+    rng = np.random.default_rng(dh + t)
+    q, k, v = ((rng.standard_normal((2, 4, t, dh)) * 1.8).astype(np.float32)
                for _ in range(3))
-    want = jax_attn.xla_attention(*(jnp.asarray(a, jnp.bfloat16)
-                                    for a in (q, k, v)))
-    got = attn.attention_plain(*(torch.from_numpy(a).to(torch.bfloat16)
-                                 for a in (q, k, v)))
+    log_size = np.log(rng.integers(1, 9, (2, t))).astype(np.float32) \
+        if with_bias else None
+    want, s = _jax_bf16_attention(q, k, v, log_size)
+    got = attn.attention_plain(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        key_bias=None if log_size is None else torch.from_numpy(log_size))
     assert got.dtype == torch.bfloat16
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want, np.float32), rtol=0,
-                               atol=2 * 2 ** -6)
+    _hold_to_jax_bf16(got.float().numpy(), want, s, q, k)
+
+
+def test_attention_plain_rounds_a_callers_scale_like_jax():
+    """A scale bf16 cannot hold (-0.3 -> -0.30078125 in bf16) multiplies
+    bf16 scores as JAX's weakly typed float does. The parent, which kept
+    the f32 -0.3, was 1.64e-2 of the outputs' scale away."""
+    rng = np.random.default_rng(11)
+    q, k, v = ((rng.standard_normal((2, 4, 9, 96)) * 1.8).astype(np.float32)
+               for _ in range(3))
+    want, s = _jax_bf16_attention(q, k, v, scale=-0.3)
+    got = attn.attention_plain(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        scale=-0.3)
+    _hold_to_jax_bf16(got.float().numpy(), want, s, q, k)
+    assert attn.weak_scalar(-0.3, torch.bfloat16) == -0.30078125
+    assert attn.weak_scalar(-0.3, torch.float32) == float(np.float32(-0.3))
 
 
 def test_attention_rejects_mismatched_shapes():

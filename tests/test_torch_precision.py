@@ -4,9 +4,11 @@ RATTHead, RATTHeadV2) against the JAX package's flax modules in bf16.
 Weights are drawn by flax from fixed seeds and cross through
 models/convert.py; inputs come from numpy seeds.
 
-Bounds. bf16 (8 significant bits, an ulp 2^-8 of a value's scale): the
-two packages round at different points (XLA on the CPU may keep excess
-precision between fused bf16 ops; torch rounds each op's output), so a
+Bounds. bf16 (8 significant bits, an ulp 2^-8 of a value's scale): both
+packages round each bf16 op's output (the elementwise ops and scalars
+follow JAX's op by op, tests/test_torch_bf16_parity.py), but the dense
+products and the LayerNorm statistics sum in other orders, and a value
+that falls apart by an ulp moves the layers after it, so a
 forward output is held within ``BF16_OUT`` = 2^-5 of its largest
 magnitude (8 ulps there), and the gradients of the f32 parameters to a
 relative L2 error of ``BF16_GRAD`` over all of them, and of

@@ -3,9 +3,11 @@
 // Replaces: vit_research_tpu/ops/attention.py::_attn_kernel (driven by
 // _pallas_attention_fwd_impl, public entry multi_head_attention).
 //
-// Computes o = softmax(q k^T * scale) v per (batch, head) with f32 scores,
-// an f32 online softmax and f32 accumulation; o is written in the input
-// dtype. q, k and v are (B, H, T, dh) views with any batch, head and token
+// Computes o = softmax(q k^T * scale) v per (batch, head) with an f32
+// online softmax and f32 accumulation; o is written in the input dtype.
+// f32 keeps f32 scores. bf16 forms its scores as the JAX package's bf16
+// attention (xla_attention, the einsum path of models/vit.py) does: q k^T
+// rounded to bf16, times bf16(scale) rounded, plus bf16(bias) rounded. q, k and v are (B, H, T, dh) views with any batch, head and token
 // strides (the last dim has stride 1), so the backbone passes the q/k/v
 // projections in their (B, T, H, dh) order without a copy; o is written
 // through its own strides (the wrapper allocates it (B, T, H, dh)). Any T;
@@ -19,16 +21,19 @@
 // ToMeEncoderBlock): a (B, T) f32 row per batch element, with its batch
 // stride, added to every query's scores, softmax(q k^T * scale + bias) v
 // (the JAX package adds log(sizes) to the scores on its XLA path). Each
-// key tile's 64 bias values are staged in shared memory in log2 units
-// beside the K/V tiles, and the score loop adds them with the scale, so
-// the bias costs one FMA a score. The bias must be finite. The kernels
-// are templated on it: without a bias they are the unbiased kernels.
+// key tile's 64 bias values are staged in shared memory beside the K/V
+// tiles: f32 in log2 units, which the score loop adds with the scale in
+// one FMA a score; bf16 rounded to bf16 in natural units, added to the
+// bf16 scores as the reference adds log_size.astype(s.dtype). The bias
+// must be finite. The kernels are templated on it: without a bias they
+// are the unbiased kernels.
 //
 // What bounds it on the H100 at ViT-B/16 (T = 197, dh = 64): in bf16 the
 // bytes (q, k, v read once, o written once: 0.09 ms at B = 256) against
-// 0.03 ms of tensor-core operations; in f32 the operations (4*T*T*dh per
-// head on the CUDA cores at 67 TFLOP/s: 0.46 ms), since the parity setting
-// keeps full f32 products (no TF32).
+// 0.03 ms of tensor-core operations (the second pass's K re-reads mostly
+// hit L2); in f32 the operations (4*T*T*dh per head on the CUDA cores at
+// 67 TFLOP/s: 0.46 ms), since the parity setting keeps full f32 products
+// (no TF32).
 //
 // What the design does about it. Both kernels: one block owns 64 query
 // rows of one (b, h); K/V stream through shared memory in tiles of 64 keys,
@@ -42,14 +47,23 @@
 // - bf16 (attn_bf16): FlashAttention-2 on the tensor cores. 4 warps x 16
 //   query rows; each warp keeps its Q fragment in registers for the whole
 //   key loop, forms S = Q K^T with mma.sync m16n8k16 (bf16 in, f32
-//   accumulate; K fragments by ldmatrix), runs the online softmax in f32
-//   with the scale folded into exp2, rounds P to bf16 in registers and
-//   reuses the S accumulator layout as the A fragment of P V (V fragments
-//   by ldmatrix.trans). Rounding P to bf16 is what the JAX package does off
-//   the TPU (xla_attention casts the probabilities to the input dtype); its
-//   Pallas kernel keeps P in f32. O is divided by the row sum once, staged
-//   through the warp's own Q rows in shared memory and written with
-//   16-byte stores. A warp whose 16 rows all lie past T skips the math but
+//   accumulate; K fragments by ldmatrix), rounds S to bf16 as above (two
+//   scores an instruction: cvt.rn.bf16x2.f32, then mul.rn.bf16x2 by the
+//   scale and add.rn.bf16x2 of the bias, each rounding as the reference's
+//   bf16 product and sum do), runs the online softmax in f32 in log2
+//   units, rounds P to bf16 in registers and reuses the S accumulator
+//   layout as the A fragment of P V (V fragments by ldmatrix.trans).
+//   Rounding S and P to bf16 is what the JAX package does off the TPU
+//   (xla_attention's bf16 einsums, and the probabilities cast to the input
+//   dtype); its Pallas kernel keeps both in f32. P is the normalised
+//   exp(s - max) / sum, rounded as the reference rounds it, so O needs no
+//   division. Where one key tile holds the row (T <= 64: the heads, the
+//   chunk encoder) that takes one pass. Over several tiles a streaming
+//   pass knows the sum only at its end, so a first pass streams the K
+//   tiles for each row's max and sum (S and its roundings, no P V) and a
+//   second streams K and V again and forms the same scores, P and P V.
+//   O is staged through the warp's own Q rows in shared memory and
+//   written with 16-byte stores. A warp whose 16 rows all lie past T skips the math but
 //   takes part in the copies and barriers. Rows are padded by 16 bytes in
 //   shared memory so that ldmatrix reads are free of bank conflicts.
 // - f32 (attn_f32): register-tiled on the CUDA cores. 128 threads; thread
@@ -98,7 +112,8 @@ struct Params {
   const float* bias;  // (batch, seq) key bias or null
   long long sbias;    // its batch stride (elements)
   int heads, seq, n_qblocks;
-  float scale_log2;  // scale * log2(e)
+  float scale;       // the caller's (bf16 rounds it to bf16)
+  float scale_log2;  // scale * log2(e), f32
 };
 
 // 2^x in one SFU instruction (ex2.approx: relative error ~2^-22; 2^-inf =
@@ -108,6 +123,11 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// e^x as 2^(x log2 e).
+__device__ __forceinline__ float exp_of(float x) {
+  return exp2_approx(x * LOG2E);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -166,15 +186,23 @@ __device__ __forceinline__ void head_ptrs(const Params<T>& p, int& q0,
   bg = p.bias ? p.bias + b * p.sbias : nullptr;  // read by BIAS kernels
 }
 
-// The key bias of keys row0 .. row0 + 63 in log2 units into dst (0 past
-// seq: those scores become -inf). Plain stores by the first 64 threads;
-// the __syncthreads that publishes the tile's cp.async copies publishes
-// them too.
+// The key bias of keys row0 .. row0 + 63 into dst (0 past seq: those
+// scores become -inf): in log2 units for f32, rounded to bf16 for bf16.
+// Plain stores by the first 64 threads; the __syncthreads that publishes
+// the tile's cp.async copies publishes them too.
 __device__ __forceinline__ void load_bias(float* dst, const float* bg,
                                           int row0, int seq, int tid) {
   if (tid < BK) {
     const int j = row0 + tid;
     dst[tid] = j < seq ? bg[j] * LOG2E : 0.f;
+  }
+}
+__device__ __forceinline__ void load_bias(__nv_bfloat16* dst,
+                                          const float* bg, int row0, int seq,
+                                          int tid) {
+  if (tid < BK) {
+    const int j = row0 + tid;
+    dst[tid] = __float2bfloat16_rn(j < seq ? bg[j] : 0.f);
   }
 }
 
@@ -207,6 +235,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+// Two bf16 products and sums, each rounded once (.rn: never contracted
+// into an FMA, which would round a * b + c once).
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
 
 template <int DH>
 struct Bf16Layout {
@@ -214,11 +254,12 @@ struct Bf16Layout {
   static constexpr int K = BQ * LD;          // Q tile, then 2 K tiles
   static constexpr int V = K + 2 * BK * LD;  // 2 V tiles
   static constexpr int BYTES = (V + 2 * BK * LD) * 2;
-  // 2 key-bias tiles (f32) after the V tiles, for the BIAS kernel
-  static constexpr int BIAS_BYTES = BYTES + 2 * BK * 4;
+  // 2 key-bias tiles (bf16) after the V tiles, for the BIAS kernel
+  static constexpr int BIAS_BYTES = BYTES + 2 * BK * 2;
 };
 
-template <int DH, bool BIAS>
+// TWO_PASS: T > 64, several key tiles (below).
+template <int DH, bool BIAS, bool TWO_PASS>
 __global__ void __launch_bounds__(THREADS)
 attn_bf16(const Params<__nv_bfloat16> p) {
   using bf16 = __nv_bfloat16;
@@ -229,8 +270,7 @@ attn_bf16(const Params<__nv_bfloat16> p) {
   bf16* Qs = reinterpret_cast<bf16*>(smem_f4);
   auto Ks = [&](int buf) { return Qs + L::K + buf * BK * LD; };
   auto Vs = [&](int buf) { return Qs + L::V + buf * BK * LD; };
-  float* Bs = reinterpret_cast<float*>(
-      reinterpret_cast<char*>(smem_f4) + L::BYTES);  // [2][BK] if BIAS
+  bf16* Bs = Qs + L::BYTES / 2;  // [2][BK] if BIAS
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   int q0;
@@ -239,12 +279,25 @@ attn_bf16(const Params<__nv_bfloat16> p) {
   const float* bg;
   head_ptrs<BQ>(p, q0, qg, kg, vg, og, bg);
   const int seq = p.seq;
+  // One key tile holds the row (T <= 64): P = exp(s - max) / sum in one
+  // pass. Over several, a first pass streams K for each row's max and
+  // sum, and a second streams K and V again, forms the same normalised P
+  // and adds P V: the reference rounds the normalised P to bf16, which a
+  // single streaming pass (P relative to a running max) cannot.
+  constexpr bool two_pass = TWO_PASS;
+  const int n_tiles = two_pass ? (seq + BK - 1) / BK : 1;
+
+  // Stages the K tile (and with with_v the V tile) of keys from row0 into
+  // buffer buf, with its key-bias tile.
+  auto load_tile = [&](int buf, int row0, bool with_v) {
+    load_rows<bf16, DH>(Ks(buf), LD, kg, p.sk.t, row0, seq, tid);
+    if (with_v) load_rows<bf16, DH>(Vs(buf), LD, vg, p.sv.t, row0, seq, tid);
+    cp_async_commit();
+    if constexpr (BIAS) load_bias(Bs + buf * BK, bg, row0, seq, tid);
+  };
 
   load_rows<bf16, DH>(Qs, LD, qg, p.sq.t, q0, seq, tid);
-  load_rows<bf16, DH>(Ks(0), LD, kg, p.sk.t, 0, seq, tid);
-  load_rows<bf16, DH>(Vs(0), LD, vg, p.sv.t, 0, seq, tid);
-  cp_async_commit();
-  if constexpr (BIAS) load_bias(Bs, bg, 0, seq, tid);
+  load_tile(0, 0, !two_pass);
 
   const bool active = q0 + warp * 16 < seq;
   uint32_t qf[KSTEPS][4];
@@ -252,149 +305,183 @@ attn_bf16(const Params<__nv_bfloat16> p) {
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n)
     o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  // Row g = lane / 4 and row g + 8 of the warp's 16; running max in log2
-  // units, partial sums over this thread's columns.
+  // Row g = lane / 4 and row g + 8 of the warp's 16: max (the same in the
+  // 4 threads of a row), sums over this thread's columns until the first
+  // pass ends, then over the row. Scores stay in natural units: s - max of
+  // two bf16 values is exact in f32, and only that difference goes to
+  // log2 units (exp_of), so the largest probabilities are the closest.
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
-  const float sl = p.scale_log2;
-  const int n_tiles = (seq + BK - 1) / BK;
+  float i0 = 0.f, i1 = 0.f;  // 1 / the row's sum, once it is complete
+  const uint32_t scale2 = pack_bf16(p.scale, p.scale);  // bf16(scale) x 2
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < n_tiles) {
-      load_rows<bf16, DH>(Ks(buf ^ 1), LD, kg, p.sk.t, (tile + 1) * BK, seq,
-                          tid);
-      load_rows<bf16, DH>(Vs(buf ^ 1), LD, vg, p.sv.t, (tile + 1) * BK, seq,
-                          tid);
-      cp_async_commit();
-      if constexpr (BIAS)
-        load_bias(Bs + (buf ^ 1) * BK, bg, (tile + 1) * BK, seq, tid);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (active) {
-      if (tile == 0) {
-#pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk)
-          ldmatrix_x4(qf[kk], &Qs[(warp * 16 + (lane & 15)) * LD + kk * 16 +
-                                  (lane >> 4) * 8]);
-      }
-      const int j0 = tile * BK;
-      const bf16* kt = Ks(buf);
-      const bf16* vt = Vs(buf);
-
-      // S = Q K^T over 8 key groups of 8; groups of 16 keys wholly past T
-      // are skipped and take -inf.
-      float s[8][4];
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[2 * np][e] = s[2 * np + 1][e] = 0.f;
-        if (j0 + np * 16 < seq) {
-#pragma unroll
-          for (int kk = 0; kk < KSTEPS; ++kk) {
-            uint32_t b[4];
-            ldmatrix_x4(b, &kt[(np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
-                               kk * 16 + ((lane >> 3) & 1) * 8]);
-            mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
-            mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
-          }
-        }
-      }
-      // Scores in log2 units (scale * log2 e folded in), plus the key
-      // bias (already in log2 units); keys >= T: -inf.
-      const float* bt = Bs + buf * BK;
-      auto scaled = [&](float x, int col) {
-        if constexpr (BIAS)
-          return fmaf(x, sl, bt[col]);
-        else
-          return x * sl;
-      };
-      if (j0 + BK <= seq) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[n][e] = scaled(s[n][e], n * 8 + (lane & 3) * 2 + (e & 1));
-      } else {
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = n * 8 + (lane & 3) * 2 + (e & 1);
-            s[n][e] = j0 + col < seq ? scaled(s[n][e], col) : -CUDART_INF_F;
-          }
-      }
-
-      // Online softmax in f32. Every tile holds a key < T, so the new max
-      // is finite and the first tile's correction 2^-inf is 0.
-      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-      }
+  // pass 0: the rows' max and sum (several tiles only); pass 1: O += P V
+  for (int pass = two_pass ? 0 : 1; pass < 2; ++pass) {
+    const bool with_v = pass == 1;
+    if (with_v && two_pass) {
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
       }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float c0 = exp2_approx(m0 - mn0), c1 = exp2_approx(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      l0 *= c0;
-      l1 *= c1;
-#pragma unroll
-      for (int n = 0; n < DH / 8; ++n) {
-        o[n][0] *= c0;
-        o[n][1] *= c0;
-        o[n][2] *= c1;
-        o[n][3] *= c1;
+      i0 = 1.f / l0;
+      i1 = 1.f / l1;
+      load_tile(0, 0, true);
+    }
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int buf = tile & 1;
+      if (tile + 1 < n_tiles) {
+        load_tile(buf ^ 1, (tile + 1) * BK, with_v);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        s[n][0] = exp2_approx(s[n][0] - mn0);
-        s[n][1] = exp2_approx(s[n][1] - mn0);
-        s[n][2] = exp2_approx(s[n][2] - mn1);
-        s[n][3] = exp2_approx(s[n][3] - mn1);
-        l0 += s[n][0] + s[n][1];
-        l1 += s[n][2] + s[n][3];
-      }
+      __syncthreads();
 
-      // O += P V: P in bf16, the S accumulators of two key groups form
-      // the A fragment of one 16-key step.
+      if (active) {
+        if (tile == 0 && (pass == 0 || !two_pass)) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (j0 + kk * 16 < seq) {
-          const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                 pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                 pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                 pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+          for (int kk = 0; kk < KSTEPS; ++kk)
+            ldmatrix_x4(qf[kk], &Qs[(warp * 16 + (lane & 15)) * LD +
+                                    kk * 16 + (lane >> 4) * 8]);
+        }
+        const int j0 = tile * BK;
+        const bf16* kt = Ks(buf);
+        const bf16* vt = Vs(buf);
+
+        // S = Q K^T over 8 key groups of 8; groups of 16 keys wholly past
+        // T are skipped and take -inf.
+        float s[8][4];
 #pragma unroll
-          for (int dp = 0; dp < DH / 16; ++dp) {
-            uint32_t b[4];
-            ldmatrix_x4_trans(
-                b, &vt[(kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                       dp * 16 + (lane >> 4) * 8]);
-            mma_bf16(o[2 * dp], a, b[0], b[1]);
-            mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+        for (int np = 0; np < 4; ++np) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[2 * np][e] = s[2 * np + 1][e] = 0.f;
+          if (j0 + np * 16 < seq) {
+#pragma unroll
+            for (int kk = 0; kk < KSTEPS; ++kk) {
+              uint32_t b[4];
+              ldmatrix_x4(b, &kt[(np * 16 + (lane >> 4) * 8 + (lane & 7)) *
+                                     LD +
+                                 kk * 16 + ((lane >> 3) & 1) * 8]);
+              mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+              mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+            }
+          }
+        }
+        // The reference's bf16 scores, bf16(bf16(bf16(q k^T) *
+        // bf16(scale)) + bf16(bias)), two adjacent keys at a time; keys
+        // >= T: -inf.
+        const bf16* bt = Bs + buf * BK;
+        auto rounded = [&](float& x0, float& x1, int col) {
+          uint32_t h = mul_bf16x2(pack_bf16(x0, x1), scale2);
+          if constexpr (BIAS)
+            h = add_bf16x2(h, *reinterpret_cast<const uint32_t*>(&bt[col]));
+          x0 = __uint_as_float(h << 16);
+          x1 = __uint_as_float(h & 0xffff0000u);
+        };
+        if (j0 + BK <= seq) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; e += 2)
+              rounded(s[n][e], s[n][e + 1], n * 8 + (lane & 3) * 2);
+        } else {
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; e += 2) {
+              const int col = n * 8 + (lane & 3) * 2;
+              rounded(s[n][e], s[n][e + 1], col);
+              if (j0 + col >= seq) s[n][e] = -CUDART_INF_F;
+              if (j0 + col + 1 >= seq) s[n][e + 1] = -CUDART_INF_F;
+            }
+        }
+
+        if (!with_v || !two_pass) {
+          // This tile's row max; every tile holds a key < T, so it is
+          // finite, and the first tile's correction 2^-inf is 0.
+          float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+            mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+          }
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+          }
+          const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+          l0 *= exp_of(m0 - mn0);
+          l1 *= exp_of(m1 - mn1);
+          m0 = mn0;
+          m1 = mn1;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            s[n][0] = exp_of(s[n][0] - mn0);
+            s[n][1] = exp_of(s[n][1] - mn0);
+            s[n][2] = exp_of(s[n][2] - mn1);
+            s[n][3] = exp_of(s[n][3] - mn1);
+            l0 += s[n][0] + s[n][1];
+            l1 += s[n][2] + s[n][3];
+          }
+          if (with_v) {  // one tile: the row's sum is complete
+#pragma unroll
+            for (int off = 1; off < 4; off <<= 1) {
+              l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+              l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+            }
+            i0 = 1.f / l0;
+            i1 = 1.f / l1;
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            s[n][0] = exp_of(s[n][0] - m0);
+            s[n][1] = exp_of(s[n][1] - m0);
+            s[n][2] = exp_of(s[n][2] - m1);
+            s[n][3] = exp_of(s[n][3] - m1);
+          }
+        }
+        if (with_v) {
+          // P = exp / sum, as the reference's softmax (times the IEEE
+          // reciprocal: within an f32 ulp of the quotient, one reciprocal a
+          // row in place of a division a score), rounded to bf16 below.
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            s[n][0] *= i0;
+            s[n][1] *= i0;
+            s[n][2] *= i1;
+            s[n][3] *= i1;
+          }
+        }
+
+        // O += P V: P in bf16, the S accumulators of two key groups form
+        // the A fragment of one 16-key step.
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (with_v && j0 + kk * 16 < seq) {
+            const uint32_t a[4] = {
+                pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+            for (int dp = 0; dp < DH / 16; ++dp) {
+              uint32_t b[4];
+              ldmatrix_x4_trans(
+                  b, &vt[(kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                         dp * 16 + (lane >> 4) * 8]);
+              mma_bf16(o[2 * dp], a, b[0], b[1]);
+              mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+            }
           }
         }
       }
+      __syncthreads();  // this buffer is refilled next iteration
     }
-    __syncthreads();  // this buffer is refilled next iteration
   }
 
   if (!active) return;
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float i0 = 1.f / l0, i1 = 1.f / l1;
   // The warp's own Q rows in shared memory are free now: stage O there,
   // then write 16-byte chunks.
   bf16* stage = &Qs[warp * 16 * LD];
@@ -403,9 +490,9 @@ attn_bf16(const Params<__nv_bfloat16> p) {
   for (int n = 0; n < DH / 8; ++n) {
     const int col = n * 8 + (lane & 3) * 2;
     *reinterpret_cast<uint32_t*>(&stage[g * LD + col]) =
-        pack_bf16(o[n][0] * i0, o[n][1] * i0);
+        pack_bf16(o[n][0], o[n][1]);
     *reinterpret_cast<uint32_t*>(&stage[(g + 8) * LD + col]) =
-        pack_bf16(o[n][2] * i1, o[n][3] * i1);
+        pack_bf16(o[n][2], o[n][3]);
   }
   __syncwarp();
   constexpr int CH = DH / 8;
@@ -697,6 +784,7 @@ Params<T> make_params(const void* q, const void* k, const void* v, void* o,
   p.heads = heads;
   p.seq = seq;
   p.n_qblocks = (seq + BQ - 1) / BQ;
+  p.scale = scale;
   p.scale_log2 = scale * LOG2E;
   return p;
 }
@@ -726,10 +814,15 @@ int launch_f32(Params<float> p, int batch, cudaStream_t s) {
 
 template <int DH>
 int launch_bf16(const Params<__nv_bfloat16>& p, int batch, cudaStream_t s) {
+  using L = Bf16Layout<DH>;
+  if (p.seq > BK) {
+    if (p.bias) return launch(attn_bf16<DH, true, true>, p, batch,
+                              L::BIAS_BYTES, s);
+    return launch(attn_bf16<DH, false, true>, p, batch, L::BYTES, s);
+  }
   if (p.bias)
-    return launch(attn_bf16<DH, true>, p, batch, Bf16Layout<DH>::BIAS_BYTES,
-                  s);
-  return launch(attn_bf16<DH, false>, p, batch, Bf16Layout<DH>::BYTES, s);
+    return launch(attn_bf16<DH, true, false>, p, batch, L::BIAS_BYTES, s);
+  return launch(attn_bf16<DH, false, false>, p, batch, L::BYTES, s);
 }
 
 }  // namespace

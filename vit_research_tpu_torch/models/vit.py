@@ -92,7 +92,8 @@ class Dropout(nn.Dropout):
     ``torch.Generator`` on the activations' device; the training loops
     seed one per epoch, so a resumed run replays its masks), else from
     torch's default generator. Drops as flax does: ``where(keep, x /
-    (1 - p), 0)`` with ``keep ~ Bernoulli(1 - p)``."""
+    (1 - p), 0)`` with ``keep ~ Bernoulli(1 - p)``, ``1 - p`` rounded to
+    x's dtype as JAX rounds the Python float (bf16: 0.9 -> 0.8984375)."""
 
     def __init__(self, p: float = 0.5):
         super().__init__(p)
@@ -104,7 +105,8 @@ class Dropout(nn.Dropout):
         keep_prob = 1.0 - self.p
         keep = torch.empty(x.shape, device=x.device).bernoulli_(
             keep_prob, generator=self.generator).to(torch.bool)
-        return torch.where(keep, x / keep_prob, 0.0)
+        return torch.where(keep, x / attn_ops.weak_scalar(keep_prob, x.dtype),
+                           0.0)
 
 
 def set_dropout_generator(module: nn.Module, generator) -> None:
@@ -263,7 +265,8 @@ class MultiHeadSelfAttention(nn.Module):
                        or head_too_wide_for_kernel(dh))
         if needs_plain:
             s = torch.einsum("bqhd,bkhd->bhqk" if bthd else
-                             "bhqd,bhkd->bhqk", q, k) * (dh ** -0.5)
+                             "bhqd,bhkd->bhqk", q, k) \
+                * attn_ops.weak_scalar(dh ** -0.5, q.dtype)
             if log_size is not None:
                 s = s + log_size[:, None, None, :].to(s.dtype)
             probs = torch.softmax(s.to(self.softmax_dtype), dim=-1)

@@ -41,15 +41,26 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _ALIGN = 16  # bytes: the kernel moves q, k, v and o in 16-byte copies
 
 
+def weak_scalar(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``: the value a Python float takes in JAX
+    when it meets an array of that dtype (a weakly typed scalar takes the
+    array's dtype, so ``bf16_array * 0.1`` multiplies by bf16(0.1)). torch
+    keeps a Python scalar in f32 for a bf16 tensor's arithmetic; multiplying
+    by this value instead gives JAX's product."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
 def attention_plain(q, k, v, *, scale=None, key_bias=None) -> torch.Tensor:
     """Reference implementation: (B, H, T, d) -> (B, H, T, d). Scores
     and the product with v stay in the input dtype; the softmax runs in
-    f32 (as ``xla_attention``). ``key_bias`` (B, T) is added to the
-    scores in their dtype, as the reference's ToMe path adds
-    ``log_size[:, None, None, :]``."""
+    f32 (as ``xla_attention``). The scale is rounded to the input dtype
+    first, as JAX rounds the Python float (:func:`weak_scalar`).
+    ``key_bias`` (B, T) is added to the scores in their dtype, as the
+    reference's ToMe path adds ``log_size[:, None, None, :]``."""
     d = q.shape[-1]
     scale = (d ** -0.5) if scale is None else scale
-    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * weak_scalar(scale,
+                                                                 q.dtype)
     if key_bias is not None:
         scores = scores + key_bias[:, None, None, :].to(scores.dtype)
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
