@@ -1,0 +1,282 @@
+"""Kernel B's launch path on the CPU, with no card: the bf16 variant rule
+(one pass, held, two passes) against the shared memory a block may take,
+and what ``ops/attention.py::_launch`` hands the C entry point, pinned
+against a stub library.
+
+The rule mirrors ``launch_bf16_with`` in csrc/attention.cu, whose
+``static_assert``s state the same limits (HeldLayout<DH, BIAS>::MAX_TILES).
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from vit_research_tpu_torch.ops import _build
+from vit_research_tpu_torch.ops import attention as attn
+
+#: the held variant's key-tile limits, as csrc/attention.cu asserts them
+HELD_LIMITS = {16: 13, 32: 12, 64: 11, 96: 10, 128: 24, 192: 22}
+
+
+@pytest.mark.parametrize("width", attn.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("bias", [False, True])
+def test_held_variant_fits_the_blocks_shared_memory(width, bias):
+    """At its largest T the held variant stays within the 232,448 bytes a
+    block may opt into, and within two blocks an SM below dh = 128; one
+    more key tile would pass that budget."""
+    n = attn.held_max_tiles(width, bias)
+    assert attn.MAX_SMEM == 232_448 and attn.TWO_BLOCKS_SMEM == 115_712
+    budget = attn.MAX_SMEM if width >= 128 else attn.TWO_BLOCKS_SMEM
+    assert attn.held_max_bytes(width) == budget
+    assert n == HELD_LIMITS[width]
+    assert attn.held_smem_bytes(width, bias, n) <= budget <= attn.MAX_SMEM
+    assert attn.held_smem_bytes(width, bias, n + 1) > budget
+    # the ring of two key tiles (the Q tile passes through it), padded
+    # rows, in bf16; two bf16 bias tiles; 64 x 64 bf16 scores a key tile
+    ld = width + 8
+    assert attn.held_smem_bytes(width, bias, 0) == \
+        128 * ld * 2 + (256 if bias else 0)
+    assert attn.held_smem_bytes(width, bias, 1) - \
+        attn.held_smem_bytes(width, bias, 0) == 64 * 64 * 2
+
+
+def test_two_blocks_share_an_sm_at_the_backbones_shape():
+    """ViT-B/16 @224 (T = 197, dh = 64): 4 key tiles, 51,200 bytes (4
+    blocks an SM); at the limit, T = 704, two."""
+    assert attn.held_smem_bytes(64, False, 4) == 51_200
+    assert 4 * (51_200 + 1024) <= 233_472
+    assert 2 * (attn.held_smem_bytes(64, True, 11) + 1024) <= 233_472
+
+
+@pytest.mark.parametrize("width", attn.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("bias", [False, True])
+def test_bf16_variant_boundaries(width, bias):
+    """One key tile takes the one-pass kernel, the held variant takes every
+    T up to 64 * its tile limit, and one key past it the two-pass kernel."""
+    limit = 64 * HELD_LIMITS[width]
+    assert [attn.bf16_variant(t, width, bias) for t in (1, 5, 64)] == \
+        ["1pass"] * 3
+    assert [attn.bf16_variant(t, width, bias)
+            for t in (65, 128, 129, 197, limit)] == ["held"] * 5
+    assert [attn.bf16_variant(t, width, bias)
+            for t in (limit + 1, limit + 64, 4096)] == ["2pass"] * 3
+
+
+def test_the_paths_shapes_take_their_variants():
+    # the backbone (ViT-B/16 @224, T = 197; ToMe's biased blocks down to
+    # T = 21), smoke's frame (T = 313), the heads and the chunk encoder
+    # (T <= 25), the longest check (T = 1297)
+    assert attn.bf16_variant(197, 64, False) == "held"
+    assert [attn.bf16_variant(t, 64, True) for t in (197, 85, 69, 21)] == \
+        ["held", "held", "held", "1pass"]
+    assert attn.bf16_variant(313, 64, False) == "held"
+    assert attn.bf16_variant(5, 192, False) == "1pass"
+    assert attn.bf16_variant(25, 96, True) == "1pass"
+    assert attn.bf16_variant(1297, 64, False) == "2pass"
+
+
+@pytest.mark.parametrize("dtype,t,width,bias,name", [
+    (torch.float32, 197, 64, False, "attn_f32<64>"),
+    (torch.float32, 1297, 192, True, "attn_f32<192>"),
+    (torch.bfloat16, 9, 96, False, "attn_bf16<96>"),
+    (torch.bfloat16, 197, 64, True, "attn_bf16<64>/held"),
+    (torch.bfloat16, 705, 64, True, "attn_bf16<64>/2pass"),
+    (torch.bfloat16, 1537, 128, False, "attn_bf16<128>/2pass"),
+    (torch.bfloat16, 1408, 192, True, "attn_bf16<192>/held"),
+    (torch.bfloat16, 1297, 64, False, "attn_bf16<64>/2pass"),
+])
+def test_kernel_names_count_each_variant(dtype, t, width, bias, name):
+    assert attn.kernel_name(dtype, t, width, bias) == name
+
+
+class _StubLibrary:
+    """Records each vrt_attention_fwd call's arguments; returns ``code``."""
+
+    def __init__(self, code=0):
+        self.code = code
+        self.calls = []
+
+    def vrt_attention_fwd(self, *args):
+        self.calls.append(args)
+        return self.code
+
+    def vrt_error_string(self, code):
+        return b"stub error"
+
+
+@pytest.fixture
+def stub(monkeypatch):
+    """The wrapper's library and CUDA context replaced: q's device is the
+    current one (a CPU tensor's get_device() is -1) and the stream handle is
+    4242; entering another device's context is recorded."""
+    lib = _StubLibrary()
+    entered = []
+
+    class _Device:
+        def __init__(self, index):
+            entered.append(index)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(attn, "_current_device", lambda: -1)
+    monkeypatch.setattr(attn, "_current_stream", lambda index: 4242)
+    monkeypatch.setattr(torch.cuda, "device", _Device)
+    lib.entered = entered
+    return lib
+
+
+def _projection_order(b, t, h, d, dtype, seed):
+    """q, k, v as the (B, H, T, dh) views of contiguous (B, T, H, dh)
+    tensors, as the backbone's projections give them."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+        np.float32)).to(dtype).transpose(1, 2) for _ in range(3)]
+
+
+def _counts():
+    f = attn.multi_head_attention
+    return f.launches, f.padded_launches, dict(f.launches_by_kernel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,with_bias", [(3, 197, True), (2, 9, False),
+                                           (1, 130, True)])
+def test_launch_marshals_views_in_projection_order(stub, dtype, b, t,
+                                                   with_bias):
+    h, d = 4, 64
+    q, k, v = _projection_order(b, t, h, d, dtype, t)
+    wide = torch.zeros(b, t + 3)  # bias rows t + 3 apart
+    bias = wide[:, :t] if with_bias else None
+    before = _counts()
+    o = attn._launch(q, k, v, 0.125, bias)
+    (args,) = stub.calls
+    assert len(args) == 14
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr())
+    assert args[4:8] == (b, h, t, d)
+    assert isinstance(args[8], ctypes.Array) and len(args[8]) == 12
+    # q, k, v: the projections' (T*H*dh, dh, H*dh); o alike; a batch of 1
+    # is never stepped over (0)
+    proj = (t * h * d if b > 1 else 0, d, h * d)
+    assert list(args[8]) == list(proj) * 4
+    assert type(args[9]) is float and args[9] == 0.125
+    assert args[10] == int(dtype == torch.bfloat16)
+    if with_bias:
+        assert args[11] == bias.data_ptr()
+        assert args[12] == (t + 3 if b > 1 else 0)
+    else:
+        assert args[11:13] == (None, 0)
+    assert args[13] == 4242
+    assert stub.entered == []  # q's device is the current one
+    # the output: the (B, H, T, dh) view of a contiguous (B, T, H, dh)
+    assert o.shape == (b, h, t, d) and o.dtype == dtype
+    assert o.transpose(1, 2).is_contiguous()
+    launches, padded, by_kernel = _counts()
+    assert (launches, padded) == (before[0] + 1, before[1])
+    name = attn.kernel_name(dtype, t, d, with_bias)
+    assert by_kernel[name] == before[2].get(name, 0) + 1
+    assert sum(by_kernel.values()) == sum(before[2].values()) + 1
+
+
+@pytest.mark.parametrize("d,width", [(80, 96), (48, 64), (150, 192)])
+def test_launch_marshals_padded_widths(stub, d, width):
+    """A width between two compiled ones: q, k, v zero-padded copies in
+    projection order, the padded width, the caller's scale, an output
+    view of the first d columns, counted in padded_launches."""
+    q, k, v = _projection_order(2, 21, 3, d, torch.bfloat16, d)
+    before = _counts()
+    o = attn._launch(q, k, v, d ** -0.5, None)
+    (args,) = stub.calls
+    assert args[4:8] == (2, 3, 21, width)
+    assert list(args[8]) == [21 * 3 * width, width, 3 * width] * 4
+    assert args[9] == pytest.approx(d ** -0.5, rel=1e-15)
+    assert args[10] == 1
+    assert all(p not in (q.data_ptr(), k.data_ptr(), v.data_ptr())
+               for p in args[:3])
+    assert o.shape == (2, 3, 21, d)
+    launches, padded, by_kernel = _counts()
+    assert (launches, padded) == (before[0] + 1, before[1] + 1)
+    assert by_kernel[f"attn_bf16<{width}>"] == \
+        before[2].get(f"attn_bf16<{width}>", 0) + 1
+
+
+def test_launch_enters_another_devices_context_only(stub, monkeypatch):
+    q, k, v = _projection_order(2, 9, 2, 32, torch.float32, 0)
+    attn._launch(q, k, v, 1.0, None)
+    assert stub.entered == []
+    monkeypatch.setattr(attn, "_current_device", lambda: 0)
+    attn._launch(q, k, v, 1.0, None)
+    assert stub.entered == [q.get_device()]
+    assert len(stub.calls) == 2
+
+
+def test_launch_raises_on_a_failed_launch(stub):
+    """A code from the C entry point raises, naming it; nothing is
+    counted."""
+    stub.code = 1
+    q, k, v = _projection_order(2, 197, 2, 64, torch.bfloat16, 1)
+    before = _counts()
+    with pytest.raises(RuntimeError, match=r"CUDA error 1 \(stub error\)"):
+        attn._launch(q, k, v, 0.125, None)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("wide", ValueError, "up to 192"),
+    ("k_dtype", ValueError, "k is torch.float32"),
+    ("last_dim", ValueError, "stride 1 on its last dim"),
+    ("token_stride", ValueError, "multiples of 16 bytes"),
+    ("misaligned", ValueError, "16-byte aligned"),
+])
+def test_launch_refusals_call_nothing(stub, case, error, match):
+    """Each layout the kernel does not take raises before the C entry
+    point is called or a launch is counted."""
+    q, k, v = _projection_order(2, 9, 2, 64, torch.bfloat16, 2)
+    if case == "wide":
+        q = k = v = torch.zeros(1, 2, 5, 256)
+    elif case == "k_dtype":
+        k = k.float()
+    elif case == "last_dim":
+        q = torch.zeros(2, 2, 64, 9, dtype=torch.bfloat16).transpose(2, 3)
+    elif case == "token_stride":
+        q = torch.zeros(2, 2, 9, 66, dtype=torch.bfloat16)[..., :64]
+    else:
+        flat = torch.zeros(2 * 2 * 9 * 64 + 8, dtype=torch.bfloat16)
+        start = (-flat.data_ptr() // 2) % 8 + 1  # one element past 16 bytes
+        q = flat[start:start + 2 * 2 * 9 * 64].view(2, 2, 9, 64)
+    before = _counts()
+    with pytest.raises(error, match=match):
+        attn._launch(q, k, v, 0.125, None)
+    assert stub.calls == [] and _counts() == before
+
+
+def test_launch_reuses_a_layouts_marshalling_and_still_checks_pointers(
+        stub):
+    """A second call with the same layout hands the C entry point the same
+    strides array (computed once); a view of that layout whose base is not
+    16-byte aligned still raises, and another layout gets its own."""
+    q, k, v = _projection_order(2, 9, 2, 64, torch.bfloat16, 4)
+    attn._LAYOUTS.clear()
+    attn._launch(q, k, v, 0.125, None)
+    attn._launch(*[x.clone() for x in (q, k, v)], 0.125, None)
+    first, second = stub.calls
+    assert second[8] is first[8] and len(attn._LAYOUTS) == 1
+    flat = torch.zeros(2 * 9 * 2 * 64 + 16, dtype=torch.bfloat16)
+    start = (-flat.data_ptr() // 2) % 8 + 1
+    shifted = flat[start:start + 2 * 9 * 2 * 64].view(2, 9, 2, 64) \
+        .transpose(1, 2)
+    assert shifted.stride() == q.stride()
+    with pytest.raises(ValueError, match="k's base address"):
+        attn._launch(q, shifted, v, 0.125, None)
+    assert len(stub.calls) == 2
+    attn._launch(*(x.contiguous() for x in (q, k, v)), 0.125, None)
+    assert len(attn._LAYOUTS) == 2
+    assert list(stub.calls[2][8]) == [2 * 9 * 64, 9 * 64, 64] * 3 + \
+        [9 * 2 * 64, 64, 2 * 64]

@@ -694,7 +694,7 @@ def test_attention_kernel_dh96_matches_plain(cuda, t, layout, dtype,
 
 
 @pytest.mark.parametrize("dh,t", [(64, 197), (96, 9), (96, 25), (192, 5),
-                                  (192, 130)])
+                                  (192, 130), (96, 129), (64, 1297)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_function_grads_on_card(cuda, dh, t, dtype):
     """A CUDA input that requires grad launches the kernel once and gets
@@ -831,7 +831,8 @@ def test_attention_kernel_dh192_matches_plain(cuda, b, t, layout, dtype,
     (256, 12, 197, 64, 1.0),  # the backbone (ViT-B/16 @224)
     (8, 4, 5, 192, 2.0), (256, 4, 5, 192, 2.0),  # RAGHead
     (8, 4, 21, 192, 2.0),  # RATTHead / RATTHeadV2
-    (32, 8, 9, 96, 2.0), (256, 8, 9, 96, 2.0)])  # the chunk encoder
+    (32, 8, 9, 96, 2.0), (256, 8, 9, 96, 2.0),  # the chunk encoder
+    (128, 12, 325, 64, 1.0)])  # the held variant past 197 keys
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_bf16_attention_tells_f32_scores_apart(cuda, b, h, t, dh, qk,
                                                with_bias):
@@ -853,6 +854,108 @@ def test_bf16_attention_tells_f32_scores_apart(cuda, b, h, t, dh, qk,
         assert s.abs().max() * dh ** -0.5 >= 10
     assert (got - want).abs().max() <= atol
     assert (old - want).abs().max() > atol
+
+
+# ---- bf16 past one key tile: the held variant and the two-pass kernel
+
+
+def _held_limit(dh, bias):
+    return 64 * attn.held_max_tiles(attn.kernel_head_dim(dh), bias)
+
+
+def _t_of(t, dh, bias):
+    return {"limit": _held_limit(dh, bias),
+            "limit+1": _held_limit(dh, bias) + 1}.get(t, t)
+
+
+@pytest.mark.parametrize("t", [65, 128, 129, 149, 197, 325, "limit",
+                               "limit+1", 1297])
+@pytest.mark.parametrize("dh", [64, 96, 128, 192, 80, 48])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_bf16_held_and_two_pass_match_plain(cuda, t, dh, with_bias):
+    """bf16 past one key tile on projection-order views: the held variant
+    up to its limit, the two-pass kernel one key past it and at T = 1297,
+    each counted under its own name, against the bf16 plain version
+    within the existing bounds (1e-2 at dh = 64; 2^-8 max|v| at the other
+    widths, as their tests)."""
+    t = _t_of(t, dh, with_bias)
+    width = attn.kernel_head_dim(dh)
+    q, k, v = _attention_inputs(2, 4, t, dh, torch.bfloat16,
+                                "projection_order", cuda, t + dh)
+    bias = _key_bias(2, t, t).to(cuda) if with_bias else None
+    name = attn.kernel_name(torch.bfloat16, t, width, with_bias)
+    assert name.endswith("/held" if t <= _held_limit(dh, with_bias)
+                         else "/2pass")
+    before = attn.multi_head_attention.launches_by_kernel[name]
+    got = attn.multi_head_attention(q, k, v, key_bias=bias)
+    assert attn.multi_head_attention.launches_by_kernel[name] == before + 1
+    assert got.shape == (2, 4, t, dh)
+    want = _plain(q, k, v, torch.bfloat16, key_bias=bias).float()
+    atol = 1e-2 if dh == 64 else 2 ** -8 * v.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("t", [65, 197, "limit"])
+@pytest.mark.parametrize("dh", [64, 96, 128, 192])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_bf16_held_equals_two_pass(cuda, t, dh, with_bias):
+    """The held variant against the two-pass kernel on the same inputs:
+    the two-pass kernel runs them with keys appended up to one past the
+    held limit, each with a key bias of -1e4 (bf16 -9984: exp 0 in f32, so
+    the rows' max, sums and P are those of the T live keys; a bias of 0
+    adds exactly 0 to a bf16 score). The held variant takes the two-pass
+    kernel's arithmetic in its order (the same S, online max and sum, P
+    and P V), so the two are equal to the bit."""
+    t = _t_of(t, dh, with_bias)
+    pad = _held_limit(dh, with_bias) + 1
+    q, k, v = _attention_inputs(2, 4, pad, dh, torch.bfloat16,
+                                "projection_order", cuda, t + 2 * dh)
+    bias = _key_bias(2, t, t).to(cuda) if with_bias else None
+    held = attn.multi_head_attention(q[:, :, :t], k[:, :, :t], v[:, :, :t],
+                                     key_bias=bias).float()
+    masked = torch.full((2, pad), -1e4, device=cuda)
+    masked[:, :t] = bias if with_bias else 0.0
+    before = attn.multi_head_attention.launches_by_kernel.copy()
+    two = attn.multi_head_attention(q, k, v, key_bias=masked)
+    assert attn.multi_head_attention.launches_by_kernel - before == \
+        {attn.kernel_name(torch.bfloat16, pad, dh, True): 1}
+    assert torch.equal(held, two[:, :, :t].float())
+
+
+@pytest.mark.parametrize("case", ["last_dim", "misaligned", "token_stride",
+                                  "k_dtype", "k_device", "bias_shape"])
+def test_bf16_held_shape_refusals(cuda, case):
+    """At a held shape (B = 2, T = 197, dh = 64, bf16) every layout the
+    wrapper refused before still raises, and nothing launches."""
+    q, k, v = _attention_inputs(2, 4, 197, 64, torch.bfloat16,
+                                "projection_order", cuda, 3)
+    bias = None
+    if case == "last_dim":
+        q = torch.zeros(2, 4, 64, 197, dtype=torch.bfloat16,
+                        device=cuda).transpose(2, 3)
+        match = "stride 1 on its last dim"
+    elif case == "misaligned":
+        n = 2 * 4 * 197 * 64
+        q = torch.zeros(n + 1, dtype=torch.bfloat16,
+                        device=cuda)[1:].view(2, 4, 197, 64)
+        match = "16-byte aligned"
+    elif case == "token_stride":
+        q = torch.zeros(2, 4, 197, 66, dtype=torch.bfloat16,
+                        device=cuda)[..., :64]
+        match = "multiples of 16 bytes"
+    elif case == "k_dtype":
+        k = k.float()
+        match = "k is torch.float32"
+    elif case == "k_device":
+        k = k.cpu()
+        match = "k is torch.bfloat16 on cpu"
+    else:
+        bias = torch.zeros(2, 196, device=cuda)
+        match = r"\(B, T\)"
+    before = attn.multi_head_attention.launches
+    with pytest.raises(ValueError, match=match):
+        attn.multi_head_attention(q, k, v, key_bias=bias)
+    assert attn.multi_head_attention.launches == before
 
 
 @pytest.mark.parametrize("kind,dh", [("chunk", 96), ("rag", 192)])

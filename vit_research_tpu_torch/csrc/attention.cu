@@ -7,7 +7,8 @@
 // online softmax and f32 accumulation; o is written in the input dtype.
 // f32 keeps f32 scores. bf16 forms its scores as the JAX package's bf16
 // attention (xla_attention, the einsum path of models/vit.py) does: q k^T
-// rounded to bf16, times bf16(scale) rounded, plus bf16(bias) rounded. q, k and v are (B, H, T, dh) views with any batch, head and token
+// rounded to bf16, times bf16(scale) rounded, plus bf16(bias) rounded.
+// q, k and v are (B, H, T, dh) views with any batch, head and token
 // strides (the last dim has stride 1), so the backbone passes the q/k/v
 // projections in their (B, T, H, dh) order without a copy; o is written
 // through its own strides (the wrapper allocates it (B, T, H, dh)). Any T;
@@ -30,10 +31,16 @@
 //
 // What bounds it on the H100 at ViT-B/16 (T = 197, dh = 64): in bf16 the
 // bytes (q, k, v read once, o written once: 0.09 ms at B = 256) against
-// 0.03 ms of tensor-core operations (the second pass's K re-reads mostly
-// hit L2); in f32 the operations (4*T*T*dh per head on the CUDA cores at
-// 67 TFLOP/s: 0.46 ms), since the parity setting keeps full f32 products
-// (no TF32).
+// 0.03 ms of tensor-core operations; the kernel itself is bound by its
+// per-score work around the tensor cores (the reference's bf16 roundings,
+// the exp, the shared-memory traffic of ldmatrix and of the held scores)
+// and by the latency a few warps an SM cannot hide. In f32 the operations
+// (4*T*T*dh per head on the CUDA cores at 67 TFLOP/s: 0.46 ms), since the
+// parity setting keeps full f32 products (no TF32). At T <= 25 (the heads,
+// the chunk encoder at B = 1 to 32) a call's host work outlasts its
+// kernel: the wrapper (ops/attention.py::_launch) takes the strides in
+// one pass, enters a device context only for another device, and this
+// entry sets each kernel's shared-memory attribute once per device.
 //
 // What the design does about it. Both kernels: one block owns 64 query
 // rows of one (b, h); K/V stream through shared memory in tiles of 64 keys,
@@ -59,13 +66,25 @@
 //   exp(s - max) / sum, rounded as the reference rounds it, so O needs no
 //   division. Where one key tile holds the row (T <= 64: the heads, the
 //   chunk encoder) that takes one pass. Over several tiles a streaming
-//   pass knows the sum only at its end, so a first pass streams the K
-//   tiles for each row's max and sum (S and its roundings, no P V) and a
-//   second streams K and V again and forms the same scores, P and P V.
-//   O is staged through the warp's own Q rows in shared memory and
-//   written with 16-byte stores. A warp whose 16 rows all lie past T skips the math but
-//   takes part in the copies and barriers. Rows are padded by 16 bytes in
-//   shared memory so that ldmatrix reads are free of bank conflicts.
+//   pass knows the sum only at its end. The held variant (attn_bf16_held,
+//   T > 64 up to HeldLayout::MAX_TILES key tiles: T <= 704 at dh = 64)
+//   streams K once, runs the online max and sum, and holds the rounded
+//   scores in shared memory as the bf16 values they are, each thread its
+//   own accumulator fragments (2 bytes a score: 8 KB a 64-key tile of a
+//   block; the Q tile passes through the K/V ring, so at T = 197 a block
+//   takes 51,200 bytes and four share an SM); then V streams once through
+//   the same ring, and each held score's exp against the final max gives
+//   P and P V: one q k^T, K and V read once, two exps a score. Holding f32
+//   exps instead (one exp a score, 4 bytes) measured slower: fewer blocks
+//   an SM. Past the limit the two-pass kernel (attn_bf16<DH, BIAS, true>)
+//   streams the K tiles for each row's max and sum (S and its roundings,
+//   no P V) and then K and V again for the same scores, P and P V; both
+//   take the same arithmetic in the same order, so they give the same
+//   bits. O is staged through shared memory (the warp's own Q rows; the
+//   held variant's ring) and written with 16-byte stores. A warp whose 16 rows all lie past T
+//   skips the math but takes part in the copies and barriers. Rows are
+//   padded by 16 bytes in shared memory so that ldmatrix reads are free of
+//   bank conflicts.
 // - f32 (attn_f32): register-tiled on the CUDA cores. 128 threads; thread
 //   (ty, tx) owns rows ty + 16i (i < 4) and keys tx + 8j (j < 8) of the
 //   64 x 64 score tile, and the same rows x dh/8 columns of O. Q and K sit
@@ -90,6 +109,8 @@
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -258,6 +279,157 @@ struct Bf16Layout {
   static constexpr int BIAS_BYTES = BYTES + 2 * BK * 2;
 };
 
+// The shared memory a block may opt into on the H100.
+constexpr int MAX_SMEM = 232448;
+
+// The shared memory of two blocks an SM: the SM's 233,472 bytes less the
+// 1,024 the runtime keeps for each block, halved.
+constexpr int TWO_BLOCKS_SMEM = (233472 - 2 * 1024) / 2;
+
+// attn_bf16_held's shared memory: a ring of two key tiles that holds the Q
+// tile and K tile 0 first, then K in the first stream and V in the second,
+// the key-bias tiles (BIAS), then the held scores, 64 rows x 64 keys of
+// bf16 a tile. The variant takes T while two blocks share an SM (dh <= 96;
+// past that, with one block an SM, it lost to the two-pass kernel on the
+// H100) and wherever it fits at dh >= 128 (there the two-pass kernel holds
+// 254-255 registers and itself runs two blocks an SM or one).
+template <int DH, bool BIAS>
+struct HeldLayout {
+  static constexpr int LD = DH + 8;
+  static constexpr int BIAS_AT = 2 * BK * LD * 2;  // bytes
+  static constexpr int HELD_AT = BIAS_AT + (BIAS ? 2 * BK * 2 : 0);
+  static constexpr int TILE_BYTES = BQ * BK * 2;
+  static constexpr int MAX_BYTES = DH >= 128 ? MAX_SMEM : TWO_BLOCKS_SMEM;
+  // the most key tiles it takes: T <= 64 * MAX_TILES
+  static constexpr int MAX_TILES = (MAX_BYTES - HELD_AT) / TILE_BYTES;
+  static constexpr int bytes(int n_tiles) {
+    return HELD_AT + n_tiles * TILE_BYTES;
+  }
+};
+// The limits (ops/attention.py::held_max_tiles computes the same;
+// tests/test_torch_attention_launch.py pins both).
+static_assert(HeldLayout<16, false>::MAX_TILES == 13 &&
+                  HeldLayout<16, true>::MAX_TILES == 13,
+              "dh = 16: T <= 832");
+static_assert(HeldLayout<32, false>::MAX_TILES == 12 &&
+                  HeldLayout<32, true>::MAX_TILES == 12,
+              "dh = 32: T <= 768");
+static_assert(HeldLayout<64, false>::MAX_TILES == 11 &&
+                  HeldLayout<64, true>::MAX_TILES == 11,
+              "dh = 64: T <= 704");
+static_assert(HeldLayout<96, false>::MAX_TILES == 10 &&
+                  HeldLayout<96, true>::MAX_TILES == 10,
+              "dh = 96: T <= 640");
+static_assert(HeldLayout<128, false>::MAX_TILES == 24 &&
+                  HeldLayout<128, true>::MAX_TILES == 24,
+              "dh = 128: T <= 1536");
+static_assert(HeldLayout<192, false>::MAX_TILES == 22 &&
+                  HeldLayout<192, true>::MAX_TILES == 22,
+              "dh = 192: T <= 1408");
+
+// One warp's S for one key tile (keys j0 .. j0 + 63 in kt, their bias in
+// bt): S = Q K^T over 8 key groups of 8 on mma.sync (groups of 16 keys
+// wholly past T are skipped), then rounded as the reference rounds its
+// bf16 scores, bf16(bf16(bf16(q k^T) * bf16(scale)) + bf16(bias)), two
+// adjacent keys at a time; keys >= T: -inf. s[n][e]: row g = lane / 4 (e <
+// 2) or g + 8, key n * 8 + (lane % 4) * 2 + e % 2, the mma accumulator
+// layout.
+template <int DH, bool BIAS>
+__device__ __forceinline__ void bf16_scores(
+    float (&s)[8][4], const uint32_t (&qf)[DH / 16][4],
+    const __nv_bfloat16* kt, const __nv_bfloat16* bt, int j0, int seq,
+    uint32_t scale2, int lane) {
+  constexpr int LD = DH + 8;
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[2 * np][e] = s[2 * np + 1][e] = 0.f;
+    if (j0 + np * 16 < seq) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        uint32_t b[4];
+        ldmatrix_x4(b, &kt[(np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
+                           kk * 16 + ((lane >> 3) & 1) * 8]);
+        mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+      }
+    }
+  }
+  auto rounded = [&](float& x0, float& x1, int col) {
+    uint32_t h = mul_bf16x2(pack_bf16(x0, x1), scale2);
+    if constexpr (BIAS)
+      h = add_bf16x2(h, *reinterpret_cast<const uint32_t*>(&bt[col]));
+    x0 = __uint_as_float(h << 16);
+    x1 = __uint_as_float(h & 0xffff0000u);
+  };
+  if (j0 + BK <= seq) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2)
+        rounded(s[n][e], s[n][e + 1], n * 8 + (lane & 3) * 2);
+  } else {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int col = n * 8 + (lane & 3) * 2;
+        rounded(s[n][e], s[n][e + 1], col);
+        if (j0 + col >= seq) s[n][e] = -CUDART_INF_F;
+        if (j0 + col + 1 >= seq) s[n][e + 1] = -CUDART_INF_F;
+      }
+  }
+}
+
+// The warp's output rows, staged through its own 16 Q rows in shared
+// memory (free once the key loop is done) and written in 16-byte chunks.
+template <int DH>
+__device__ __forceinline__ void store_o_bf16(const float (&o)[DH / 8][4],
+                                             __nv_bfloat16* stage,
+                                             __nv_bfloat16* og, long long st,
+                                             int row0, int seq, int lane) {
+  constexpr int LD = DH + 8;
+  const int g = lane >> 2;
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) {
+    const int col = n * 8 + (lane & 3) * 2;
+    *reinterpret_cast<uint32_t*>(&stage[g * LD + col]) =
+        pack_bf16(o[n][0], o[n][1]);
+    *reinterpret_cast<uint32_t*>(&stage[(g + 8) * LD + col]) =
+        pack_bf16(o[n][2], o[n][3]);
+  }
+  __syncwarp();
+  constexpr int CH = DH / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = i - (i / CH) * CH;
+    const int row = row0 + r;
+    if (row < seq)
+      *reinterpret_cast<uint4*>(og + (long long)row * st + c * 8) =
+          *reinterpret_cast<const uint4*>(&stage[r * LD + c * 8]);
+  }
+}
+
+// O += P V for the live 16-key groups of one key tile: P (bf16) as the A
+// fragments a[kk] (the S accumulators of key groups 2kk and 2kk + 1), V
+// fragments by ldmatrix.trans from vt.
+template <int DH>
+__device__ __forceinline__ void pv_step(float (&o)[DH / 8][4],
+                                        const uint32_t (&a)[4],
+                                        const __nv_bfloat16* vt, int kk,
+                                        int lane) {
+  constexpr int LD = DH + 8;
+#pragma unroll
+  for (int dp = 0; dp < DH / 16; ++dp) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, &vt[(kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                 LD +
+                             dp * 16 + (lane >> 4) * 8]);
+    mma_bf16(o[2 * dp], a, b[0], b[1]);
+    mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+  }
+}
+
 // TWO_PASS: T > 64, several key tiles (below).
 template <int DH, bool BIAS, bool TWO_PASS>
 __global__ void __launch_bounds__(THREADS)
@@ -348,53 +520,10 @@ attn_bf16(const Params<__nv_bfloat16> p) {
         const bf16* kt = Ks(buf);
         const bf16* vt = Vs(buf);
 
-        // S = Q K^T over 8 key groups of 8; groups of 16 keys wholly past
-        // T are skipped and take -inf.
+        // S, rounded as the reference rounds it; keys >= T: -inf
         float s[8][4];
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[2 * np][e] = s[2 * np + 1][e] = 0.f;
-          if (j0 + np * 16 < seq) {
-#pragma unroll
-            for (int kk = 0; kk < KSTEPS; ++kk) {
-              uint32_t b[4];
-              ldmatrix_x4(b, &kt[(np * 16 + (lane >> 4) * 8 + (lane & 7)) *
-                                     LD +
-                                 kk * 16 + ((lane >> 3) & 1) * 8]);
-              mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
-              mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
-            }
-          }
-        }
-        // The reference's bf16 scores, bf16(bf16(bf16(q k^T) *
-        // bf16(scale)) + bf16(bias)), two adjacent keys at a time; keys
-        // >= T: -inf.
-        const bf16* bt = Bs + buf * BK;
-        auto rounded = [&](float& x0, float& x1, int col) {
-          uint32_t h = mul_bf16x2(pack_bf16(x0, x1), scale2);
-          if constexpr (BIAS)
-            h = add_bf16x2(h, *reinterpret_cast<const uint32_t*>(&bt[col]));
-          x0 = __uint_as_float(h << 16);
-          x1 = __uint_as_float(h & 0xffff0000u);
-        };
-        if (j0 + BK <= seq) {
-#pragma unroll
-          for (int n = 0; n < 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; e += 2)
-              rounded(s[n][e], s[n][e + 1], n * 8 + (lane & 3) * 2);
-        } else {
-#pragma unroll
-          for (int n = 0; n < 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; e += 2) {
-              const int col = n * 8 + (lane & 3) * 2;
-              rounded(s[n][e], s[n][e + 1], col);
-              if (j0 + col >= seq) s[n][e] = -CUDART_INF_F;
-              if (j0 + col + 1 >= seq) s[n][e + 1] = -CUDART_INF_F;
-            }
-        }
+        bf16_scores<DH, BIAS>(s, qf, kt, Bs + buf * BK, j0, seq, scale2,
+                              lane);
 
         if (!with_v || !two_pass) {
           // This tile's row max; every tile holds a key < T, so it is
@@ -465,15 +594,7 @@ attn_bf16(const Params<__nv_bfloat16> p) {
                 pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                 pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                 pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-            for (int dp = 0; dp < DH / 16; ++dp) {
-              uint32_t b[4];
-              ldmatrix_x4_trans(
-                  b, &vt[(kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                         dp * 16 + (lane >> 4) * 8]);
-              mma_bf16(o[2 * dp], a, b[0], b[1]);
-              mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
-            }
+            pv_step<DH>(o, a, vt, kk, lane);
           }
         }
       }
@@ -482,28 +603,171 @@ attn_bf16(const Params<__nv_bfloat16> p) {
   }
 
   if (!active) return;
-  // The warp's own Q rows in shared memory are free now: stage O there,
-  // then write 16-byte chunks.
-  bf16* stage = &Qs[warp * 16 * LD];
-  const int g = lane >> 2;
+  store_o_bf16<DH>(o, &Qs[warp * 16 * LD], og, p.so.t, q0 + warp * 16, seq,
+                   lane);
+}
+
+// The held variant: T > 64 up to HeldLayout::MAX_TILES key tiles. One
+// stream of K forms S and rounds it (bf16_scores), runs the online max and
+// sum of the two-pass kernel's first pass, and holds the rounded scores in
+// shared memory as the bf16 values they are (2 bytes a score, exact), each
+// thread its own accumulator fragments, so holding them adds no transpose
+// and no barrier. Then one stream of V through the same ring reads them
+// back, takes exp(s - max) again against the final max and forms P =
+// bf16(exp * (1 / sum)) and O += P V. q k^T is formed once and K and V are
+// read once; the arithmetic is the two-pass kernel's, in its order, so the
+// two give the same bits.
+template <int DH, bool BIAS>
+__global__ void __launch_bounds__(THREADS)
+attn_bf16_held(const Params<__nv_bfloat16> p) {
+  using bf16 = __nv_bfloat16;
+  using L = HeldLayout<DH, BIAS>;
+  constexpr int LD = L::LD;
+  extern __shared__ float4 smem_f4[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_f4);
+  auto Rs = [&](int buf) { return ring + buf * BK * LD; };
+  bf16* Bs = ring + L::BIAS_AT / 2;  // [2][BK] if BIAS
+  // held scores, thread-major: key groups 2kk and 2kk + 1 of a tile (rows
+  // g and g + 8) as one uint4 of bf16 pairs
+  uint4* Hs = reinterpret_cast<uint4*>(reinterpret_cast<char*>(smem_f4) +
+                                       L::HELD_AT);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int q0;
+  const bf16 *qg, *kg, *vg;
+  bf16* og;
+  const float* bg;
+  head_ptrs<BQ>(p, q0, qg, kg, vg, og, bg);
+  const int seq = p.seq;
+  const int n_tiles = (seq + BK - 1) / BK;
+  auto load_ring = [&](int buf, const bf16* src, long long st, int row0) {
+    load_rows<bf16, DH>(Rs(buf), LD, src, st, row0, seq, tid);
+    cp_async_commit();
+  };
+
+  // the Q tile in ring buffer 1 beside K tile 0, into registers before
+  // K tile 1 takes its place
+  load_rows<bf16, DH>(Rs(1), LD, qg, p.sq.t, q0, seq, tid);
+  load_ring(0, kg, p.sk.t, 0);
+  if constexpr (BIAS) load_bias(Bs, bg, 0, seq, tid);
+
+  const bool active = q0 + warp * 16 < seq;
+  const uint32_t scale2 = pack_bf16(p.scale, p.scale);  // bf16(scale) x 2
+  // rows g = lane / 4 and g + 8 of the warp's 16: the running max (the same
+  // in the 4 threads of a row) and this thread's share of the sum, as in
+  // attn_bf16's first pass
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+
+  // 1. the K stream: S, the online max and sum, the held scores
+  {
+    uint32_t qf[DH / 16][4];
+    cp_async_wait<0>();
+    __syncthreads();
+    if (active) {
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
-    const int col = n * 8 + (lane & 3) * 2;
-    *reinterpret_cast<uint32_t*>(&stage[g * LD + col]) =
-        pack_bf16(o[n][0], o[n][1]);
-    *reinterpret_cast<uint32_t*>(&stage[(g + 8) * LD + col]) =
-        pack_bf16(o[n][2], o[n][3]);
-  }
-  __syncwarp();
-  constexpr int CH = DH / 8;
+      for (int kk = 0; kk < DH / 16; ++kk)
+        ldmatrix_x4(qf[kk], &Rs(1)[(warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                   (lane >> 4) * 8]);
+    }
+    __syncthreads();  // ring buffer 1 takes K tile 1 next
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int buf = tile & 1;
+      if (tile + 1 < n_tiles) {
+        load_ring(buf ^ 1, kg, p.sk.t, (tile + 1) * BK);
+        if constexpr (BIAS)
+          load_bias(Bs + (buf ^ 1) * BK, bg, (tile + 1) * BK, seq, tid);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (active) {
+        float s[8][4];
+        bf16_scores<DH, BIAS>(s, qf, Rs(buf), Bs + buf * BK, tile * BK, seq,
+                              scale2, lane);
 #pragma unroll
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = i - (i / CH) * CH;
-    const int row = q0 + warp * 16 + r;
-    if (row < seq)
-      *reinterpret_cast<uint4*>(og + (long long)row * p.so.t + c * 8) =
-          *reinterpret_cast<const uint4*>(&stage[r * LD + c * 8]);
+        for (int kk = 0; kk < 4; ++kk)
+          Hs[(tile * 4 + kk) * THREADS + tid] = make_uint4(
+              pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]));
+        // this tile's row max (finite: every tile holds a key < T), the
+        // sum rescaled to it (the first tile's correction 2^-inf is 0)
+        float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        l0 *= exp_of(m0 - mn0);
+        l1 *= exp_of(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          l0 += exp_of(s[n][0] - mn0) + exp_of(s[n][1] - mn0);
+          l1 += exp_of(s[n][2] - mn1) + exp_of(s[n][3] - mn1);
+        }
+      }
+      __syncthreads();  // this buffer is refilled next iteration
+    }
   }
+
+  // The ring is free: the first two V tiles load while the sums finish.
+  load_ring(0, vg, p.sv.t, 0);
+  if (n_tiles > 1) load_ring(1, vg, p.sv.t, BK);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // P = exp(s - max) / sum as the reference's softmax, times the IEEE
+  // reciprocal (one a row), rounded to bf16 in the A fragments
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+
+  // 2. the V stream: O += P V
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < n_tiles)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (tile * BK + kk * 16 >= seq) continue;
+        const uint4 h = Hs[(tile * 4 + kk) * THREADS + tid];
+        auto p_of = [&](uint32_t x, float m, float inv) {
+          return pack_bf16(exp_of(__uint_as_float(x << 16) - m) * inv,
+                           exp_of(__uint_as_float(x & 0xffff0000u) - m) *
+                               inv);
+        };
+        const uint32_t a[4] = {p_of(h.x, m0, i0), p_of(h.y, m1, i1),
+                               p_of(h.z, m0, i0), p_of(h.w, m1, i1)};
+        pv_step<DH>(o, a, Rs(buf), kk, lane);
+      }
+    }
+    __syncthreads();  // this buffer is refilled below
+    if (tile + 2 < n_tiles) load_ring(buf, vg, p.sv.t, (tile + 2) * BK);
+  }
+
+  // the ring is free (the last tile's barrier): O staged in the warp's 16
+  // rows of buffer 0
+  if (!active) return;
+  store_o_bf16<DH>(o, &Rs(0)[warp * 16 * LD], og, p.so.t, q0 + warp * 16, seq,
+                   lane);
 }
 
 // ----------------------------------------------------------------- f32
@@ -790,17 +1054,27 @@ Params<T> make_params(const void* q, const void* k, const void* v, void* o,
 }
 
 // One block per (b, h, query block), the query blocks of one (b, h)
-// adjacent. Above 48 KB of dynamic shared memory only after
-// cudaFuncSetAttribute (for the current device).
-template <typename T, typename Kernel>
-int launch(Kernel kernel, const Params<T>& p, int batch, int bytes,
+// adjacent. Above 48 KB of dynamic shared memory a kernel launches only
+// after cudaFuncSetAttribute for the current device: set once per kernel
+// and device (a bit a device, below 64; others set it every launch), to
+// the most the kernel ever takes (max_bytes).
+template <auto Kernel, typename T>
+int launch(const Params<T>& p, int batch, int bytes, int max_bytes,
            cudaStream_t s) {
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr != cudaSuccess) return (int)attr;
+  static std::atomic<unsigned long long> set_on{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(set_on.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes);
+    if (err != cudaSuccess) return (int)err;
+    set_on.fetch_or(bit, std::memory_order_relaxed);
+  }
   const unsigned blocks =
       (unsigned)((long long)batch * p.heads * p.n_qblocks);
-  kernel<<<blocks, THREADS, bytes, s>>>(p);
+  Kernel<<<blocks, THREADS, bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -808,21 +1082,35 @@ template <int DH>
 int launch_f32(Params<float> p, int batch, cudaStream_t s) {
   using L = F32Layout<DH>;
   p.n_qblocks = (p.seq + L::ROWS - 1) / L::ROWS;
-  if (p.bias) return launch(attn_f32<DH, true>, p, batch, L::BIAS_BYTES, s);
-  return launch(attn_f32<DH, false>, p, batch, L::BYTES, s);
+  if (p.bias)
+    return launch<attn_f32<DH, true>>(p, batch, L::BIAS_BYTES,
+                                      L::BIAS_BYTES, s);
+  return launch<attn_f32<DH, false>>(p, batch, L::BYTES, L::BYTES, s);
+}
+
+// The bf16 variants by (T, dh, bias), a rule that ops/attention.py's
+// bf16_variant mirrors: one key tile (T <= 64) the one-pass kernel; more
+// while the held scores fit (HeldLayout<DH, BIAS>::MAX_TILES) the held
+// variant; beyond, the two-pass kernel.
+template <int DH, bool BIAS>
+int launch_bf16_with(const Params<__nv_bfloat16>& p, int batch,
+                     cudaStream_t s) {
+  using L = Bf16Layout<DH>;
+  using H = HeldLayout<DH, BIAS>;
+  constexpr int bytes = BIAS ? L::BIAS_BYTES : L::BYTES;
+  const int n_tiles = (p.seq + BK - 1) / BK;
+  if (n_tiles == 1)
+    return launch<attn_bf16<DH, BIAS, false>>(p, batch, bytes, bytes, s);
+  if (n_tiles <= H::MAX_TILES)
+    return launch<attn_bf16_held<DH, BIAS>>(p, batch, H::bytes(n_tiles),
+                                            H::bytes(H::MAX_TILES), s);
+  return launch<attn_bf16<DH, BIAS, true>>(p, batch, bytes, bytes, s);
 }
 
 template <int DH>
 int launch_bf16(const Params<__nv_bfloat16>& p, int batch, cudaStream_t s) {
-  using L = Bf16Layout<DH>;
-  if (p.seq > BK) {
-    if (p.bias) return launch(attn_bf16<DH, true, true>, p, batch,
-                              L::BIAS_BYTES, s);
-    return launch(attn_bf16<DH, false, true>, p, batch, L::BYTES, s);
-  }
-  if (p.bias)
-    return launch(attn_bf16<DH, true, false>, p, batch, L::BIAS_BYTES, s);
-  return launch(attn_bf16<DH, false, false>, p, batch, L::BYTES, s);
+  if (p.bias) return launch_bf16_with<DH, true>(p, batch, s);
+  return launch_bf16_with<DH, false>(p, batch, s);
 }
 
 }  // namespace

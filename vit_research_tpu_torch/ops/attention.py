@@ -5,7 +5,10 @@ computes softmax(q k^T * scale) v over (B, H, T, dh) with an f32 softmax.
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/attention.cu`` (online softmax over K/V tiles streamed through
 shared memory, so unlike the TPU kernel it has no ``MAX_KV_LEN``; bf16 on
-the tensor cores, f32 on the CUDA cores). The kernel reads q, k and v
+the tensor cores, f32 on the CUDA cores). bf16 past one key tile takes one
+of two variants by the rule :func:`bf16_variant` mirrors: the held variant
+(K and V streamed once, the row's scores held in shared memory) while they
+fit, the two-pass kernel beyond. The kernel reads q, k and v
 through their strides, so the backbone hands it the projections'
 (B, T, H, dh) order as ``transpose(1, 2)`` views without a copy, and it
 writes the output in that order too. On a CPU tensor it runs
@@ -31,6 +34,8 @@ import ctypes
 
 import torch
 
+from vit_research_tpu_torch.ops import _build
+
 #: head widths the kernel is compiled for (ViT-B: 64; the stage-1 chunk
 #: encoder, 768 wide with 8 heads: 96; 768 wide with 6 heads, or 1,024
 #: with 8: 128; the RAG/RATT heads, 768 wide with 4 heads: 192; tiny test
@@ -39,6 +44,12 @@ import torch
 KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128, 192)
 _DTYPES = (torch.float32, torch.bfloat16)
 _ALIGN = 16  # bytes: the kernel moves q, k, v and o in 16-byte copies
+_BQ = _BK = 64  # query rows a block, keys a shared-memory tile
+#: the shared memory a block may opt into on the H100
+MAX_SMEM = 232_448
+#: the shared memory of two blocks an SM (the SM's 233,472 bytes less
+#: 1,024 the runtime keeps for each block, halved)
+TWO_BLOCKS_SMEM = (233_472 - 2 * 1024) // 2
 
 
 def weak_scalar(x: float, dtype: torch.dtype) -> float:
@@ -86,24 +97,90 @@ def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
     return out
 
 
+def held_smem_bytes(width: int, bias: bool, n_tiles: int) -> int:
+    """Shared memory of the bf16 kernel's held variant at compiled width
+    ``width`` over ``n_tiles`` key tiles (``HeldLayout`` in
+    csrc/attention.cu): a ring of two key tiles in bf16 (rows padded by 8
+    elements; the Q tile passes through it), two bf16 key-bias tiles with a
+    bias, then 64 x 64 bf16 scores a key tile."""
+    return (2 * _BK * (width + 8) * 2 + (2 * _BK * 2 if bias else 0)
+            + n_tiles * _BQ * _BK * 2)
+
+
+def held_max_bytes(width: int) -> int:
+    """The most shared memory the held variant takes at compiled width
+    ``width``: two blocks an SM at dh <= 96 (with one, it lost to the
+    two-pass kernel on the H100), all a block may have from 128 on (where
+    the two-pass kernel's 254-255 registers keep it to one or two blocks an
+    SM itself)."""
+    return MAX_SMEM if width >= 128 else TWO_BLOCKS_SMEM
+
+
+def held_max_tiles(width: int, bias: bool) -> int:
+    """The most key tiles (64 keys each) the held variant takes
+    (``HeldLayout::MAX_TILES``)."""
+    return (held_max_bytes(width) - held_smem_bytes(width, bias, 0)) \
+        // (_BQ * _BK * 2)
+
+
+_HELD_MAX = {(w, bias): held_max_tiles(w, bias)
+             for w in KERNEL_HEAD_DIMS for bias in (False, True)}
+
+
+def bf16_variant(t: int, width: int, bias: bool) -> str:
+    """The bf16 kernel's variant for T keys at compiled width ``width``,
+    with or without a key bias (the rule of csrc/attention.cu's
+    ``launch_bf16_with``): ``"1pass"`` where one key tile holds the row (T
+    <= 64), ``"held"`` up to 64 * :func:`held_max_tiles` keys (the row's
+    scores held in shared memory: one stream of K, then one of V),
+    ``"2pass"`` beyond (K streamed twice)."""
+    n_tiles = -(-t // _BK)
+    if n_tiles == 1:
+        return "1pass"
+    return "held" if n_tiles <= _HELD_MAX[width, bias] else "2pass"
+
+
+_VARIANT_SUFFIX = {"1pass": "", "held": "/held", "2pass": "/2pass"}
+# launches_by_kernel's names, e.g. attn_f32<96>, attn_bf16<64>/held
+_KERNEL_NAMES = {**{(False, w, None): f"attn_f32<{w}>"
+                    for w in KERNEL_HEAD_DIMS},
+                 **{(True, w, v): f"attn_bf16<{w}>{sfx}"
+                    for w in KERNEL_HEAD_DIMS
+                    for v, sfx in _VARIANT_SUFFIX.items()}}
+_WIDTHS = {d: kernel_head_dim(d) for d in range(1, KERNEL_HEAD_DIMS[-1] + 1)}
+
+
+def kernel_name(dtype: torch.dtype, t: int, width: int, bias: bool) -> str:
+    """The name a launch counts under in
+    ``multi_head_attention.launches_by_kernel``: ``attn_f32<width>``, or
+    ``attn_bf16<width>`` with ``/held`` or ``/2pass`` past one key tile
+    (:func:`bf16_variant`)."""
+    bf16 = dtype == torch.bfloat16
+    return _KERNEL_NAMES[bf16, width,
+                         bf16_variant(t, width, bias) if bf16 else None]
+
+
 def _kernel_strides(x: torch.Tensor, name: str = "x") -> tuple:
     """(batch, head, token) strides in elements of a (B, H, T, dh) view
     as the kernel reads it. A dim of size 1 is never stepped over, so its
     stride is given as 0. Raises ValueError for a layout the kernel's
     16-byte loads cannot take: a last dim with stride other than 1, a base
     address or a stride that is not a multiple of 16 bytes."""
-    if x.dim() != 4:
-        raise ValueError(f"{name} must be (B, H, T, dh), got {tuple(x.shape)}")
-    if x.shape[-1] > 1 and x.stride(-1) != 1:
+    shape, st = x.shape, x.stride()
+    if len(shape) != 4:
+        raise ValueError(f"{name} must be (B, H, T, dh), got {tuple(shape)}")
+    if shape[3] > 1 and st[3] != 1:
         raise ValueError(f"{name} needs stride 1 on its last dim (head_dim), "
-                         f"got strides {x.stride()}")
-    item = x.element_size()
+                         f"got strides {st}")
     if x.data_ptr() % _ALIGN:
         raise ValueError(f"{name}'s base address is not {_ALIGN}-byte "
                          "aligned")
-    strides = tuple(x.stride(i) if x.shape[i] > 1 else 0 for i in range(3))
-    if any(s * item % _ALIGN for s in strides):
-        raise ValueError(f"{name}'s batch/head/token strides {x.stride()[:3]}"
+    strides = (st[0] if shape[0] > 1 else 0, st[1] if shape[1] > 1 else 0,
+               st[2] if shape[2] > 1 else 0)
+    item = x.element_size()
+    if (strides[0] * item) % _ALIGN or (strides[1] * item) % _ALIGN or \
+            (strides[2] * item) % _ALIGN:
+        raise ValueError(f"{name}'s batch/head/token strides {st[:3]}"
                          f" are not multiples of {_ALIGN} bytes")
     return strides
 
@@ -129,42 +206,86 @@ def _check_key_bias(key_bias, q) -> None:
                          f"{key_bias.stride()}")
 
 
-def _launch(q, k, v, scale, key_bias):
-    from vit_research_tpu_torch.ops import _build
+_Strides12 = ctypes.c_longlong * 12
+# What _launch hands the C entry point for one layout, by (shape, q/k/v
+# strides, dtype, key bias or not): the 12 strides as a ctypes array (the
+# C side only reads it) and the name the launch counts under. Cleared when
+# full.
+_LAYOUTS: dict = {}
+_LAYOUTS_MAX = 256
 
+
+def _layout(q, k, v, ptrs, bias: bool) -> tuple:
+    """(strides, kernel name) for q/k/v at their data pointers ``ptrs``;
+    raises ValueError as :func:`_kernel_strides` for a layout the kernel
+    does not take. The output's strides are those of the ``transpose(1, 2)``
+    view of a contiguous (B, T, H, dh) tensor."""
+    key = (q.shape, q.stride(), k.stride(), v.stride(), q.dtype, bias)
+    hit = _LAYOUTS.get(key)
+    if hit is None:
+        b, h, t, width = q.shape
+        o = (t * h * width if b > 1 else 0, width if h > 1 else 0,
+             h * width if t > 1 else 0)
+        hit = (_Strides12(*_kernel_strides(q, "q"), *_kernel_strides(k, "k"),
+                          *_kernel_strides(v, "v"), *o),
+               kernel_name(q.dtype, t, width, bias))
+        if len(_LAYOUTS) >= _LAYOUTS_MAX:
+            _LAYOUTS.clear()
+        _LAYOUTS[key] = hit
+    elif (ptrs[0] | ptrs[1] | ptrs[2]) % _ALIGN:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            _kernel_strides(x, name)  # raises for the misaligned one
+    return hit
+
+
+def _current_device() -> int:
+    return torch.cuda.current_device()
+
+
+def _current_stream(index: int) -> int:
+    """The raw handle of device ``index``'s current stream (what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without
+    building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _launch(q, k, v, scale, key_bias):
     b, h, t, d = q.shape
-    width = kernel_head_dim(d)
+    width = _WIDTHS.get(d)
     if width is None:
         raise ValueError(f"attention kernel supports head_dim up to "
                          f"{KERNEL_HEAD_DIMS[-1]}, got {d}")
+    dtype, index = q.dtype, q.get_device()
     for name, x in (("k", k), ("v", v)):
-        if x.device != q.device or x.dtype != q.dtype:
+        if x.dtype != dtype or x.get_device() != index:
             raise ValueError(f"{name} is {x.dtype} on {x.device}, q is "
-                             f"{q.dtype} on {q.device}")
+                             f"{dtype} on {q.device}")
     if width != d:
         # the scale stays the caller's (d ** -0.5 by default)
         q, k, v = (pad_head_dim(x, width) for x in (q, k, v))
-    strides = [s for name, x in (("q", q), ("k", k), ("v", v))
-               for s in _kernel_strides(x, name)]
+    bias = key_bias is not None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    strides, name = _layout(q, k, v, ptrs, bias)
     # The output in projection order (B, T, H, dh), seen as (B, H, T, dh).
-    o = torch.empty(b, t, h, width, dtype=q.dtype, device=q.device) \
-        .transpose(1, 2)
-    strides += _kernel_strides(o, "o")
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.vrt_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, t,
-            width, (ctypes.c_longlong * 12)(*strides), float(scale),
-            int(q.dtype == torch.bfloat16),
-            None if key_bias is None else key_bias.data_ptr(),
-            0 if key_bias is None or b == 1 else key_bias.stride(0), stream)
-    _build.check(code, "attention kernel")
+    o = torch.empty_strided((b, h, t, width), (t * h * width, width,
+                                               h * width, 1),
+                            dtype=dtype, device=q.device)
+    args = (*ptrs, o.data_ptr(), b, h, t, width, strides, float(scale),
+            int(dtype == torch.bfloat16),
+            key_bias.data_ptr() if bias else None,
+            key_bias.stride(0) if bias and b > 1 else 0)
+    fn = _build.library().vrt_attention_fwd
+    if index == _current_device():
+        code = fn(*args, _current_stream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, _current_stream(index))
+    if code:
+        _build.check(code, "attention kernel")
     # a plain increment: exact because device work is serialized (the
     # serve daemon runs every forward under its one device lock)
     multi_head_attention.launches += 1
-    multi_head_attention.launches_by_kernel[
-        f"attn_{'bf16' if q.dtype == torch.bfloat16 else 'f32'}<{width}>"] += 1
+    multi_head_attention.launches_by_kernel[name] += 1
     if width != d:
         multi_head_attention.padded_launches += 1
         o = o[..., :d]
@@ -173,10 +294,10 @@ def _launch(q, k, v, scale, key_bias):
 
 def _forward(q, k, v, scale, key_bias):
     """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if q.is_cuda:
+        return _launch(q, k, v, scale, key_bias)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale=scale, key_bias=key_bias)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, scale, key_bias)
     raise ValueError(f"unsupported device {q.device}")
 
 
@@ -245,13 +366,15 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_key_bias(key_bias, q)
     d = q.shape[-1]
     scale = float(d ** -0.5) if scale is None else float(scale)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, key_bias)):
+    if torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad
+            or key_bias is not None and key_bias.requires_grad):
         return _Attention.apply(q, k, v, key_bias, scale)
     return _forward(q, k, v, scale, key_bias)
 
 
 multi_head_attention.launches = 0
 multi_head_attention.padded_launches = 0
-#: the same launches by instantiation, e.g. ``attn_bf16<96>``
+#: the same launches by instantiation and variant (:func:`kernel_name`),
+#: e.g. ``attn_bf16<96>``, ``attn_bf16<64>/held``, ``attn_bf16<64>/2pass``
 multi_head_attention.launches_by_kernel = collections.Counter()
