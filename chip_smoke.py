@@ -212,15 +212,17 @@ and 0).
 
     python3 chip_smoke.py --kernel-b
 
-builds the kernels, then times kernel B where its bf16 variants and its
+builds the kernels, then reads kernel B's bf16 P through one-hot V on
+ToMe's bf16 draws and counts where it differs from the plain version's,
+by cause (``probe_p``), and times kernel B where its bf16 variants and its
 launch path act (``measure_kernel_b``): bf16 past one key tile at the
 backbone's and other shapes beside SDPA and the bound, a sweep over T by
-head width, ToMe's biased blocks, the T <= 25 rows with host microseconds
-a call beside CUDA-event and device times (and the host cost by step),
-the bf16 forward at B = 512 and the bf16 engine's frames/s; one JSON line
-``{"kernel_b": ...}``. Copied into another checkout of the port, it times
-that checkout's kernels the same way, so two checkouts compare in one
-call.
+head width, the T <= 25 rows with host microseconds a call beside
+CUDA-event and device times (and the host cost by step), the bf16 forward
+at B = 512 and the bf16 engine's frames/s, and last ToMe's biased blocks,
+each within ATTN_BOUND or the run fails; one JSON line ``{"kernel_b":
+...}``. Copied into another checkout of the port, it times that
+checkout's kernels the same way, so two checkouts compare in one call.
 
 Host microseconds a call (``host_us``) stand beside the CUDA-event and
 device times of every T <= 25 row of phases 3c, 3d and 5g, and the
@@ -290,10 +292,12 @@ HF_AFFINE = dict(rescale=SPEC.rescale, mean=SPEC.mean, std=SPEC.std)
 # products in other orders, ~1e-6 on outputs of order 1. bf16 patch embed:
 # one bf16 rounding of outputs < 8 (2^-5). bf16 attention, against the
 # bf16 plain version of the same inputs (the JAX package's bf16 attention:
-# S, S * bf16(scale), + bf16(bias) and P each rounded to bf16): the two
-# differ in summation order and in the exp, so an output falls apart by
-# one bf16 ulp where a sum straddles a rounding boundary (below 1e-2 for
-# outputs under 2).
+# S, S * bf16(scale), + bf16(bias) and P each rounded to bf16): the kernel
+# forms P with the plain version's softmax arithmetic, so the two differ
+# where q k^T or P V, summed in another order, rounds to the other bf16
+# neighbour: an output falls apart by one bf16 ulp (below 1e-2 for outputs
+# under 2), or further where a near-tie score carries a large P (F10,
+# ROADMAP.md §3).
 PE_BOUND = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5}
 ATTN_BOUND = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # 8 frames through 12 f32 layers on the card vs on the CPU: different
@@ -574,36 +578,47 @@ def phase_patch_embed(smi: str) -> dict:
                 summary[key] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, **lim,
                     library_ms=_conv_patch_embed_ms(
-                        images, wt, bias, a_vec, b_vec, p, smi))
+                        images, wt, bias, a_vec, b_vec, p, smi, out_dtype))
         del images
         torch.cuda.empty_cache()
     return dict(summary["f32"], bf16=summary["bf16"])
 
 
-def _conv_patch_embed_ms(images, wt, bias, a_vec, b_vec, p, smi) -> float:
+def _conv_patch_embed_ms(images, wt, bias, a_vec, b_vec, p, smi,
+                         dtype) -> float:
     """No single PyTorch call takes uint8 NHWC through the affine and the
-    projection; the nearest is F.conv2d (stride = kernel = P, f32, TF32
-    off) over the already-normalised f32 NCHW batch, timed here."""
+    projection; the nearest is F.conv2d (stride = kernel = P, TF32 off)
+    over the already-normalised NCHW batch in ``dtype`` (the kernel's
+    output dtype: f32, or bf16 batch, weight and bias for the bf16
+    engine), timed here. It must compute the same function: within
+    PE_BOUND of the f32 plain version in f32; in bf16 within 2^-5 of its
+    largest output (its inputs are rounded to bf16, the kernel's are
+    not)."""
     import torch.nn.functional as F
 
     c = images.shape[-1]
     want = pe.patch_embed_plain(images, wt, bias, a_vec, b_vec, patch_size=p)
     nchw = (images.float() * a_vec[:c] - b_vec[:c]).permute(0, 3, 1, 2) \
-        .contiguous()
-    cw = wt.reshape(p, p, c, -1).permute(3, 2, 0, 1).contiguous()
+        .contiguous().to(dtype)
+    cw = wt.reshape(p, p, c, -1).permute(3, 2, 0, 1).contiguous().to(dtype)
+    cb = bias.to(dtype)
 
     def conv():
-        return F.conv2d(nchw, cw, bias, stride=p)
+        return F.conv2d(nchw, cw, cb, stride=p)
 
-    err = (conv().flatten(2).transpose(1, 2).reshape(want.shape) - want) \
-        .abs().max().item()
-    if not err <= PE_BOUND[torch.float32]:
+    err = (conv().float().flatten(2).transpose(1, 2).reshape(want.shape)
+           - want).abs().max().item()
+    tol = PE_BOUND[torch.float32] if dtype == torch.float32 else \
+        2 ** -5 * want.abs().max().item()
+    if not err <= tol:
         raise AssertionError(f"conv2d computes another function: {err}")
     del want
     ms = cuda_ms(conv)
-    log(f"[2] library: F.conv2d over the normalised f32 NCHW batch (no "
+    name = str(dtype).split(".")[-1]
+    log(f"[2] library: F.conv2d over the normalised {name} NCHW batch (no "
         f"single call takes uint8 NHWC), B={images.shape[0]}: {ms:.4f} ms "
-        f"| {smi}")
+        f"(max|err| {err:.3e} against the f32 plain version, bound "
+        f"{tol:.3e}) | {smi}")
     del nchw
     return ms
 
@@ -2270,16 +2285,25 @@ def _tome_sizes(b: int, t: int, r: int, layers: int, dev) -> list:
     return out
 
 
+def tome_bias_draws(dtype, g, biases, dev):
+    """Kernel B's inputs at every ToMe T of ViT-B/16 @224 at r = 16 (B =
+    256, H = 12, dh = 64): (T, key bias, q, k, v) with q/k/v drawn from
+    ``g`` in projection order, as the ToMe blocks pass them."""
+    for t, bias in biases:
+        q, k, v = (torch.randn(BATCH, t, 12, 64, generator=g).to(
+            dev, dtype).transpose(1, 2) for _ in range(3))
+        yield t, bias, q, k, v
+
+
 def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16),
                          strict: bool = True) -> dict:
-    """Kernel B with ToMe's key bias at every ToMe T of ViT-B/16 @224 at
-    r = 16 (B = 256, H = 12, dh = 64), f32 and bf16: against its plain
-    version on the same values (q/k/v in projection order, as the ToMe
-    blocks pass them), timed against the plain version and SDPA with the
-    bias as a float mask (B, 1, 1, T). Returns per-dtype rows and sums.
-    With ``strict`` (phase 5d) a row beyond ATTN_BOUND raises; without
-    (``--kernel-b``, which draws other q/k/v when it times bf16 alone) it
-    is logged and listed under ``over_bound``."""
+    """Kernel B with ToMe's key bias at every ToMe T (tome_bias_draws from
+    seed 7; ``dtypes`` in turn from one generator), f32 and bf16: against
+    its plain version on the same values, timed against the plain version
+    and SDPA with the bias as a float mask (B, 1, 1, T). Returns per-dtype
+    rows and sums. Every row is timed and logged; then, with ``strict``
+    (phase 5d, ``--kernel-b``), a row beyond ATTN_BOUND raises, and
+    without it is listed under ``over_bound``."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -2289,9 +2313,7 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16),
     for dtype in dtypes:
         name = str(dtype).split(".")[-1]
         rows = []
-        for t, bias in biases:
-            q, k, v = (torch.randn(BATCH, t, 12, 64, generator=g).to(
-                dev, dtype).transpose(1, 2) for _ in range(3))
+        for t, bias, q, k, v in tome_bias_draws(dtype, g, biases, dev):
             got, variant = b_variants(
                 lambda: attn.multi_head_attention(q, k, v, key_bias=bias))
             qc, kc, vc = (x.contiguous() for x in (q, k, v))
@@ -2303,9 +2325,6 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16),
                 errs = bf16_attention_errs(got, qc, kc, vc, bias)
                 err = errs["err"]
             del got
-            if strict and not err <= ATTN_BOUND[dtype]:
-                raise AssertionError(f"attention kernel with key bias "
-                                     f"disagrees at T={t} {name}: {err}")
             ms = cuda_ms(lambda: attn.multi_head_attention(
                 q, k, v, key_bias=bias), reps=3, n=5)
             plain_ms = cuda_ms(lambda: attn.attention_plain(
@@ -2344,6 +2363,9 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16),
         if over:
             log(f"[5d] attention + key bias {name}: beyond the bound "
                 f"{ATTN_BOUND[dtype]:.0e} at {over} | {smi}")
+            if strict:
+                raise AssertionError(f"attention kernel with key bias "
+                                     f"disagrees in {name} at {over}")
         out[name] = dict(
             over_bound=over,
             T=[r["T"] for r in rows], ms=[r["ms"] for r in rows],
@@ -5850,7 +5872,8 @@ def time_viterbi(smi: str, lengths=(512, 2048, 8191, 8192, 32768)) -> None:
 HOST_ROWS = ((1, 8, 9, 96, torch.float32, "stage 2, a chunk an encode"),
              (8, 4, 5, 192, torch.float32, "RAGHead training batch"),
              (29, 8, 9, 96, torch.float32, "scoring, a clip's 29 chunks"),
-             (32, 8, 9, 96, torch.bfloat16, "bf16 chunk encoder batch"))
+             (32, 8, 9, 96, torch.bfloat16, "bf16 chunk encoder batch"),
+             (8, 4, 5, 192, torch.bfloat16, "bf16 RAGHead training batch"))
 
 
 def _host_steps(q, k, v) -> dict:
@@ -5907,26 +5930,209 @@ def _host_steps(q, k, v) -> dict:
     return out
 
 
+def kernel_probs(q, k, key_bias=None) -> torch.Tensor:
+    """Kernel B's bf16 P for (q, k, key_bias), (B, H, T, T), read exactly
+    through one-hot V: with v[j] = e_(j - j0) for the dh keys from j0 on
+    and 0 elsewhere, the output's column c is P[:, j0 + c] (one nonzero
+    product, and P is a bf16 value). ceil(T / dh) launches."""
+    b, h, t, dh = q.shape
+    out = torch.empty(b, h, t, t, dtype=q.dtype, device=q.device)
+    eye = torch.eye(dh, dtype=q.dtype, device=q.device)
+    for j0 in range(0, t, dh):
+        n = min(dh, t - j0)
+        v = torch.zeros(b, t, h, dh, dtype=q.dtype, device=q.device)
+        v[:, j0:j0 + n] = eye[:n, None, :]
+        out[..., j0:j0 + n] = attn.multi_head_attention(
+            q, k, v.transpose(1, 2), key_bias=key_bias)[..., :n]
+    return out
+
+
+def plain_softmax(q, k, key_bias=None) -> tuple:
+    """attention_plain's scores of (q, k, key_bias) in their dtype and
+    their f32 softmax, before attention_plain rounds it to P."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) \
+        * attn.weak_scalar(q.shape[-1] ** -0.5, q.dtype)
+    if key_bias is not None:
+        s = s + key_bias[:, None, None, :].to(s.dtype)
+    return s, torch.softmax(s.to(torch.float32), dim=-1)
+
+
+# The P probe's cause test. A P that rounds apart from f32 differences in
+# its arithmetic (the exp, the sum, the quotient: ~2^-20 relative) lies
+# within 2^-16 of a bf16 rounding midpoint; the kernel's P pins each score
+# less the row's max to within its two bf16 roundings (2^-9 relative each)
+# plus 2^-18 for that arithmetic.
+P_MIDPOINT = 2.0 ** -16
+P_SLACK = 2.0 ** -18
+
+
+def _bf16_half_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Half the bf16 spacing at each (nonnegative) bf16 value of x, f64:
+    2^(e - 9) for x in [2^(e-1), 2^e), 2^-134 at 0 and below 2^-126."""
+    _, e = torch.frexp(x.float())
+    half = torch.ldexp(torch.ones_like(x, dtype=torch.float64),
+                       (e - 9).clamp(min=-134))
+    return torch.where(x == 0, 2.0 ** -134, half)
+
+
+def p_causes(pk, s, p32) -> dict:
+    """Kernel B's P (``pk``, bf16) against the plain version's
+    (bf16(``p32``), the f32 softmax of the plain bf16 scores ``s``): how
+    many of ``n_p`` values differ (``differ``), sorted by cause.
+    ``s``: the scores differ in the row: at some key, the score less the
+    row's max (the plain max's key) implied by the kernel's P row (the
+    ratio of two bf16 values, each within half a bf16 step of its exact
+    value) excludes the plain one. ``p``: the row's scores agree and the
+    plain f32 P lies within P_MIDPOINT of a bf16 rounding midpoint, so only
+    P's arithmetic (exp, sum, quotient) rounds it apart. ``other``:
+    neither. ``largest``: the largest P among the differing values."""
+    pp = p32.to(torch.bfloat16)
+    diff = pk != pp
+    n = int(diff.sum())
+    out = dict(n_p=pk.numel(), differ=n, s=0, p=0, other=0, largest=0.0)
+    if not n:
+        return out
+    d = s.double() - s.double().amax(-1, keepdim=True)
+    at = s.float().argmax(-1, keepdim=True)
+    pkd, half = pk.double(), _bf16_half_ulp(pk)
+    pm, half_m = pkd.gather(-1, at), half.gather(-1, at)
+    lo = (pkd - half) / (pm + half_m) * (1 - P_SLACK)
+    hi = (pkd + half) / (pm - half_m) * (1 + P_SLACK)
+    ed = torch.exp(d)
+    s_row = ((ed < lo) | (ed > hi)).any(-1, keepdim=True)
+    bits = p32.view(torch.int32)
+    mid = ((bits & -65536) | 32768).view(torch.float32)
+    near = (p32 - mid).abs() <= P_MIDPOINT * p32
+    by_s = diff & s_row
+    by_p = diff & ~s_row & near
+    out.update(s=int(by_s.sum()), p=int(by_p.sum()),
+               other=n - int(by_s.sum()) - int(by_p.sum()),
+               largest=torch.maximum(pk.float(), pp.float())[diff]
+               .max().item())
+    return out
+
+
+def p_probe(q, k, key_bias=None, chunk: int = 32) -> dict:
+    """p_causes of kernel B's P (kernel_probs, ``chunk`` batch rows a
+    launch) against the plain version's: plain_softmax of the contiguous
+    q, k over the whole batch, as the bf16 checks compute it (cuBLAS may
+    sum q k^T in another order at another batch size, and round a score
+    otherwise). The counts summed, ``largest`` the max."""
+    s, p32 = plain_softmax(q.contiguous(), k.contiguous(), key_bias)
+    total = dict(n_p=0, differ=0, s=0, p=0, other=0, largest=0.0)
+    for b0 in range(0, q.shape[0], chunk):
+        sl = slice(b0, b0 + chunk)
+        pk = kernel_probs(q[sl], k[sl],
+                          None if key_bias is None else key_bias[sl])
+        for key, val in p_causes(pk, s[sl], p32[sl]).items():
+            total[key] = max(total[key], val) if key == "largest" \
+                else total[key] + val
+        del pk
+    return total
+
+
+def grid_qk(b: int, t: int, h: int, dh: int, g, dev, top: int = 8) -> tuple:
+    """bf16 q, k (B, H, T, dh) in projection order whose q k^T every f32
+    order sums exactly: integers -top ... top (top <= 64) over 4, so each
+    product is a multiple of 2^-4 of at most 256 and a sum over dh <= 192
+    holds at most 21 bits. The kernel's scores and the plain version's are
+    then the same bf16 values, and a P that differs comes from P's own
+    arithmetic. At top = 64 a row's scores spread past 44, where exps fall
+    below 2^-64 and underflow to 0."""
+    return tuple((torch.randint(-top, top + 1, (b, t, h, dh), generator=g)
+                  / 4).to(dev, torch.bfloat16).transpose(1, 2)
+                 for _ in range(2))
+
+
+def explain_worst(q, k, v, key_bias) -> dict:
+    """Where kernel B's bf16 output is farthest from the plain version's:
+    the element (b, h, i, c) and its error, and for each key j whose P
+    differs in that row: the kernel's and the plain P, v[j, c], the plain
+    score, q_i k_j in the plain bf16 einsum and exactly (f64), and the
+    distance of the exact q_i k_j from the nearest bf16 rounding midpoint in
+    bf16 steps (a product sum that close can round either way in two f32
+    summation orders)."""
+    got = attn.multi_head_attention(q, k, v, key_bias=key_bias).float()
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    err = (got - attn.attention_plain(qc, kc, vc, key_bias=key_bias)
+           .float()).abs()
+    b, h, i, c = (int(x) for x in np.unravel_index(int(err.argmax()),
+                                                     err.shape))
+    sl = slice(b, b + 1)
+    pk = kernel_probs(q[sl], k[sl], key_bias[sl])[0, h, i]
+    s, p32 = plain_softmax(qc, kc, key_bias)  # the whole batch, as the check
+    s, pp = s[b, h, i], p32[b, h, i].to(torch.bfloat16)
+    qk_plain = torch.einsum("bhqd,bhkd->bhqk", qc, kc)[b, h, i]
+    qk_exact = kc[b, h].double() @ qc[b, h, i].double()
+    keys = []
+    for j in torch.nonzero(pk != pp).flatten().tolist():
+        x = qk_exact[j].item()
+        lo = torch.tensor(x, dtype=torch.float64).to(torch.bfloat16)
+        step = _bf16_half_ulp(lo.abs().unsqueeze(0)).item() * 2
+        mid = (math.floor(x / step) + 0.5) * step
+        keys.append(dict(key=j, p_kernel=pk[j].item(), p_plain=pp[j].item(),
+                         v=vc[b, h, j, c].item(), s_plain=s[j].item(),
+                         qk_plain=qk_plain[j].item(), qk_exact=x,
+                         steps_from_midpoint=abs(x - mid) / step))
+    return dict(b=b, h=h, i=i, c=c, err=err[b, h, i, c].item(), keys=keys)
+
+
+def probe_p(smi: str) -> dict:
+    """``--kernel-b``'s P probe at every ToMe T (B = 256, H = 12, dh = 64,
+    bf16, ToMe's key bias): p_probe on phase 5d's bf16 draws as
+    ``--kernel-b`` makes them (tome_bias_draws from seed 7, bf16 alone), the
+    differences by cause, and on grid_qk's draws (seed 8), where the scores
+    agree exactly and every difference is P's own."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(7)
+    g_grid = torch.Generator().manual_seed(8)
+    biases = _tome_sizes(BATCH, 197, TOME_R, 12, dev)
+    out = {}
+    for t, bias, q, k, v in tome_bias_draws(torch.bfloat16, g, biases, dev):
+        row = p_probe(q, k, bias)
+        worst = explain_worst(q, k, v, bias)
+        if worst["err"] > ATTN_BOUND[torch.bfloat16]:
+            row["worst"] = worst
+            log(f"[B] P probe T={t}: the output farthest from the plain "
+                f"version's, {worst['err']:.4g} at (b, h, i, c) = "
+                f"{(worst['b'], worst['h'], worst['i'], worst['c'])}; its "
+                f"row's differing P: {worst['keys']}")
+        del q, k, v
+        row["grid_differ"] = p_probe(*grid_qk(BATCH, t, 12, 64, g_grid, dev),
+                                     bias)["differ"]
+        out[f"T{t}"] = row
+        log(f"[B] P probe B={BATCH} H=12 T={t} dh=64 bf16 + key bias: "
+            f"{row['differ']} of {row['n_p']} P differ from the plain "
+            f"version's (scores {row['s']}, P's rounding {row['p']}, other "
+            f"{row['other']}; largest {row['largest']:.4g}); on exact "
+            f"scores {row['grid_differ']} | {smi}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def measure_kernel_b(smi: str) -> dict:
     """``--kernel-b``: the rows of kernel B that its bf16 variants past one
     key tile and its launch path move, in one process, so that two
-    checkouts run in turns in one chip call compare on one card: bf16 at
-    B = 256, H = 12, T = 197 and 325, dh = 64, at B = 32, T = 1297, and at
-    B = 32, T = 197, dh = 128 and 80 (zero-padded to 96), each held to the
-    bf16 plain version and timed beside SDPA and its bound; ToMe's biased
-    blocks in bf16 (phase 5d's rows); the T <= 25 rows (HOST_ROWS) with
+    checkouts run in turns in one chip call compare on one card: first the
+    P probe (probe_p: the kernel's P against the plain version's on ToMe's
+    bf16 draws, the differences by cause); bf16 at B = 256, H = 12, T = 197
+    and 325, dh = 64, at B = 32, T = 1297, and at B = 32, T = 197, dh = 128
+    and 80 (zero-padded to 96), each held to the bf16 plain version and
+    timed beside SDPA and its bound; the T <= 25 rows (HOST_ROWS) with
     host microseconds a call (host_us), CUDA-event and device times
     (_device_ms) beside SDPA's, and at the first two the host steps
     (_host_steps); the bf16 forward at B = 512 by torch.profiler (B's
-    share) and the bf16 engine's frames/s (_embed_rate). Prints one JSON
-    line {"kernel_b": ...}."""
+    share) and the bf16 engine's frames/s (_embed_rate); last ToMe's biased
+    blocks in bf16 (phase 5d's rows), held strictly to ATTN_BOUND: a row
+    beyond it fails the run once every row is logged. Prints one JSON line
+    {"kernel_b": ...}."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     for line in _ptxas_lines("attention.cu", "bf16"):
         log(f"[B] ptxas {line}")
-    out = {}
+    out = {"p_probe": probe_p(smi)}
     for b, h, t, dh in ((BATCH, 12, 197, 64), (BATCH, 12, 325, 64),
                         (32, 12, 1297, 64), (32, 6, 197, 128),
                         (32, 16, 197, 80)):
@@ -5972,9 +6178,6 @@ def measure_kernel_b(smi: str) -> dict:
                 f"{ms:.4f} ms | {smi}")
             del q, k, v
     out["sweep_B16"] = sweep
-    tome = phase_attention_bias(smi, dtypes=(torch.bfloat16,),
-                                strict=False)["bfloat16"]
-    out["tome_bias_bf16"] = tome
     for b, h, t, dh, dtype, what in HOST_ROWS:
         q, k, v = (torch.randn(b, t, h, dh, generator=g).to(
             dev, dtype).transpose(1, 2) for _ in range(3))
@@ -6027,6 +6230,9 @@ def measure_kernel_b(smi: str) -> dict:
     out["engine_bf16_B512_frames_per_s"] = rates
     log(f"[B] bf16 engine B=512: {rates[0]:.1f}, {rates[1]:.1f} frames/s | "
         f"{smi}")
+    # last, since a row beyond the bound ends the run once all are logged
+    out["tome_bias_bf16"] = phase_attention_bias(
+        smi, dtypes=(torch.bfloat16,), strict=True)["bfloat16"]
     print(json.dumps({"kernel_b": out}), flush=True)
     return out
 
@@ -6126,7 +6332,8 @@ def main() -> int:
              replaces="vit_research_tpu/ops/patch_embed.py:65",
              **launches("patch_embed"),
              library_call="none; nearest F.conv2d over the normalised "
-                          "f32 NCHW batch", **pe_summary,
+                          "NCHW batch in the output dtype (f32; bf16 under "
+                          "\"bf16\")", **pe_summary,
              grad_rel_err=grads["patch_embed"]),
         dict(name="attention", route="cuda",
              source="vit_research_tpu_torch/csrc/attention.cu",

@@ -9,10 +9,11 @@ Tolerances. f32: the kernels and the plain versions sum the same products
 in other orders, ~1e-6 on outputs of order 1. bf16 patch embed: one bf16
 rounding of outputs < 8 (2^-5). bf16 attention, against the bf16 plain
 version of the same inputs (the JAX package's bf16 attention: S, S *
-bf16(scale), + bf16(bias) and P each rounded to bf16): the two sum in
-other orders and take the exp otherwise, so an output falls apart by one
-bf16 ulp (below 1e-2 for outputs under 2; 2^-8 max|v| where averages of
-few values are not small). Fused LN + projection: f32 1e-5 relative to the
+bf16(scale), + bf16(bias) and P each rounded to bf16): the two sum q k^T
+and P V in other orders (P itself takes the same arithmetic, see
+tests/test_torch_softmax_p.py), so an output falls apart by one bf16 ulp
+(below 1e-2 for outputs under 2; 2^-8 max|v| where averages of few values
+are not small). Fused LN + projection: f32 1e-5 relative to the
 output's scale; with bf16 weights or output 2^-6 of it (a bf16 rounding of
 the LN output or the result can fall apart between two summation
 orders). The int8 store query: exact integer scores on both devices; the

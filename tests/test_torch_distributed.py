@@ -67,6 +67,27 @@ def test_pod_mesh_errors_match_jax():
         D.pod_mesh(ici={"data": 8}, devices=["cpu"] * 4)
 
 
+def test_pod_mesh_defaults_to_the_cards(monkeypatch):
+    """Without ``devices`` a pod mesh takes every visible card and raises
+    where there is none (as parallel/mesh.py::make_mesh), never a silent
+    CPU mesh; with CPU entries in ``devices`` it still has the JAX mesh's
+    shape (conftest's 8 virtual devices)."""
+    import torch
+
+    from vit_research_tpu.parallel import distributed as JD
+    from vit_research_tpu_torch.parallel import distributed as D
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"devices= \(e\.g\. \['cpu'\]"):
+        D.pod_mesh(ici={"data": 1})
+    with pytest.raises(RuntimeError, match="is_available"):
+        D.pod_mesh(ici={"data": 4, "model": 2})
+    assert D.pod_mesh(ici={"data": 1}, devices=["cpu"]).shape == {"data": 1}
+    got = D.pod_mesh(ici={"data": 4, "model": 2}, devices=["cpu"] * 8)
+    assert got.shape == dict(JD.pod_mesh(ici={"data": 4, "model": 2}).shape)
+    assert {d.type for d in got.devices.ravel()} == {"cpu"}
+
+
 def test_process_rows_and_shard_items_match_jax(monkeypatch):
     import jax
 

@@ -153,3 +153,21 @@ def test_segmentation_and_retrieval_metrics_equal_jax(tmp_path, jax_qfp):
         vq = pq + scale * rng.normal(size=pq.shape).astype(np.float32)
         assert qfp.retrieval_overlap(store, pq, vq) == \
             jax_qfp.retrieval_overlap(store, pq, vq)
+
+
+def test_segmentation_metrics_defaults_to_the_card(tmp_path, monkeypatch,
+                                                   jax_qfp):
+    """Without ``device`` the kNN + HMM asks for the card and raises where
+    there is none (no silent CPU run); with ``device="cpu"`` it still
+    equals the JAX helper."""
+    wp = qfp.build_world(str(tmp_path / "port"), **TINY_WORLD)
+    wj = jax_qfp.build_world(str(tmp_path / "jax"), **TINY_WORLD)
+    rng = np.random.default_rng(3)
+    embs = {v: rng.normal(size=(len(wp["frames"][v]), 16)).astype(np.float32)
+            for v in (1, 2)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        qfp.segmentation_metrics(wp, embs, 1, 2, min_len=4)
+    assert qfp.segmentation_metrics(wp, embs, 1, 2, min_len=4,
+                                    device="cpu") == \
+        jax_qfp.segmentation_metrics(wj, embs, 1, 2, min_len=4)

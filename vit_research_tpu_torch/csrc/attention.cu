@@ -57,31 +57,35 @@
 //   accumulate; K fragments by ldmatrix), rounds S to bf16 as above (two
 //   scores an instruction: cvt.rn.bf16x2.f32, then mul.rn.bf16x2 by the
 //   scale and add.rn.bf16x2 of the bias, each rounding as the reference's
-//   bf16 product and sum do), runs the online softmax in f32 in log2
-//   units, rounds P to bf16 in registers and reuses the S accumulator
-//   layout as the A fragment of P V (V fragments by ldmatrix.trans).
-//   Rounding S and P to bf16 is what the JAX package does off the TPU
-//   (xla_attention's bf16 einsums, and the probabilities cast to the input
-//   dtype); its Pallas kernel keeps both in f32. P is the normalised
-//   exp(s - max) / sum, rounded as the reference rounds it, so O needs no
-//   division. Where one key tile holds the row (T <= 64: the heads, the
-//   chunk encoder) that takes one pass. Over several tiles a streaming
-//   pass knows the sum only at its end. The held variant (attn_bf16_held,
-//   T > 64 up to HeldLayout::MAX_TILES key tiles: T <= 704 at dh = 64)
-//   streams K once, runs the online max and sum, and holds the rounded
-//   scores in shared memory as the bf16 values they are, each thread its
-//   own accumulator fragments (2 bytes a score: 8 KB a 64-key tile of a
-//   block; the Q tile passes through the K/V ring, so at T = 197 a block
-//   takes 51,200 bytes and four share an SM); then V streams once through
-//   the same ring, and each held score's exp against the final max gives
-//   P and P V: one q k^T, K and V read once, two exps a score. Holding f32
-//   exps instead (one exp a score, 4 bytes) measured slower: fewer blocks
-//   an SM. Past the limit the two-pass kernel (attn_bf16<DH, BIAS, true>)
-//   streams the K tiles for each row's max and sum (S and its roundings,
-//   no P V) and then K and V again for the same scores, P and P V; both
-//   take the same arithmetic in the same order, so they give the same
-//   bits. O is staged through shared memory (the warp's own Q rows; the
-//   held variant's ring) and written with 16-byte stores. A warp whose 16 rows all lie past T
+//   bf16 product and sum do), takes the softmax in f32 with the reference
+//   softmax's arithmetic (expf of s - max, the row's sum against its final
+//   max in that softmax's order, a correctly rounded quotient: see
+//   quotient and RowSums), rounds P to bf16 in registers and reuses the S
+//   accumulator layout as the A fragment of P V (V fragments by
+//   ldmatrix.trans). Rounding S and P to bf16 is what the JAX package does
+//   off the TPU (xla_attention's bf16 einsums, and the probabilities cast
+//   to the input dtype); its Pallas kernel keeps both in f32. P is the
+//   normalised exp(s - max) / sum, rounded as the reference rounds it, so O
+//   needs no division. Where one key tile holds the row (T <= 64: the
+//   heads, the chunk encoder) that takes one pass. Over several tiles a
+//   streaming pass knows the max and the sum only at its end. The held
+//   variant (attn_bf16_held, T > 64 up to HeldLayout::MAX_TILES key tiles:
+//   T <= 704 at dh = 64) streams K once for the rows' max and holds the
+//   rounded scores in shared memory as the bf16 values they are, each
+//   thread its own accumulator fragments (2 bytes a score: 8 KB a 64-key
+//   tile of a block; the Q tile passes through the K/V ring, so at T = 197
+//   a block takes 51,200 bytes and four share an SM); each thread then
+//   sums the exps of its held scores against the final max, and V streams
+//   once through the same ring, each held score's exp giving P and P V:
+//   one q k^T, K and V read once, two exps a score. Holding f32 exps
+//   instead (one exp a score, 4 bytes) measured slower: fewer blocks an
+//   SM. Past the limit the two-pass kernel (attn_bf16<DH, BIAS, true>)
+//   takes the statistics in a first pass that streams K for each row's max
+//   and again for its sum (S and its roundings, no P V), and then streams K
+//   and V for the same scores, P and P V; both variants take the same
+//   arithmetic in the same order, so they give the same bits. O is staged
+//   through shared memory (the warp's own Q rows; the held variant's ring)
+//   and written with 16-byte stores. A warp whose 16 rows all lie past T
 //   skips the math but takes part in the copies and barriers. Rows are
 //   padded by 16 bytes in shared memory so that ldmatrix reads are free of
 //   bank conflicts.
@@ -111,6 +115,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -139,16 +144,72 @@ struct Params {
 
 // 2^x in one SFU instruction (ex2.approx: relative error ~2^-22; 2^-inf =
 // 0; results below 2^-126 flush to 0, which a softmax sum >= 1 cannot
-// feel).
+// feel). The f32 kernel's exp, in log2 units.
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
-// e^x as 2^(x log2 e).
-__device__ __forceinline__ float exp_of(float x) {
-  return exp2_approx(x * LOG2E);
+// The bf16 kernels form P = bf16(exp(s - max) / sum) with the arithmetic of
+// the reference's softmax (torch.softmax on the f32 scores, as
+// attention_plain calls it; on the card softmax_warp_forward in ATen's
+// PersistentSoftmax.cuh), so that where the scores agree P agrees to the
+// bit:
+// - the exp: expf (libdevice's, as std::exp there; this file builds
+//   without --use_fast_math, which would make it __expf) of the exact f32
+//   difference s - max;
+// - the sum: the row's exps against its final max, in that kernel's order
+//   (RowSums);
+// - the quotient: correctly rounded, as its division (quotient).
+//
+// e / l correctly rounded, from r = 1 / l correctly rounded (__frcp_rn, one
+// a row): q = e r, then one FMA correction (Markstein). Exact while nothing
+// underflows; with l in [1, T] that holds for e >= 2^-64
+// (tests/test_torch_softmax_p.py holds it to IEEE division over 3 million
+// pairs). p_frag takes IEEE division below.
+__device__ __forceinline__ float quotient(float e, float l, float r) {
+  const float q = __fmul_rn(e, r);
+  return __fmaf_rn(__fmaf_rn(-q, l, e), r, q);
+}
+
+// The sum of a row's exps in the order of the reference's softmax
+// (softmax_warp_forward): key j goes to lane j % 32 of one warp, each lane
+// adds its keys from 0.0f in key order, and a butterfly adds the lanes over
+// lane bits 4, 3, 2, 1, 0. In the mma accumulator layout a thread holds the
+// keys 64 t + 8 n + 2 c + e of rows g and g + 8 (c = lane % 4, key group n
+// = a + 4 h): lane residue 8 a + 2 c + e, taken in the order of t, then h.
+// So each thread keeps one sum a row for each (a, e) (row_add), and the
+// butterfly (row_total) adds a's bits 1 and 0 (lane bits 4, 3) in the
+// thread, c's (bits 2, 1) across the row's four threads, and e (bit 0) in
+// the thread. Each add rounds once (__fadd_rn: never contracted with the
+// exp's last product into an FMA). Keys past T add exp(-inf) = 0 in both.
+struct RowSums {
+  float v[2][4][2];  // [row g, g + 8][a][e]
+};
+__device__ __forceinline__ void row_zero(RowSums& r) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) r.v[i][a][0] = r.v[i][a][1] = 0.f;
+}
+// key group n's exps: e0, e1 of row g (keys 2c, 2c + 1), e2, e3 of g + 8
+__device__ __forceinline__ void row_add(RowSums& r, int n, float e0, float e1,
+                                        float e2, float e3) {
+  r.v[0][n & 3][0] = __fadd_rn(r.v[0][n & 3][0], e0);
+  r.v[0][n & 3][1] = __fadd_rn(r.v[0][n & 3][1], e1);
+  r.v[1][n & 3][0] = __fadd_rn(r.v[1][n & 3][0], e2);
+  r.v[1][n & 3][1] = __fadd_rn(r.v[1][n & 3][1], e3);
+}
+__device__ __forceinline__ float row_total(const float (&v)[4][2]) {
+  float x[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    x[e] = __fadd_rn(__fadd_rn(v[0][e], v[2][e]), __fadd_rn(v[1][e], v[3][e]));
+    x[e] = __fadd_rn(x[e], __shfl_xor_sync(0xffffffffu, x[e], 2));
+    x[e] = __fadd_rn(x[e], __shfl_xor_sync(0xffffffffu, x[e], 1));
+  }
+  return __fadd_rn(x[0], x[1]);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -256,6 +317,45 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+// The A fragment of P for one 16-key step from its eight exps (key groups
+// 2kk and 2kk + 1: e[0..1], e[4..5] of row g, over l0 with r0 = 1 / l0;
+// e[2..3], e[6..7] of row g + 8, over l1, r1): P = bf16(e / l), each
+// quotient correctly rounded. The FMA route takes all eight. SAFE: an exp
+// below its reach (0 < e < 2^-64: a score 44 below the row's max) is
+// divided again by IEEE division, behind one branch for the eight. The
+// held and two-pass kernels know before their P V stream whether a block
+// holds such an exp (tiny_exp, __syncthreads_or) and take SAFE only then:
+// a branch in the hot loop, even one for eight values, measured slower on
+// the H100 (PERF.md, Findings PR 16).
+template <bool SAFE>
+__device__ __forceinline__ void p_frag(uint32_t (&a)[4], const float (&e)[8],
+                                       float l0, float r0, float l1,
+                                       float r1) {
+  float p[8], lo = e[0];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    p[i] = quotient(e[i], i & 2 ? l1 : l0, i & 2 ? r1 : r0);
+    lo = fminf(lo, e[i]);
+  }
+  if (SAFE && lo < 0x1p-64f) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (e[i] < 0x1p-64f) p[i] = __fdiv_rn(e[i], i & 2 ? l1 : l0);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = pack_bf16(p[2 * j], p[2 * j + 1]);
+}
+
+// min(tiny, bits(e) - 1): below bits(2^-64) - 1 once some exp lies in (0,
+// 2^-64), where the FMA quotient may round otherwise than IEEE division (an
+// exp of 0, a key past T or a score 104 below the max, maps to the top).
+__device__ __forceinline__ uint32_t tiny_exp(uint32_t tiny, float e) {
+  return min(tiny, __float_as_uint(e) - 1u);
+}
+__device__ __forceinline__ bool has_tiny_exp(uint32_t tiny) {
+  return tiny < __float_as_uint(0x1p-64f) - 1u;
+}
+
 // Two bf16 products and sums, each rounded once (.rn: never contracted
 // into an FMA, which would round a * b + c once).
 __device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
@@ -430,7 +530,72 @@ __device__ __forceinline__ void pv_step(float (&o)[DH / 8][4],
   }
 }
 
-// TWO_PASS: T > 64, several key tiles (below).
+// The row max of one key tile's scores for rows g (mx0) and g + 8 (mx1),
+// across the row's four threads; finite: every tile holds a key < T.
+__device__ __forceinline__ void tile_max(const float (&s)[8][4], float& mx0,
+                                         float& mx1) {
+  mx0 = mx1 = -CUDART_INF_F;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+}
+
+// s = exp(s - max) in place, rows g (m0) and g + 8 (m1). s - max of two
+// bf16 values rounds as the reference's f32 difference does; keys >= T
+// (-inf) give 0.
+__device__ __forceinline__ void tile_exps(float (&s)[8][4], float m0,
+                                          float m1) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    s[n][0] = expf(s[n][0] - m0);
+    s[n][1] = expf(s[n][1] - m0);
+    s[n][2] = expf(s[n][2] - m1);
+    s[n][3] = expf(s[n][3] - m1);
+  }
+}
+
+// A tile's exps into the rows' sums, in the reference's order.
+__device__ __forceinline__ void tile_sums(RowSums& r, const float (&e)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) row_add(r, n, e[n][0], e[n][1], e[n][2], e[n][3]);
+}
+
+// O += P V for the live 16-key groups of one key tile from its exps e: P =
+// bf16(e / l) (rows g: l0 and r0 = 1 / l0; g + 8: l1, r1), the exps of key
+// groups 2kk and 2kk + 1 forming the A fragment of one 16-key step.
+template <int DH, bool SAFE>
+__device__ __forceinline__ void pv_tile(float (&o)[DH / 8][4],
+                                        const float (&e)[8][4], float l0,
+                                        float r0, float l1, float r1,
+                                        const __nv_bfloat16* vt, int j0,
+                                        int seq, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (j0 + kk * 16 < seq) {
+      const float ek[8] = {e[2 * kk][0],     e[2 * kk][1],
+                           e[2 * kk][2],     e[2 * kk][3],
+                           e[2 * kk + 1][0], e[2 * kk + 1][1],
+                           e[2 * kk + 1][2], e[2 * kk + 1][3]};
+      uint32_t a[4];
+      p_frag<SAFE>(a, ek, l0, r0, l1, r1);
+      pv_step<DH>(o, a, vt, kk, lane);
+    }
+  }
+}
+
+// One key tile (T <= 64): S, the rows' max, exps and sums, P and O += P V in
+// one pass. TWO_PASS (T > 64, past the held variant's reach): P needs the
+// row's sum against its final max before its first P V, so a first pass
+// takes the statistics, streaming K for each row's max and K again for the
+// sums against it, and a second streams K and V for the same scores, P and
+// P V. Every stream forms S anew; the held variant holds it instead.
 template <int DH, bool BIAS, bool TWO_PASS>
 __global__ void __launch_bounds__(THREADS)
 attn_bf16(const Params<__nv_bfloat16> p) {
@@ -451,13 +616,10 @@ attn_bf16(const Params<__nv_bfloat16> p) {
   const float* bg;
   head_ptrs<BQ>(p, q0, qg, kg, vg, og, bg);
   const int seq = p.seq;
-  // One key tile holds the row (T <= 64): P = exp(s - max) / sum in one
-  // pass. Over several, a first pass streams K for each row's max and
-  // sum, and a second streams K and V again, forms the same normalised P
-  // and adds P V: the reference rounds the normalised P to bf16, which a
-  // single streaming pass (P relative to a running max) cannot.
-  constexpr bool two_pass = TWO_PASS;
-  const int n_tiles = two_pass ? (seq + BK - 1) / BK : 1;
+  const int n_tiles = TWO_PASS ? (seq + BK - 1) / BK : 1;
+  const bool active = q0 + warp * 16 < seq;
+  const uint32_t scale2 = pack_bf16(p.scale, p.scale);  // bf16(scale) x 2
+  uint32_t qf[KSTEPS][4];
 
   // Stages the K tile (and with with_v the V tile) of keys from row0 into
   // buffer buf, with its key-bias tile.
@@ -467,38 +629,12 @@ attn_bf16(const Params<__nv_bfloat16> p) {
     cp_async_commit();
     if constexpr (BIAS) load_bias(Bs + buf * BK, bg, row0, seq, tid);
   };
-
-  load_rows<bf16, DH>(Qs, LD, qg, p.sq.t, q0, seq, tid);
-  load_tile(0, 0, !two_pass);
-
-  const bool active = q0 + warp * 16 < seq;
-  uint32_t qf[KSTEPS][4];
-  float o[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  // Row g = lane / 4 and row g + 8 of the warp's 16: max (the same in the
-  // 4 threads of a row), sums over this thread's columns until the first
-  // pass ends, then over the row. Scores stay in natural units: s - max of
-  // two bf16 values is exact in f32, and only that difference goes to
-  // log2 units (exp_of), so the largest probabilities are the closest.
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
-  float i0 = 0.f, i1 = 0.f;  // 1 / the row's sum, once it is complete
-  const uint32_t scale2 = pack_bf16(p.scale, p.scale);  // bf16(scale) x 2
-
-  // pass 0: the rows' max and sum (several tiles only); pass 1: O += P V
-  for (int pass = two_pass ? 0 : 1; pass < 2; ++pass) {
-    const bool with_v = pass == 1;
-    if (with_v && two_pass) {
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-      }
-      i0 = 1.f / l0;
-      i1 = 1.f / l1;
-      load_tile(0, 0, true);
-    }
+  // Streams the key tiles (with their V tiles: with_v) through the two
+  // buffers and calls body(s, j0, buf) for the warp's rows on each, s the
+  // tile's scores as the reference rounds them (keys >= T: -inf). The Q
+  // tile arrives with the first stream's first tile (first).
+  auto stream = [&](bool with_v, bool first, auto&& body) {
+    load_tile(0, 0, with_v);
     for (int tile = 0; tile < n_tiles; ++tile) {
       const int buf = tile & 1;
       if (tile + 1 < n_tiles) {
@@ -508,115 +644,103 @@ attn_bf16(const Params<__nv_bfloat16> p) {
         cp_async_wait<0>();
       }
       __syncthreads();
-
       if (active) {
-        if (tile == 0 && (pass == 0 || !two_pass)) {
+        if (first && tile == 0) {
 #pragma unroll
           for (int kk = 0; kk < KSTEPS; ++kk)
             ldmatrix_x4(qf[kk], &Qs[(warp * 16 + (lane & 15)) * LD +
                                     kk * 16 + (lane >> 4) * 8]);
         }
-        const int j0 = tile * BK;
-        const bf16* kt = Ks(buf);
-        const bf16* vt = Vs(buf);
-
-        // S, rounded as the reference rounds it; keys >= T: -inf
         float s[8][4];
-        bf16_scores<DH, BIAS>(s, qf, kt, Bs + buf * BK, j0, seq, scale2,
-                              lane);
-
-        if (!with_v || !two_pass) {
-          // This tile's row max; every tile holds a key < T, so it is
-          // finite, and the first tile's correction 2^-inf is 0.
-          float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-            mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-          }
-#pragma unroll
-          for (int off = 1; off < 4; off <<= 1) {
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-          }
-          const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-          l0 *= exp_of(m0 - mn0);
-          l1 *= exp_of(m1 - mn1);
-          m0 = mn0;
-          m1 = mn1;
-#pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            s[n][0] = exp_of(s[n][0] - mn0);
-            s[n][1] = exp_of(s[n][1] - mn0);
-            s[n][2] = exp_of(s[n][2] - mn1);
-            s[n][3] = exp_of(s[n][3] - mn1);
-            l0 += s[n][0] + s[n][1];
-            l1 += s[n][2] + s[n][3];
-          }
-          if (with_v) {  // one tile: the row's sum is complete
-#pragma unroll
-            for (int off = 1; off < 4; off <<= 1) {
-              l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-              l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-            }
-            i0 = 1.f / l0;
-            i1 = 1.f / l1;
-          }
-        } else {
-#pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            s[n][0] = exp_of(s[n][0] - m0);
-            s[n][1] = exp_of(s[n][1] - m0);
-            s[n][2] = exp_of(s[n][2] - m1);
-            s[n][3] = exp_of(s[n][3] - m1);
-          }
-        }
-        if (with_v) {
-          // P = exp / sum, as the reference's softmax (times the IEEE
-          // reciprocal: within an f32 ulp of the quotient, one reciprocal a
-          // row in place of a division a score), rounded to bf16 below.
-#pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            s[n][0] *= i0;
-            s[n][1] *= i0;
-            s[n][2] *= i1;
-            s[n][3] *= i1;
-          }
-        }
-
-        // O += P V: P in bf16, the S accumulators of two key groups form
-        // the A fragment of one 16-key step.
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          if (with_v && j0 + kk * 16 < seq) {
-            const uint32_t a[4] = {
-                pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-            pv_step<DH>(o, a, vt, kk, lane);
-          }
-        }
+        bf16_scores<DH, BIAS>(s, qf, Ks(buf), Bs + buf * BK, tile * BK, seq,
+                              scale2, lane);
+        body(s, tile * BK, buf);
       }
       __syncthreads();  // this buffer is refilled next iteration
     }
+  };
+
+  load_rows<bf16, DH>(Qs, LD, qg, p.sq.t, q0, seq, tid);  // with tile 0
+  // rows g = lane / 4 and g + 8 of the warp's 16: max (the same in the 4
+  // threads of a row), sum and 1 / sum
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+  float l0 = 0.f, l1 = 0.f, r0 = 0.f, r1 = 0.f;
+  bool safe = false;  // a tiny exp in the block (two passes: known ahead)
+  if constexpr (TWO_PASS) {
+    stream(false, true, [&](float (&s)[8][4], int, int) {
+      float mx0, mx1;
+      tile_max(s, mx0, mx1);
+      m0 = fmaxf(m0, mx0);
+      m1 = fmaxf(m1, mx1);
+    });
+    RowSums sums;
+    row_zero(sums);
+    uint32_t tiny = ~0u;
+    stream(false, false, [&](float (&s)[8][4], int, int) {
+      tile_exps(s, m0, m1);
+      tile_sums(sums, s);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tiny = tiny_exp(tiny, s[n][e]);
+    });
+    l0 = row_total(sums.v[0]);  // 0 in a warp past T (never used)
+    l1 = row_total(sums.v[1]);
+    r0 = __frcp_rn(l0);
+    r1 = __frcp_rn(l1);
+    safe = __syncthreads_or(has_tiny_exp(tiny));
   }
+
+  float o[DH / 8][4] = {};
+  // The P V stream, with the IEEE fallback (SAFE) or without.
+  auto pv_stream = [&](auto safe_t) {
+    stream(true, !TWO_PASS, [&](float (&s)[8][4], int j0, int buf) {
+      if constexpr (!TWO_PASS) {
+        tile_max(s, m0, m1);
+        tile_exps(s, m0, m1);
+        RowSums sums;
+        row_zero(sums);
+        tile_sums(sums, s);
+        l0 = row_total(sums.v[0]);
+        l1 = row_total(sums.v[1]);
+        r0 = __frcp_rn(l0);
+        r1 = __frcp_rn(l1);
+      } else {
+        tile_exps(s, m0, m1);
+      }
+      pv_tile<DH, decltype(safe_t)::value>(o, s, l0, r0, l1, r1, Vs(buf), j0,
+                                           seq, lane);
+    });
+  };
+  // one pass meets its exps with P: SAFE, a branch for each eight
+  if (!TWO_PASS || safe)  // the same in every thread of the block
+    pv_stream(std::true_type{});
+  else
+    pv_stream(std::false_type{});
 
   if (!active) return;
   store_o_bf16<DH>(o, &Qs[warp * 16 * LD], og, p.so.t, q0 + warp * 16, seq,
                    lane);
 }
 
+__device__ __forceinline__ float lo_bf16(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float hi_bf16(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+
 // The held variant: T > 64 up to HeldLayout::MAX_TILES key tiles. One
-// stream of K forms S and rounds it (bf16_scores), runs the online max and
-// sum of the two-pass kernel's first pass, and holds the rounded scores in
-// shared memory as the bf16 values they are (2 bytes a score, exact), each
-// thread its own accumulator fragments, so holding them adds no transpose
-// and no barrier. Then one stream of V through the same ring reads them
-// back, takes exp(s - max) again against the final max and forms P =
-// bf16(exp * (1 / sum)) and O += P V. q k^T is formed once and K and V are
-// read once; the arithmetic is the two-pass kernel's, in its order, so the
-// two give the same bits.
+// stream of K forms S and rounds it (bf16_scores), takes the rows' max and
+// holds the rounded scores in shared memory as the bf16 values they are (2
+// bytes a score, exact), each thread its own accumulator fragments, so
+// holding them adds no transpose and no barrier. Then each thread reads its
+// held scores back for their exps against the final max and the rows' sums
+// (while the first two V tiles load), and one stream of V through the same
+// ring reads them again for the exps, P = bf16(exp / sum) and O += P V.
+// q k^T is formed once and K and V are read once, for two exps a score; the
+// arithmetic is the two-pass kernel's, in its order, so the two give the
+// same bits.
 template <int DH, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
 attn_bf16_held(const Params<__nv_bfloat16> p) {
@@ -653,12 +777,11 @@ attn_bf16_held(const Params<__nv_bfloat16> p) {
 
   const bool active = q0 + warp * 16 < seq;
   const uint32_t scale2 = pack_bf16(p.scale, p.scale);  // bf16(scale) x 2
-  // rows g = lane / 4 and g + 8 of the warp's 16: the running max (the same
-  // in the 4 threads of a row) and this thread's share of the sum, as in
-  // attn_bf16's first pass
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  // rows g = lane / 4 and g + 8 of the warp's 16: the max (the same in the
+  // 4 threads of a row)
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
 
-  // 1. the K stream: S, the online max and sum, the held scores
+  // 1. the K stream: S, the rows' max, the held scores
   {
     uint32_t qf[DH / 16][4];
     cp_async_wait<0>();
@@ -692,76 +815,86 @@ attn_bf16_held(const Params<__nv_bfloat16> p) {
               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]));
-        // this tile's row max (finite: every tile holds a key < T), the
-        // sum rescaled to it (the first tile's correction 2^-inf is 0)
-        float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-          mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-        }
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-        }
-        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        l0 *= exp_of(m0 - mn0);
-        l1 *= exp_of(m1 - mn1);
-        m0 = mn0;
-        m1 = mn1;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          l0 += exp_of(s[n][0] - mn0) + exp_of(s[n][1] - mn0);
-          l1 += exp_of(s[n][2] - mn1) + exp_of(s[n][3] - mn1);
-        }
+        float mx0, mx1;
+        tile_max(s, mx0, mx1);
+        m0 = fmaxf(m0, mx0);
+        m1 = fmaxf(m1, mx1);
       }
       __syncthreads();  // this buffer is refilled next iteration
     }
   }
 
-  // The ring is free: the first two V tiles load while the sums finish.
+  // The ring is free: the first two V tiles load while the sums are formed.
   load_ring(0, vg, p.sv.t, 0);
   if (n_tiles > 1) load_ring(1, vg, p.sv.t, BK);
+  // 2. the rows' sums against the final max, from the thread's own held
+  // scores, in the reference's order (RowSums); groups of 16 keys past T
+  // would add 0
+  // the eight exps of one held uint4, in p_frag's order
+  auto held_exps = [&](float (&e)[8], const uint4& h) {
+    const uint32_t x[4] = {h.x, h.y, h.z, h.w};
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  // P = exp(s - max) / sum as the reference's softmax, times the IEEE
-  // reciprocal (one a row), rounded to bf16 in the A fragments
-  const float i0 = 1.f / l0, i1 = 1.f / l1;
-
-  // 2. the V stream: O += P V
-  float o[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < n_tiles)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();
+    for (int j = 0; j < 4; ++j) {
+      const float m = j & 1 ? m1 : m0;
+      e[2 * j] = expf(lo_bf16(x[j]) - m);
+      e[2 * j + 1] = expf(hi_bf16(x[j]) - m);
+    }
+  };
+  float l0, l1;
+  bool safe;
+  {
+    RowSums sums;
+    row_zero(sums);
+    uint32_t tiny = ~0u;
     if (active) {
+      for (int tile = 0; tile < n_tiles; ++tile) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (tile * BK + kk * 16 >= seq) continue;
-        const uint4 h = Hs[(tile * 4 + kk) * THREADS + tid];
-        auto p_of = [&](uint32_t x, float m, float inv) {
-          return pack_bf16(exp_of(__uint_as_float(x << 16) - m) * inv,
-                           exp_of(__uint_as_float(x & 0xffff0000u) - m) *
-                               inv);
-        };
-        const uint32_t a[4] = {p_of(h.x, m0, i0), p_of(h.y, m1, i1),
-                               p_of(h.z, m0, i0), p_of(h.w, m1, i1)};
-        pv_step<DH>(o, a, Rs(buf), kk, lane);
+        for (int kk = 0; kk < 4; ++kk) {
+          if (tile * BK + kk * 16 >= seq) continue;
+          float e[8];
+          held_exps(e, Hs[(tile * 4 + kk) * THREADS + tid]);
+          row_add(sums, 2 * kk, e[0], e[1], e[2], e[3]);
+          row_add(sums, 2 * kk + 1, e[4], e[5], e[6], e[7]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) tiny = tiny_exp(tiny, e[i]);
+        }
       }
     }
-    __syncthreads();  // this buffer is refilled below
-    if (tile + 2 < n_tiles) load_ring(buf, vg, p.sv.t, (tile + 2) * BK);
+    l0 = row_total(sums.v[0]);  // 0 in a warp past T (never used)
+    l1 = row_total(sums.v[1]);
+    safe = __syncthreads_or(has_tiny_exp(tiny));
   }
+  const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+
+  // 3. the V stream: O += P V, with the IEEE fallback (SAFE) or without
+  float o[DH / 8][4] = {};
+  auto v_stream = [&](auto safe_t) {
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int buf = tile & 1;
+      if (tile + 1 < n_tiles)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+      if (active) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (tile * BK + kk * 16 >= seq) continue;
+          float e[8];
+          held_exps(e, Hs[(tile * 4 + kk) * THREADS + tid]);
+          uint32_t a[4];
+          p_frag<decltype(safe_t)::value>(a, e, l0, r0, l1, r1);
+          pv_step<DH>(o, a, Rs(buf), kk, lane);
+        }
+      }
+      __syncthreads();  // this buffer is refilled below
+      if (tile + 2 < n_tiles) load_ring(buf, vg, p.sv.t, (tile + 2) * BK);
+    }
+  };
+  if (safe)  // the same in every thread of the block
+    v_stream(std::true_type{});
+  else
+    v_stream(std::false_type{});
 
   // the ring is free (the last tile's barrier): O staged in the warp's 16
   // rows of buffer 0

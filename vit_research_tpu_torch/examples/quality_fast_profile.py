@@ -256,9 +256,11 @@ def _matched_pairs(pred, true, iou=0.5):
 
 
 def segmentation_metrics(world, embs_by_vid, train_vid, eval_vid, *, k=15,
-                         min_len=16, device="cpu"):
+                         min_len=16, device="cuda"):
     """Homogeneous fast deployment: corpus (labels from manual truth of
-    ``train_vid``) and queries both from the variant's embeddings."""
+    ``train_vid``) and queries both from the variant's embeddings. The
+    kNN + HMM runs on ``device`` (the card by default: raises without
+    one, like every entry point)."""
     from vit_research_tpu_torch.segment.clips import decoded_runs
     from vit_research_tpu_torch.segment.hmm import STATES
     from vit_research_tpu_torch.segment.pipeline import segment_with_knn_hmm
@@ -276,7 +278,7 @@ def segmentation_metrics(world, embs_by_vid, train_vid, eval_vid, *, k=15,
               "labels": t_train[labeled], "probs": probs}
     decoded, _, _ = segment_with_knn_hmm(
         names[eval_vid], embs_by_vid[eval_vid], corpus, k=k,
-        metric="cosine", device=device)
+        metric="cosine", device=resolve_device(device))
     pred = [r for r in decoded_runs(decoded)
             if r.side in ("left", "right") and r.end - r.start + 1 >= min_len]
     t_eval = truth_states(world["manual"], names[eval_vid])

@@ -115,7 +115,9 @@ def local_devices() -> list:
 def pod_mesh(ici: dict[str, int], dcn: dict[str, int] | None = None,
              *, devices=None) -> Mesh:
     """Hybrid mesh: ``ici`` gives each axis's size over this process's
-    ``devices`` (default :func:`local_devices`; entries may repeat);
+    ``devices`` (default: every visible card, as :func:`local_devices`;
+    entries may repeat; without a card and without ``devices`` it raises
+    RuntimeError, as ``parallel/mesh.py::make_mesh`` does);
     ``dcn`` the axes that also span processes. Axis order is ``ici``'s
     with the process-spanning axes moved outermost, and along such an
     axis the process index varies slowest (rank-major), so collectives
@@ -145,6 +147,11 @@ def pod_mesh(ici: dict[str, int], dcn: dict[str, int] | None = None,
             f"dcn axes need {need_procs} slices/hosts but the runtime sees "
             f"1 slice(s) across {n_procs} process(es) — did initialize() "
             "run on every host?")
+    if devices is None and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pod_mesh() without devices needs CUDA devices, and "
+            "torch.cuda.is_available() is False; pass devices= (e.g. "
+            "['cpu'] * n) for a CPU mesh")
     devs = list(devices) if devices is not None else local_devices()
     n_local = int(np.prod(ici_shape))
     if len(devs) < n_local:
