@@ -13,15 +13,21 @@ bf16(scale), + bf16(bias) and P each rounded to bf16): the two sum q k^T
 and P V in other orders (P itself takes the same arithmetic, see
 tests/test_torch_softmax_p.py), so an output falls apart by one bf16 ulp
 (below 1e-2 for outputs under 2; 2^-8 max|v| where averages of few values
-are not small). Fused LN + projection: f32 1e-5 relative to the
-output's scale; with bf16 weights or output 2^-6 of it (a bf16 rounding of
-the LN output or the result can fall apart between two summation
-orders). The int8 store query: exact integer scores on both devices; the
-L2 normalisation before quantizing may differ by an ulp, which moves a
-score by at most ~1e-4 (tie-aware ids, distances to 1e-3).
+are not small), held tie-aware by chip_smoke.py's bf16_tie_check: a row
+beyond the bound passes only where rounding near ties (an exact q k^T or
+P V within an f32 sum's rounding error of a bf16 midpoint) the other way
+brings the whole row within it (F10). Fused LN + projection: f32 1e-5
+relative to the output's scale; with bf16 weights or output 2^-6 of it
+(a bf16 rounding of the LN output or the result can fall apart between
+two summation orders). The int8 store query: exact integer scores on
+both devices; the L2 normalisation before quantizing may differ by an
+ulp, which moves a score by at most ~1e-4 (tie-aware ids, distances to
+1e-3).
 """
 
 import dataclasses
+import functools
+import importlib.util
 import os
 
 import numpy as np
@@ -45,6 +51,7 @@ pytestmark = pytest.mark.cuda
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HF_AFFINE = dict(rescale=1 / 255, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5))
 TINY = ViTConfig(image_size=(32, 32), patch_size=8, hidden_size=32,
                  num_layers=2, num_heads=2, mlp_dim=64)
@@ -107,6 +114,35 @@ def _plain(q, k, v, dtype, **kw):
     return attn.attention_plain(*(x.to(dtype) for x in (q, k, v)), **kw)
 
 
+@functools.cache
+def _smoke():
+    """chip_smoke.py as a module (it imports no JAX): the tie-aware bf16
+    check."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16_ties(got, q, k, v, atol, **kw):
+    """The bf16 kernel output ``got`` against the bf16 plain version of
+    (q, k, v, key_bias, scale) within ``atol``, tie-aware
+    (chip_smoke.bf16_tie_check); the check's result."""
+    return _smoke().bf16_tie_check(got, q, k, v, kw.get("key_bias"),
+                                   bound=atol, scale=kw.get("scale"))
+
+
+def _assert_close(got, q, k, v, dtype, atol, **kw):
+    """f32: within ``atol`` of the plain version; bf16: tie-aware."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, _plain(q, k, v, dtype, **kw),
+                                   rtol=0, atol=atol)
+    else:
+        res = _bf16_ties(got, q, k, v, atol, **kw)
+        assert res["ok"], (res["err"], res["rejected"])
+
+
 def _f32_scores(q, k, v, key_bias=None):
     """bf16 attention with f32 scores (the bf16 kernel's semantics before
     it rounded S): S of the bf16 values in f32, P and the output rounded to
@@ -129,12 +165,11 @@ def test_attention_kernel_matches_plain(cuda, t, dh, layout, dtype):
     before = attn.multi_head_attention.launches
     got = attn.multi_head_attention(q, k, v)
     assert attn.multi_head_attention.launches == before + 1
-    want = _plain(q, k, v, dtype)
     assert got.dtype == dtype and got.shape == (2, 12, t, dh)
     # written in projection order: (B, T, H, dh) contiguous underneath
     assert got.transpose(1, 2).is_contiguous()
     atol = 1e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    _assert_close(got, q, k, v, dtype, atol)
 
 
 @pytest.mark.parametrize("scale", [-0.3, 0.0, 2.0])
@@ -144,9 +179,8 @@ def test_attention_kernel_takes_any_scale(cuda, scale, dtype):
                                 cuda, 5)
     got = attn.multi_head_attention(q, k, v, scale=scale)
     # bf16: the scale rounded to bf16 on both sides (-0.3 -> -0.30078125)
-    want = _plain(q, k, v, dtype, scale=scale)
     atol = 1e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    _assert_close(got, q, k, v, dtype, atol, scale=scale)
 
 
 def test_attention_kernel_takes_a_transposed_view(cuda):
@@ -593,7 +627,7 @@ def test_attention_kernel_with_key_bias_matches_plain(cuda, t, dh, dtype):
     assert attn.multi_head_attention.launches == before + 1
     want = _plain(q, k, v, dtype, key_bias=bias).float()
     atol = 1e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    _assert_close(got, q, k, v, dtype, atol, key_bias=bias)
     # the bias moves the result: the unbiased kernel is further off
     plain = attn.multi_head_attention(q, k, v)
     assert (plain.float() - want).abs().max() > 10 * atol
@@ -601,7 +635,7 @@ def test_attention_kernel_with_key_bias_matches_plain(cuda, t, dh, dtype):
     wide = torch.zeros(3, t + 5, device=cuda)
     wide[:, :t] = bias
     got = attn.multi_head_attention(q, k, v, key_bias=wide[:, :t])
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    _assert_close(got, q, k, v, dtype, atol, key_bias=bias)
 
 
 def test_attention_key_bias_refusals(cuda):
@@ -688,10 +722,9 @@ def test_attention_kernel_dh96_matches_plain(cuda, t, layout, dtype,
     before = attn.multi_head_attention.launches
     got = attn.multi_head_attention(q, k, v, key_bias=bias)
     assert attn.multi_head_attention.launches == before + 1
-    want = _plain(q, k, v, dtype, key_bias=bias).float()
     atol = 1e-5 if dtype == torch.float32 else \
         2 ** -8 * v.float().abs().max().item()
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    _assert_close(got, q, k, v, dtype, atol, key_bias=bias)
 
 
 @pytest.mark.parametrize("dh,t", [(64, 197), (96, 9), (96, 25), (192, 5),
@@ -822,10 +855,9 @@ def test_attention_kernel_dh192_matches_plain(cuda, b, t, layout, dtype,
     got = attn.multi_head_attention(q, k, v, key_bias=bias)
     assert attn.multi_head_attention.launches == before + 1
     assert got.transpose(1, 2).is_contiguous()
-    want = _plain(q, k, v, dtype, key_bias=bias).float()
     atol = 1e-5 if dtype == torch.float32 else \
         2 ** -8 * v.float().abs().max().item()
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    _assert_close(got, q, k, v, dtype, atol, key_bias=bias)
 
 
 @pytest.mark.parametrize("b,h,t,dh,qk", [
@@ -838,23 +870,51 @@ def test_attention_kernel_dh192_matches_plain(cuda, b, t, layout, dtype,
 def test_bf16_attention_tells_f32_scores_apart(cuda, b, h, t, dh, qk,
                                                with_bias):
     """At the backbone's shape and at the heads' shapes with the scores of
-    trained heads (q and k scaled: max|S| >= 10), the bf16 kernel is
-    within the bound of the bf16 plain version and the f32-score
-    semantics is not: the check sees the difference that rounding S makes
-    (a score's bf16 rounding moves its probability by up to 2^-9 |S|)."""
+    trained heads (q and k scaled: max|S| >= 10), the bf16 kernel passes
+    the tie-aware check against the bf16 plain version and the f32-score
+    semantics fails it: the check sees the difference that rounding S
+    makes (a score's bf16 rounding moves its probability by up to 2^-9
+    |S|), at every score and not only at near ties."""
     q, k, v = _attention_inputs(b, h, t, dh, torch.float32,
                                 "projection_order", cuda, b + t + dh)
     q, k, v = (x.to(torch.bfloat16) for x in (q * qk, k * qk, v))
     bias = _key_bias(b, t, t + 1).to(cuda) if with_bias else None
-    got = attn.multi_head_attention(q, k, v, key_bias=bias).float()
-    want = _plain(q, k, v, torch.bfloat16, key_bias=bias).float()
-    old = _f32_scores(q, k, v, bias).float()
+    got = attn.multi_head_attention(q, k, v, key_bias=bias)
+    old = _f32_scores(q, k, v, bias)
     atol = 1e-2 if dh == 64 else 2 ** -8 * v.float().abs().max().item()
     if dh != 64:
         s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
         assert s.abs().max() * dh ** -0.5 >= 10
-    assert (got - want).abs().max() <= atol
-    assert (old - want).abs().max() > atol
+    res = _bf16_ties(got, q, k, v, atol, key_bias=bias)
+    assert res["ok"], (res["err"], res["rejected"])
+    res = _bf16_ties(old, q, k, v, atol, key_bias=bias)
+    assert res["err"] > atol and not res["ok"]
+
+
+def test_tie_check_self_check_on_the_card(cuda):
+    """The tie check's self-check on a backbone-shaped draw (B = 256, H =
+    12, T = 197, dh = 64, bf16, projection order, ToMe-like key bias):
+    cuBLAS's bf16 q k^T, as attention_plain computes it, equals S* (the
+    exact f64 sum correctly rounded) off the near-tie set and lies in its
+    range on it, and the kernel passes the check."""
+    smoke = _smoke()
+    q, k, v = _attention_inputs(256, 12, 197, 64, torch.bfloat16,
+                                "projection_order", cuda, 17)
+    bias = _key_bias(256, 197, 18).to(cuda)
+    raw = torch.einsum("bhqd,bhkd->bhqk", q.contiguous(),
+                       k.contiguous()).double()
+    near = 0
+    for b0 in range(0, 256, 32):
+        ex = smoke.exact_scores(q[b0:b0 + 32], k[b0:b0 + 32])
+        part = raw[b0:b0 + 32]
+        assert torch.equal(part[~ex["near"]], ex["s"][~ex["near"]])
+        assert ((ex["lo"] <= part) & (part <= ex["hi"])).all()
+        near += int(ex["near"].sum())
+    got = attn.multi_head_attention(q, k, v, key_bias=bias)
+    res = _bf16_ties(got, q, k, v, 1e-2, key_bias=bias)
+    assert res["ok"], (res["err"], res["rejected"])
+    assert res["near_ties"] == near > 0
+    assert res["n_scores"] == 256 * 12 * 197 * 197
 
 
 # ---- bf16 past one key tile: the held variant and the two-pass kernel
@@ -878,7 +938,7 @@ def test_bf16_held_and_two_pass_match_plain(cuda, t, dh, with_bias):
     up to its limit, the two-pass kernel one key past it and at T = 1297,
     each counted under its own name, against the bf16 plain version
     within the existing bounds (1e-2 at dh = 64; 2^-8 max|v| at the other
-    widths, as their tests)."""
+    widths, as their tests), tie-aware."""
     t = _t_of(t, dh, with_bias)
     width = attn.kernel_head_dim(dh)
     q, k, v = _attention_inputs(2, 4, t, dh, torch.bfloat16,
@@ -891,9 +951,8 @@ def test_bf16_held_and_two_pass_match_plain(cuda, t, dh, with_bias):
     got = attn.multi_head_attention(q, k, v, key_bias=bias)
     assert attn.multi_head_attention.launches_by_kernel[name] == before + 1
     assert got.shape == (2, 4, t, dh)
-    want = _plain(q, k, v, torch.bfloat16, key_bias=bias).float()
     atol = 1e-2 if dh == 64 else 2 ** -8 * v.float().abs().max().item()
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    _assert_close(got, q, k, v, torch.bfloat16, atol, key_bias=bias)
 
 
 @pytest.mark.parametrize("t", [65, 197, "limit"])
@@ -965,8 +1024,8 @@ def test_bf16_attention_on_the_heads_inputs(cuda, kind, dh, monkeypatch):
     (ChunkEncoderConfig(): 768 wide, 8 heads) and RAGHead (HeadConfig():
     4 heads) hand it, their query and key weights doubled so that max|S|
     >= 10, the scale of trained heads: each call within 2^-8 max|v| of
-    the bf16 plain version, and the f32-score semantics beyond it in at
-    least one call."""
+    the bf16 plain version (tie-aware), and the f32-score semantics failing
+    that check in at least one call."""
     from vit_research_tpu_torch.models import heads
     from vit_research_tpu_torch.utils.configs import (ChunkEncoderConfig,
                                                       HeadConfig)
@@ -1002,12 +1061,12 @@ def test_bf16_attention_on_the_heads_inputs(cuda, kind, dh, monkeypatch):
         assert q.dtype == torch.bfloat16 and q.shape[-1] == dh
         s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
         assert s.abs().max() * dh ** -0.5 >= 10
-        want = _plain(q, k, v, torch.bfloat16, key_bias=bias).float()
         atol = 2 ** -8 * v.float().abs().max().item()
-        assert (out.float() - want).abs().max() <= atol
-        olds.append((_f32_scores(q, k, v, bias).float() - want).abs().max()
-                    / atol)
-    assert max(olds) > 1
+        res = _bf16_ties(out, q, k, v, atol, key_bias=bias)
+        assert res["ok"], (res["err"], res["rejected"])
+        olds.append(_bf16_ties(_f32_scores(q, k, v, bias), q, k, v, atol,
+                               key_bias=bias)["ok"])
+    assert not all(olds)
 
 
 def test_rag_head_on_card_matches_cpu(cuda):
@@ -1135,10 +1194,9 @@ def test_attention_kernel_takes_every_width_to_192(cuda, dh, t, layout,
     assert attn.multi_head_attention.padded_launches == \
         padded + int(dh not in attn.KERNEL_HEAD_DIMS)
     assert got.shape == (2, 4, t, dh)
-    want = _plain(q, k, v, dtype, key_bias=bias).float()
     atol = 1e-5 if dtype == torch.float32 else \
         2 ** -8 * v.float().abs().max().item()
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    _assert_close(got, q, k, v, dtype, atol, key_bias=bias)
 
 
 def test_attention_kernel_refuses_heads_wider_than_192(cuda):
