@@ -23,8 +23,10 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      version, and at B = 256, T = 197 the f32 scores must fail the tie
      check;
      the T > 64 residual with large scores; each bf16 row names the
-     variant it launched (``launches_by_kernel``'s name: the held variant
-     at T = 197 and 325, the two-pass kernel at T = 1297);
+     variant it launched (``launches_by_kernel``'s name: the wgmma variant
+     of csrc/attention_wg.cu at T = 197, the held variant at 325, the
+     two-pass kernel at T = 1297), and at T = 197 the held variant,
+     forced, is checked and timed beside it;
   3c. the attention kernel at the stage-1 chunk encoder's shapes (dh = 96,
      H = 8, B = 256, T = 9 and 25; f32 and bf16, contiguous and
      projection order) against its plain version, SDPA and its bound, and
@@ -60,10 +62,12 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      CPU plain forward of the same weights, the planted possessions
      recovered, and the embed rate in f32 and bf16;
   4b. F10 on the backbone's own activations: one bf16 forward of the
-     seeded ViT-B/16 (B = 256) on phase 4's query frames, each of its 12
-     kernel B calls held to the bf16 plain version by the tie check
-     (``bf16_tie_check``): per block the strict error, the near-tie set,
-     the rows over the bound and those a tie accepts;
+     seeded ViT-B/16 (B = 256) on phase 4's query frames (a main path of
+     its own, ``bf16_backbone``: one launch of A, twelve of B), each of
+     its 12 kernel B calls (all of the wgmma variant) held to the bf16
+     plain version by the tie check (``bf16_tie_check``): per block the
+     strict error, the near-tie set, the rows over the bound and those a
+     tie accepts;
   5. the store path through the CLI on phase 4's clips and corpus:
      build-frame-store (store rows = frames in the clips) and search of
      32 query frames against the 512-row corpus on the device route (the
@@ -95,7 +99,9 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
   5d. the fast profile on phase 4's world: the attention kernel with
      ToMe's key bias at every ToMe T of ViT-B/16 at r = 16 (197 ... 21;
      f32 and bf16, B = 256) against its plain version, timed against the
-     plain version and SDPA with the bias as a float mask;
+     plain version and SDPA with the bias as a float mask (bf16 from T =
+     197 to 65 in the wgmma variant, with the held variant forced, checked
+     and timed beside it);
      bipartite_merge on the card against the CPU; the ToMe r=16, int8 and
      int8-static engines against the CPU forward of the same model (8
      frames; token sizes, and the merge-score margin wherever the card
@@ -222,8 +228,11 @@ and 0).
 
 builds the kernels, then reads kernel B's bf16 P through one-hot V on
 ToMe's bf16 draws and counts where it differs from the plain version's,
-by cause (``probe_p``), and times kernel B where its bf16 variants and its
-launch path act (``measure_kernel_b``): bf16 past one key tile at the
+by cause (``probe_p``; on exact scores every P must equal the plain
+one), and times kernel B where its bf16 variants and its
+launch path act (``measure_kernel_b``): the wgmma variant beside the held
+variant (forced) at T = 197, 149, 69 and 256 (``wg_beside_held``), bf16
+past one key tile at the
 backbone's and other shapes beside SDPA and the bound, a sweep over T by
 head width, the T <= 25 rows with host microseconds a call beside
 CUDA-event and device times (and the host cost by step), the bf16 forward
@@ -756,8 +765,11 @@ def phase_card() -> str:
     t0 = time.monotonic()
     _build.library()
     log(f"[1] built {len(_build.sources())} kernel sources with nvcc in "
-        f"{time.monotonic() - t0:.1f} s")
-    for source in ("attention.cu", "patch_embed.cu", "fused_ln.cu"):
+        f"{time.monotonic() - t0:.1f} s (each nvcc: " + ", ".join(
+            f"{os.path.basename(s)} {_build.nvcc_seconds(s):.1f} s"
+            for s in _build.sources()) + ")")
+    for source in ("attention.cu", "attention_wg.cu", "patch_embed.cu",
+                   "fused_ln.cu"):
         log_ptxas(source)
     return smi
 
@@ -1010,9 +1022,33 @@ def phase_attention(smi: str) -> dict:
                     ms_projection_order=row["projection order"][1],
                     plain_ms=plain_ms, library_ms=sdpa_ms, **lim)
                 if not f32:
+                    # the held variant forced on the same inputs: its time
+                    # beside the rule's wgmma variant, and its check
+                    qv, kv, vv = views
+                    held, held_name = b_variants(
+                        lambda: attn.multi_head_attention(
+                            qv, kv, vv, variant="held"))
+                    held_errs = bf16_attention_errs(held, *contig,
+                                                    bound=bound_err)
+                    log(f"[3] attention B={b} T={t} bf16 {held_name} "
+                        f"(forced, beside {variant}): " + check_bf16_attention(
+                            held_errs, f"B={b} T={t} held"))
+                    del held
                     summary[name].update(
                         max_abs_err_f32_scores=errs["f32_scores"],
-                        max_abs_err_f32_plain=errs["f32_plain"])
+                        max_abs_err_f32_plain=errs["f32_plain"],
+                        held_ms=cuda_ms(lambda: attn.multi_head_attention(
+                            q, k, v, variant="held")),
+                        held_ms_projection_order=cuda_ms(
+                            lambda: attn.multi_head_attention(
+                                qv, kv, vv, variant="held")),
+                        held_max_abs_err=held_errs["err"])
+                    log(f"[3] attention B={b} T={t} bf16: {variant} "
+                        f"{summary[name]['ms']:.4f} ms (projection order "
+                        f"{summary[name]['ms_projection_order']:.4f}), held "
+                        f"{summary[name]['held_ms']:.4f} ms (projection order"
+                        f" {summary[name]['held_ms_projection_order']:.4f})"
+                        f" | {smi}")
             if not f32:
                 summary["bf16_rows"][f"B{b}_T{t}"].update(
                     plain_ms=plain_ms, **(dict(library_ms=sdpa_ms, **lim)
@@ -1866,18 +1902,26 @@ def phase_backbone_ties(smi: str, main: dict) -> dict:
     calls = []
     launch = attn._launch
 
-    def recording(q, k, v, scale, key_bias):
-        out = launch(q, k, v, scale, key_bias)
+    def recording(q, k, v, scale, key_bias, *variant):
+        out = launch(q, k, v, scale, key_bias, *variant)
         calls.append((q, k, v, key_bias, out))
         return out
 
     attn._launch = recording
+    _zero_counts()  # the bf16 backbone is a path of its own
     try:
         with torch.no_grad():
-            eng.encode(frames)
+            _, variants = b_variants(lambda: eng.encode(frames))
     finally:
         attn._launch = launch
     torch.cuda.synchronize()
+    launches = _launch_counts()
+    _check_launches(launches, 1, "bf16 forward")
+    want = attn.kernel_name(torch.bfloat16, 197, 64, False)
+    log(f"[4b] bf16 forward B={BATCH}: kernel B launched {variants}")
+    if variants != want:
+        raise AssertionError(f"bf16 forward: kernel B launched {variants}, "
+                             f"want {want} only")
     if len(calls) != 12 or calls[0][0].shape != (BATCH, 12, 197, 64) or \
             calls[0][0].dtype != torch.bfloat16:
         raise AssertionError(f"bf16 forward: {len(calls)} kernel B calls, "
@@ -1917,7 +1961,7 @@ def phase_backbone_ties(smi: str, main: dict) -> dict:
     if failed:
         raise AssertionError(f"bf16 forward: kernel B beyond the bound, not "
                              f"a tie: {failed}")
-    return dict(blocks=blocks)
+    return dict(blocks=blocks, launches=launches)
 
 
 def _query_sides() -> list:
@@ -2727,12 +2771,25 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16)
             mask = bias[:, None, None, :].to(dtype)
             sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qc, kc, vc, attn_mask=mask), reps=3, n=5)
+            # the held variant forced where the rule takes the wgmma one:
+            # its time beside, and its tie check
+            held = {}
+            if variant.endswith("/wg"):
+                hout = attn.multi_head_attention(q, k, v, key_bias=bias,
+                                                 variant="held")
+                hties = bf16_tie_check(hout, qc, kc, vc, bias,
+                                       bound=ATTN_BOUND[dtype])
+                del hout
+                held = dict(held_ms=cuda_ms(lambda: attn.multi_head_attention(
+                    q, k, v, key_bias=bias, variant="held"), reps=3, n=5),
+                    held_max_abs_err=hties["err"], held_ok=hties["ok"])
+                ok = ok and hties["ok"]
             lim = bound(4 * q.numel() * q.element_size() + bias.numel() * 4,
                         4 * BATCH * 12 * t * t * 64 + BATCH * 12 * t * t,
                         "f32" if dtype == torch.float32 else "bf16")
             rows.append(dict(T=t, max_abs_err=err, ok=ok, ms=ms,
                              plain_ms=plain_ms, library_ms=sdpa_ms,
-                             launched=variant, **lim, **ties,
+                             launched=variant, **lim, **ties, **held,
                              **{f"max_abs_err_{key}": errs[key]
                                 for key in ("f32_scores", "f32_plain")
                                 if key in errs}))
@@ -2745,7 +2802,11 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16)
             log(f"[5d] attention + key bias B={BATCH} H=12 T={r['T']} dh=64 "
                 f"{name}: max|err| {r['max_abs_err']:.3e} (bound "
                 f"{ATTN_BOUND[dtype]:.0e}{old}) | kernel {r['launched']} "
-                f"{r['ms']:.4f} ms | "
+                f"{r['ms']:.4f} ms | " + (
+                    f"held (forced) {r['held_ms']:.4f} ms, max|err| "
+                    f"{r['held_max_abs_err']:.3e}, tie check "
+                    f"{'ok' if r['held_ok'] else 'FAILED'} | "
+                    if "held_ms" in r else "") +
                 f"plain "
                 f"{r['plain_ms']:.4f} ms | SDPA+mask {r['library_ms']:.4f} ms"
                 f" | {bound_text(r)}")
@@ -2754,8 +2815,14 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16)
                     f"{tie_row_text(row)}")
         sums = {key: sum(r[key] for r in rows)
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        if any("held_ms" in r for r in rows):
+            # the same blocks with the held variant where wg ran
+            sums["held_ms"] = sum(r.get("held_ms", r["ms"]) for r in rows)
         log(f"[5d] attention + key bias {name}, the 12 ToMe blocks of one "
-            f"batch: kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f}"
+            f"batch: kernel {sums['ms']:.4f} ms" + (
+                f" (with the held variant for wg: {sums['held_ms']:.4f} ms)"
+                if "held_ms" in sums else "") +
+            f", plain {sums['plain_ms']:.4f}"
             f" ms, SDPA+mask {sums['library_ms']:.4f} ms, bound "
             f"{sums['bound_ms']:.4f} ms | {smi}")
         failed = [dict(T=r["T"], max_abs_err=r["max_abs_err"],
@@ -2772,6 +2839,7 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16)
             near_ties=[r.get("near_ties") for r in rows],
             T=[r["T"] for r in rows], ms=[r["ms"] for r in rows],
             launched=[r["launched"] for r in rows],
+            held_ms=[r.get("held_ms") for r in rows],
             plain_ms=[r["plain_ms"] for r in rows],
             library_ms=[r["library_ms"] for r in rows],
             bound_ms=[r["bound_ms"] for r in rows],
@@ -6328,15 +6396,16 @@ def _host_steps(q, k, v) -> dict:
     out = {name: host_us(step) for name, step in steps.items()}
     out["the C call (argument conversion, the launch)"] = host_us(
         lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                   b, h, t, d, arr, 0.125, is_bf16, None, 0, stream), 200)
+                   b, h, t, d, arr, 0.125, is_bf16, None, 0, 0, stream), 200)
     return out
 
 
-def kernel_probs(q, k, key_bias=None) -> torch.Tensor:
+def kernel_probs(q, k, key_bias=None, variant=None) -> torch.Tensor:
     """Kernel B's bf16 P for (q, k, key_bias), (B, H, T, T), read exactly
     through one-hot V: with v[j] = e_(j - j0) for the dh keys from j0 on
     and 0 elsewhere, the output's column c is P[:, j0 + c] (one nonzero
-    product, and P is a bf16 value). ceil(T / dh) launches."""
+    product, and P is a bf16 value). ceil(T / dh) launches, of the rule's
+    variant or ``variant``."""
     b, h, t, dh = q.shape
     out = torch.empty(b, h, t, t, dtype=q.dtype, device=q.device)
     eye = torch.eye(dh, dtype=q.dtype, device=q.device)
@@ -6345,7 +6414,8 @@ def kernel_probs(q, k, key_bias=None) -> torch.Tensor:
         v = torch.zeros(b, t, h, dh, dtype=q.dtype, device=q.device)
         v[:, j0:j0 + n] = eye[:n, None, :]
         out[..., j0:j0 + n] = attn.multi_head_attention(
-            q, k, v.transpose(1, 2), key_bias=key_bias)[..., :n]
+            q, k, v.transpose(1, 2), key_bias=key_bias,
+            variant=variant)[..., :n]
     return out
 
 
@@ -6411,9 +6481,10 @@ def p_causes(pk, s, p32) -> dict:
     return out
 
 
-def p_probe(q, k, key_bias=None, chunk: int = 32) -> dict:
+def p_probe(q, k, key_bias=None, chunk: int = 32, variant=None) -> dict:
     """p_causes of kernel B's P (kernel_probs, ``chunk`` batch rows a
-    launch) against the plain version's: plain_softmax of the contiguous
+    launch, of the rule's variant or ``variant``) against the plain
+    version's: plain_softmax of the contiguous
     q, k over the whole batch, as the bf16 checks compute it (cuBLAS may
     sum q k^T in another order at another batch size, and round a score
     otherwise). The counts summed, ``largest`` the max."""
@@ -6422,7 +6493,8 @@ def p_probe(q, k, key_bias=None, chunk: int = 32) -> dict:
     for b0 in range(0, q.shape[0], chunk):
         sl = slice(b0, b0 + chunk)
         pk = kernel_probs(q[sl], k[sl],
-                          None if key_bias is None else key_bias[sl])
+                          None if key_bias is None else key_bias[sl],
+                          variant)
         for key, val in p_causes(pk, s[sl], p32[sl]).items():
             total[key] = max(total[key], val) if key == "largest" \
                 else total[key] + val
@@ -6519,6 +6591,57 @@ def probe_p(smi: str) -> dict:
             f"{row['other']}; largest {row['largest']:.4g}); on exact "
             f"scores {row['grid_differ']} | {smi}")
     torch.cuda.empty_cache()
+    bad = {t: r["grid_differ"] for t, r in out.items() if r["grid_differ"]}
+    if bad:
+        raise AssertionError(f"kernel B's P differs from the plain P on exact "
+                             f"scores: {bad}")
+    return out
+
+
+WG_ROWS = (197, 149, 69, 256)
+
+
+def wg_beside_held(smi: str, g) -> dict:
+    """The wgmma variant (the rule's at dh = 64, 65 <= T <= 256) and the
+    held variant (forced) on the same inputs, B = 256, H = 12, bf16 in
+    projection order at T in WG_ROWS, in turns (wg, held, held, wg), each
+    held to the bf16 plain version by the tie check, beside SDPA on the
+    contiguous inputs and the bound."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    out = {}
+    for t in WG_ROWS:
+        q, k, v = (torch.randn(BATCH, t, 12, 64, generator=g).to(
+            dev, torch.bfloat16).transpose(1, 2) for _ in range(3))
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        row = {}
+        for name in ("wg", "held"):
+            got, launched = b_variants(lambda: attn.multi_head_attention(
+                q, k, v, variant=name))
+            errs = bf16_attention_errs(got, q, k, v,
+                                       bound=ATTN_BOUND[torch.bfloat16])
+            del got
+            check_bf16_attention(errs, f"T={t} {launched}")
+            row[name] = dict(launched=launched, max_abs_err=errs["err"],
+                             **tie_summary(errs["ties"]), ms=[])
+        for name in ("wg", "held", "held", "wg"):
+            row[name]["ms"].append(cuda_ms(lambda: attn.multi_head_attention(
+                q, k, v, variant=name)))
+        row.update(library_ms=cuda_ms(
+            lambda: F.scaled_dot_product_attention(qc, kc, vc)),
+            plain_ms=cuda_ms(lambda: attn.attention_plain(qc, kc, vc)),
+            **bound(4 * q.numel() * 2, 4 * BATCH * 12 * t * t * 64, "bf16"))
+        log(f"[B] wg beside held B={BATCH} H=12 T={t} dh=64 bf16 (projection "
+            f"order): wg {row['wg']['ms'][0]:.4f} / {row['wg']['ms'][1]:.4f} "
+            f"ms, held {row['held']['ms'][0]:.4f} / "
+            f"{row['held']['ms'][1]:.4f} ms | SDPA {row['library_ms']:.4f} "
+            f"ms | plain {row['plain_ms']:.4f} ms | {bound_text(row)} | "
+            f"max|err| wg {row['wg']['max_abs_err']:.3e}, held "
+            f"{row['held']['max_abs_err']:.3e} | {smi}")
+        out[f"T{t}"] = row
+        del q, k, v, qc, kc, vc
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6545,7 +6668,10 @@ def measure_kernel_b(smi: str) -> dict:
     g = torch.Generator().manual_seed(0)
     for line in _ptxas_lines("attention.cu", "bf16"):
         log(f"[B] ptxas {line}")
+    for line in _ptxas_lines("attention_wg.cu", ""):
+        log(f"[B] ptxas attention_wg.cu {line}")
     out = {"p_probe": probe_p(smi)}
+    out["wg_beside_held"] = wg_beside_held(smi, g)
     for b, h, t, dh in ((BATCH, 12, 197, 64), (BATCH, 12, 325, 64),
                         (32, 12, 1297, 64), (32, 6, 197, 128),
                         (32, 16, 197, 80)):
@@ -6725,7 +6851,9 @@ def smoke(root: str) -> int:
     del game
     # each main path's launches, counted from 0 just before it ran; a
     # kernel's "launches" is their sum
-    by_path = {"segment": main_path["launches"], "store": store_launches,
+    by_path = {"segment": main_path["launches"],
+               "bf16_backbone": backbone_ties["launches"],
+               "store": store_launches,
                "serve": serve_path["launches"],
                "follow": serve_path["follow_launches"],
                "label": label_path["launches"],
@@ -6769,12 +6897,17 @@ def smoke(root: str) -> int:
         dict(name="attention", route="cuda",
              source="vit_research_tpu_torch/csrc/attention.cu",
              replaces="vit_research_tpu/ops/attention.py:51",
+             variant_sources={
+                 "attn_bf16<64>/wg":
+                     "vit_research_tpu_torch/csrc/attention_wg.cu",
+                 "every other": "vit_research_tpu_torch/csrc/attention.cu"},
              **launches("attention"), **b_launches,
              library_call="F.scaled_dot_product_attention", **attn_summary,
              key_bias=dict(fast_path["attention_key_bias"],
                            library_call="F.scaled_dot_product_attention "
                                         "with a float attn_mask (B, 1, 1, T)"),
-             stage1_dh96=attn_stage1, backbone_ties=backbone_ties,
+             stage1_dh96=attn_stage1,
+             backbone_ties={"blocks": backbone_ties["blocks"]},
              grad_rel_err={k: v for k, v in grads.items()
                            if k.startswith("attention")},
              stage1_path={k: v for k, v in stage1.items()

@@ -1,5 +1,6 @@
 """Kernel B's launch path on the CPU, with no card: the bf16 variant rule
-(one pass, held, two passes) against the shared memory a block may take,
+(one pass, wgmma, held, two passes) against the shared memory a block may
+take,
 and what ``ops/attention.py::_launch`` hands the C entry point, pinned
 against a stub library.
 
@@ -53,25 +54,42 @@ def test_two_blocks_share_an_sm_at_the_backbones_shape():
 @pytest.mark.parametrize("width", attn.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("bias", [False, True])
 def test_bf16_variant_boundaries(width, bias):
-    """One key tile takes the one-pass kernel, the held variant takes every
-    T up to 64 * its tile limit, and one key past it the two-pass kernel."""
+    """One key tile takes the one-pass kernel; at dh = 64 the wgmma
+    variant takes T = 65 to 256; the held variant takes every other T up
+    to 64 * its tile limit, and one key past it the two-pass kernel. Each
+    variant that takes a T is offered to force (bf16_variants), the rule's
+    first."""
     limit = 64 * HELD_LIMITS[width]
     assert [attn.bf16_variant(t, width, bias) for t in (1, 5, 64)] == \
         ["1pass"] * 3
-    assert [attn.bf16_variant(t, width, bias)
-            for t in (65, 128, 129, 197, limit)] == ["held"] * 5
+    if width == 64:
+        assert attn.WG_KEYS == (65, 256)
+        assert [attn.bf16_variant(t, width, bias)
+                for t in (65, 128, 129, 197, 256)] == ["wg"] * 5
+        assert [attn.bf16_variant(t, width, bias)
+                for t in (257, limit)] == ["held"] * 2
+        assert attn.bf16_variants(197, width, bias) == ("wg", "held",
+                                                        "2pass")
+    else:
+        assert [attn.bf16_variant(t, width, bias)
+                for t in (65, 128, 129, 197, 256, 257, limit)] == \
+            ["held"] * 7
+        assert attn.bf16_variants(197, width, bias) == ("held", "2pass")
     assert [attn.bf16_variant(t, width, bias)
             for t in (limit + 1, limit + 64, 4096)] == ["2pass"] * 3
+    assert attn.bf16_variants(64, width, bias) == ("1pass",)
+    assert attn.bf16_variants(limit + 1, width, bias) == ("2pass",)
 
 
 def test_the_paths_shapes_take_their_variants():
     # the backbone (ViT-B/16 @224, T = 197; ToMe's biased blocks down to
     # T = 21), smoke's frame (T = 313), the heads and the chunk encoder
     # (T <= 25), the longest check (T = 1297)
-    assert attn.bf16_variant(197, 64, False) == "held"
+    assert attn.bf16_variant(197, 64, False) == "wg"
     assert [attn.bf16_variant(t, 64, True) for t in (197, 85, 69, 21)] == \
-        ["held", "held", "held", "1pass"]
+        ["wg", "wg", "wg", "1pass"]
     assert attn.bf16_variant(313, 64, False) == "held"
+    assert attn.bf16_variant(197, 96, False) == "held"  # F4's dh = 80
     assert attn.bf16_variant(5, 192, False) == "1pass"
     assert attn.bf16_variant(25, 96, True) == "1pass"
     assert attn.bf16_variant(1297, 64, False) == "2pass"
@@ -81,7 +99,11 @@ def test_the_paths_shapes_take_their_variants():
     (torch.float32, 197, 64, False, "attn_f32<64>"),
     (torch.float32, 1297, 192, True, "attn_f32<192>"),
     (torch.bfloat16, 9, 96, False, "attn_bf16<96>"),
-    (torch.bfloat16, 197, 64, True, "attn_bf16<64>/held"),
+    (torch.bfloat16, 197, 64, True, "attn_bf16<64>/wg"),
+    (torch.bfloat16, 65, 64, False, "attn_bf16<64>/wg"),
+    (torch.bfloat16, 256, 64, False, "attn_bf16<64>/wg"),
+    (torch.bfloat16, 257, 64, False, "attn_bf16<64>/held"),
+    (torch.bfloat16, 197, 96, True, "attn_bf16<96>/held"),
     (torch.bfloat16, 705, 64, True, "attn_bf16<64>/2pass"),
     (torch.bfloat16, 1537, 128, False, "attn_bf16<128>/2pass"),
     (torch.bfloat16, 1408, 192, True, "attn_bf16<192>/held"),
@@ -89,6 +111,10 @@ def test_the_paths_shapes_take_their_variants():
 ])
 def test_kernel_names_count_each_variant(dtype, t, width, bias, name):
     assert attn.kernel_name(dtype, t, width, bias) == name
+    if dtype == torch.bfloat16:  # a forced variant counts under its own
+        forced = attn.bf16_variants(t, width, bias)[-1]
+        assert attn.kernel_name(dtype, t, width, bias, forced) == \
+            f"attn_bf16<{width}>" + {"1pass": "", "2pass": "/2pass"}[forced]
 
 
 class _StubLibrary:
@@ -157,7 +183,7 @@ def test_launch_marshals_views_in_projection_order(stub, dtype, b, t,
     before = _counts()
     o = attn._launch(q, k, v, 0.125, bias)
     (args,) = stub.calls
-    assert len(args) == 14
+    assert len(args) == 15
     assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr())
     assert args[4:8] == (b, h, t, d)
@@ -173,7 +199,8 @@ def test_launch_marshals_views_in_projection_order(stub, dtype, b, t,
         assert args[12] == (t + 3 if b > 1 else 0)
     else:
         assert args[11:13] == (None, 0)
-    assert args[13] == 4242
+    assert args[13] == 0  # the rule's variant
+    assert args[14] == 4242
     assert stub.entered == []  # q's device is the current one
     # the output: the (B, H, T, dh) view of a contiguous (B, T, H, dh)
     assert o.shape == (b, h, t, d) and o.dtype == dtype
@@ -280,3 +307,82 @@ def test_launch_reuses_a_layouts_marshalling_and_still_checks_pointers(
     assert len(attn._LAYOUTS) == 2
     assert list(stub.calls[2][8]) == [2 * 9 * 64, 9 * 64, 64] * 3 + \
         [9 * 2 * 64, 64, 2 * 64]
+
+
+@pytest.mark.parametrize("variant,t,code", [("held", 197, 2), ("wg", 197, 4),
+                                            ("2pass", 197, 3),
+                                            ("held", 257, 2),
+                                            ("1pass", 64, 1)])
+def test_launch_marshals_a_forced_variant(stub, variant, t, code):
+    """A forced bf16 variant reaches the C entry point as its code and
+    counts under its own name (the held variant at the backbone's T = 197
+    beside the rule's wgmma variant, to time the two in one process)."""
+    q, k, v = _projection_order(2, t, 4, 64, torch.bfloat16, t)
+    before = _counts()
+    attn._launch(q, k, v, 0.125, None, variant)
+    (args,) = stub.calls
+    assert args[13] == code == attn.VARIANT_CODES[variant]
+    name = attn.kernel_name(torch.bfloat16, t, 64, False, variant)
+    assert name.endswith({"1pass": ">", "held": "/held", "wg": "/wg",
+                          "2pass": "/2pass"}[variant])
+    assert _counts()[2][name] == before[2].get(name, 0) + 1
+
+
+@pytest.mark.parametrize("variant,t,d,dtype,match", [
+    ("wg", 257, 64, torch.bfloat16, "does not take T = 257"),
+    ("wg", 64, 64, torch.bfloat16, "does not take T = 64"),
+    ("wg", 197, 96, torch.bfloat16, "head width 96"),
+    ("held", 64, 64, torch.bfloat16, "does not take T = 64"),
+    ("held", 197, 64, torch.float32, "bf16 variant"),
+    ("fast", 197, 64, torch.bfloat16, "does not take"),
+])
+def test_a_forced_variant_that_does_not_apply_calls_nothing(
+        stub, variant, t, d, dtype, match):
+    q, k, v = _projection_order(1, t, 2, d, dtype, 5)
+    before = _counts()
+    with pytest.raises(ValueError, match=match):
+        attn._launch(q, k, v, 0.125, None, variant)
+    assert stub.calls == [] and _counts() == before
+
+
+def test_a_forced_variant_runs_the_plain_version_on_the_cpu():
+    """On the CPU a forced variant is checked as on the card and the plain
+    version runs."""
+    q, k, v = (x.contiguous() for x in _projection_order(
+        1, 197, 2, 64, torch.bfloat16, 6))
+    got = attn.multi_head_attention(q, k, v, variant="held")
+    assert torch.equal(got, attn.attention_plain(q, k, v))
+    with pytest.raises(ValueError, match="does not take"):
+        attn.multi_head_attention(q, k, v, variant="1pass")
+
+
+@pytest.mark.parametrize("case", ["token_stride", "head_stride",
+                                  "batch_stride", "misaligned"])
+def test_wg_shape_refuses_a_stride_tma_refuses(stub, case):
+    """At the wgmma variant's shape (bf16, dh = 64, T = 197) a base or a
+    batch, head or token stride that is not a multiple of 16 bytes (what
+    TMA's tensor maps refuse) raises ValueError before the C entry point
+    is called; nothing is copied and nothing counts."""
+    b, h, t = 2, 4, 197
+    q, k, v = _projection_order(b, t, h, 64, torch.bfloat16, 7)
+    flat = torch.zeros(b * h * t * 72 + 64, dtype=torch.bfloat16)
+    start = (-flat.data_ptr() // 2) % 8  # 16-byte aligned
+    if case == "token_stride":  # 66 elements: 132 bytes
+        q = flat[start:start + b * h * t * 66].view(b, h, t, 66)[..., :64]
+        match = "multiples of 16 bytes"
+    elif case == "head_stride":  # t * 64 + 4 elements
+        q = flat[start:].as_strided((b, h, t, 64),
+                                    (h * (t * 64 + 4), t * 64 + 4, 64, 1))
+        match = "multiples of 16 bytes"
+    elif case == "batch_stride":  # h * t * 64 + 4 elements
+        q = flat[start:].as_strided((b, h, t, 64),
+                                    (h * t * 64 + 4, t * 64, 64, 1))
+        match = "multiples of 16 bytes"
+    else:
+        q = flat[start + 1:start + 1 + b * h * t * 64].view(b, h, t, 64)
+        match = "16-byte aligned"
+    assert attn.bf16_variant(t, 64, False) == "wg"
+    before = _counts()
+    with pytest.raises(ValueError, match=match):
+        attn._launch(q, k, v, 0.125, None)
+    assert stub.calls == [] and _counts() == before

@@ -934,8 +934,9 @@ def _t_of(t, dh, bias):
 @pytest.mark.parametrize("dh", [64, 96, 128, 192, 80, 48])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_bf16_held_and_two_pass_match_plain(cuda, t, dh, with_bias):
-    """bf16 past one key tile on projection-order views: the held variant
-    up to its limit, the two-pass kernel one key past it and at T = 1297,
+    """bf16 past one key tile on projection-order views: the wgmma variant
+    at (compiled) dh = 64 up to 256 keys, the held variant elsewhere up to
+    its limit, the two-pass kernel one key past it and at T = 1297,
     each counted under its own name, against the bf16 plain version
     within the existing bounds (1e-2 at dh = 64; 2^-8 max|v| at the other
     widths, as their tests), tie-aware."""
@@ -945,8 +946,9 @@ def test_bf16_held_and_two_pass_match_plain(cuda, t, dh, with_bias):
                                 "projection_order", cuda, t + dh)
     bias = _key_bias(2, t, t).to(cuda) if with_bias else None
     name = attn.kernel_name(torch.bfloat16, t, width, with_bias)
-    assert name.endswith("/held" if t <= _held_limit(dh, with_bias)
-                         else "/2pass")
+    want = "/2pass" if t > _held_limit(dh, with_bias) else \
+        "/wg" if width == 64 and t <= 256 else "/held"
+    assert name.endswith(want)
     before = attn.multi_head_attention.launches_by_kernel[name]
     got = attn.multi_head_attention(q, k, v, key_bias=bias)
     assert attn.multi_head_attention.launches_by_kernel[name] == before + 1
@@ -972,7 +974,7 @@ def test_bf16_held_equals_two_pass(cuda, t, dh, with_bias):
                                 "projection_order", cuda, t + 2 * dh)
     bias = _key_bias(2, t, t).to(cuda) if with_bias else None
     held = attn.multi_head_attention(q[:, :, :t], k[:, :, :t], v[:, :, :t],
-                                     key_bias=bias).float()
+                                     key_bias=bias, variant="held").float()
     masked = torch.full((2, pad), -1e4, device=cuda)
     masked[:, :t] = bias if with_bias else 0.0
     before = attn.multi_head_attention.launches_by_kernel.copy()
@@ -982,11 +984,36 @@ def test_bf16_held_equals_two_pass(cuda, t, dh, with_bias):
     assert torch.equal(held, two[:, :, :t].float())
 
 
+@pytest.mark.parametrize("t", [65, 69, 128, 149, 197, 256])
+@pytest.mark.parametrize("b,h,layout", [(4, 12, "projection_order"),
+                                        (1, 1, "projection_order"),
+                                        (3, 5, "contiguous")])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_bf16_wg_equals_held(cuda, t, b, h, layout, with_bias):
+    """The wgmma variant (csrc/attention_wg.cu) against the held variant,
+    forced, on the same inputs: the same bits (S by wgmma and by mma.sync
+    rounds to the same bf16 scores here, and P and P V take the same
+    arithmetic in the same order), each counted under its own name; a
+    batch or a head of one (a TMA dim of stride 0) included."""
+    q, k, v = _attention_inputs(b, h, t, 64, torch.bfloat16, layout, cuda,
+                                t + b)
+    bias = _key_bias(b, t, t).to(cuda) if with_bias else None
+    counts = attn.multi_head_attention.launches_by_kernel
+    before = counts.copy()
+    wg = attn.multi_head_attention(q, k, v, key_bias=bias)
+    held = attn.multi_head_attention(q, k, v, key_bias=bias, variant="held")
+    assert counts - before == {"attn_bf16<64>/wg": 1,
+                               "attn_bf16<64>/held": 1}
+    assert torch.equal(wg, held)
+    _assert_close(wg, q, k, v, torch.bfloat16, 1e-2, key_bias=bias)
+
+
 @pytest.mark.parametrize("case", ["last_dim", "misaligned", "token_stride",
                                   "k_dtype", "k_device", "bias_shape"])
 def test_bf16_held_shape_refusals(cuda, case):
-    """At a held shape (B = 2, T = 197, dh = 64, bf16) every layout the
-    wrapper refused before still raises, and nothing launches."""
+    """At the backbone's shape (B = 2, T = 197, dh = 64, bf16: the wgmma
+    variant's, with its TMA maps) every layout the wrapper refused before
+    still raises, and nothing launches."""
     q, k, v = _attention_inputs(2, 4, 197, 64, torch.bfloat16,
                                 "projection_order", cuda, 3)
     bias = None

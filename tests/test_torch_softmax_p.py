@@ -115,19 +115,10 @@ def _reference_order(e):
     return acc[:, 0]
 
 
-def _kernel_order(e):
-    """The same sums as csrc/attention.cu's RowSums take them: key 64 t + 8
-    n + 2 c + e to thread c of the row (n = a + 4 h), one sum for each (a,
-    e) in the order of t, then h; row_total adds a's bits, then c's across
-    threads (offsets 2, 1), then e."""
-    r, t = e.shape
-    pad = -t % 64
-    keys = np.concatenate([e, np.zeros((r, pad), F32)], 1) \
-        .reshape(r, -1, 2, 4, 4, 2)  # (R, t, h, a, c, e)
-    acc = np.zeros((r, 4, 4, 2), F32)  # (R, a, c, e)
-    for tile in range(keys.shape[1]):
-        for h in range(2):
-            acc = acc + keys[:, tile, h]
+def _row_total(acc):
+    """RowSums' row_total on each row's (a, c, e) sums: a's bits in the
+    thread, then c's across the row's four threads (offsets 2, 1), then
+    e."""
     x = (acc[:, 0] + acc[:, 2]) + (acc[:, 1] + acc[:, 3])  # (R, c, e)
     x = x + x[:, [2, 3, 0, 1]]
     x = x + x[:, [1, 0, 3, 2]]
@@ -136,15 +127,61 @@ def _kernel_order(e):
     return total[:, 0]
 
 
-@pytest.mark.parametrize("t", [1, 5, 9, 16, 21, 25, 33, 64, 69, 149, 197,
-                               704, 1024])
-def test_kernel_row_sums_take_the_reference_order(t):
+def _kernel_order(e):
+    """The same sums as csrc/attention.cu's kernels (mma.sync m16n8 tiles
+    of 64 keys) take them with RowSums: key 64 t + 8 n + 2 c + e to thread
+    c of the row (n = a + 4 h), one sum for each (a, e) in the order of t,
+    then h; row_total adds a's bits, then c's across threads, then e."""
+    r, t = e.shape
+    pad = -t % 64
+    keys = np.concatenate([e, np.zeros((r, pad), F32)], 1) \
+        .reshape(r, -1, 2, 4, 4, 2)  # (R, t, h, a, c, e)
+    acc = np.zeros((r, 4, 4, 2), F32)  # (R, a, c, e)
+    for tile in range(keys.shape[1]):
+        for h in range(2):
+            acc = acc + keys[:, tile, h]
+    return _row_total(acc)
+
+
+def _wgmma_order(e):
+    """The same sums as csrc/attention_wg.cu's kernel takes them, from
+    wgmma's accumulator layout (the PTX ISA's D fragment of m64nNk16, N up
+    to 256, f32): a thread of lane L holds register i = 4 n + j (n < N / 8)
+    of row L / 4 (+ 8 for j >= 2) at key 8 n + 2 (L % 4) + j % 2. The
+    kernel walks its registers n = 0, 1, ... and adds register i to its sum
+    (n % 4, j % 2) of the row (row_add); row_total as above. Keys past T
+    are exps of 0."""
+    r, t = e.shape
+    assert t <= 256
+    n_groups = -(-t // 8)
+    padded = np.concatenate([e, np.zeros((r, 8 * n_groups - t), F32)], 1)
+    acc = np.zeros((r, 4, 4, 2), F32)  # (R, a, c, e)
+    for c in range(4):  # thread c of the row
+        for n in range(n_groups):
+            for j in range(2):  # row g's registers 4 n + j
+                key = 8 * n + 2 * c + j
+                acc[:, n % 4, c, j] = acc[:, n % 4, c, j] + padded[:, key]
+    return _row_total(acc)
+
+
+_ORDERS = {"mma": _kernel_order, "wgmma": _wgmma_order}
+
+
+@pytest.mark.parametrize("layout,t", [
+    *(pytest.param("mma", t, id=str(t))
+      for t in (1, 5, 9, 16, 21, 25, 33, 64, 69, 149, 197, 704, 1024)),
+    *(pytest.param("wgmma", t, id=f"wgmma-{t}")
+      for t in (65, 69, 149, 197, 256))])
+def test_kernel_row_sums_take_the_reference_order(layout, t):
+    """Each thread's sums by lane residue and the butterfly, in the mma.sync
+    layout (csrc/attention.cu) and in wgmma's (csrc/attention_wg.cu, at its
+    T = 65 to 256), give the reference softmax's sums to the bit."""
     rng = np.random.default_rng(t)
     # exps of scores less the row's max: one 1, the rest spread over decades
     e = np.exp(-rng.exponential(3.0, size=(512, t))).astype(F32)
     e[:, rng.integers(0, t)] = 1
     want = _reference_order(e)
-    np.testing.assert_array_equal(_kernel_order(e), want)
+    np.testing.assert_array_equal(_ORDERS[layout](e), want)
     if t >= 64:  # a plain left-to-right sum rounds apart somewhere
         seq = np.zeros(512, F32)
         for j in range(t):
@@ -290,8 +327,14 @@ def test_f10_draws_are_within_the_bound(cuda, smoke):
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("b,t,h,dh,top", [
-    (16, 197, 12, 64, 8),   # the backbone: the held variant
+    (16, 197, 12, 64, 8),   # the backbone: the wgmma variant
     (16, 197, 12, 64, 64),  # scores spread past the FMA quotient's reach
+    (16, 65, 12, 64, 8),    # the wgmma variant's range: 65 ... 256 keys
+    (16, 69, 12, 64, 64),
+    (16, 149, 12, 64, 8),
+    (16, 256, 12, 64, 8),
+    (16, 256, 12, 64, 64),
+    (2, 257, 12, 64, 8),    # the held variant one key past it
     (16, 64, 12, 64, 8),    # one key tile
     (16, 64, 12, 64, 64),
     (2, 705, 12, 64, 8),    # past the held limit at dh = 64: two passes
@@ -311,4 +354,21 @@ def test_kernel_p_is_the_plain_p(cuda, smoke, with_bias, b, t, h, dh, top):
         .to(cuda) if with_bias else None
     got = smoke.p_probe(q, k, bias, chunk=8)
     assert got["n_p"] == b * h * t * t
+    assert got["differ"] == 0, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("t,top", [(197, 8), (197, 64), (69, 8)])
+def test_held_p_at_a_wg_shape_is_the_plain_p(cuda, smoke, with_bias, t, top):
+    """The held variant forced at the wgmma variant's shapes (as
+    ``--kernel-b`` times it beside the rule's): its P too equals the plain
+    P to the bit on exact scores."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(9)
+    q, k = smoke.grid_qk(16, t, 12, 64, g, cuda, top)
+    bias = torch.log(torch.randint(1, 9, (16, t), generator=g).float()) \
+        .to(cuda) if with_bias else None
+    got = smoke.p_probe(q, k, bias, chunk=8, variant="held")
+    assert got["n_p"] == 16 * 12 * t * t
     assert got["differ"] == 0, got

@@ -60,11 +60,12 @@
 //   bf16 product and sum do), takes the softmax in f32 with the reference
 //   softmax's arithmetic (expf of s - max, the row's sum against its final
 //   max in that softmax's order, a correctly rounded quotient: see
-//   quotient and RowSums), rounds P to bf16 in registers and reuses the S
-//   accumulator layout as the A fragment of P V (V fragments by
-//   ldmatrix.trans). Rounding S and P to bf16 is what the JAX package does
-//   off the TPU (xla_attention's bf16 einsums, and the probabilities cast
-//   to the input dtype); its Pallas kernel keeps both in f32. P is the
+//   quotient and RowSums in attention_bf16.cuh), rounds P to bf16 in
+//   registers and reuses the S accumulator layout as the A fragment of P V
+//   (V fragments by ldmatrix.trans). Rounding S and P to bf16 is what the
+//   JAX package does off the TPU (xla_attention's bf16 einsums, and the
+//   probabilities cast to the input dtype); its Pallas kernel keeps both
+//   in f32. P is the
 //   normalised exp(s - max) / sum, rounded as the reference rounds it, so O
 //   needs no division. Where one key tile holds the row (T <= 64: the
 //   heads, the chunk encoder) that takes one pass. Over several tiles a
@@ -83,7 +84,11 @@
 //   takes the statistics in a first pass that streams K for each row's max
 //   and again for its sum (S and its roundings, no P V), and then streams K
 //   and V for the same scores, P and P V; both variants take the same
-//   arithmetic in the same order, so they give the same bits. O is staged
+//   arithmetic in the same order, so they give the same bits. At dh = 64
+//   and 64 < T <= 256 (the backbone, ToMe's blocks) launch_bf16_with routes
+//   to attn_bf16_wg instead (csrc/attention_wg.cu: wgmma and TMA, the whole
+//   score row in registers, one exp a score); it gives the held variant's
+//   bits too, and the held variant stays to be forced beside it. O is staged
 //   through shared memory (the warp's own Q rows; the held variant's ring)
 //   and written with 16-byte stores. A warp whose 16 rows all lie past T
 //   skips the math but takes part in the copies and barriers. Rows are
@@ -117,6 +122,8 @@
 #include <atomic>
 #include <type_traits>
 
+#include "attention_bf16.cuh"
+
 namespace {
 
 constexpr int BQ = 64;        // query rows per block
@@ -149,71 +156,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// The bf16 kernels form P = bf16(exp(s - max) / sum) with the arithmetic of
-// the reference's softmax (torch.softmax on the f32 scores, as
-// attention_plain calls it; on the card softmax_warp_forward in ATen's
-// PersistentSoftmax.cuh), so that where the scores agree P agrees to the
-// bit:
-// - the exp: expf (libdevice's, as std::exp there; this file builds
-//   without --use_fast_math, which would make it __expf) of the exact f32
-//   difference s - max;
-// - the sum: the row's exps against its final max, in that kernel's order
-//   (RowSums);
-// - the quotient: correctly rounded, as its division (quotient).
-//
-// e / l correctly rounded, from r = 1 / l correctly rounded (__frcp_rn, one
-// a row): q = e r, then one FMA correction (Markstein). Exact while nothing
-// underflows; with l in [1, T] that holds for e >= 2^-64
-// (tests/test_torch_softmax_p.py holds it to IEEE division over 3 million
-// pairs). p_frag takes IEEE division below.
-__device__ __forceinline__ float quotient(float e, float l, float r) {
-  const float q = __fmul_rn(e, r);
-  return __fmaf_rn(__fmaf_rn(-q, l, e), r, q);
-}
-
-// The sum of a row's exps in the order of the reference's softmax
-// (softmax_warp_forward): key j goes to lane j % 32 of one warp, each lane
-// adds its keys from 0.0f in key order, and a butterfly adds the lanes over
-// lane bits 4, 3, 2, 1, 0. In the mma accumulator layout a thread holds the
-// keys 64 t + 8 n + 2 c + e of rows g and g + 8 (c = lane % 4, key group n
-// = a + 4 h): lane residue 8 a + 2 c + e, taken in the order of t, then h.
-// So each thread keeps one sum a row for each (a, e) (row_add), and the
-// butterfly (row_total) adds a's bits 1 and 0 (lane bits 4, 3) in the
-// thread, c's (bits 2, 1) across the row's four threads, and e (bit 0) in
-// the thread. Each add rounds once (__fadd_rn: never contracted with the
-// exp's last product into an FMA). Keys past T add exp(-inf) = 0 in both.
-struct RowSums {
-  float v[2][4][2];  // [row g, g + 8][a][e]
-};
-__device__ __forceinline__ void row_zero(RowSums& r) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int a = 0; a < 4; ++a) r.v[i][a][0] = r.v[i][a][1] = 0.f;
-}
-// key group n's exps: e0, e1 of row g (keys 2c, 2c + 1), e2, e3 of g + 8
-__device__ __forceinline__ void row_add(RowSums& r, int n, float e0, float e1,
-                                        float e2, float e3) {
-  r.v[0][n & 3][0] = __fadd_rn(r.v[0][n & 3][0], e0);
-  r.v[0][n & 3][1] = __fadd_rn(r.v[0][n & 3][1], e1);
-  r.v[1][n & 3][0] = __fadd_rn(r.v[1][n & 3][0], e2);
-  r.v[1][n & 3][1] = __fadd_rn(r.v[1][n & 3][1], e3);
-}
-__device__ __forceinline__ float row_total(const float (&v)[4][2]) {
-  float x[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    x[e] = __fadd_rn(__fadd_rn(v[0][e], v[2][e]), __fadd_rn(v[1][e], v[3][e]));
-    x[e] = __fadd_rn(x[e], __shfl_xor_sync(0xffffffffu, x[e], 2));
-    x[e] = __fadd_rn(x[e], __shfl_xor_sync(0xffffffffu, x[e], 1));
-  }
-  return __fadd_rn(x[0], x[1]);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // 16-byte global -> shared copy; src_bytes = 0 fills the 16 bytes with 0.
@@ -313,61 +255,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// The A fragment of P for one 16-key step from its eight exps (key groups
-// 2kk and 2kk + 1: e[0..1], e[4..5] of row g, over l0 with r0 = 1 / l0;
-// e[2..3], e[6..7] of row g + 8, over l1, r1): P = bf16(e / l), each
-// quotient correctly rounded. The FMA route takes all eight. SAFE: an exp
-// below its reach (0 < e < 2^-64: a score 44 below the row's max) is
-// divided again by IEEE division, behind one branch for the eight. The
-// held and two-pass kernels know before their P V stream whether a block
-// holds such an exp (tiny_exp, __syncthreads_or) and take SAFE only then:
-// a branch in the hot loop, even one for eight values, measured slower on
-// the H100 (PERF.md, Findings PR 16).
-template <bool SAFE>
-__device__ __forceinline__ void p_frag(uint32_t (&a)[4], const float (&e)[8],
-                                       float l0, float r0, float l1,
-                                       float r1) {
-  float p[8], lo = e[0];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    p[i] = quotient(e[i], i & 2 ? l1 : l0, i & 2 ? r1 : r0);
-    lo = fminf(lo, e[i]);
-  }
-  if (SAFE && lo < 0x1p-64f) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      if (e[i] < 0x1p-64f) p[i] = __fdiv_rn(e[i], i & 2 ? l1 : l0);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) a[j] = pack_bf16(p[2 * j], p[2 * j + 1]);
-}
-
-// min(tiny, bits(e) - 1): below bits(2^-64) - 1 once some exp lies in (0,
-// 2^-64), where the FMA quotient may round otherwise than IEEE division (an
-// exp of 0, a key past T or a score 104 below the max, maps to the top).
-__device__ __forceinline__ uint32_t tiny_exp(uint32_t tiny, float e) {
-  return min(tiny, __float_as_uint(e) - 1u);
-}
-__device__ __forceinline__ bool has_tiny_exp(uint32_t tiny) {
-  return tiny < __float_as_uint(0x1p-64f) - 1u;
-}
-
-// Two bf16 products and sums, each rounded once (.rn: never contracted
-// into an FMA, which would round a * b + c once).
-__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
 
 template <int DH>
 struct Bf16Layout {
@@ -456,11 +343,9 @@ __device__ __forceinline__ void bf16_scores(
     }
   }
   auto rounded = [&](float& x0, float& x1, int col) {
-    uint32_t h = mul_bf16x2(pack_bf16(x0, x1), scale2);
-    if constexpr (BIAS)
-      h = add_bf16x2(h, *reinterpret_cast<const uint32_t*>(&bt[col]));
-    x0 = __uint_as_float(h << 16);
-    x1 = __uint_as_float(h & 0xffff0000u);
+    round_scores<BIAS>(x0, x1, scale2,
+                       BIAS ? *reinterpret_cast<const uint32_t*>(&bt[col])
+                            : 0u);
   };
   if (j0 + BK <= seq) {
 #pragma unroll
@@ -721,13 +606,6 @@ attn_bf16(const Params<__nv_bfloat16> p) {
   if (!active) return;
   store_o_bf16<DH>(o, &Qs[warp * 16 * LD], og, p.so.t, q0 + warp * 16, seq,
                    lane);
-}
-
-__device__ __forceinline__ float lo_bf16(uint32_t x) {
-  return __uint_as_float(x << 16);
-}
-__device__ __forceinline__ float hi_bf16(uint32_t x) {
-  return __uint_as_float(x & 0xffff0000u);
 }
 
 // The held variant: T > 64 up to HeldLayout::MAX_TILES key tiles. One
@@ -1221,29 +1099,52 @@ int launch_f32(Params<float> p, int batch, cudaStream_t s) {
   return launch<attn_f32<DH, false>>(p, batch, L::BYTES, L::BYTES, s);
 }
 
-// The bf16 variants by (T, dh, bias), a rule that ops/attention.py's
-// bf16_variant mirrors: one key tile (T <= 64) the one-pass kernel; more
-// while the held scores fit (HeldLayout<DH, BIAS>::MAX_TILES) the held
-// variant; beyond, the two-pass kernel.
+// The bf16 variants (ops/attention.py's VARIANT_CODES). ops/attention.py's
+// bf16_variant mirrors the rule (RULE): one key tile (T <= 64) the one-pass
+// kernel; at dh = 64 up to 256 keys attn_bf16_wg (csrc/attention_wg.cu);
+// more while the held scores fit (HeldLayout<DH, BIAS>::MAX_TILES) the held
+// variant; beyond, the two-pass kernel. Another code forces that variant
+// where it applies (the held variant at a wg shape, to time the two in one
+// process) and is refused (cudaErrorInvalidValue) where it does not.
+enum Variant { RULE = 0, ONE_PASS = 1, HELD = 2, TWO_PASS = 3, WG = 4 };
+
 template <int DH, bool BIAS>
-int launch_bf16_with(const Params<__nv_bfloat16>& p, int batch,
-                     cudaStream_t s) {
+int launch_bf16_with(const Params<__nv_bfloat16>& p, int batch, int variant,
+                     const long long* st, cudaStream_t s) {
   using L = Bf16Layout<DH>;
   using H = HeldLayout<DH, BIAS>;
   constexpr int bytes = BIAS ? L::BIAS_BYTES : L::BYTES;
   const int n_tiles = (p.seq + BK - 1) / BK;
-  if (n_tiles == 1)
-    return launch<attn_bf16<DH, BIAS, false>>(p, batch, bytes, bytes, s);
-  if (n_tiles <= H::MAX_TILES)
-    return launch<attn_bf16_held<DH, BIAS>>(p, batch, H::bytes(n_tiles),
-                                            H::bytes(H::MAX_TILES), s);
-  return launch<attn_bf16<DH, BIAS, true>>(p, batch, bytes, bytes, s);
+  const bool wg = DH == 64 && p.seq >= WG_MIN_SEQ && p.seq <= WG_MAX_SEQ;
+  if (variant == RULE)
+    variant = n_tiles == 1           ? ONE_PASS
+              : wg                   ? WG
+              : n_tiles <= H::MAX_TILES ? HELD
+                                        : TWO_PASS;
+  switch (variant) {
+    case ONE_PASS:
+      if (n_tiles != 1) break;
+      return launch<attn_bf16<DH, BIAS, false>>(p, batch, bytes, bytes, s);
+    case WG:
+      if (!wg) break;
+      return attention_wg_launch(p.q, p.k, p.v, p.o, batch, p.heads, p.seq,
+                                 st, p.scale, p.bias, p.sbias, s);
+    case HELD:
+      if (n_tiles == 1 || n_tiles > H::MAX_TILES) break;
+      return launch<attn_bf16_held<DH, BIAS>>(p, batch, H::bytes(n_tiles),
+                                              H::bytes(H::MAX_TILES), s);
+    case TWO_PASS:
+      if (n_tiles == 1) break;
+      return launch<attn_bf16<DH, BIAS, true>>(p, batch, bytes, bytes, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int DH>
-int launch_bf16(const Params<__nv_bfloat16>& p, int batch, cudaStream_t s) {
-  if (p.bias) return launch_bf16_with<DH, true>(p, batch, s);
-  return launch_bf16_with<DH, false>(p, batch, s);
+int launch_bf16(const Params<__nv_bfloat16>& p, int batch, int variant,
+                const long long* st, cudaStream_t s) {
+  if (p.bias) return launch_bf16_with<DH, true>(p, batch, variant, st, s);
+  return launch_bf16_with<DH, false>(p, batch, variant, st, s);
 }
 
 }  // namespace
@@ -1253,13 +1154,15 @@ int launch_bf16(const Params<__nv_bfloat16>& p, int batch, cudaStream_t s) {
 // head and token; o is written through strides[9..11]. The last dim has
 // stride 1; base pointers and strides are multiples of 16 bytes. dh in
 // {16, 32, 64, 96, 128, 192}. bias: null, or a (batch, seq) f32 key bias whose
-// rows are bias_stride elements apart (stride 1 along seq). Returns
+// rows are bias_stride elements apart (stride 1 along seq). variant: 0 (the
+// rule), or a bf16 variant to force (Variant; f32 takes 0 only). Returns
 // cudaGetLastError() after the launch.
 extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
                                  void* o, int batch, int heads, int seq,
                                  int dh, const long long* strides,
                                  float scale, int is_bf16, const float* bias,
-                                 long long bias_stride, void* stream) {
+                                 long long bias_stride, int variant,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (seq <= 0 || batch <= 0 || heads <= 0) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
@@ -1267,14 +1170,14 @@ extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
                                               strides, scale, bias,
                                               bias_stride);
     switch (dh) {
-      case 16: return launch_bf16<16>(p, batch, s);
-      case 32: return launch_bf16<32>(p, batch, s);
-      case 64: return launch_bf16<64>(p, batch, s);
-      case 96: return launch_bf16<96>(p, batch, s);
-      case 128: return launch_bf16<128>(p, batch, s);
-      case 192: return launch_bf16<192>(p, batch, s);
+      case 16: return launch_bf16<16>(p, batch, variant, strides, s);
+      case 32: return launch_bf16<32>(p, batch, variant, strides, s);
+      case 64: return launch_bf16<64>(p, batch, variant, strides, s);
+      case 96: return launch_bf16<96>(p, batch, variant, strides, s);
+      case 128: return launch_bf16<128>(p, batch, variant, strides, s);
+      case 192: return launch_bf16<192>(p, batch, variant, strides, s);
     }
-  } else {
+  } else if (variant == RULE) {
     const auto p = make_params<float>(q, k, v, o, heads, seq, strides, scale,
                                       bias, bias_stride);
     switch (dh) {

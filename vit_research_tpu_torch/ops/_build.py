@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -46,10 +47,11 @@ _SIGNATURES = {
     "vrt_patch_embed_f32": ([_P] * 6 + [_I] * 7 + [_P], _I),
     # q, k, v, o, batch, heads, seq, dh, 12 strides (q, k, v, o x batch,
     # head, token), scale, is_bf16, key bias (or null), its batch stride,
-    # stream
+    # variant (0: the rule), stream
     "vrt_attention_fwd": ([_P] * 4 + [_I] * 4
                           + [ctypes.POINTER(ctypes.c_longlong),
-                             ctypes.c_float, _I, _P, ctypes.c_longlong, _P],
+                             ctypes.c_float, _I, _P, ctypes.c_longlong, _I,
+                             _P],
                           _I),
     # x, gamma, beta, w, bias, out, stats, M, K, N, ldw, eps, act, x_bf16,
     # w_bf16, out_bf16, stream
@@ -104,31 +106,56 @@ def build() -> str:
     # Build under a temporary name and rename: a concurrent process never
     # loads a half-written library.
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
-        # One nvcc per source, all started together, then one link.
+        # One nvcc per source, all started together, then one link; each
+        # writes its report into its log, and its wall time beside it.
         jobs = []
+        t0 = time.monotonic()
         for src in srcs:
             obj = os.path.join(tmp_dir, os.path.basename(src) + ".o")
             cmd = [nvcc, *COMPILE_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
-            jobs.append((cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            log = open(os.path.join(out_dir, _log_name(obj)), "w")
+            jobs.append((cmd, obj, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+        pending = list(jobs)
+        while pending:
+            for job in [j for j in pending if j[3].poll() is not None]:
+                pending.remove(job)
+                job[2].close()
+                with open(os.path.join(out_dir, _time_name(job[1])),
+                          "w") as fh:
+                    fh.write(f"{time.monotonic() - t0:.2f}\n")
+            time.sleep(0.05)
         failed = []
-        for cmd, obj, proc in jobs:
-            log, _ = proc.communicate()
+        for cmd, obj, _, proc in jobs:
             if proc.returncode != 0:
-                failed.append(f"{' '.join(cmd)}\n{log}")
-            with open(os.path.join(out_dir, _log_name(obj)), "w") as fh:
-                fh.write(log)
+                with open(os.path.join(out_dir, _log_name(obj))) as fh:
+                    failed.append(f"{' '.join(cmd)}\n{fh.read()}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp = os.path.join(tmp_dir, LIB_NAME)
-        _run([nvcc, *LINK_FLAGS, "-o", tmp, *(obj for _, obj, _ in jobs)])
+        _run([nvcc, *LINK_FLAGS, "-o", tmp, *(job[1] for job in jobs)])
         os.replace(tmp, lib)
     return lib
 
 
 def _log_name(path: str) -> str:
     return os.path.basename(path).split(".")[0] + ".ptxas.log"
+
+
+def _time_name(path: str) -> str:
+    return os.path.basename(path).split(".")[0] + ".nvcc_s"
+
+
+def nvcc_seconds(source: str) -> float:
+    """Seconds from the build's start until the nvcc of ``csrc/<source>``
+    ended (every source compiles at once); builds first if needed. NaN
+    where the library was built before this record was kept."""
+    path = os.path.join(os.path.dirname(build()),
+                        _time_name(os.path.basename(source)))
+    if not os.path.exists(path):
+        return float("nan")
+    with open(path) as fh:
+        return float(fh.read())
 
 
 def ptxas_report(source: str) -> list[str]:

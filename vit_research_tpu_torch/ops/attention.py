@@ -6,9 +6,11 @@ On a CUDA tensor it launches the hand-written kernel in
 ``csrc/attention.cu`` (online softmax over K/V tiles streamed through
 shared memory, so unlike the TPU kernel it has no ``MAX_KV_LEN``; bf16 on
 the tensor cores, f32 on the CUDA cores). bf16 past one key tile takes one
-of two variants by the rule :func:`bf16_variant` mirrors: the held variant
-(K and V streamed once, the row's scores held in shared memory) while they
-fit, the two-pass kernel beyond. The kernel reads q, k and v
+of three variants by the rule :func:`bf16_variant` mirrors: at dh = 64 up to
+256 keys the Hopper kernel of ``csrc/attention_wg.cu`` (wgmma and TMA, the
+whole score row in registers); else the held variant (K and V streamed
+once, the row's scores held in shared memory) while they fit, the two-pass
+kernel beyond. The kernel reads q, k and v
 through their strides, so the backbone hands it the projections'
 (B, T, H, dh) order as ``transpose(1, 2)`` views without a copy, and it
 writes the output in that order too. On a CPU tensor it runs
@@ -45,6 +47,9 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128, 192)
 _DTYPES = (torch.float32, torch.bfloat16)
 _ALIGN = 16  # bytes: the kernel moves q, k, v and o in 16-byte copies
 _BQ = _BK = 64  # query rows a block, keys a shared-memory tile
+#: the keys the wgmma variant takes at dh = 64 (WG_MIN_SEQ, WG_MAX_SEQ in
+#: csrc/attention_bf16.cuh)
+WG_KEYS = (65, 256)
 #: the shared memory a block may opt into on the H100
 MAX_SMEM = 232_448
 #: the shared memory of two blocks an SM (the SM's 233,472 bytes less
@@ -127,20 +132,34 @@ _HELD_MAX = {(w, bias): held_max_tiles(w, bias)
              for w in KERNEL_HEAD_DIMS for bias in (False, True)}
 
 
-def bf16_variant(t: int, width: int, bias: bool) -> str:
-    """The bf16 kernel's variant for T keys at compiled width ``width``,
-    with or without a key bias (the rule of csrc/attention.cu's
+def bf16_variants(t: int, width: int, bias: bool) -> tuple:
+    """Every bf16 variant that takes T keys at compiled width ``width``,
+    with or without a key bias, the rule's first (csrc/attention.cu's
     ``launch_bf16_with``): ``"1pass"`` where one key tile holds the row (T
-    <= 64), ``"held"`` up to 64 * :func:`held_max_tiles` keys (the row's
-    scores held in shared memory: one stream of K, then one of V),
-    ``"2pass"`` beyond (K streamed twice)."""
+    <= 64); ``"wg"`` at width 64 for T in :data:`WG_KEYS` (wgmma and TMA,
+    the whole score row in registers); ``"held"`` up to 64 *
+    :func:`held_max_tiles` keys (the row's scores held in shared memory:
+    one stream of K, then one of V); ``"2pass"`` past one key tile (K
+    streamed twice)."""
     n_tiles = -(-t // _BK)
     if n_tiles == 1:
-        return "1pass"
-    return "held" if n_tiles <= _HELD_MAX[width, bias] else "2pass"
+        return ("1pass",)
+    wg = ("wg",) if width == 64 and WG_KEYS[0] <= t <= WG_KEYS[1] else ()
+    held = ("held",) if n_tiles <= _HELD_MAX[width, bias] else ()
+    return wg + held + ("2pass",)
 
 
-_VARIANT_SUFFIX = {"1pass": "", "held": "/held", "2pass": "/2pass"}
+def bf16_variant(t: int, width: int, bias: bool) -> str:
+    """The rule's bf16 variant for T keys at compiled width ``width``,
+    with or without a key bias: the first of :func:`bf16_variants`."""
+    return bf16_variants(t, width, bias)[0]
+
+
+#: the code of each variant at the C entry point (csrc/attention.cu's
+#: Variant); 0 is the rule
+VARIANT_CODES = {"1pass": 1, "held": 2, "2pass": 3, "wg": 4}
+_VARIANT_SUFFIX = {"1pass": "", "held": "/held", "2pass": "/2pass",
+                   "wg": "/wg"}
 # launches_by_kernel's names, e.g. attn_f32<96>, attn_bf16<64>/held
 _KERNEL_NAMES = {**{(False, w, None): f"attn_f32<{w}>"
                     for w in KERNEL_HEAD_DIMS},
@@ -150,14 +169,31 @@ _KERNEL_NAMES = {**{(False, w, None): f"attn_f32<{w}>"
 _WIDTHS = {d: kernel_head_dim(d) for d in range(1, KERNEL_HEAD_DIMS[-1] + 1)}
 
 
-def kernel_name(dtype: torch.dtype, t: int, width: int, bias: bool) -> str:
+def kernel_name(dtype: torch.dtype, t: int, width: int, bias: bool,
+                variant: str | None = None) -> str:
     """The name a launch counts under in
     ``multi_head_attention.launches_by_kernel``: ``attn_f32<width>``, or
-    ``attn_bf16<width>`` with ``/held`` or ``/2pass`` past one key tile
-    (:func:`bf16_variant`)."""
+    ``attn_bf16<width>`` with ``/wg``, ``/held`` or ``/2pass`` past one key
+    tile: the rule's variant (:func:`bf16_variant`), or ``variant``."""
     bf16 = dtype == torch.bfloat16
-    return _KERNEL_NAMES[bf16, width,
-                         bf16_variant(t, width, bias) if bf16 else None]
+    if bf16 and variant is None:
+        variant = bf16_variant(t, width, bias)
+    return _KERNEL_NAMES[bf16, width, variant if bf16 else None]
+
+
+def _check_variant(variant, q, width: int, bias: bool) -> None:
+    """Raise ValueError unless ``variant`` is None or a bf16 variant that
+    takes q's shape (:func:`bf16_variants`)."""
+    if variant is None:
+        return
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"variant {variant!r} is a bf16 variant; q is "
+                         f"{q.dtype}")
+    takes = bf16_variants(q.shape[2], width, bias) if width else ()
+    if variant not in takes:
+        raise ValueError(f"variant {variant!r} does not take T = "
+                         f"{q.shape[2]} at head width {width} (the shape "
+                         f"takes {', '.join(takes) or 'none'})")
 
 
 def _kernel_strides(x: torch.Tensor, name: str = "x") -> tuple:
@@ -215,12 +251,14 @@ _LAYOUTS: dict = {}
 _LAYOUTS_MAX = 256
 
 
-def _layout(q, k, v, ptrs, bias: bool) -> tuple:
+def _layout(q, k, v, ptrs, bias: bool, variant=None) -> tuple:
     """(strides, kernel name) for q/k/v at their data pointers ``ptrs``;
     raises ValueError as :func:`_kernel_strides` for a layout the kernel
-    does not take. The output's strides are those of the ``transpose(1, 2)``
+    does not take (every stride a multiple of 16 bytes: what TMA, too,
+    takes). The output's strides are those of the ``transpose(1, 2)``
     view of a contiguous (B, T, H, dh) tensor."""
-    key = (q.shape, q.stride(), k.stride(), v.stride(), q.dtype, bias)
+    key = (q.shape, q.stride(), k.stride(), v.stride(), q.dtype, bias,
+           variant)
     hit = _LAYOUTS.get(key)
     if hit is None:
         b, h, t, width = q.shape
@@ -228,7 +266,7 @@ def _layout(q, k, v, ptrs, bias: bool) -> tuple:
              h * width if t > 1 else 0)
         hit = (_Strides12(*_kernel_strides(q, "q"), *_kernel_strides(k, "k"),
                           *_kernel_strides(v, "v"), *o),
-               kernel_name(q.dtype, t, width, bias))
+               kernel_name(q.dtype, t, width, bias, variant))
         if len(_LAYOUTS) >= _LAYOUTS_MAX:
             _LAYOUTS.clear()
         _LAYOUTS[key] = hit
@@ -249,12 +287,14 @@ def _current_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def _launch(q, k, v, scale, key_bias):
+def _launch(q, k, v, scale, key_bias, variant=None):
     b, h, t, d = q.shape
     width = _WIDTHS.get(d)
     if width is None:
         raise ValueError(f"attention kernel supports head_dim up to "
                          f"{KERNEL_HEAD_DIMS[-1]}, got {d}")
+    bias = key_bias is not None
+    _check_variant(variant, q, width, bias)
     dtype, index = q.dtype, q.get_device()
     for name, x in (("k", k), ("v", v)):
         if x.dtype != dtype or x.get_device() != index:
@@ -263,9 +303,8 @@ def _launch(q, k, v, scale, key_bias):
     if width != d:
         # the scale stays the caller's (d ** -0.5 by default)
         q, k, v = (pad_head_dim(x, width) for x in (q, k, v))
-    bias = key_bias is not None
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    strides, name = _layout(q, k, v, ptrs, bias)
+    strides, name = _layout(q, k, v, ptrs, bias, variant)
     # The output in projection order (B, T, H, dh), seen as (B, H, T, dh).
     o = torch.empty_strided((b, h, t, width), (t * h * width, width,
                                                h * width, 1),
@@ -273,7 +312,8 @@ def _launch(q, k, v, scale, key_bias):
     args = (*ptrs, o.data_ptr(), b, h, t, width, strides, float(scale),
             int(dtype == torch.bfloat16),
             key_bias.data_ptr() if bias else None,
-            key_bias.stride(0) if bias and b > 1 else 0)
+            key_bias.stride(0) if bias and b > 1 else 0,
+            VARIANT_CODES[variant] if variant else 0)
     fn = _build.library().vrt_attention_fwd
     if index == _current_device():
         code = fn(*args, _current_stream(index))
@@ -292,11 +332,20 @@ def _launch(q, k, v, scale, key_bias):
     return o
 
 
-def _forward(q, k, v, scale, key_bias):
+def _forced(variant) -> tuple:
+    """The trailing argument of :func:`_forward` and :func:`_launch` for a
+    forced variant; none for the rule's, so that their five-argument form
+    (which tests and chip_smoke.py stand in for) stays the common call."""
+    return () if variant is None else (variant,)
+
+
+def _forward(q, k, v, scale, key_bias, variant=None):
     """The kernel on a CUDA tensor, the plain version on a CPU one."""
     if q.is_cuda:
-        return _launch(q, k, v, scale, key_bias)
+        return _launch(q, k, v, scale, key_bias, *_forced(variant))
     if q.device.type == "cpu":
+        _check_variant(variant, q, _WIDTHS.get(q.shape[-1]),
+                       key_bias is not None)
         return attention_plain(q, k, v, scale=scale, key_bias=key_bias)
     raise ValueError(f"unsupported device {q.device}")
 
@@ -307,7 +356,7 @@ class _Attention(torch.autograd.Function):
     bias, whichever require grad."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, scale):
+    def forward(ctx, q, k, v, key_bias, scale, variant):
         inputs = (q, k, v, key_bias)
         ctx.save_for_backward(*(t if t is not None and t.requires_grad
                                 else None for t in inputs))
@@ -316,7 +365,7 @@ class _Attention(torch.autograd.Function):
         ctx.constants = [None if t is None or t.requires_grad else t
                          for t in inputs]
         ctx.scale = scale
-        return _forward(q, k, v, scale, key_bias)
+        return _forward(q, k, v, scale, key_bias, *_forced(variant))
 
     @staticmethod
     def backward(ctx, grad):
@@ -333,11 +382,12 @@ class _Attention(torch.autograd.Function):
                                       key_bias=key_bias)
                 grads = iter(torch.autograd.grad(out, wanted, grad))
         return (*(next(grads) if t is not None and t.requires_grad else None
-                  for t in inputs), None)
+                  for t in inputs), None, None)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, scale=None, key_bias=None) -> torch.Tensor:
+                         *, scale=None, key_bias=None,
+                         variant: str | None = None) -> torch.Tensor:
     """softmax(q k^T * scale + key_bias) v for (B, H, T, head_dim) f32 or
     bf16 inputs; ``scale`` defaults to head_dim ** -0.5, ``key_bias`` is
     None or a finite (B, T) f32 tensor on q's device with stride 1 along T
@@ -355,7 +405,12 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     width above 192 or a layout the kernel does not take. A CPU
     input runs :func:`attention_plain`. When an input requires grad
     (and grad mode is on), the call goes through :class:`_Attention`, so
-    the gradients are the plain version's."""
+    the gradients are the plain version's.
+
+    ``variant`` (bf16 only; for measurement) launches that variant of
+    :func:`bf16_variants` instead of the rule's, e.g. ``"held"`` at T =
+    197 beside the rule's ``"wg"``; one that does not take the shape
+    raises ValueError."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one (B, H, T, dh) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -369,12 +424,13 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad
             or key_bias is not None and key_bias.requires_grad):
-        return _Attention.apply(q, k, v, key_bias, scale)
-    return _forward(q, k, v, scale, key_bias)
+        return _Attention.apply(q, k, v, key_bias, scale, variant)
+    return _forward(q, k, v, scale, key_bias, *_forced(variant))
 
 
 multi_head_attention.launches = 0
 multi_head_attention.padded_launches = 0
 #: the same launches by instantiation and variant (:func:`kernel_name`),
-#: e.g. ``attn_bf16<96>``, ``attn_bf16<64>/held``, ``attn_bf16<64>/2pass``
+#: e.g. ``attn_bf16<96>``, ``attn_bf16<64>/wg``, ``attn_bf16<64>/held``,
+#: ``attn_bf16<64>/2pass``
 multi_head_attention.launches_by_kernel = collections.Counter()
