@@ -8,12 +8,17 @@ and checks the results.
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. the card (nvidia-smi name and power limit, torch and CUDA versions)
-     and the kernel build from vit_research_tpu_torch/csrc/, with ptxas's
-     registers, shared memory and spills of every kernel;
+     and the kernel build from vit_research_tpu_torch/csrc/ (each nvcc's
+     seconds), with ptxas's registers, shared memory, spills and warnings
+     of every kernel;
   2. the patch-embed kernel against its plain version (uint8 frames,
      B=64 and B=256 @224 P=16, B=16 @432x768 P=32, f32 and bf16 out; and
-     the bf16 engine's shape, B=512 @224 with bf16 out), and the nearest
-     library call, F.conv2d over the normalised f32 batch;
+     the bf16 engine's shape, B=512 @224 with bf16 out): the rule's wgmma
+     variant (csrc/patch_embed_wg.cu) and the mma.sync variant forced,
+     each held to the plain version and timed in turns (mma, wg, wg, mma)
+     through the wrapper and as the kernel alone on the folded weight
+     (``launch_u8``; the fold timed apart), and the nearest library call,
+     F.conv2d over the normalised f32 batch;
   3. the attention kernel against its plain version in the same dtype
      (T = 197, 325, 1297, dh = 64; f32 and bf16), on contiguous (B, H, T,
      dh) inputs and on the (B, H, T, dh) views of (B, T, H, dh) tensors
@@ -50,9 +55,14 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      the plain VJP; ptxas's registers and spills of the dh = 192 kernels;
   3b. the fused LayerNorm + projection kernel, driven through its public
      entry ``ln_matmul`` at ViT-B shapes (M = 256*197, K = 768, N = 768
-     and 3072 with exact GELU; x and W f32, and x f32 with W bf16), then
-     against its plain version and the library pair F.layer_norm +
-     F.linear (+ F.gelu), with TF32 off;
+     and 3072 with exact GELU; x and W f32, and x f32 with W bf16) and at
+     the bf16 backbone's own two sites (x, W and out bf16, M = 512*197:
+     N = 2304, LN1 -> q, k, v; N = 3072 with exact GELU, LN2 -> fc1; C
+     stays off EncoderBlock), its launches counted by variant, then
+     against its plain version and the library chain F.layer_norm +
+     F.linear (+ F.gelu), with TF32 off; with a bf16 W the rule's wgmma
+     variant (csrc/fused_ln_wg.cu) and the mma.sync variant forced are
+     both held and timed in turns (mma, wg, wg, mma);
   4. the main path: two synthetic games of 224x224 JPEG frames (written,
      with phase 5b's CPU reference forward, on a thread while phase 1
      builds the kernels and phases 2-3b run), one
@@ -258,7 +268,10 @@ stay strict.
 Host microseconds a call (``host_us``) stand beside the CUDA-event and
 device times of every T <= 25 row of phases 3c, 3d and 5g, and the
 kernels line's attention entry carries ``launches_by_kernel``: kernel B's
-main-path launches by instantiation and variant.
+main-path launches by instantiation and variant; the patch_embed entry
+kernel A's by variant (``patch_embed_u8/wg`` on every main path), the
+ln_matmul entry kernel C's in phase 3b (``ln_gemm/wg``, ``ln_gemm/mma``),
+and each of the three its ``variant_sources``.
 
 Times are CUDA-event medians on this card unless a line says otherwise;
 the nvidia-smi line says which card and power limit they belong to. The
@@ -769,7 +782,7 @@ def phase_card() -> str:
             f"{os.path.basename(s)} {_build.nvcc_seconds(s):.1f} s"
             for s in _build.sources()) + ")")
     for source in ("attention.cu", "attention_wg.cu", "patch_embed.cu",
-                   "fused_ln.cu"):
+                   "patch_embed_wg.cu", "fused_ln.cu", "fused_ln_wg.cu"):
         log_ptxas(source)
     return smi
 
@@ -817,9 +830,13 @@ def _ptxas_lines(source: str, needle: str) -> list:
 
 def log_ptxas(source: str) -> None:
     """One line per kernel of ``source``: ptxas's registers, shared
-    memory (static; dynamic shared memory is set at launch) and spills."""
+    memory (static; dynamic shared memory is set at launch) and spills;
+    then ptxas's warnings (a serialized wgmma among them), if any."""
     for line in _ptxas_lines(source, ""):
         log(f"[1] ptxas {source} {line}")
+    for line in _build.ptxas_report(source):
+        if "warning" in line:
+            log(f"[1] ptxas {source} {line}")
 
 
 # (B, H, W, P, output dtypes): the main path's B=256 and the bf16
@@ -830,11 +847,30 @@ PE_CASES = [(64, 224, 224, 16, (torch.float32, torch.bfloat16)),
             (512, 224, 224, 16, (torch.bfloat16,))]
 
 
+def turns(fns: dict, order=("mma", "wg", "wg", "mma")) -> dict:
+    """cuda_ms of each variant's call, in turns (``order``), so that both
+    see the card in the same state: {variant: [ms, ...]}."""
+    out = {v: [] for v in fns}
+    for v in order:
+        out[v].append(cuda_ms(fns[v]))
+    return out
+
+
+def _ms_text(times: list) -> str:
+    return " / ".join(f"{t:.4f}" for t in times)
+
+
 def phase_patch_embed(smi: str) -> dict:
-    """Kernel A on uint8 frames against its plain version; the B=256 f32
-    summary with the bf16 engine's (B=512, bf16 out) under "bf16"."""
+    """Kernel A on uint8 frames: the rule's wgmma variant (csrc/
+    patch_embed_wg.cu) against its plain version, the mma.sync variant
+    forced and held beside it, both timed in turns (mma, wg, wg, mma)
+    through the wrapper and as the kernel alone on the folded pieces
+    (``launch_u8``, without the wrapper's fold_split_weight, timed apart);
+    the B=256 f32 summary with the bf16 engine's (B=512, bf16 out) under
+    "bf16"."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    counter = pe.fused_patch_embed.launches_by_kernel
     summary = {}
     for b, h, w, p, out_dtypes in PE_CASES:
         k = p * p * 3
@@ -846,41 +882,68 @@ def phase_patch_embed(smi: str) -> dict:
             np.float32)).to(dev)
         a_vec, b_vec = (torch.from_numpy(x).to(dev)
                         for x in pe.fold_affine(p, **HF_AFFINE))
+        pieces, bias_c = pe.fold_split_weight(wt, bias, a_vec, b_vec)
         for out_dtype in out_dtypes:
-            def kernel():
+            def call(variant=None):
                 return pe.fused_patch_embed(images, wt, bias, patch_size=p,
-                                            out_dtype=out_dtype, **HF_AFFINE)
+                                            out_dtype=out_dtype,
+                                            variant=variant, **HF_AFFINE)
 
             def plain():
                 return pe.patch_embed_plain(images, wt, bias, a_vec, b_vec,
                                             patch_size=p, out_dtype=out_dtype)
 
-            got = kernel()
-            want = plain().reshape(got.shape)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            want = plain()
+            errs, names = {}, {}
+            for variant in (None, "mma"):
+                before = counter.copy()
+                got = call(variant).reshape(want.shape)
+                torch.cuda.synchronize()
+                names[variant or "rule"] = ",".join(sorted(counter - before))
+                errs[variant or "wg"] = (got.float() - want.float()).abs() \
+                    .max().item()
+                del got
             bound_err = PE_BOUND[out_dtype]
-            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-            m = got.shape[0] * got.shape[1]
+            if names != {"rule": "patch_embed_u8/wg",
+                         "mma": "patch_embed_u8/mma"}:
+                raise AssertionError(f"patch_embed launched {names}")
+            wrapper = turns({v: functools.partial(call, v)
+                             for v in ("mma", "wg")})
+            alone = turns({v: functools.partial(
+                pe.launch_u8, images, pieces, bias_c, p, out_dtype, v)
+                for v in ("mma", "wg")})
+            fold_ms = cuda_ms(lambda: pe.fold_split_weight(wt, bias, a_vec,
+                                                           b_vec))
+            plain_ms = cuda_ms(plain)
+            m = want.shape[0]
             lim = bound(images.numel() + wt.numel() * 4 + 768 * 4
-                        + m * 768 * got.element_size(), 2 * m * k * 768,
+                        + m * 768 * want.element_size(), 2 * m * k * 768,
                         "bf16", passes=3)
             name = str(out_dtype).split(".")[-1]
             log(f"[2] patch_embed u8 B={b} {h}x{w} P={p} out={name}: "
-                f"max|err| {err:.3e} (bound {bound_err:.1e}) | kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {bound_text(lim)} "
-                f"| {smi}")
-            if not err <= bound_err:
-                raise AssertionError(f"patch_embed kernel disagrees: {err}")
-            del got, want
+                f"max|err| wg {errs['wg']:.3e}, mma {errs['mma']:.3e} "
+                f"(bound {bound_err:.1e}) | call wg {_ms_text(wrapper['wg'])}"
+                f" ms, mma {_ms_text(wrapper['mma'])}; kernel alone wg "
+                f"{_ms_text(alone['wg'])}, mma {_ms_text(alone['mma'])}; "
+                f"fold {fold_ms:.4f}; plain {plain_ms:.4f} ms; "
+                f"{bound_text(lim)} | {smi}")
+            if not max(errs.values()) <= bound_err:
+                raise AssertionError(f"patch_embed kernel disagrees: {errs}")
+            del want
             key = {(BATCH, 16, torch.float32): "f32",
                    (512, 16, torch.bfloat16): "bf16"}.get((b, p, out_dtype))
             if key:
                 summary[key] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, **lim,
+                    max_abs_err=errs["wg"], mma_max_abs_err=errs["mma"],
+                    ms=statistics.mean(wrapper["wg"]),
+                    mma_ms=statistics.mean(wrapper["mma"]),
+                    kernel_ms=statistics.mean(alone["wg"]),
+                    mma_kernel_ms=statistics.mean(alone["mma"]),
+                    turns_ms=dict(wrapper=wrapper, kernel_alone=alone),
+                    fold_ms=fold_ms, plain_ms=plain_ms, **lim,
                     library_ms=_conv_patch_embed_ms(
                         images, wt, bias, a_vec, b_vec, p, smi, out_dtype))
-        del images
+        del images, pieces
         torch.cuda.empty_cache()
     return dict(summary["f32"], bf16=summary["bf16"])
 
@@ -1620,89 +1683,132 @@ def phase_attention_rag(smi: str) -> dict:
     return dict(rows=rows, grad_rel_err=grads)
 
 
-LN_CASES = [(768, None, torch.float32), (3072, "gelu", torch.float32),
-            (768, None, torch.bfloat16), (3072, "gelu", torch.bfloat16)]
+# (M, N, activation, x, W and output dtype): ViT-B shapes with an f32 x
+# (the output in W's dtype), then the bf16 backbone's own two sites of
+# LayerNorm + projection (x, W, output bf16 at B = 512): LN1 -> q, k, v as
+# one (768, 2304) W, LN2 -> fc1 with exact GELU. A measurement: C stays
+# off EncoderBlock, as in the JAX package.
+LN_CASES = [(BATCH * 197, 768, None, torch.float32, torch.float32),
+            (BATCH * 197, 3072, "gelu", torch.float32, torch.float32),
+            (BATCH * 197, 768, None, torch.float32, torch.bfloat16),
+            (BATCH * 197, 3072, "gelu", torch.float32, torch.bfloat16),
+            (512 * 197, 2304, None, torch.bfloat16, torch.bfloat16),
+            (512 * 197, 3072, "gelu", torch.bfloat16, torch.bfloat16)]
 
 
 def phase_ln_matmul(smi: str) -> dict:
     """Kernel C at ViT-B shapes. Its path is its public entry: the counts
-    are zeroed, ``ln_matmul`` is driven once per case and the count read;
-    then each case is held against the plain version and timed against it
-    and the library pair."""
+    are zeroed, ``ln_matmul`` is driven once per case by its rule and the
+    counts read (by variant too); then each case is held against the plain
+    version, a bf16 W's mma.sync variant forced and held beside the rule's
+    wgmma variant and both timed in turns (mma, wg, wg, mma), against the
+    plain version and the library chain F.layer_norm + F.linear (+
+    F.gelu) in the case's dtypes."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
-    m, k, eps = BATCH * 197, 768, 1e-12
-    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+    k, eps = 768, 1e-12
+    xs = {m: torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+          .to(dev) for m in sorted({c[0] for c in LN_CASES})}
     gamma, beta = (torch.from_numpy(rng.normal(mu, 0.1, size=k).astype(
         np.float32)).to(dev) for mu in (1.0, 0.0))
     cases = []
-    for n, act, w_dtype in LN_CASES:
+    for m, n, act, x_dtype, w_dtype in LN_CASES:
         w = torch.from_numpy((rng.normal(size=(k, n)) * k ** -0.5).astype(
             np.float32)).to(dev, w_dtype)
         bias = torch.from_numpy(rng.normal(size=n).astype(np.float32)) \
             .to(dev)
-        cases.append((n, act, w, bias))
+        cases.append((xs[m].to(x_dtype), n, act, w, bias))
 
     fused_ln.ln_matmul.launches = 0
+    fused_ln.ln_matmul.launches_by_kernel.clear()
     outs = [fused_ln.ln_matmul(x, gamma, beta, w, bias, eps=eps,
-                               activation=act) for _, act, w, bias in cases]
+                               activation=act) for x, _, act, w, bias in cases]
     torch.cuda.synchronize()
     launches = fused_ln.ln_matmul.launches
-    log(f"[3b] ln_matmul driven at M={m} K={k}: {launches} launches for "
-        f"{len(cases)} calls")
-    if launches != len(cases):
-        raise AssertionError(f"ln_matmul launched {launches} times, want "
-                             f"{len(cases)}")
+    by_kernel = dict(fused_ln.ln_matmul.launches_by_kernel)
+    log(f"[3b] ln_matmul driven at K={k}: {launches} launches for "
+        f"{len(cases)} calls, by variant {by_kernel}")
+    want_by_kernel = collections.Counter(
+        fused_ln.kernel_name(fused_ln.ln_variant(w.dtype, k))
+        for _, _, _, w, _ in cases)
+    if launches != len(cases) or by_kernel != want_by_kernel:
+        raise AssertionError(f"ln_matmul launched {launches} times, "
+                             f"{by_kernel}, want {len(cases)}, "
+                             f"{dict(want_by_kernel)}")
 
     summary = {}
-    for (n, act, w, bias), got in zip(cases, outs):
-        def kernel():
+    for (x, n, act, w, bias), got in zip(cases, outs):
+        m = x.shape[0]
+        variants = fused_ln.ln_variants(w.dtype, k)
+
+        def kernel(variant=None):
             return fused_ln.ln_matmul(x, gamma, beta, w, bias, eps=eps,
-                                      activation=act)
+                                      activation=act, variant=variant)
 
         def plain():
             return fused_ln.ln_matmul_plain(x, gamma, beta, w, bias, eps=eps,
                                             activation=act,
                                             out_dtype=w.dtype)
 
-        wt, lib_bias = w.t().contiguous(), bias.to(w.dtype)
+        wt, lib_vec = w.t().contiguous(), (
+            (gamma, beta, bias.to(w.dtype)) if x.dtype == torch.float32
+            else tuple(t.to(x.dtype) for t in (gamma, beta, bias)))
 
         def library():
-            y = F.linear(F.layer_norm(x, (k,), gamma, beta, eps).to(w.dtype),
-                         wt, lib_bias)
+            y = F.linear(F.layer_norm(x, (k,), lib_vec[0], lib_vec[1],
+                                      eps).to(w.dtype), wt, lib_vec[2])
             return F.gelu(y) if act == "gelu" else y
 
         want = plain()
         scale = want.float().abs().max().item()
-        err = (got.float() - want.float()).abs().max().item()
+        errs = {variants[0]: (got.float() - want.float()).abs().max().item()}
+        if "mma" not in errs:
+            errs["mma"] = (kernel("mma").float() - want.float()).abs() \
+                .max().item()
         lib_err = (library().float() - want.float()).abs().max().item()
         bound_err = LN_BOUND[w.dtype] * scale
-        ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), \
-            cuda_ms(library)
-        w_name = str(w.dtype).split(".")[-1]
+        if len(variants) > 1:
+            times = turns({v: functools.partial(kernel, v) for v in variants})
+        else:
+            times = {variants[0]: [cuda_ms(kernel)]}
+        plain_ms, lib_ms = cuda_ms(plain), cuda_ms(library)
+        x_name, w_name = (str(t.dtype).split(".")[-1] for t in (x, w))
         f32_w = w.dtype == torch.float32
-        lim = bound(x.numel() * 4 + w.numel() * w.element_size()
+        lim = bound(x.numel() * x.element_size()
+                    + w.numel() * w.element_size()
                     + (2 * k + n) * 4 + m * n * w.element_size(),
                     2 * m * k * n, "tf32" if f32_w else "bf16",
                     passes=3 if f32_w else 1)
-        log(f"[3b] ln_matmul M={m} K={k} N={n} act={act} x=float32 "
-            f"W={w_name}: max|err| {err:.3e} (bound {bound_err:.1e}) | "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        log(f"[3b] ln_matmul M={m} K={k} N={n} act={act} x={x_name} "
+            f"W={w_name}: max|err| " + ", ".join(
+                f"{v} {e:.3e}" for v, e in errs.items())
+            + f" (bound {bound_err:.1e}) | " + ", ".join(
+                f"{v} {_ms_text(t)}" for v, t in times.items())
+            + f" ms; plain {plain_ms:.4f} ms, library "
             f"layer_norm+linear{'+gelu' if act else ''} {lib_ms:.4f} ms "
             f"(max|err| {lib_err:.3e}); {bound_text(lim)} | {smi}")
-        if not err <= bound_err:
-            raise AssertionError(f"ln_matmul kernel disagrees: {err}")
-        if n == 3072:
-            summary[w_name] = dict(max_abs_err=err, ms=ms,
-                                   plain_ms=plain_ms, library_ms=lib_ms,
-                                   **lim)
+        if not max(errs.values()) <= bound_err:
+            raise AssertionError(f"ln_matmul kernel disagrees: {errs}")
+        row = dict(max_abs_err=errs[variants[0]], variant=variants[0],
+                   ms=statistics.mean(times[variants[0]]),
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   library_max_abs_err=lib_err, turns_ms=times, **lim)
+        if len(variants) > 1:
+            row.update(mma_max_abs_err=errs["mma"],
+                       mma_ms=statistics.mean(times["mma"]))
+        key = (f"x{x_name}_W{w_name}_N{n}" if x.dtype == torch.float32
+               else f"backbone_N{n}")
+        summary[key] = row
         del want
-    del x, cases, outs
+    del xs, cases, outs
     torch.cuda.empty_cache()
-    return dict(summary["float32"], launches=launches,
-                bf16=summary["bfloat16"])
+    return dict(summary["xfloat32_Wfloat32_N3072"], launches=launches,
+                launches_by_kernel=by_kernel,
+                bf16=summary["xfloat32_Wbfloat16_N3072"],
+                rows={k2: v for k2, v in summary.items()
+                      if k2 != "xfloat32_Wfloat32_N3072"})
 
 
 def synth_frame(side: str, size, rng) -> np.ndarray:
@@ -2053,13 +2159,16 @@ def _socket_path(root: str) -> str:
 
 class _Counts(dict):
     """The kernels' launches since the counts were zeroed, with kernel B's
-    by instantiation and variant in ``by_kernel``."""
+    by instantiation and variant in ``by_kernel`` and kernel A's by kernel
+    and variant in ``pe_by_kernel``."""
     by_kernel: dict = {}
+    pe_by_kernel: dict = {}
 
 
 def _zero_counts() -> None:
     """Sets every launch count to 0, just before a path runs."""
     pe.fused_patch_embed.launches = 0
+    pe.fused_patch_embed.launches_by_kernel.clear()
     attn.multi_head_attention.launches = 0
     attn.multi_head_attention.launches_by_kernel.clear()
 
@@ -2068,15 +2177,19 @@ def _launch_counts() -> dict:
     out = _Counts(patch_embed=pe.fused_patch_embed.launches,
                   attention=attn.multi_head_attention.launches)
     out.by_kernel = dict(attn.multi_head_attention.launches_by_kernel)
+    out.pe_by_kernel = dict(pe.fused_patch_embed.launches_by_kernel)
     return out
+
+
+def _by_name_minus(a: dict, b: dict) -> dict:
+    return {k: v - b.get(k, 0) for k, v in a.items() if v - b.get(k, 0)}
 
 
 def _counts_minus(a: dict, b: dict) -> dict:
     """The launches of ``a`` not yet made at ``b`` (both _launch_counts)."""
     out = _Counts({k: v - b[k] for k, v in a.items()})
-    out.by_kernel = {k: v - b.by_kernel.get(k, 0)
-                     for k, v in a.by_kernel.items()
-                     if v - b.by_kernel.get(k, 0)}
+    out.by_kernel = _by_name_minus(a.by_kernel, b.by_kernel)
+    out.pe_by_kernel = _by_name_minus(a.pe_by_kernel, b.pe_by_kernel)
     return out
 
 
@@ -5698,9 +5811,10 @@ def phase_bf16_heads(smi: str, root: str) -> dict:
     out["launches"] = _Counts({k: sum(out[h]["launches"][k] for h in
                                       ("chunk_encoder", "rag_head"))
                                for k in ("patch_embed", "attention")})
-    out["launches"].by_kernel = dict(sum(
-        (collections.Counter(out[h]["launches"].by_kernel)
-         for h in ("chunk_encoder", "rag_head")), collections.Counter()))
+    for attr in ("by_kernel", "pe_by_kernel"):
+        setattr(out["launches"], attr, dict(sum(
+            (collections.Counter(getattr(out[h]["launches"], attr))
+             for h in ("chunk_encoder", "rag_head")), collections.Counter())))
     log(f"[5i] bf16 heads part: {time.monotonic() - t_phase:.1f} s")
     return out
 
@@ -6029,7 +6143,7 @@ def phase_examples(smi: str, root: str, game: dict) -> dict:
     t_phase = time.monotonic()
     wd = os.path.join(root, "ex")
     launches = {"patch_embed": 0, "attention": 0}
-    by_kernel = {}
+    by_kernel, pe_by_kernel = {}, {}
     times = {}
 
     def run(name, fn, argv):
@@ -6038,6 +6152,8 @@ def phase_examples(smi: str, root: str, game: dict) -> dict:
             launches[kname] += v
         for kname, v in b_counts.items():
             by_kernel[kname] = by_kernel.get(kname, 0) + v
+        for kname, v in counts.pe_by_kernel.items():
+            pe_by_kernel[kname] = pe_by_kernel.get(kname, 0) + v
         times[name] = secs
         log(f"[5j] {name}: {secs:.1f} s, kernel launches {counts}, B by "
             f"instantiation {b_counts}")
@@ -6156,6 +6272,7 @@ def phase_examples(smi: str, root: str, game: dict) -> dict:
     log(f"[5j] examples phase: {times['phase']:.1f} s, kernel launches "
         f"{launches}, B by instantiation {by_kernel} | {smi}")
     return dict(launches=launches, launches_by_kernel=by_kernel,
+                pe_launches_by_kernel=pe_by_kernel,
                 seconds=times,
                 dossier={n: {k2: r[k2] for k2 in (
                     "clip_f1", "fidelity_cos_mean", "retrieval_top8_overlap",
@@ -6883,13 +7000,36 @@ def smoke(root: str) -> int:
         f"{b_launches['launches_by_kernel']} ({sum(b_total.values())} of "
         f"{launches('attention')['launches']}; paths without a count: "
         f"{[p for p, c in b_by_path.items() if c is None]})")
+    # kernel A's, by kernel and variant (ops/patch_embed.py::kernel_name)
+    a_by_path = {path: getattr(counts, "pe_by_kernel", None)
+                 for path, counts in by_path.items()}
+    a_by_path["examples"] = examples["pe_launches_by_kernel"]
+    a_total = collections.Counter()
+    for counts in a_by_path.values():
+        a_total.update(counts or {})
+    a_launches = dict(launches_by_kernel=dict(sorted(a_total.items())),
+                      launches_by_kernel_by_path=a_by_path)
+    log(f"[7] kernel A's main-path launches by variant: "
+        f"{a_launches['launches_by_kernel']} ({sum(a_total.values())} of "
+        f"{launches('patch_embed')['launches']}; paths without a count: "
+        f"{[p for p, c in a_by_path.items() if c is None]})")
+    if not a_total.get("patch_embed_u8/wg"):
+        raise AssertionError("the main paths never launched kernel A's "
+                             "wgmma variant")
 
     smoke_row = attn_summary.pop("smoke_t313")
     kernels = [
         dict(name="patch_embed", route="cuda",
              source="vit_research_tpu_torch/csrc/patch_embed.cu",
              replaces="vit_research_tpu/ops/patch_embed.py:65",
-             **launches("patch_embed"),
+             variant_sources={
+                 "patch_embed_u8/wg":
+                     "vit_research_tpu_torch/csrc/patch_embed_wg.cu",
+                 "patch_embed_u8/mma":
+                     "vit_research_tpu_torch/csrc/patch_embed.cu",
+                 "patch_embed_f32":
+                     "vit_research_tpu_torch/csrc/patch_embed.cu"},
+             **launches("patch_embed"), **a_launches,
              library_call="none; nearest F.conv2d over the normalised "
                           "NCHW batch in the output dtype (f32; bf16 under "
                           "\"bf16\")", **pe_summary,
@@ -6932,6 +7072,9 @@ def smoke(root: str) -> int:
         dict(name="ln_matmul", route="cuda",
              source="vit_research_tpu_torch/csrc/fused_ln.cu",
              replaces="vit_research_tpu/ops/fused_ln.py:62",
+             variant_sources={
+                 "ln_gemm/wg": "vit_research_tpu_torch/csrc/fused_ln_wg.cu",
+                 "ln_gemm/mma": "vit_research_tpu_torch/csrc/fused_ln.cu"},
              launches_by_path={"ln_matmul": ln_summary["launches"]},
              library_call="F.layer_norm + F.linear + F.gelu", **ln_summary),
     ]

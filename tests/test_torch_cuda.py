@@ -781,6 +781,174 @@ def test_patch_embed_function_grads_on_card(cuda):
                                    atol=1e-5 * y.abs().max().item())
 
 
+def _by_kernel(counter, fn):
+    """(fn(), the names counter's launches of that call counted under)."""
+    before = counter.copy()
+    out = fn()
+    return out, sorted(counter - before)
+
+
+# A's wgmma variant beside its mma.sync variant: P = 16 and 32 (K = 768
+# and 3072), ragged row counts (588 and 392 + 1 rows: not multiples of the
+# 128-row tile), D not a multiple of the 128-column tile, and the
+# byte-by-byte gather (P * C = 24).
+@pytest.mark.parametrize("shape,patch,dim", [
+    ((256, 224, 224, 3), 16, 768), ((2, 432, 768, 3), 32, 768),
+    ((3, 224, 224, 3), 16, 200), ((1, 64, 96, 3), 32, 48),
+    ((3, 32, 32, 3), 8, 50), ((2, 240, 224, 3), 16, 136)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_patch_embed_wg_beside_mma(cuda, shape, patch, dim, out_dtype):
+    """The rule's wgmma variant (csrc/patch_embed_wg.cu) and the forced
+    mma.sync variant (csrc/patch_embed.cu) each within PE_BOUND of the
+    plain version, each counted under its own name."""
+    rng = np.random.default_rng(dim)
+    images = torch.from_numpy(rng.integers(0, 256, size=shape,
+                                           dtype=np.uint8)).to(cuda)
+    k = patch * patch * 3
+    w = torch.from_numpy((rng.standard_normal((k, dim)) * k ** -0.5)
+                         .astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.standard_normal(dim).astype(
+        np.float32)).to(cuda)
+    a, b = (torch.from_numpy(x).to(cuda)
+            for x in pe.fold_affine(patch, **HF_AFFINE))
+    want = pe.patch_embed_plain(images, w, bias, a, b, patch_size=patch,
+                                out_dtype=out_dtype).float()
+    atol = 1e-4 if out_dtype == torch.float32 else 2 ** -5
+    counter = pe.fused_patch_embed.launches_by_kernel
+    for variant, name in ((None, "patch_embed_u8/wg"),
+                          ("mma", "patch_embed_u8/mma")):
+        got, names = _by_kernel(counter, lambda: pe.fused_patch_embed(
+            images, w, bias, patch_size=patch, out_dtype=out_dtype,
+            variant=variant, **HF_AFFINE))
+        assert names == [name] and got.dtype == out_dtype
+        torch.testing.assert_close(got.float().reshape(want.shape), want,
+                                   rtol=0, atol=atol)
+
+
+def test_patch_embed_refuses_a_variant_for_float_images(cuda):
+    images = torch.zeros(1, 32, 32, 3, device=cuda)
+    before = pe.fused_patch_embed.launches
+    for variant in ("wg", "mma"):
+        with pytest.raises(ValueError, match="does not take"):
+            pe.fused_patch_embed(images, torch.zeros(192, 8, device=cuda),
+                                 torch.zeros(8, device=cuda), patch_size=8,
+                                 variant=variant)
+    assert pe.fused_patch_embed.launches == before
+
+
+def _ln_case(m, k, n, x_dtype, w_dtype, device, seed=None):
+    rng = np.random.default_rng(seed if seed is not None else m + k + n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        device, x_dtype)
+    gamma, beta = (torch.from_numpy(rng.normal(mu, 0.1, size=k).astype(
+        np.float32)).to(device) for mu in (1.0, 0.0))
+    w = torch.from_numpy((rng.normal(size=(k, n)) * k ** -0.5).astype(
+        np.float32)).to(device, w_dtype)
+    bias = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(device)
+    return x, gamma, beta, w, bias
+
+
+# C's wgmma variant beside its mma.sync variant with a bf16 W: ragged M
+# (blocks of 64 rows) and N (tiles of 256 columns), K = 768, K = 40 (one
+# 64-deep stage, mostly zero) and K = 720 (a last stage of 16).
+@pytest.mark.parametrize("m,k,n", [(197, 768, 768), (588, 768, 200),
+                                   (1, 40, 3072), (130, 720, 300),
+                                   (64 * 5 + 3, 768, 2304)])
+@pytest.mark.parametrize("act", [None, "gelu", "gelu_tanh"])
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+def test_ln_matmul_wg_beside_mma(cuda, m, k, n, act, x_dtype, out_dtype):
+    """The rule's wgmma variant (csrc/fused_ln_wg.cu) and the forced
+    mma.sync variant (csrc/fused_ln.cu) each within LN_BOUND (2^-6 of the
+    output's scale with a bf16 W) of the plain version, each counted under
+    its own name."""
+    x, gamma, beta, w, bias = _ln_case(m, k, n, x_dtype, torch.bfloat16,
+                                       cuda)
+    want = fused_ln.ln_matmul_plain(x, gamma, beta, w, bias, eps=1e-6,
+                                    activation=act,
+                                    out_dtype=out_dtype).float()
+    atol = 2 ** -6 * want.abs().max().item()
+    counter = fused_ln.ln_matmul.launches_by_kernel
+    for variant, name in ((None, "ln_gemm/wg"), ("mma", "ln_gemm/mma")):
+        got, names = _by_kernel(counter, lambda: fused_ln.ln_matmul(
+            x, gamma, beta, w, bias, activation=act, out_dtype=out_dtype,
+            variant=variant))
+        assert names == [name] and got.dtype == out_dtype
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("k", [769, 832, 1024, 3072])
+def test_ln_matmul_past_the_slab_takes_mma(cuda, k):
+    """Past LN_WG_MAX_K the rule takes the mma.sync variant (a rule, not a
+    failed launch), and forcing the wgmma variant raises before any
+    launch."""
+    x, gamma, beta, w, bias = _ln_case(70, k, 96, torch.float32,
+                                       torch.bfloat16, cuda)
+    counter = fused_ln.ln_matmul.launches_by_kernel
+    got, names = _by_kernel(counter, lambda: fused_ln.ln_matmul(
+        x, gamma, beta, w, bias, activation="gelu"))
+    assert names == ["ln_gemm/mma"]
+    want = fused_ln.ln_matmul_plain(x, gamma, beta, w, bias, eps=1e-6,
+                                    activation="gelu",
+                                    out_dtype=torch.bfloat16).float()
+    torch.testing.assert_close(got.float(), want, rtol=0,
+                               atol=2 ** -6 * want.abs().max().item())
+    before = fused_ln.ln_matmul.launches
+    with pytest.raises(ValueError, match="does not take"):
+        fused_ln.ln_matmul(x, gamma, beta, w, bias, variant="wg")
+    with pytest.raises(ValueError, match="does not take"):
+        fused_ln.ln_matmul(x, gamma, beta, w.float(), bias, variant="wg")
+    assert fused_ln.ln_matmul.launches == before
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_ln_matmul_function_grads_through_wg(cuda, x_dtype):
+    """Gradients through _LnMatmul with the wgmma variant's forward (a
+    bf16 W) are the plain version's VJP at the same inputs."""
+    x, gamma, beta, w, bias = _ln_case(3 * 67, 768, 320, x_dtype,
+                                       torch.bfloat16, cuda, seed=9)
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+    counter = fused_ln.ln_matmul.launches_by_kernel
+    got, names = _by_kernel(counter, lambda: fused_ln.ln_matmul(
+        *leaves, w, bias, activation="gelu", out_dtype=torch.float32))
+    assert names == ["ln_gemm/wg"] and got.grad_fn is not None
+    gout = torch.randn_like(got)
+    grads = torch.autograd.grad(got, leaves, gout)
+    ref = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+    want = torch.autograd.grad(fused_ln.ln_matmul_plain(
+        *ref, w, bias, eps=1e-6, activation="gelu",
+        out_dtype=torch.float32), ref, gout)
+    for g, h in zip(grads, want):
+        torch.testing.assert_close(g, h, rtol=0,
+                                   atol=1e-5 * h.abs().max().item())
+
+
+def test_patch_embed_function_grads_through_wg(cuda):
+    """w and bias gradients through _PatchEmbed with the wgmma variant's
+    forward equal torch.autograd's of the plain patch embed."""
+    rng = np.random.default_rng(6)
+    images = torch.from_numpy(rng.integers(0, 256, (3, 224, 224, 3),
+                                           dtype=np.uint8)).to(cuda)
+    w = (torch.randn(768, 200, device=cuda) / 768 ** 0.5).requires_grad_()
+    bias = torch.randn(200, device=cuda).requires_grad_()
+    counter = pe.fused_patch_embed.launches_by_kernel
+    got, names = _by_kernel(counter, lambda: pe.fused_patch_embed(
+        images, w, bias, patch_size=16, **HF_AFFINE))
+    assert names == ["patch_embed_u8/wg"] and got.grad_fn is not None
+    gout = torch.randn_like(got)
+    grads = torch.autograd.grad(got, [w, bias], gout)
+    a_vec, b_vec = (torch.from_numpy(x).to(cuda)
+                    for x in pe.fold_affine(16, 3, **HF_AFFINE))
+    ref = [x.detach().clone().requires_grad_(True) for x in (w, bias)]
+    want = torch.autograd.grad(
+        pe.patch_embed_plain(images, *ref, a_vec, b_vec, patch_size=16),
+        ref, gout.reshape(-1, 200))
+    for x, y in zip(grads, want):
+        torch.testing.assert_close(x, y, rtol=0,
+                                   atol=1e-5 * y.abs().max().item())
+
+
 def test_train_stage1_and_write_ratt_db_on_card(cuda, tmp_path, capsys):
     """train-stage1 --device cuda for one epoch on a small full-width store
     (768 wide: kernel B at dh = 96 in every validation batch), then

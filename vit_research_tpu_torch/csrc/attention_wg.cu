@@ -69,6 +69,7 @@
 #include <stdint.h>
 
 #include "attention_bf16.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -119,85 +120,18 @@ constexpr int stage_bytes_of(int krows, int n_qt) {
   return 2 * krows * ROW_BYTES + n_qt * QT_BYTES;
 }
 
-// ---------------------------------------------------------- barriers, TMA
+// ------------------------------------------- barriers, TMA, wgmma's fences
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-// Waits for the completion of the barrier's phase of parity `parity`. A
-// phase that never completes is a fault of the kernel: after some 2^30
-// polls (seconds) it traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done, polls = 0;
-  do {
-    if (++polls == (1u << 30)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 4-D box of `map` at coordinates (0, c1, c2, c3) into dst, counted on
-// bar's transaction bytes.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
+using hop::mbar_arrive;
+using hop::mbar_expect_tx;
+using hop::mbar_init;
+using hop::mbar_wait;
+using hop::reg_fence;
+using hop::sw128_desc;
+using hop::wg_commit;
+using hop::wg_fence;
 
 // ------------------------------------------------------------------ wgmma
-
-// A shared-memory matrix descriptor for a tile of 128-byte rows in the
-// 128-byte swizzle (as TMA writes it), 8-row groups 1,024 bytes apart. Both
-// offsets are 1,024 bytes: K-major operands (Q, K) read neither the leading
-// offset (a k16 step lies within a row) nor, at N = 64, does the MN-major
-// V read its leading offset (the MN atoms' stride: one atom).
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) |
-         ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across an asynchronous wgmma.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (+)= A B for 64 rows x 32 keys x 16 dh: A (Q) and B (K) K-major in
 // shared memory; accumulate unless first.
@@ -290,7 +224,7 @@ __device__ __forceinline__ void wg_tile(const WgParams& p, char* qs,
       wgmma_n32(&s[16 * c], dq + 2 * kk,
                 dk + (c * 32 * ROW_BYTES >> 4) + 2 * kk, kk);
   wg_commit();
-  wg_wait_all();
+  hop::wg_wait<0>();
   reg_fence(s);
 
   uint32_t a[KSTEPS][4];
@@ -365,7 +299,7 @@ __device__ __forceinline__ void wg_tile(const WgParams& p, char* qs,
   for (int kk = 0; kk < KSTEPS; ++kk)
     wgmma_pv(o, a[kk], dv + (kk * 16 * ROW_BYTES >> 4), kk);
   wg_commit();
-  wg_wait_all();
+  hop::wg_wait<0>();
   reg_fence(o);
 
   // O through the tile's Q buffer (free since S), in the 128-byte swizzle
@@ -420,7 +354,7 @@ attn_bf16_wg(const __grid_constant__ CUtensorMap tq,
       mbar_init(&v_full[st], 1);
       mbar_init(&empty[st], CONSUMERS * 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    hop::fence_mbar_init();
   }
   __syncthreads();
 
@@ -438,14 +372,14 @@ attn_bf16_wg(const __grid_constant__ CUtensorMap tq,
     mbar_expect_tx(&k_full[st], p.n_qt * QT_BYTES + p.krows * ROW_BYTES);
     for (int qt = 0; qt < p.n_qt; ++qt) {
       coords(0, qt * QT_ROWS);
-      tma_load(base + q_at + qt * QT_BYTES, &tq, &k_full[st], c[1], c[2],
-               c[3]);
+      hop::tma_load_4d(base + q_at + qt * QT_BYTES, &tq, &k_full[st], 0,
+                       c[1], c[2], c[3]);
     }
     coords(1, 0);
-    tma_load(base + k_at, &tk, &k_full[st], c[1], c[2], c[3]);
+    hop::tma_load_4d(base + k_at, &tk, &k_full[st], 0, c[1], c[2], c[3]);
     mbar_expect_tx(&v_full[st], p.krows * ROW_BYTES);
     coords(2, 0);
-    tma_load(base + v_at, &tv, &v_full[st], c[1], c[2], c[3]);
+    hop::tma_load_4d(base + v_at, &tv, &v_full[st], 0, c[1], c[2], c[3]);
   };
   if (tid == 0) load_head(0, blockIdx.x);
   // With a key bias, thread tid holds key tid's bias of head w (0 past T),
@@ -496,39 +430,12 @@ attn_bf16_wg(const __grid_constant__ CUtensorMap tq,
     }
     // the stage's generic reads and writes (O's staging) before the next
     // TMA writes into it
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    hop::fence_proxy_async();
     mbar_arrive(&empty[st]);
   }
 }
 
 // ------------------------------------------------------------------- host
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime so that the
-// library links nothing beyond it; null where libcuda lacks it.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // A 4-D map of a (batch, heads, seq, 64) bf16 view with element strides st
 // (batch, head, token), boxes of `rows` tokens: dh first, then the token,
@@ -539,7 +446,7 @@ EncodeTiled encoder() {
 // or past 2^40).
 bool make_map(CUtensorMap* map, int (&slot)[3], const void* base, int batch,
               int heads, int seq, const long long* st, int rows) {
-  const EncodeTiled encode = encoder();
+  const hop::EncodeTiled encode = hop::encoder();
   if (!encode) return false;
   const long long size[3] = {seq, heads, batch};
   const long long stride[3] = {st[2] * 2, st[1] * 2, st[0] * 2};  // bytes

@@ -1,7 +1,11 @@
-// Fused LayerNorm + projection (+ bias, + GELU) for Hopper (sm_90a).
+// Fused LayerNorm + projection (+ bias, + GELU) for Hopper (sm_90a): kernel
+// C's entry point and its mma.sync variant.
 //
 // Replaces: vit_research_tpu/ops/fused_ln.py::_kernel (driven by
-// _ln_matmul_pallas, public entry ln_matmul).
+// _ln_matmul_pallas, public entry ln_matmul). vrt_ln_matmul takes the
+// variant of the rule in fused_ln.cuh: the wgmma variant of
+// csrc/fused_ln_wg.cu for a bf16 W at K <= LN_WG_MAX_K, this file's
+// mma.sync variant for an f32 W, a deeper K, or when forced.
 //
 // Computes out[m, n] = act(sum_k y[m, k] * W[k, n] + bias[n]) with
 //   y[m, k] = round_W(((x[m, k] - mean_m) * rsqrt(var_m + eps)) * g[k] + b[k])
@@ -47,28 +51,13 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "fused_ln.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
 
 constexpr int STATS_THREADS = 256;  // ln_stats: a warp per row
 using tc::to_f32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == 1) return v * 0.5f * (1.f + erff(v * 0.70710678118654752440f));
-  if (act == 2) {
-    const float inner = 0.79788456080286535588f * (v + 0.044715f * v * v * v);
-    return 0.5f * v * (1.f + tanhf(inner));
-  }
-  return v;
-}
 
 // Row statistics: warp w of block b takes row 8 b + w; stats[m] = mean,
 // stats[M + m] = 1 / sqrt(var + eps).
@@ -96,16 +85,6 @@ ln_stats(const TX* __restrict__ x, float* __restrict__ stats, long long M,
   }
 }
 
-__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
-  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
-}
-__device__ __forceinline__ float elem(const uint4& r, int e, float) {
-  return __uint_as_float(word(r, e));
-}
-__device__ __forceinline__ float elem(const uint4& r, int e, __nv_bfloat16) {
-  const uint32_t w = word(r, e >> 1);
-  return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
-}
 __device__ __forceinline__ uint32_t bits_of(float v) {
   return __float_as_uint(v);
 }
@@ -267,14 +246,6 @@ template <class Op>
 constexpr int LN_STAGES = sizeof(typename Op::T) == 4 ? 3 : 4;
 using LnTile = tc::Tile<128, 256, 2, 8>;
 
-struct BiasAct {
-  const float* bias;
-  int N, act;
-  __device__ __forceinline__ float operator()(float v, int n) const {
-    return n < N ? activate(v + bias[n], act) : 0.f;
-  }
-};
-
 template <typename TX, class Op, typename TO>
 __global__ void __launch_bounds__(LnTile::THREADS, LnTile::MIN_BLOCKS)
 ln_gemm(const TX* __restrict__ x, const float* __restrict__ stats,
@@ -344,21 +315,34 @@ int launch_w(int w_bf16, int out_bf16, const void* x, const void* gamma,
 }  // namespace
 
 // x (M, K) f32 (x_bf16 = 0) or bf16; gamma, beta (K,) f32; bias (N,) f32;
-// out (M, N) f32 (out_bf16 = 0) or bf16; stats: 2 * M f32 of scratch.
+// out (M, N) f32 (out_bf16 = 0) or bf16; stats: 2 * M f32 of scratch (the
+// mma.sync variant's; null for the wgmma variant's).
 // w: bf16 (w_bf16 = 1) (K, ldw), or f32 (2, K, ldw), the TF32 pieces W_hi
 // and W_lo; ldw >= N a multiple of 16 bytes, columns past N zero, 16-byte
-// aligned. act: 0 none, 1 exact GELU, 2 tanh-GELU. Launches the stats pass
-// then the GEMM; returns cudaGetLastError() after them (0 = launched).
+// aligned. act: 0 none, 1 exact GELU, 2 tanh-GELU. variant (LnVariant): 0
+// the rule (fused_ln.cuh: the wgmma variant for a bf16 W at 1 <= K <=
+// LN_WG_MAX_K, else mma.sync), 1 the mma.sync variant, 2 the wgmma variant
+// (cudaErrorInvalidValue where the rule does not offer it). mma.sync
+// launches the stats pass then the GEMM. Returns cudaGetLastError() after
+// the launches (0 = launched).
 extern "C" int vrt_ln_matmul(const void* x, const void* gamma,
                              const void* beta, const void* w,
                              const void* bias, void* out, void* stats,
                              long long M, int K, int N, int ldw, float eps,
                              int act, int x_bf16, int w_bf16, int out_bf16,
-                             void* stream) {
+                             int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || K < 0 || N <= 0 || ldw < N ||
       ldw % (w_bf16 ? 8 : 4) != 0)
     return (int)cudaErrorInvalidValue;
+  const bool wg_takes = w_bf16 && K >= 1 && K <= LN_WG_MAX_K;
+  if (variant == LN_RULE) variant = wg_takes ? LN_WG : LN_MMA;
+  if (variant == LN_WG) {
+    if (!wg_takes) return (int)cudaErrorInvalidValue;
+    return ln_matmul_wg_launch(x, gamma, beta, w, bias, out, M, K, N, ldw,
+                               eps, act, x_bf16, out_bf16, s);
+  }
+  if (variant != LN_MMA || !stats) return (int)cudaErrorInvalidValue;
   float* st = static_cast<float*>(stats);
   return x_bf16 ? launch_w<__nv_bfloat16>(w_bf16, out_bf16, x, gamma, beta,
                                           w, ldw, bias, out, st, M, K, N, eps,

@@ -1,7 +1,10 @@
-// Fused normalise + patchify + project for Hopper (sm_90a).
+// Fused normalise + patchify + project for Hopper (sm_90a): kernel A's
+// entry points, its uint8 mma.sync variant and its f32 CUDA-core kernel.
 //
 // Replaces: vit_research_tpu/ops/patch_embed.py::_kernel (driven by
 // _pallas_rows_project, public entry fused_patch_embed).
+// vrt_patch_embed_u8 takes the wgmma variant of csrc/patch_embed_wg.cu by
+// its rule (patch_embed.cuh) and this file's mma.sync variant when forced.
 //
 // Computes out[m, n] = sum_k (pix(m, k) * a[k] - b[k]) * W[k, n] + bias[n]
 // for the (B*gh*gw, P*P*C) patch-row matrix of an NHWC image batch, where
@@ -36,6 +39,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "patch_embed.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
@@ -59,11 +63,7 @@ struct SplitW3 {
 using U8Tile = tc::Tile<128, 128, 2, 4>;
 constexpr int U8_STAGES = 3;
 
-struct Geometry {
-  const uint8_t* img;
-  int H, W, C, P, gw, n_patches, K;
-  bool vec;  // 16-byte loads: P*C, W*C and the base are multiples of 16
-};
+using Geometry = PatchGeometry;
 
 // Producer: the stage's BM rows x 32 k-values (bytes) in 16-byte chunks;
 // chunk i = tid + j * THREADS is row i / 2 at k-offset 16 * (i % 2).
@@ -182,17 +182,7 @@ template <typename TOut>
 int launch_u8(const void* img, const void* w3, int ldw, const void* c,
               void* out, int B, int H, int W, int C, int P, int D,
               cudaStream_t s) {
-  Geometry geo;
-  geo.img = static_cast<const uint8_t*>(img);
-  geo.H = H;
-  geo.W = W;
-  geo.C = C;
-  geo.P = P;
-  geo.gw = W / P;
-  geo.n_patches = (H / P) * geo.gw;
-  geo.K = P * P * C;
-  geo.vec = (P * C) % 16 == 0 && (W * C) % 16 == 0 &&
-            reinterpret_cast<uintptr_t>(img) % 16 == 0;
+  const Geometry geo = patch_geometry(img, H, W, C, P);
   const long long M = (long long)B * geo.n_patches;
   const bool vec_out = (D * (int)sizeof(TOut)) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
@@ -337,14 +327,19 @@ int launch_f32(const void* img, const void* w, const void* avec,
 // uint8 images (B, H, W, C) NHWC contiguous; w3 (3, P*P*C, ldw) bf16, the
 // hi, mid and lo pieces of the folded weight (ldw >= D a multiple of 8,
 // columns past D zero, 16-byte aligned); c (D,) f32 the folded bias; out
-// (B * (H/P) * (W/P), D), f32 (out_bf16 = 0) or bf16.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// (B * (H/P) * (W/P), D), f32 (out_bf16 = 0) or bf16. variant (PeVariant):
+// 0 the rule (the wgmma variant), 1 the mma.sync variant, 2 the wgmma
+// variant. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int vrt_patch_embed_u8(const void* img, const void* w3, int ldw,
                                   const void* c, void* out, int B, int H,
                                   int W, int C, int P, int D, int out_bf16,
-                                  void* stream) {
+                                  int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ldw < D || ldw % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (variant == PE_RULE || variant == PE_WG)
+    return patch_embed_wg_launch(img, w3, ldw, c, out, B, H, W, C, P, D,
+                                 out_bf16, s);
+  if (variant != PE_MMA) return (int)cudaErrorInvalidValue;
   return out_bf16 ? launch_u8<__nv_bfloat16>(img, w3, ldw, c, out, B, H, W,
                                              C, P, D, s)
                   : launch_u8<float>(img, w3, ldw, c, out, B, H, W, C, P, D,

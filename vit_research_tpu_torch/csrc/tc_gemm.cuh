@@ -1,5 +1,15 @@
-// One tensor-core GEMM mainloop for Hopper (sm_90a), shared by kernel A
-// (csrc/patch_embed.cu) and kernel C (csrc/fused_ln.cu).
+// One tensor-core GEMM mainloop for Hopper (sm_90a) on mma.sync, shared by
+// kernel A's mma.sync variant (csrc/patch_embed.cu) and kernel C's
+// (csrc/fused_ln.cu).
+//
+// Which paths stay on it, by rule (the rest run on the wgmma mainloop of
+// csrc/wg_gemm.cuh): kernel C with an f32 W (3xTF32: TF32 wgmma reads only
+// K-major operands, so W would need a transposed copy, and the per-k-step
+// flush below would need a second accumulator tile) and with a bf16 W past
+// the wgmma variant's slab (K > LN_WG_MAX_K, csrc/fused_ln.cuh); kernel A
+// and C's bf16 paths when forced (variant "mma"), to measure the two
+// mainloops side by side. Kernel A's f32 images run on neither (a CUDA-core
+// kernel in patch_embed.cu).
 //
 // A block computes one BM x BN tile of out = act(A @ W + bias) with
 // warp-level mma.sync and f32 accumulators. Each operand may come in
@@ -42,7 +52,7 @@
 // (chip_smoke.py phases 2 and 3b): with 64 x 64 warp tiles (128
 // accumulators) and 8 warps an SM, kernel C ran 20-36% slower and kernel
 // A no faster, though both re-read less through L2, so warps in flight
-// matter more here than L2 traffic. One __syncthreads per stage. wgmma and TMA are a later step.
+// matter more here than L2 traffic. One __syncthreads per stage.
 
 #pragma once
 

@@ -41,8 +41,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype)
-    # img, w3, ldw, c, out, B, H, W, C, P, D, out_bf16, stream
-    "vrt_patch_embed_u8": ([_P, _P, _I, _P, _P] + [_I] * 7 + [_P], _I),
+    # img, w3, ldw, c, out, B, H, W, C, P, D, out_bf16, variant (0: the
+    # rule), stream
+    "vrt_patch_embed_u8": ([_P, _P, _I, _P, _P] + [_I] * 8 + [_P], _I),
     # img, w, avec, bvec, bias, out, B, H, W, C, P, D, out_bf16, stream
     "vrt_patch_embed_f32": ([_P] * 6 + [_I] * 7 + [_P], _I),
     # q, k, v, o, batch, heads, seq, dh, 12 strides (q, k, v, o x batch,
@@ -54,9 +55,9 @@ _SIGNATURES = {
                              _P],
                           _I),
     # x, gamma, beta, w, bias, out, stats, M, K, N, ldw, eps, act, x_bf16,
-    # w_bf16, out_bf16, stream
+    # w_bf16, out_bf16, variant (0: the rule), stream
     "vrt_ln_matmul": ([_P] * 7 + [ctypes.c_longlong, _I, _I, _I,
-                                  ctypes.c_float] + [_I] * 4 + [_P], _I),
+                                  ctypes.c_float] + [_I] * 5 + [_P], _I),
     "vrt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -159,12 +160,14 @@ def nvcc_seconds(source: str) -> float:
 
 
 def ptxas_report(source: str) -> list[str]:
-    """ptxas's lines (registers, shared memory, spills per kernel) from
-    the build of ``csrc/<source>``; builds first if needed."""
+    """ptxas's lines (registers, shared memory, spills per kernel, and its
+    warnings, such as wgmma serialized) from the build of
+    ``csrc/<source>``; builds first if needed."""
     path = os.path.join(os.path.dirname(build()), _log_name(source))
     with open(path) as fh:
         return [line.strip() for line in fh
-                if "ptxas info" in line or "spill" in line]
+                if "ptxas info" in line or "spill" in line
+                or "warning" in line]
 
 
 def _run(cmd) -> None:

@@ -1,4 +1,4 @@
-"""Fused normalise + patchify + project: CUDA kernel and plain version.
+"""Fused normalise + patchify + project: CUDA kernels and plain version.
 
 Port of vit_research_tpu/ops/patch_embed.py. The embedding engine ships
 uint8 NHWC frames to the device; this op turns them into (B, N, D) patch
@@ -9,14 +9,22 @@ tokens in one pass,
                       -> rows @ W + c  patch projection
 
 with the affine folded into two K-length vectors by :func:`fold_affine`.
-On a CUDA tensor :func:`fused_patch_embed` launches the hand-written kernel
-in ``csrc/patch_embed.cu``, whose tile loader does the patchify, so the
-normalised f32 image never exists in device memory. For uint8 images (the
-engine's) the wrapper first folds the affine into the projection and
-splits it into three bf16 pieces (:func:`fold_split_weight`), so the
-kernel multiplies on the bf16 tensor cores with f32 accuracy; float32
-images take the kernel's f32 CUDA-core version, which applies the affine
-in its loader. On a CPU tensor it runs :func:`patch_embed_plain`.
+On a CUDA tensor :func:`fused_patch_embed` launches a hand-written kernel
+whose tile loader does the patchify, so the normalised f32 image never
+exists in device memory. For uint8 images (the engine's) the wrapper first
+folds the affine into the projection and splits it into three bf16 pieces
+(:func:`fold_split_weight`), so the kernel multiplies on the bf16 tensor
+cores with f32 accuracy; two variants take them (:func:`patch_embed_variants`):
+
+- ``"wg"``, the rule's (``csrc/patch_embed_wg.cu``, on the wgmma mainloop
+  of ``csrc/wg_gemm.cuh``: the pieces by TMA, wgmma from shared memory);
+- ``"mma"`` (``csrc/patch_embed.cu``, on the mma.sync mainloop of
+  ``csrc/tc_gemm.cuh``), for measurement beside it
+  (``fused_patch_embed(..., variant="mma")``).
+
+float32 images take ``csrc/patch_embed.cu``'s f32 CUDA-core kernel, which
+applies the affine in its loader (no variant to force). On a CPU tensor it
+runs :func:`patch_embed_plain`.
 
 Gradients with respect to ``w`` and ``bias`` come from :class:`_PatchEmbed`,
 a ``torch.autograd.Function`` whose backward is the VJP of
@@ -28,12 +36,41 @@ needs (the normalised rows) from the images. The images take no grad.
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
 import torch
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+#: the code of each uint8 variant at the C entry point
+#: (csrc/patch_embed.cuh's PeVariant); 0 is the rule
+VARIANT_CODES = {"mma": 1, "wg": 2}
+
+
+def patch_embed_variants(dtype: torch.dtype) -> tuple:
+    """Every variant that takes images of ``dtype``, the rule's first:
+    ``("wg", "mma")`` for uint8; none to force for float32 (its one
+    kernel)."""
+    return ("wg", "mma") if dtype == torch.uint8 else ()
+
+
+def kernel_name(dtype: torch.dtype, variant: str | None = None) -> str:
+    """The name a launch counts under in
+    ``fused_patch_embed.launches_by_kernel``: ``patch_embed_u8/wg`` (the
+    rule's) or ``patch_embed_u8/mma`` for uint8, ``patch_embed_f32``."""
+    if dtype != torch.uint8:
+        return "patch_embed_f32"
+    return f"patch_embed_u8/{variant or patch_embed_variants(dtype)[0]}"
+
+
+def _check_variant(variant, dtype: torch.dtype) -> None:
+    """Raise ValueError unless ``variant`` is None or takes the images."""
+    takes = patch_embed_variants(dtype)
+    if variant is not None and variant not in takes:
+        raise ValueError(f"variant {variant!r} does not take "
+                         f"{str(dtype).split('.')[-1]} images (they take "
+                         f"{', '.join(takes) or 'no variant to force'})")
 
 
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -128,7 +165,8 @@ def _check(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
                         f"{out_dtype}")
 
 
-def _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
+def _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype,
+            variant=None):
     from vit_research_tpu_torch.ops import _build
 
     dev = images.device
@@ -142,6 +180,11 @@ def _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
             raise ValueError(f"{name} must be contiguous")
     if not images.is_contiguous():
         raise ValueError("images must be contiguous NHWC")
+    _check_variant(variant, images.dtype)
+    if images.dtype == torch.uint8:
+        pieces, bias_c = fold_split_weight(w, bias, a_vec, b_vec)
+        return launch_u8(images, pieces, bias_c, patch_size, out_dtype,
+                         variant)
     b, h, wd, c = images.shape
     p = patch_size
     d = w.shape[1]
@@ -149,36 +192,79 @@ def _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
                       device=dev)
     if out.numel() == 0:
         return out
-    out_bf16 = int(out_dtype == torch.bfloat16)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if images.dtype == torch.uint8:
-            pieces, bias_c = fold_split_weight(w, bias, a_vec, b_vec)
-            code = lib.vrt_patch_embed_u8(
-                images.data_ptr(), pieces.data_ptr(), pieces.shape[-1],
-                bias_c.data_ptr(), out.data_ptr(), b, h, wd, c, p, d,
-                out_bf16, stream)
-        else:
-            code = lib.vrt_patch_embed_f32(
-                images.data_ptr(), w.data_ptr(), a_vec.data_ptr(),
-                b_vec.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd,
-                c, p, d, out_bf16, stream)
+        code = lib.vrt_patch_embed_f32(
+            images.data_ptr(), w.data_ptr(), a_vec.data_ptr(),
+            b_vec.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd, c,
+            p, d, int(out_dtype == torch.bfloat16), stream)
     _build.check(code, "patch_embed kernel")
-    # a plain increment: exact because device work is serialized (the
-    # serve daemon runs every forward under its one device lock)
-    fused_patch_embed.launches += 1
+    _count(images.dtype)
     return out
 
 
-def _forward(images, w, bias, a_vec, b_vec, patch_size, out_dtype):
+def launch_u8(images, pieces, bias_c, patch_size: int, out_dtype,
+              variant: str | None = None) -> torch.Tensor:
+    """The uint8 kernel alone on :func:`fold_split_weight`'s ``pieces``
+    (3, K, D') bf16 and folded bias ``bias_c`` (D,) f32, on the card:
+    (B*N, D) in ``out_dtype``. ``variant``: None (the rule's, ``"wg"``) or
+    ``"mma"``. :func:`fused_patch_embed` calls it after folding; a
+    measurement times it to separate the kernel from the fold."""
+    from vit_research_tpu_torch.ops import _build
+
+    if images.dtype != torch.uint8:
+        raise TypeError(f"launch_u8 takes uint8 images, got {images.dtype}")
+    _check_variant(variant, images.dtype)
+    dev = images.device
+    b, h, wd, c = images.shape
+    p = patch_size
+    d = bias_c.shape[0]
+    if pieces.shape[-1] % 8 or pieces.data_ptr() % 16 or \
+            not pieces.is_contiguous():
+        raise ValueError("pieces must be contiguous and 16-byte aligned "
+                         "with rows of a multiple of 8 values")
+    out = torch.empty(((h // p) * (wd // p) * b, d), dtype=out_dtype,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.vrt_patch_embed_u8(
+            images.data_ptr(), pieces.data_ptr(), pieces.shape[-1],
+            bias_c.data_ptr(), out.data_ptr(), b, h, wd, c, p, d,
+            int(out_dtype == torch.bfloat16),
+            VARIANT_CODES[variant] if variant else 0, stream)
+    _build.check(code, "patch_embed kernel")
+    _count(images.dtype, variant)
+    return out
+
+
+def _count(dtype: torch.dtype, variant: str | None = None) -> None:
+    # plain increments: exact because device work is serialized (the
+    # serve daemon runs every forward under its one device lock)
+    fused_patch_embed.launches += 1
+    fused_patch_embed.launches_by_kernel[kernel_name(dtype, variant)] += 1
+
+
+def _forced(variant) -> tuple:
+    """The trailing argument of :func:`_forward` for a forced variant; none
+    for the rule's, so that its seven-argument form (which tests stand in
+    for) stays the common call."""
+    return () if variant is None else (variant,)
+
+
+def _forward(images, w, bias, a_vec, b_vec, patch_size, out_dtype,
+             variant=None):
     """The kernel on a CUDA tensor, the plain version on a CPU one:
     (B*N, D)."""
     if images.device.type == "cpu":
         return patch_embed_plain(images, w, bias, a_vec, b_vec,
                                  patch_size=patch_size, out_dtype=out_dtype)
     if images.device.type == "cuda":
-        return _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype)
+        return _launch(images, w, bias, a_vec, b_vec, patch_size, out_dtype,
+                       variant)
     raise ValueError(f"unsupported device {images.device}")
 
 
@@ -187,7 +273,8 @@ class _PatchEmbed(torch.autograd.Function):
     of :func:`patch_embed_plain` with respect to ``w`` and ``bias``."""
 
     @staticmethod
-    def forward(ctx, images, w, bias, a_vec, b_vec, patch_size, out_dtype):
+    def forward(ctx, images, w, bias, a_vec, b_vec, patch_size, out_dtype,
+                variant):
         ctx.save_for_backward(w, bias)
         # The images and the affine vectors take no grad and may be
         # inference tensors (the engine runs under inference_mode, and
@@ -195,7 +282,7 @@ class _PatchEmbed(torch.autograd.Function):
         ctx.images, ctx.affine = images, (a_vec, b_vec)
         ctx.cfg = dict(patch_size=patch_size, out_dtype=out_dtype)
         return _forward(images, w, bias, a_vec, b_vec, patch_size,
-                        out_dtype)
+                        out_dtype, *_forced(variant))
 
     @staticmethod
     def backward(ctx, grad):
@@ -210,22 +297,26 @@ class _PatchEmbed(torch.autograd.Function):
                                         **ctx.cfg)
                 grads = iter(torch.autograd.grad(out, wanted, grad))
         return (None, *(next(grads) if t.requires_grad else None
-                        for t in params), None, None, None, None)
+                        for t in params), None, None, None, None, None)
 
 
 def fused_patch_embed(images: torch.Tensor, w: torch.Tensor,
                       bias: torch.Tensor, *, patch_size: int,
                       rescale: float = 1.0, mean=(0.0, 0.0, 0.0),
-                      std=(1.0, 1.0, 1.0),
-                      out_dtype=torch.float32) -> torch.Tensor:
+                      std=(1.0, 1.0, 1.0), out_dtype=torch.float32,
+                      variant: str | None = None) -> torch.Tensor:
     """Normalise + patchify + project in one pass.
 
     Args:
       images: (B, H, W, C) uint8 or float32, NHWC.
       w: (P*P*C, D) float32 projection (HWIO conv kernel reshaped).
       bias: (D,) float32.
+      variant: None (the rule: ``"wg"`` for uint8), or a variant of
+        :func:`patch_embed_variants` for the images (else ValueError,
+        before any launch); for measurement.
     Returns (B, N, D) in ``out_dtype`` (float32 or bfloat16). A CUDA input
-    launches the kernel (and counts it in ``fused_patch_embed.launches``);
+    launches the kernel (and counts it in ``fused_patch_embed.launches``,
+    and by kernel and variant in ``fused_patch_embed.launches_by_kernel``);
     a CPU input runs the plain version. When ``w`` or ``bias`` requires
     grad (and grad mode is on), the call goes through :class:`_PatchEmbed`,
     so their gradients are the plain version's."""
@@ -234,12 +325,17 @@ def fused_patch_embed(images: torch.Tensor, w: torch.Tensor,
                               tuple(float(x) for x in mean),
                               tuple(float(x) for x in std))
     _check(images, w, bias, a_vec, b_vec, patch_size, out_dtype)
+    _check_variant(variant, images.dtype)
     if torch.is_grad_enabled() and (w.requires_grad or bias.requires_grad):
         out = _PatchEmbed.apply(images, w, bias, a_vec, b_vec, patch_size,
-                                out_dtype)
+                                out_dtype, variant)
     else:
-        out = _forward(images, w, bias, a_vec, b_vec, patch_size, out_dtype)
+        out = _forward(images, w, bias, a_vec, b_vec, patch_size, out_dtype,
+                       *_forced(variant))
     return out.reshape(images.shape[0], -1, w.shape[1])
 
 
 fused_patch_embed.launches = 0
+#: the same launches by kernel and variant (:func:`kernel_name`):
+#: ``patch_embed_u8/wg``, ``patch_embed_u8/mma``, ``patch_embed_f32``
+fused_patch_embed.launches_by_kernel = collections.Counter()
