@@ -20,10 +20,14 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      (``launch_u8``; the fold timed apart), and the nearest library call,
      F.conv2d over the normalised f32 batch;
   3. the attention kernel against its plain version in the same dtype
-     (T = 197, 325, 1297, dh = 64; f32 and bf16), on contiguous (B, H, T,
-     dh) inputs and on the (B, H, T, dh) views of (B, T, H, dh) tensors
-     that the backbone's projections give, and
-     F.scaled_dot_product_attention; every bf16 check also prints the
+     (T = 197, 325, 1297 and smoke's 313, dh = 64; f32 and bf16), on
+     contiguous (B, H, T, dh) inputs and on the (B, H, T, dh) views of
+     (B, T, H, dh) tensors that the backbone's projections give, and
+     F.scaled_dot_product_attention; in f32 both variants, the rule's
+     TF32 wgmma one (csrc/attention_f32_wg.cu, ``attn_f32<64>/wg``) and
+     the CUDA-core kernel forced (``attn_f32<64>/simt``), each held to
+     ATTN_BOUND and timed in turns (wg, simt, simt, wg); every bf16 check
+     also prints the
      error of f32 scores (``attention_f32_scores``) and of the f32 plain
      version, and at B = 256, T = 197 the f32 scores must fail the tie
      check;
@@ -109,9 +113,10 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
   5d. the fast profile on phase 4's world: the attention kernel with
      ToMe's key bias at every ToMe T of ViT-B/16 at r = 16 (197 ... 21;
      f32 and bf16, B = 256) against its plain version, timed against the
-     plain version and SDPA with the bias as a float mask (bf16 from T =
-     197 to 65 in the wgmma variant, with the held variant forced, checked
-     and timed beside it);
+     plain version and SDPA with the bias as a float mask (f32 in both
+     variants, wg and simt, in turns; bf16 from T = 197 to 65 in the
+     wgmma variant, with the held variant forced, checked and timed
+     beside it);
      bipartite_merge on the card against the CPU; the ToMe r=16, int8 and
      int8-static engines against the CPU forward of the same model (8
      frames; token sizes, and the merge-score margin wherever the card
@@ -214,18 +219,20 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
 Bounds (``bound_ms``) are the larger of the bytes a kernel must move
 over the H100 SXM's 3.35 TB/s and its operations over the peak of the
 units the work may use: the tensor cores (989 TFLOP/s bf16, 495 TF32)
-for kernels A and C, whose split operands reach f32 accuracy there, and
-for B in bf16; the CUDA cores (67 TFLOP/s f32) for B in f32. NVIDIA's
-data-sheet figures, not measured. Beside A's and C's bounds:
-``design_floor_ms`` (the same with the operations times the design's
-tensor-core passes: 3 for A, 3 for C with f32 W) and
-``f32_cuda_core_bound_ms`` (the operations at 67 TFLOP/s, the bound of
-earlier versions, kept for comparison).
+for kernels A and C, whose split operands reach f32 accuracy there, for
+B in bf16 and for B in f32 at dh = 64 (split TF32 operands); the CUDA
+cores (67 TFLOP/s f32) for B in f32 at the other widths. NVIDIA's
+data-sheet figures, not measured. Beside A's, C's and f32 B's (dh = 64)
+bounds: ``design_floor_ms`` (the same with the operations times the
+design's tensor-core passes: 3 for A, 3 for C with f32 W, 3 for f32 B)
+and ``f32_cuda_core_bound_ms`` (the operations at 67 TFLOP/s, the bound
+of earlier versions, kept for comparison).
 
     python3 chip_smoke.py --profile
 
 builds the kernels, then profiles the engine's forward (torch.profiler
-over steady batches of ViT-B/16 @224: f32 B=256, bf16 B=512, and the
+over steady batches of ViT-B/16 @224: f32 B=256, with kernel B's share,
+bf16 B=512, and the
 fast profile's ToMe r=16 + int8-static f32 B=256, calibrated on the
 profiled frames; device time by kernel and the device's idle share) and
 times the offline Viterbi
@@ -246,8 +253,9 @@ past one key tile at the
 backbone's and other shapes beside SDPA and the bound, a sweep over T by
 head width, the T <= 25 rows with host microseconds a call beside
 CUDA-event and device times (and the host cost by step), the bf16 forward
-at B = 512 and the bf16 engine's frames/s, and last ToMe's biased blocks,
-each within ATTN_BOUND or accepted by a tie, or the run fails. Beside
+at B = 512 and the bf16 engine's frames/s, and last ToMe's biased blocks
+in f32 (both variants, in turns) and bf16, each within ATTN_BOUND or
+(bf16) accepted by a tie, or the run fails. Beside
 the P probe's lines, each draw's tie check ("tie check T=...": the
 strict error and the near-tie counts) and every tie-accepted row on a
 line of its own ("accepted by a tie": its (b, h, i), strict and tie
@@ -269,7 +277,9 @@ Host microseconds a call (``host_us``) stand beside the CUDA-event and
 device times of every T <= 25 row of phases 3c, 3d and 5g, and the
 kernels line's attention entry carries ``launches_by_kernel``: kernel B's
 main-path launches by instantiation and variant; the patch_embed entry
-kernel A's by variant (``patch_embed_u8/wg`` on every main path), the
+kernel A's by variant (``patch_embed_u8/wg`` on every main path; f32 B at
+dh = 64 by the rule only ``attn_f32<64>/wg``: a launch of
+``attn_f32<64>/simt`` on a main path fails the run), the
 ln_matmul entry kernel C's in phase 3b (``ln_gemm/wg``, ``ln_gemm/mma``),
 and each of the three its ``variant_sources``.
 
@@ -781,8 +791,9 @@ def phase_card() -> str:
         f"{time.monotonic() - t0:.1f} s (each nvcc: " + ", ".join(
             f"{os.path.basename(s)} {_build.nvcc_seconds(s):.1f} s"
             for s in _build.sources()) + ")")
-    for source in ("attention.cu", "attention_wg.cu", "patch_embed.cu",
-                   "patch_embed_wg.cu", "fused_ln.cu", "fused_ln_wg.cu"):
+    for source in ("attention.cu", "attention_wg.cu", "attention_f32_wg.cu",
+                   "patch_embed.cu", "patch_embed_wg.cu", "fused_ln.cu",
+                   "fused_ln_wg.cu"):
         log_ptxas(source)
     return smi
 
@@ -987,14 +998,55 @@ def _conv_patch_embed_ms(images, wt, bias, a_vec, b_vec, p, smi,
     return ms
 
 
+F32_WG, F32_SIMT = "attn_f32<64>/wg", "attn_f32<64>/simt"
+
+
+def f32_pair(q, k, v, want, key_bias=None) -> dict:
+    """f32 kernel B at dh = 64 in both variants on the same inputs: the
+    rule's TF32 wgmma variant and the CUDA-core kernel forced, each held
+    to ``want`` (the f32 plain version), timed in turns (wg, simt, simt,
+    wg); the names they counted under must be the two variants'."""
+    def call(variant=None):
+        return attn.multi_head_attention(q, k, v, key_bias=key_bias,
+                                         variant=variant)
+
+    errs, names = {}, {}
+    for v_name, variant in (("wg", None), ("simt", "simt")):
+        got, names[v_name] = b_variants(functools.partial(call, variant))
+        torch.cuda.synchronize()
+        errs[v_name] = (got - want).abs().max().item()
+        del got
+    if names != {"wg": F32_WG, "simt": F32_SIMT}:
+        raise AssertionError(f"f32 kernel B launched {names}")
+    times = turns({"wg": call, "simt": functools.partial(call, "simt")},
+                  order=("wg", "simt", "simt", "wg"))
+    return dict(max_abs_err=errs["wg"], simt_max_abs_err=errs["simt"],
+                ok=max(errs.values()) <= ATTN_BOUND[torch.float32],
+                ms=statistics.mean(times["wg"]),
+                simt_ms=statistics.mean(times["simt"]), turns_ms=times)
+
+
+def f32_pair_text(r: dict) -> str:
+    return (f"max|err| wg {r['max_abs_err']:.3e}, simt "
+            f"{r['simt_max_abs_err']:.3e} (bound "
+            f"{ATTN_BOUND[torch.float32]:.0e}{'' if r['ok'] else ': MISS'})"
+            f" | wg {_ms_text(r['turns_ms']['wg'])} ms, simt "
+            f"{_ms_text(r['turns_ms']['simt'])} ms (turns wg, simt, simt, "
+            f"wg)")
+
+
 def phase_attention(smi: str) -> dict:
     """Kernel B at the backbone's shapes, in f32 and bf16: on contiguous
     (B, H, T, dh) inputs and on the views of (B, T, H, dh) tensors that the
     projections give, each held against the plain version of the same
     values; timed against the plain version and SDPA (contiguous inputs).
+    In f32 both variants (f32_pair): the rule's TF32 wgmma variant
+    (csrc/attention_f32_wg.cu) and the CUDA-core kernel forced, timed in
+    turns; a miss of either is logged with its row before the run fails.
     Returns the f32 summary at T = 197 with the bf16 one under "bf16",
-    and the f32 row of ``smoke``'s frame (B = 1, T = 313: the P = 32
-    backbone at 432x768) under "smoke_t313"."""
+    every f32 row under "f32_rows", and the f32 row of ``smoke``'s frame
+    (B = 1, T = 313: the P = 32 backbone at 432x768) under
+    "smoke_t313"."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -1013,27 +1065,24 @@ def phase_attention(smi: str) -> dict:
             want = attn.attention_plain(*contig) if f32 else None
             name = str(dtype).split(".")[-1]
             bound_err = ATTN_BOUND[dtype]
-            row, outs = {}, []
+            row, outs, pairs = {}, [], {}
             for layout, (q, k, v) in (("contiguous", contig),
                                       ("projection order", views)):
+                if f32:
+                    pair = pairs[layout] = f32_pair(q, k, v, want)
+                    log(f"[3] attention B={b} H=12 T={t} dh=64 {name} "
+                        f"{layout}: {f32_pair_text(pair)} | {smi}")
+                    row[layout] = (max(pair["max_abs_err"],
+                                       pair["simt_max_abs_err"]), pair["ms"])
+                    continue
                 got, variant = b_variants(
                     lambda: attn.multi_head_attention(q, k, v))
                 torch.cuda.synchronize()
                 ms = cuda_ms(lambda: attn.multi_head_attention(q, k, v))
-                if f32:
-                    err = (got - want).abs().max().item()
-                    log(f"[3] attention B={b} H=12 T={t} dh=64 {name} "
-                        f"{layout}: max|err| {err:.3e} (bound "
-                        f"{bound_err:.1e}) | kernel {ms:.4f} ms | {smi}")
-                    if not err <= bound_err:
-                        raise AssertionError(f"attention kernel disagrees "
-                                             f"({layout}): {err}")
-                else:
-                    outs.append(got)
-                    log(f"[3] attention B={b} H=12 T={t} dh=64 {name} "
-                        f"{layout}: kernel {variant} {ms:.4f} ms | {smi}")
-                    err = None
-                row[layout] = (err, ms)
+                outs.append(got)
+                log(f"[3] attention B={b} H=12 T={t} dh=64 {name} "
+                    f"{layout}: kernel {variant} {ms:.4f} ms | {smi}")
+                row[layout] = (None, ms)
                 del got
             if not f32:
                 # the backbone's shape must tell f32 scores apart
@@ -1055,35 +1104,59 @@ def phase_attention(smi: str) -> dict:
             plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v))
             log(f"[3] attention B={b} H=12 T={t} dh=64 {name}: plain "
                 f"{plain_ms:.4f} ms | {smi}")
-            if t == 313 and dtype == torch.float32:
-                lim = bound(4 * q.numel() * 4, 4 * b * 12 * t * t * 64, "f32")
-                summary["smoke_t313"] = dict(
-                    max_abs_err=max(e for e, _ in row.values()),
-                    ms=row["contiguous"][1],
-                    ms_projection_order=row["projection order"][1],
-                    device_ms=_device_ms(
-                        lambda: attn.multi_head_attention(q, k, v)),
-                    plain_ms=plain_ms, library_ms=cuda_ms(
-                        lambda: F.scaled_dot_product_attention(q, k, v)),
-                    **lim)
-                log(f"[3] smoke's frame, B=1 T=313: device "
-                    f"{_ms(summary['smoke_t313']['device_ms'])} ms; SDPA "
-                    f"{summary['smoke_t313']['library_ms']:.4f} ms; "
-                    f"{bound_text(lim)} | {smi}")
-            if t == 197:
+            if f32:
+                # f32 at dh = 64 may use the tensor cores on split TF32
+                # operands: bound at 495 TF32, floor at its three passes
+                lim = bound(4 * q.numel() * 4, 4 * b * 12 * t * t * 64, "tf32",
+                            passes=3)
                 sdpa_ms = cuda_ms(
                     lambda: F.scaled_dot_product_attention(q, k, v))
-                lim = bound(4 * q.numel() * q.element_size(),
-                            4 * b * 12 * t * t * 64,
-                            "f32" if dtype == torch.float32 else "bf16")
-                log(f"[3] library: F.scaled_dot_product_attention B={b} "
-                    f"T={t} {name}: {sdpa_ms:.4f} ms; bound "
-                    f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}) | {smi}")
-                summary[name] = dict(
-                    max_abs_err=max(e for e, _ in row.values()),
-                    ms=row["contiguous"][1],
-                    ms_projection_order=row["projection order"][1],
+                pc, pp = pairs["contiguous"], pairs["projection order"]
+                f32_row = dict(
+                    launched=F32_WG, max_abs_err=max(
+                        pc["max_abs_err"], pp["max_abs_err"]),
+                    simt_max_abs_err=max(pc["simt_max_abs_err"],
+                                         pp["simt_max_abs_err"]),
+                    ms=pc["ms"], ms_projection_order=pp["ms"],
+                    simt_ms=pc["simt_ms"],
+                    simt_ms_projection_order=pp["simt_ms"],
+                    turns_ms={"contiguous": pc["turns_ms"],
+                              "projection order": pp["turns_ms"]},
                     plain_ms=plain_ms, library_ms=sdpa_ms, **lim)
+                summary.setdefault("f32_rows", {})[f"B{b}_T{t}"] = f32_row
+                log(f"[3] attention B={b} H=12 T={t} dh=64 f32: wg "
+                    f"{pc['ms']:.4f} ms (projection order {pp['ms']:.4f}), "
+                    f"simt {pc['simt_ms']:.4f} ({pp['simt_ms']:.4f}); plain "
+                    f"{plain_ms:.4f}; SDPA {sdpa_ms:.4f} ms; "
+                    f"{bound_text(lim)} | {smi}")
+                if not (pc["ok"] and pp["ok"]):
+                    misses = {key: (r["max_abs_err"], r["simt_max_abs_err"])
+                              for key, r in pairs.items()}
+                    raise AssertionError(f"f32 attention kernel disagrees at "
+                                         f"B={b} T={t}: {misses}")
+            if t == 313 and dtype == torch.float32:
+                summary["smoke_t313"] = dict(
+                    f32_row, device_ms=_device_ms(
+                        lambda: attn.multi_head_attention(q, k, v)))
+                log(f"[3] smoke's frame, B=1 T=313: device "
+                    f"{_ms(summary['smoke_t313']['device_ms'])} ms | {smi}")
+            if t == 197:
+                if f32:
+                    summary[name] = f32_row
+                else:
+                    sdpa_ms = cuda_ms(
+                        lambda: F.scaled_dot_product_attention(q, k, v))
+                    lim = bound(4 * q.numel() * q.element_size(),
+                                4 * b * 12 * t * t * 64, "bf16")
+                    log(f"[3] library: F.scaled_dot_product_attention B={b} "
+                        f"T={t} {name}: {sdpa_ms:.4f} ms; bound "
+                        f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}) | "
+                        f"{smi}")
+                    summary[name] = dict(
+                        max_abs_err=max(e for e, _ in row.values()),
+                        ms=row["contiguous"][1],
+                        ms_projection_order=row["projection order"][1],
+                        plain_ms=plain_ms, library_ms=sdpa_ms, **lim)
                 if not f32:
                     # the held variant forced on the same inputs: its time
                     # beside the rule's wgmma variant, and its check
@@ -1125,6 +1198,7 @@ def phase_attention(smi: str) -> dict:
     summary["bfloat16"]["launched"] = \
         summary["bfloat16"]["rows"][f"B{BATCH}_T197"]["launched"]
     return dict(summary["float32"], bf16=summary["bfloat16"],
+                f32_rows=summary["f32_rows"],
                 smoke_t313=summary["smoke_t313"])
 
 
@@ -2847,11 +2921,13 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16)
     """Kernel B with ToMe's key bias at every ToMe T (tome_bias_draws from
     seed 7; ``dtypes`` in turn from one generator), f32 and bf16: against
     its plain version on the same values (f32 strictly within ATTN_BOUND,
-    bf16 by bf16_tie_check against it), timed against the plain version
-    and SDPA with the bias as a float mask (B, 1, 1, T). Returns per-dtype
-    rows and sums, with bf16's tie-accepted rows. Every row is timed and
-    logged (each tie-accepted row on a line of its own); then a row that
-    fails its check raises (phase 5d, ``--kernel-b``)."""
+    in both variants, the rule's TF32 wgmma one and the CUDA-core kernel
+    forced, timed in turns: f32_pair; bf16 by bf16_tie_check against it),
+    timed against the plain version and SDPA with the bias as a float mask
+    (B, 1, 1, T). Returns per-dtype rows and sums, with bf16's
+    tie-accepted rows. Every row is timed and logged (each tie-accepted
+    row on a line of its own); then a row that fails its check raises
+    (phase 5d, ``--kernel-b``)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -2862,23 +2938,24 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16)
         name = str(dtype).split(".")[-1]
         rows = []
         for t, bias, q, k, v in tome_bias_draws(dtype, g, biases, dev):
-            got, variant = b_variants(
-                lambda: attn.multi_head_attention(q, k, v, key_bias=bias))
             qc, kc, vc = (x.contiguous() for x in (q, k, v))
-            errs, ties = {}, {}
+            errs, ties, pair = {}, {}, {}
             if dtype == torch.float32:
-                err = (got - attn.attention_plain(qc, kc, vc, key_bias=bias)
-                       ).abs().max().item()
-                ok = err <= ATTN_BOUND[dtype]
+                pair = f32_pair(q, k, v, attn.attention_plain(
+                    qc, kc, vc, key_bias=bias), key_bias=bias)
+                variant, err, ok, ms = F32_WG, pair.pop("max_abs_err"), \
+                    pair.pop("ok"), pair.pop("ms")
             else:  # against the bf16 plain version, tie-aware
+                got, variant = b_variants(
+                    lambda: attn.multi_head_attention(q, k, v, key_bias=bias))
                 errs = bf16_attention_errs(got, qc, kc, vc, bias,
                                            bound=ATTN_BOUND[dtype])
                 err, ok = errs["err"], errs["ties"]["ok"]
                 ties = dict(tie_summary(errs["ties"]),
                             rejected=errs["ties"]["rejected"])
-            del got
-            ms = cuda_ms(lambda: attn.multi_head_attention(
-                q, k, v, key_bias=bias), reps=3, n=5)
+                del got
+                ms = cuda_ms(lambda: attn.multi_head_attention(
+                    q, k, v, key_bias=bias), reps=3, n=5)
             plain_ms = cuda_ms(lambda: attn.attention_plain(
                 qc, kc, vc, key_bias=bias), reps=3, n=5)
             mask = bias[:, None, None, :].to(dtype)
@@ -2887,7 +2964,7 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16)
             # the held variant forced where the rule takes the wgmma one:
             # its time beside, and its tie check
             held = {}
-            if variant.endswith("/wg"):
+            if dtype == torch.bfloat16 and variant.endswith("/wg"):
                 hout = attn.multi_head_attention(q, k, v, key_bias=bias,
                                                  variant="held")
                 hties = bf16_tie_check(hout, qc, kc, vc, bias,
@@ -2899,10 +2976,11 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16)
                 ok = ok and hties["ok"]
             lim = bound(4 * q.numel() * q.element_size() + bias.numel() * 4,
                         4 * BATCH * 12 * t * t * 64 + BATCH * 12 * t * t,
-                        "f32" if dtype == torch.float32 else "bf16")
+                        *(("tf32", 3) if dtype == torch.float32 else
+                          ("bf16",)))
             rows.append(dict(T=t, max_abs_err=err, ok=ok, ms=ms,
                              plain_ms=plain_ms, library_ms=sdpa_ms,
-                             launched=variant, **lim, **ties, **held,
+                             launched=variant, **lim, **ties, **held, **pair,
                              **{f"max_abs_err_{key}": errs[key]
                                 for key in ("f32_scores", "f32_plain")
                                 if key in errs}))
@@ -2916,6 +2994,10 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16)
                 f"{name}: max|err| {r['max_abs_err']:.3e} (bound "
                 f"{ATTN_BOUND[dtype]:.0e}{old}) | kernel {r['launched']} "
                 f"{r['ms']:.4f} ms | " + (
+                    f"simt (forced) {_ms_text(r['turns_ms']['simt'])} ms, "
+                    f"max|err| {r['simt_max_abs_err']:.3e} (wg "
+                    f"{_ms_text(r['turns_ms']['wg'])}; turns wg, simt, simt, "
+                    f"wg) | " if "simt_ms" in r else "") + (
                     f"held (forced) {r['held_ms']:.4f} ms, max|err| "
                     f"{r['held_max_abs_err']:.3e}, tie check "
                     f"{'ok' if r['held_ok'] else 'FAILED'} | "
@@ -2931,16 +3013,26 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16)
         if any("held_ms" in r for r in rows):
             # the same blocks with the held variant where wg ran
             sums["held_ms"] = sum(r.get("held_ms", r["ms"]) for r in rows)
+        if any("simt_ms" in r for r in rows):
+            sums["simt_ms"] = sum(r["simt_ms"] for r in rows)
+            sums["design_floor_ms"] = sum(r["design_floor_ms"] for r in rows)
+            sums["f32_cuda_core_bound_ms"] = sum(
+                r["f32_cuda_core_bound_ms"] for r in rows)
         log(f"[5d] attention + key bias {name}, the 12 ToMe blocks of one "
             f"batch: kernel {sums['ms']:.4f} ms" + (
                 f" (with the held variant for wg: {sums['held_ms']:.4f} ms)"
-                if "held_ms" in sums else "") +
+                if "held_ms" in sums else "") + (
+                f" (the CUDA-core kernel forced: {sums['simt_ms']:.4f} ms; "
+                f"design floor {sums['design_floor_ms']:.4f}, f32 CUDA-core "
+                f"bound {sums['f32_cuda_core_bound_ms']:.4f} ms)"
+                if "simt_ms" in sums else "") +
             f", plain {sums['plain_ms']:.4f}"
             f" ms, SDPA+mask {sums['library_ms']:.4f} ms, bound "
             f"{sums['bound_ms']:.4f} ms | {smi}")
         failed = [dict(T=r["T"], max_abs_err=r["max_abs_err"],
-                       rejected=r.get("rejected")) for r in rows
-                  if not r["ok"]]
+                       rejected=r.get("rejected"),
+                       simt_max_abs_err=r.get("simt_max_abs_err"))
+                  for r in rows if not r["ok"]]
         if failed:
             log(f"[5d] attention + key bias {name}: beyond the bound "
                 f"{ATTN_BOUND[dtype]:.0e}, not a tie, at {failed} | {smi}")
@@ -2953,6 +3045,9 @@ def phase_attention_bias(smi: str, dtypes=(torch.float32, torch.bfloat16)
             T=[r["T"] for r in rows], ms=[r["ms"] for r in rows],
             launched=[r["launched"] for r in rows],
             held_ms=[r.get("held_ms") for r in rows],
+            simt_ms=[r.get("simt_ms") for r in rows],
+            simt_max_abs_err=max((r["simt_max_abs_err"] for r in rows
+                                  if "simt_max_abs_err" in r), default=None),
             plain_ms=[r["plain_ms"] for r in rows],
             library_ms=[r["library_ms"] for r in rows],
             bound_ms=[r["bound_ms"] for r in rows],
@@ -6775,10 +6870,11 @@ def measure_kernel_b(smi: str) -> dict:
     (_device_ms) beside SDPA's, and at the first two the host steps
     (_host_steps); the bf16 forward at B = 512 by torch.profiler (B's
     share) and the bf16 engine's frames/s (_embed_rate); last ToMe's biased
-    blocks in bf16 (phase 5d's rows), held to ATTN_BOUND by bf16_tie_check:
-    a row beyond it that no near tie explains fails the run once every row
-    is logged. Every bf16 row here goes through the tie check. Prints one
-    JSON line {"kernel_b": ...}."""
+    blocks (phase 5d's rows) in f32, both variants held strictly to
+    ATTN_BOUND and timed in turns, and in bf16, held to ATTN_BOUND by
+    bf16_tie_check: a row beyond it that no near tie explains fails the
+    run once every row is logged. Every bf16 row here goes through the tie
+    check. Prints one JSON line {"kernel_b": ...}."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -6888,9 +6984,13 @@ def measure_kernel_b(smi: str) -> dict:
     out["engine_bf16_B512_frames_per_s"] = rates
     log(f"[B] bf16 engine B=512: {rates[0]:.1f}, {rates[1]:.1f} frames/s | "
         f"{smi}")
-    # last, since a row beyond the bound ends the run once all are logged
-    out["tome_bias_bf16"] = phase_attention_bias(
-        smi, dtypes=(torch.bfloat16,))["bfloat16"]
+    for line in _ptxas_lines("attention_f32_wg.cu", ""):
+        log(f"[B] ptxas attention_f32_wg.cu {line}")
+    # last, since a row beyond the bound ends the run once all are logged:
+    # f32 (both variants) and bf16
+    tome = phase_attention_bias(smi)
+    out["tome_bias_f32"] = tome["float32"]
+    out["tome_bias_bf16"] = tome["bfloat16"]
     print(json.dumps({"kernel_b": out}), flush=True)
     return out
 
@@ -6903,7 +7003,8 @@ def main() -> int:
     ap.add_argument("--kernel-b", action="store_true",
                     help="only kernel B's bf16 rows past one key tile and "
                     "its T <= 25 rows with host microseconds a call, the "
-                    "bf16 forward and engine (measure_kernel_b)")
+                    "bf16 forward and engine, ToMe's f32 and bf16 blocks "
+                    "(measure_kernel_b)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -6916,7 +7017,14 @@ def main() -> int:
             return smoke(root)
     smi = phase_card()
     if args.profile:
-        profile_forward(smi, "float32", BATCH)
+        prof = profile_forward(smi, "float32", BATCH)
+        b_ms = {key: ms for key, ms in prof["kernels_ms"].items()
+                if "attn_f32" in key}
+        log(f"[profile] f32 forward B={BATCH}: kernel B {sum(b_ms.values()):.2f}"
+            f" ms of {prof['busy_ms']:.2f} "
+            f"({100 * sum(b_ms.values()) / prof['busy_ms']:.1f}%): " +
+            ", ".join(f"{key[:60]} {ms:.2f} ms" for key, ms in b_ms.items()) +
+            f" | {smi}")
         profile_forward(smi, "bfloat16", 512)
         profile_forward(smi, "float32", BATCH, top=24, tome_r=TOME_R,
                         gemm_quant="int8-static")
@@ -7000,6 +7108,12 @@ def smoke(root: str) -> int:
         f"{b_launches['launches_by_kernel']} ({sum(b_total.values())} of "
         f"{launches('attention')['launches']}; paths without a count: "
         f"{[p for p, c in b_by_path.items() if c is None]})")
+    # f32 at dh = 64 goes to the TF32 wgmma variant by the rule; the
+    # CUDA-core kernel runs only where phases 3 and 5d force it
+    if not b_total.get(F32_WG) or b_total.get(F32_SIMT):
+        raise AssertionError(f"the main paths launched {F32_WG} "
+                             f"{b_total.get(F32_WG, 0)} times and "
+                             f"{F32_SIMT} {b_total.get(F32_SIMT, 0)}")
     # kernel A's, by kernel and variant (ops/patch_embed.py::kernel_name)
     a_by_path = {path: getattr(counts, "pe_by_kernel", None)
                  for path, counts in by_path.items()}
@@ -7040,6 +7154,7 @@ def smoke(root: str) -> int:
              variant_sources={
                  "attn_bf16<64>/wg":
                      "vit_research_tpu_torch/csrc/attention_wg.cu",
+                 F32_WG: "vit_research_tpu_torch/csrc/attention_f32_wg.cu",
                  "every other": "vit_research_tpu_torch/csrc/attention.cu"},
              **launches("attention"), **b_launches,
              library_call="F.scaled_dot_product_attention", **attn_summary,

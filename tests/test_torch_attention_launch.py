@@ -1,11 +1,13 @@
 """Kernel B's launch path on the CPU, with no card: the bf16 variant rule
 (one pass, wgmma, held, two passes) against the shared memory a block may
-take,
+take, the f32 rule (the TF32 wgmma variant at dh = 64, the CUDA-core
+kernel forced beside it),
 and what ``ops/attention.py::_launch`` hands the C entry point, pinned
 against a stub library.
 
-The rule mirrors ``launch_bf16_with`` in csrc/attention.cu, whose
-``static_assert``s state the same limits (HeldLayout<DH, BIAS>::MAX_TILES).
+The rules mirror ``launch_bf16_with`` and ``launch_f32`` in
+csrc/attention.cu, whose ``static_assert``s state the same limits
+(HeldLayout<DH, BIAS>::MAX_TILES).
 """
 
 import ctypes
@@ -96,7 +98,7 @@ def test_the_paths_shapes_take_their_variants():
 
 
 @pytest.mark.parametrize("dtype,t,width,bias,name", [
-    (torch.float32, 197, 64, False, "attn_f32<64>"),
+    (torch.float32, 197, 64, False, "attn_f32<64>/wg"),
     (torch.float32, 1297, 192, True, "attn_f32<192>"),
     (torch.bfloat16, 9, 96, False, "attn_bf16<96>"),
     (torch.bfloat16, 197, 64, True, "attn_bf16<64>/wg"),
@@ -111,10 +113,50 @@ def test_the_paths_shapes_take_their_variants():
 ])
 def test_kernel_names_count_each_variant(dtype, t, width, bias, name):
     assert attn.kernel_name(dtype, t, width, bias) == name
-    if dtype == torch.bfloat16:  # a forced variant counts under its own
+    # a forced variant counts under its own name
+    if dtype == torch.bfloat16:
         forced = attn.bf16_variants(t, width, bias)[-1]
         assert attn.kernel_name(dtype, t, width, bias, forced) == \
             f"attn_bf16<{width}>" + {"1pass": "", "2pass": "/2pass"}[forced]
+    elif width == 64:
+        assert attn.kernel_name(dtype, t, width, bias, "simt") == \
+            "attn_f32<64>/simt"
+
+
+#: launch_f32's rule in csrc/attention.cu: (width, T) -> the f32 variants
+#: that take it, the rule's first
+F32_RULE = {(64, 1): ("wg", "simt"), (64, 21): ("wg", "simt"),
+            (64, 64): ("wg", "simt"), (64, 65): ("wg", "simt"),
+            (64, 197): ("wg", "simt"), (64, 313): ("wg", "simt"),
+            (64, 1297): ("wg", "simt"), (64, 4096): ("wg", "simt"),
+            **{(w, t): () for w in (16, 32, 96, 128, 192)
+               for t in (1, 9, 197, 1297)}}
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("width,t", sorted(F32_RULE))
+def test_f32_variants_follow_the_c_rule(width, t, bias):
+    """At width 64 every T takes the TF32 wgmma variant by the rule and the
+    CUDA-core kernel when forced, with or without a key bias; other widths
+    have no variant to choose (their one kernel, named without one)."""
+    assert attn.f32_variants(t, width, bias) == F32_RULE[width, t]
+    want = F32_RULE[width, t][0] if F32_RULE[width, t] else None
+    assert attn.f32_variant(t, width, bias) == want
+    assert attn.kernel_name(torch.float32, t, width, bias) == (
+        f"attn_f32<{width}>" + (f"/{want}" if want else ""))
+
+
+def test_f32_variant_names_and_codes():
+    """Both f32 variants at dh = 64 have names of their own and reach the C
+    entry point as its Variant codes (WG = 4, SIMT = 5); the other widths'
+    f32 kernels keep their names."""
+    assert attn.kernel_name(torch.float32, 197, 64, True, "wg") == \
+        "attn_f32<64>/wg"
+    assert attn.kernel_name(torch.float32, 197, 64, True, "simt") == \
+        "attn_f32<64>/simt"
+    assert attn.VARIANT_CODES["wg"] == 4 and attn.VARIANT_CODES["simt"] == 5
+    assert attn.kernel_name(torch.float32, 9, 96, False) == "attn_f32<96>"
+    assert "attn_f32<64>" not in attn._KERNEL_NAMES.values()
 
 
 class _StubLibrary:
@@ -335,6 +377,13 @@ def test_launch_marshals_a_forced_variant(stub, variant, t, code):
     ("held", 64, 64, torch.bfloat16, "does not take T = 64"),
     ("held", 197, 64, torch.float32, "bf16 variant"),
     ("fast", 197, 64, torch.bfloat16, "does not take"),
+    ("wg", 197, 96, torch.float32, "head width 96 in torch.float32"),
+    ("simt", 9, 96, torch.float32, "takes none"),
+    ("wg", 9, 32, torch.float32, "head width 32"),
+    ("1pass", 21, 64, torch.float32, "bf16 variant"),
+    ("2pass", 1297, 64, torch.float32, "bf16 variant"),
+    ("simt", 197, 64, torch.bfloat16, "an f32 variant"),
+    ("fast", 197, 64, torch.float32, "does not take"),
 ])
 def test_a_forced_variant_that_does_not_apply_calls_nothing(
         stub, variant, t, d, dtype, match):
@@ -343,6 +392,49 @@ def test_a_forced_variant_that_does_not_apply_calls_nothing(
     with pytest.raises(ValueError, match=match):
         attn._launch(q, k, v, 0.125, None, variant)
     assert stub.calls == [] and _counts() == before
+
+
+@pytest.mark.parametrize("variant,code", [("wg", 4), ("simt", 5)])
+@pytest.mark.parametrize("t,with_bias", [(197, False), (21, True),
+                                         (1297, False)])
+def test_launch_marshals_a_forced_f32_variant(stub, variant, code, t,
+                                              with_bias):
+    """A forced f32 variant at dh = 64 reaches the C entry point as its code
+    and counts under its own name; the rule's call (no variant) hands code
+    0 and counts under the wgmma variant."""
+    q, k, v = _projection_order(2, t, 3, 64, torch.float32, t)
+    bias = torch.zeros(2, t) if with_bias else None
+    before = _counts()
+    attn._launch(q, k, v, 0.125, bias, variant)
+    attn._launch(q, k, v, 0.125, bias)
+    forced, rule = stub.calls
+    assert forced[10] == rule[10] == 0  # f32
+    assert forced[13] == code and rule[13] == 0
+    by_kernel = _counts()[2]
+    name = f"attn_f32<64>/{variant}"
+    assert by_kernel[name] == before[2].get(name, 0) + 1 + (variant == "wg")
+
+
+@pytest.mark.parametrize("variant", [None, "wg", "simt"])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_an_f32_variant_runs_the_plain_version_on_the_cpu(variant,
+                                                          with_bias):
+    """On CPU tensors an f32 variant is checked as on the card and
+    multi_head_attention returns attention_plain's result, counting no
+    launch; a variant that does not take the shape still raises."""
+    q, k, v = (x.contiguous() for x in _projection_order(
+        2, 197, 2, 64, torch.float32, 11))
+    bias = torch.from_numpy(np.log(np.random.default_rng(11).integers(
+        1, 5, size=(2, 197))).astype(np.float32)) if with_bias else None
+    before = _counts()
+    got = attn.multi_head_attention(q, k, v, key_bias=bias, variant=variant)
+    assert torch.equal(got, attn.attention_plain(q, k, v, key_bias=bias))
+    assert _counts() == before
+    with pytest.raises(ValueError, match="bf16 variant"):
+        attn.multi_head_attention(q, k, v, variant="held")
+    q96 = torch.zeros(1, 2, 9, 96)
+    with pytest.raises(ValueError, match="takes none"):
+        attn.multi_head_attention(q96, q96, q96, variant="wg")
 
 
 def test_a_forced_variant_runs_the_plain_version_on_the_cpu():

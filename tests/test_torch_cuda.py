@@ -1616,3 +1616,114 @@ def test_mesh_engine_on_card_matches_single_device(cuda):
     got = eng.embed_batch(frames)
     assert pe.fused_patch_embed.launches == a0 + 4  # 8 = 4 + 4, 5 = 3 + 2
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+F32_WG, F32_SIMT = "attn_f32<64>/wg", "attn_f32<64>/simt"
+
+
+@pytest.mark.parametrize("b,t", [(256, 197), (256, 325), (32, 1297),
+                                 (1, 313), (3, 21), (2, 1), (2, 64),
+                                 (2, 65), (4, 149)])
+@pytest.mark.parametrize("layout", ["contiguous", "projection_order"])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_f32_wg_and_simt_match_plain(cuda, b, t, layout, with_bias):
+    """f32 at dh = 64: the rule's TF32 wgmma variant (csrc/
+    attention_f32_wg.cu) and the CUDA-core kernel forced ("simt"), each
+    within 1e-5 of the f32 plain version, each counted under its own name
+    and the rule's call under the wgmma variant: the backbone (T = 197 at
+    B = 256), phase 3's other shapes (325, 1297, smoke's 313), ToMe's
+    shortest block (21), one key, one stage exactly, a second stage of one
+    key, an odd Q-tile count (149: an item with one idle warpgroup), with
+    and without ToMe's key bias."""
+    q, k, v = _attention_inputs(b, 12, t, 64, torch.float32, layout, cuda,
+                                t + b)
+    bias = _key_bias(b, t, t).to(cuda) if with_bias else None
+    counts = attn.multi_head_attention.launches_by_kernel
+    before = counts.copy()
+    wg = attn.multi_head_attention(q, k, v, key_bias=bias)
+    simt = attn.multi_head_attention(q, k, v, key_bias=bias, variant="simt")
+    assert counts - before == {F32_WG: 1, F32_SIMT: 1}
+    assert wg.shape == simt.shape == (b, 12, t, 64)
+    for got in (wg, simt):
+        _assert_close(got, q, k, v, torch.float32, 1e-5, key_bias=bias)
+
+
+@pytest.mark.parametrize("b,h", [(1, 1), (1, 12), (5, 3)])
+def test_f32_wg_takes_a_batch_or_head_of_one(cuda, b, h):
+    """TMA maps with a dim of one (stride 0 from the wrapper) and a grid of
+    fewer items than SMs."""
+    q, k, v = _attention_inputs(b, h, 197, 64, torch.float32,
+                                "projection_order", cuda, b * h)
+    got = attn.multi_head_attention(q, k, v)
+    _assert_close(got, q, k, v, torch.float32, 1e-5)
+
+
+def test_f32_wg_ignores_allow_tf32(cuda):
+    """The kernel splits its operands itself: its output is the same bits
+    whatever torch.backends.cuda.matmul.allow_tf32 says."""
+    q, k, v = _attention_inputs(4, 12, 197, 64, torch.float32,
+                                "projection_order", cuda, 5)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = attn.multi_head_attention(q, k, v)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = attn.multi_head_attention(q, k, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    assert torch.equal(on, off)
+    _assert_close(off, q, k, v, torch.float32, 1e-5)
+
+
+@pytest.mark.parametrize("variant", [None, "simt"])
+@pytest.mark.parametrize("t", [197, 1297])
+def test_f32_variant_grads_are_the_plain_vjp(cuda, variant, t):
+    """Through the autograd Function either f32 variant launches once under
+    its name, and the q/k/v and key-bias gradients are the plain VJP's."""
+    g = torch.Generator(device=cuda).manual_seed(t)
+    leaves = [torch.randn(2, 8, t, 64, generator=g, device=cuda)
+              .requires_grad_(True) for _ in range(3)]
+    bias = torch.randn(2, t, generator=g, device=cuda).requires_grad_(True)
+    gout = torch.randn(2, 8, t, 64, generator=g, device=cuda)
+    counts = attn.multi_head_attention.launches_by_kernel
+    before = counts.copy()
+    got = attn.multi_head_attention(*leaves, key_bias=bias, variant=variant)
+    assert counts - before == {F32_SIMT if variant else F32_WG: 1}
+    grads = torch.autograd.grad(got, [*leaves, bias], gout)
+    ref = [x.detach().clone().requires_grad_(True) for x in (*leaves, bias)]
+    want = torch.autograd.grad(
+        attn.attention_plain(*ref[:3], key_bias=ref[3]), ref, gout)
+    for x, y in zip(grads, want):
+        torch.testing.assert_close(x, y, rtol=0,
+                                   atol=1e-5 * y.abs().max().item())
+
+
+@pytest.mark.parametrize("variant,d,t", [("wg", 96, 9), ("simt", 32, 197),
+                                         ("held", 64, 197),
+                                         ("1pass", 64, 21)])
+def test_f32_refuses_a_variant_that_does_not_take_it(cuda, variant, d, t):
+    """A forced variant that f32 does not have at that width raises before
+    anything launches; nothing falls to another variant."""
+    q, k, v = _attention_inputs(1, 2, t, d, torch.float32, "contiguous",
+                                cuda, 1)
+    before = attn.multi_head_attention.launches
+    with pytest.raises(ValueError):
+        attn.multi_head_attention(q, k, v, variant=variant)
+    assert attn.multi_head_attention.launches == before
+
+
+@pytest.mark.parametrize("b,h,t,scale", [(2, 3, 4096, 0.3), (8, 12, 197, 0.5)])
+def test_f32_wg_holds_float64_where_the_plain_version_drifts(cuda, b, h, t,
+                                                           scale):
+    """Long rows and scores scaled past dh ** -0.5: there the f32 plain
+    version itself sits near 1e-5 from a float64 evaluation (a softmax sum
+    over 4096 keys, outputs up to ~4), so 1e-5 against it does not tell
+    the kernel's error from its own; against float64 the wgmma variant
+    (each stage's P V summed in f32, three TF32 products) stays within
+    1e-5."""
+    q, k, v = _attention_inputs(b, h, t, 64, torch.float32, "contiguous",
+                                cuda, t)
+    got = attn.multi_head_attention(q, k, v, scale=scale)
+    want = attn.attention_plain(q.double(), k.double(), v.double(),
+                                scale=scale)
+    assert (got.double() - want).abs().max().item() <= 1e-5

@@ -34,9 +34,13 @@
 // 0.03 ms of tensor-core operations; the kernel itself is bound by its
 // per-score work around the tensor cores (the reference's bf16 roundings,
 // the exp, the shared-memory traffic of ldmatrix and of the held scores)
-// and by the latency a few warps an SM cannot hide. In f32 the operations
-// (4*T*T*dh per head on the CUDA cores at 67 TFLOP/s: 0.46 ms), since the
-// parity setting keeps full f32 products (no TF32). At T <= 25 (the heads,
+// and by the latency a few warps an SM cannot hide. In f32 on the CUDA
+// cores the operations (4*T*T*dh per head at 67 TFLOP/s: 0.46 ms), since
+// the parity setting keeps full f32 products (no plain TF32); at dh = 64
+// launch_f32 routes f32 to attn_f32_wg instead (csrc/attention_f32_wg.cu:
+// TF32 wgmma on split operands, f32 accuracy on the tensor cores, bound by
+// the bytes and three TF32 passes: 0.185 ms each), and attn_f32<64> stays
+// to be forced beside it (SIMT). At T <= 25 (the heads,
 // the chunk encoder at B = 1 to 32) a call's host work outlasts its
 // kernel: the wrapper (ops/attention.py::_launch) takes the strides in
 // one pass, enters a device context only for another device, and this
@@ -94,7 +98,8 @@
 //   skips the math but takes part in the copies and barriers. Rows are
 //   padded by 16 bytes in shared memory so that ldmatrix reads are free of
 //   bank conflicts.
-// - f32 (attn_f32): register-tiled on the CUDA cores. 128 threads; thread
+// - f32 (attn_f32; at dh = 64 only when forced): register-tiled on the
+//   CUDA cores. 128 threads; thread
 //   (ty, tx) owns rows ty + 16i (i < 4) and keys tx + 8j (j < 8) of the
 //   64 x 64 score tile, and the same rows x dh/8 columns of O. Q and K sit
 //   in shared memory in their natural (row, dh) layout (cp.async copies 16
@@ -123,6 +128,14 @@
 #include <type_traits>
 
 #include "attention_bf16.cuh"
+
+// attn_f32_wg (csrc/attention_f32_wg.cu) at dh = 64, any seq, with the
+// arguments of vrt_attention_fwd; returns a cudaError_t.
+int attention_f32_wg_launch(const void* q, const void* k, const void* v,
+                            void* o, int batch, int heads, int seq,
+                            const long long* strides, float scale,
+                            const float* bias, long long bias_stride,
+                            cudaStream_t stream);
 
 namespace {
 
@@ -1089,24 +1102,41 @@ int launch(const Params<T>& p, int batch, int bytes, int max_bytes,
   return (int)cudaGetLastError();
 }
 
+// The variants (ops/attention.py's VARIANT_CODES). bf16: ops/attention.py's
+// bf16_variant mirrors the rule (RULE): one key tile (T <= 64) the one-pass
+// kernel; at dh = 64 up to 256 keys attn_bf16_wg (csrc/attention_wg.cu);
+// more while the held scores fit (HeldLayout<DH, BIAS>::MAX_TILES) the held
+// variant; beyond, the two-pass kernel. f32 (f32_variant): at dh = 64
+// attn_f32_wg (csrc/attention_f32_wg.cu, TF32 wgmma on split operands, any
+// T), SIMT forcing attn_f32<64> on the CUDA cores; other widths take only
+// the rule (attn_f32<DH>). Another code forces that variant where it
+// applies (the held variant at a wg shape, attn_f32<64> beside
+// attn_f32_wg, to time the two in one process) and is refused
+// (cudaErrorInvalidValue) where it does not.
+enum Variant {
+  RULE = 0,
+  ONE_PASS = 1,
+  HELD = 2,
+  TWO_PASS = 3,
+  WG = 4,
+  SIMT = 5
+};
+
 template <int DH>
-int launch_f32(Params<float> p, int batch, cudaStream_t s) {
+int launch_f32(Params<float> p, int batch, int variant, const long long* st,
+               cudaStream_t s) {
   using L = F32Layout<DH>;
+  if (DH == 64 && (variant == RULE || variant == WG))
+    return attention_f32_wg_launch(p.q, p.k, p.v, p.o, batch, p.heads,
+                                   p.seq, st, p.scale, p.bias, p.sbias, s);
+  if (variant != RULE && !(DH == 64 && variant == SIMT))
+    return (int)cudaErrorInvalidValue;
   p.n_qblocks = (p.seq + L::ROWS - 1) / L::ROWS;
   if (p.bias)
     return launch<attn_f32<DH, true>>(p, batch, L::BIAS_BYTES,
                                       L::BIAS_BYTES, s);
   return launch<attn_f32<DH, false>>(p, batch, L::BYTES, L::BYTES, s);
 }
-
-// The bf16 variants (ops/attention.py's VARIANT_CODES). ops/attention.py's
-// bf16_variant mirrors the rule (RULE): one key tile (T <= 64) the one-pass
-// kernel; at dh = 64 up to 256 keys attn_bf16_wg (csrc/attention_wg.cu);
-// more while the held scores fit (HeldLayout<DH, BIAS>::MAX_TILES) the held
-// variant; beyond, the two-pass kernel. Another code forces that variant
-// where it applies (the held variant at a wg shape, to time the two in one
-// process) and is refused (cudaErrorInvalidValue) where it does not.
-enum Variant { RULE = 0, ONE_PASS = 1, HELD = 2, TWO_PASS = 3, WG = 4 };
 
 template <int DH, bool BIAS>
 int launch_bf16_with(const Params<__nv_bfloat16>& p, int batch, int variant,
@@ -1155,8 +1185,8 @@ int launch_bf16(const Params<__nv_bfloat16>& p, int batch, int variant,
 // stride 1; base pointers and strides are multiples of 16 bytes. dh in
 // {16, 32, 64, 96, 128, 192}. bias: null, or a (batch, seq) f32 key bias whose
 // rows are bias_stride elements apart (stride 1 along seq). variant: 0 (the
-// rule), or a bf16 variant to force (Variant; f32 takes 0 only). Returns
-// cudaGetLastError() after the launch.
+// rule), or a variant to force (Variant: bf16's, or WG and SIMT for f32 at
+// dh = 64). Returns cudaGetLastError() after the launch.
 extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
                                  void* o, int batch, int heads, int seq,
                                  int dh, const long long* strides,
@@ -1177,16 +1207,16 @@ extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
       case 128: return launch_bf16<128>(p, batch, variant, strides, s);
       case 192: return launch_bf16<192>(p, batch, variant, strides, s);
     }
-  } else if (variant == RULE) {
+  } else {
     const auto p = make_params<float>(q, k, v, o, heads, seq, strides, scale,
                                       bias, bias_stride);
     switch (dh) {
-      case 16: return launch_f32<16>(p, batch, s);
-      case 32: return launch_f32<32>(p, batch, s);
-      case 64: return launch_f32<64>(p, batch, s);
-      case 96: return launch_f32<96>(p, batch, s);
-      case 128: return launch_f32<128>(p, batch, s);
-      case 192: return launch_f32<192>(p, batch, s);
+      case 16: return launch_f32<16>(p, batch, variant, strides, s);
+      case 32: return launch_f32<32>(p, batch, variant, strides, s);
+      case 64: return launch_f32<64>(p, batch, variant, strides, s);
+      case 96: return launch_f32<96>(p, batch, variant, strides, s);
+      case 128: return launch_f32<128>(p, batch, variant, strides, s);
+      case 192: return launch_f32<192>(p, batch, variant, strides, s);
     }
   }
   return (int)cudaErrorInvalidValue;

@@ -148,16 +148,6 @@ __device__ __forceinline__ void wgmma_n32(float* d, uint64_t a, uint64_t b,
         "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
 }
-// the same for 8 keys
-__device__ __forceinline__ void wgmma_n8(float* d, uint64_t a, uint64_t b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
 // o (+)= P V for 64 rows x 64 dh x 16 keys: P's A fragment in registers, V
 // MN-major in shared memory (transposed: imm-trans-b = 1).
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
@@ -437,48 +427,12 @@ attn_bf16_wg(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------------------------------- host
 
-// A 4-D map of a (batch, heads, seq, 64) bf16 view with element strides st
-// (batch, head, token), boxes of `rows` tokens: dh first, then the token,
-// head and batch dims in order of stride (a dim of one has stride 0 from
-// the wrapper and goes last, with the packed stride; its coordinate is
-// always 0). slot: each of token, head, batch's coordinate. False where
-// cuTensorMapEncodeTiled refuses the map (a stride that is not a multiple of 16 bytes
-// or past 2^40).
+// A 4-D map of a (batch, heads, seq, 64) bf16 view (hop::head_map), boxes
+// of `rows` tokens by the whole 128-byte row.
 bool make_map(CUtensorMap* map, int (&slot)[3], const void* base, int batch,
               int heads, int seq, const long long* st, int rows) {
-  const hop::EncodeTiled encode = hop::encoder();
-  if (!encode) return false;
-  const long long size[3] = {seq, heads, batch};
-  const long long stride[3] = {st[2] * 2, st[1] * 2, st[0] * 2};  // bytes
-  int order[3] = {0, 1, 2};
-  auto later = [&](int a, int b) {  // a dim of one last, else by stride
-    const bool ua = size[a] == 1, ub = size[b] == 1;
-    return ua != ub ? ua : (!ua && stride[a] > stride[b]);
-  };
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j + 1 < 3 - i; ++j)
-      if (later(order[j], order[j + 1])) {
-        const int t = order[j];
-        order[j] = order[j + 1];
-        order[j + 1] = t;
-      }
-  cuuint64_t dims[4] = {DH, 0, 0, 0}, strides[3];
-  cuuint32_t box[4] = {DH, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
-  long long packed = ROW_BYTES;
-  for (int i = 0; i < 3; ++i) {
-    const int d = order[i];
-    dims[i + 1] = (cuuint64_t)size[d];
-    const long long s = size[d] == 1 ? packed : stride[d];
-    strides[i] = (cuuint64_t)s;
-    packed = s * size[d];
-    if (d == 0) box[i + 1] = (cuuint32_t)rows;
-    slot[d] = i + 1;
-  }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hop::head_map(map, slot, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                       DH, DH, batch, heads, seq, st, rows);
 }
 
 // Per device: the SM count (the persistent grid) and whether the kernels'

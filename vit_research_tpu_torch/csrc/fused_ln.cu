@@ -35,9 +35,10 @@
 //   - bf16 W: y rounded to bf16, one bf16 mma per k-step (the JAX kernel's
 //     own arithmetic, y.astype(bf16) @ W with f32 accumulation);
 //   - f32 W: 3xTF32. The producer stores y_hi = tf32(y) and y_lo = tf32(y -
-//     y_hi) (cvt.rna); the wrapper splits W into W_hi and W_lo the same way
-//     per call; each k-step sums y_hi W_lo, y_lo W_hi, then y_hi W_hi from 0
-//     and adds that to the f32 accumulator, which keeps f32 accuracy (a
+//     y_hi) (hop::tf32_rna, cvt.rna's rounding); the wrapper splits W into
+//     W_hi and W_lo the same way per call; each k-step sums y_hi W_lo,
+//     y_lo W_hi, then y_hi W_hi from 0 and adds that to the f32
+//     accumulator, which keeps f32 accuracy (a
 //     single TF32 pass does not, nor do 1152 chained mma at K = 3072: the
 //     tensor cores' adds truncate).
 // A block is 16 warps on a 128 x 256 tile: x is the fat operand (f32, and

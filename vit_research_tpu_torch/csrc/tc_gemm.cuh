@@ -20,8 +20,9 @@
 //     and W is split into three bf16 pieces (hi, mid, lo: 24 significand
 //     bits), so every pixel x piece product is exact (Plan: lo, mid, hi);
 //   - kernel C, f32 W: 3xTF32 (y_hi W_lo + y_lo W_hi + y_hi W_hi, each
-//     operand rounded to TF32 by cvt.rna), each k-step's products summed
-//     from 0 and added to the accumulator in f32 (Plan::FLUSH);
+//     operand rounded to TF32 as cvt.rna rounds: hop::tf32_rna), each
+//     k-step's products summed from 0 and added to the accumulator in f32
+//     (Plan::FLUSH);
 //   - kernel C, bf16 W: one bf16 product, the JAX kernel's own arithmetic.
 //
 // The pieces:
@@ -59,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // tf32_rna
 
 namespace tc {
 
@@ -120,13 +123,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// f32 -> TF32 (10 explicit significand bits), round to nearest, ties away
-// from zero; the low 13 bits of the result are 0.
-__device__ __forceinline__ float tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return __uint_as_float(r);
-}
+using hop::tf32_rna;
 
 // A fragment of one 16-row tile at k-step kk of a stage, for either Op: a
 // k-step spans 32 bytes (16 bf16 or 8 f32), and ldmatrix's 8 x 16-byte

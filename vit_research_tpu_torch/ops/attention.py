@@ -5,12 +5,17 @@ computes softmax(q k^T * scale) v over (B, H, T, dh) with an f32 softmax.
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/attention.cu`` (online softmax over K/V tiles streamed through
 shared memory, so unlike the TPU kernel it has no ``MAX_KV_LEN``; bf16 on
-the tensor cores, f32 on the CUDA cores). bf16 past one key tile takes one
-of three variants by the rule :func:`bf16_variant` mirrors: at dh = 64 up to
-256 keys the Hopper kernel of ``csrc/attention_wg.cu`` (wgmma and TMA, the
-whole score row in registers); else the held variant (K and V streamed
-once, the row's scores held in shared memory) while they fit, the two-pass
-kernel beyond. The kernel reads q, k and v
+the tensor cores, f32 on the CUDA cores except at dh = 64). bf16 past one key
+tile takes one of three variants by the rule :func:`bf16_variant` mirrors:
+at dh = 64 up to 256 keys the Hopper kernel of ``csrc/attention_wg.cu``
+(wgmma and TMA, the whole score row in registers); else the held variant
+(K and V streamed once, the row's scores held in shared memory) while they
+fit, the two-pass kernel beyond. f32 at dh = 64 takes the Hopper kernel of
+``csrc/attention_f32_wg.cu`` by the rule :func:`f32_variant` mirrors (TF32
+wgmma on operands split into two TF32 pieces, three products each, so f32
+accuracy whatever ``torch.backends.cuda.matmul.allow_tf32`` says; TMA
+loads; any T), with the CUDA-core kernel (``"simt"``) to be forced beside
+it. The kernel reads q, k and v
 through their strides, so the backbone hands it the projections'
 (B, T, H, dh) order as ``transpose(1, 2)`` views without a copy, and it
 writes the output in that order too. On a CPU tensor it runs
@@ -155,14 +160,33 @@ def bf16_variant(t: int, width: int, bias: bool) -> str:
     return bf16_variants(t, width, bias)[0]
 
 
+def f32_variants(t: int, width: int, bias: bool) -> tuple:
+    """Every f32 variant that takes T keys at compiled width ``width``,
+    with or without a key bias, the rule's first (csrc/attention.cu's
+    ``launch_f32``): at width 64 ``"wg"`` (csrc/attention_f32_wg.cu: TF32
+    wgmma on split operands, TMA loads; every T >= 1), then ``"simt"``
+    (``attn_f32<64>`` on the CUDA cores); none elsewhere, where the one
+    f32 kernel of that width runs."""
+    return ("wg", "simt") if width == 64 else ()
+
+
+def f32_variant(t: int, width: int, bias: bool) -> str | None:
+    """The rule's f32 variant for T keys at compiled width ``width``: the
+    first of :func:`f32_variants`, or None where there is none."""
+    return next(iter(f32_variants(t, width, bias)), None)
+
+
 #: the code of each variant at the C entry point (csrc/attention.cu's
-#: Variant); 0 is the rule
-VARIANT_CODES = {"1pass": 1, "held": 2, "2pass": 3, "wg": 4}
+#: Variant); 0 is the rule. "wg" is bf16's and f32's wgmma variant alike.
+VARIANT_CODES = {"1pass": 1, "held": 2, "2pass": 3, "wg": 4, "simt": 5}
 _VARIANT_SUFFIX = {"1pass": "", "held": "/held", "2pass": "/2pass",
                    "wg": "/wg"}
-# launches_by_kernel's names, e.g. attn_f32<96>, attn_bf16<64>/held
+# launches_by_kernel's names, e.g. attn_f32<96>, attn_f32<64>/wg,
+# attn_bf16<64>/held
 _KERNEL_NAMES = {**{(False, w, None): f"attn_f32<{w}>"
-                    for w in KERNEL_HEAD_DIMS},
+                    for w in KERNEL_HEAD_DIMS if w != 64},
+                 **{(False, 64, v): f"attn_f32<64>/{v}"
+                    for v in f32_variants(1, 64, False)},
                  **{(True, w, v): f"attn_bf16<{w}>{sfx}"
                     for w in KERNEL_HEAD_DIMS
                     for v, sfx in _VARIANT_SUFFIX.items()}}
@@ -172,28 +196,38 @@ _WIDTHS = {d: kernel_head_dim(d) for d in range(1, KERNEL_HEAD_DIMS[-1] + 1)}
 def kernel_name(dtype: torch.dtype, t: int, width: int, bias: bool,
                 variant: str | None = None) -> str:
     """The name a launch counts under in
-    ``multi_head_attention.launches_by_kernel``: ``attn_f32<width>``, or
-    ``attn_bf16<width>`` with ``/wg``, ``/held`` or ``/2pass`` past one key
-    tile: the rule's variant (:func:`bf16_variant`), or ``variant``."""
+    ``multi_head_attention.launches_by_kernel``: ``attn_f32<width>``, at
+    width 64 with ``/wg`` or ``/simt``, or ``attn_bf16<width>`` with
+    ``/wg``, ``/held`` or ``/2pass`` past one key tile: the rule's variant
+    (:func:`f32_variant`, :func:`bf16_variant`), or ``variant``."""
     bf16 = dtype == torch.bfloat16
-    if bf16 and variant is None:
-        variant = bf16_variant(t, width, bias)
-    return _KERNEL_NAMES[bf16, width, variant if bf16 else None]
+    if variant is None:
+        variant = (bf16_variant if bf16 else f32_variant)(t, width, bias)
+    return _KERNEL_NAMES[bf16, width, variant]
+
+
+_BF16_NAMES = frozenset(_VARIANT_SUFFIX)
+_F32_NAMES = frozenset(f32_variants(1, 64, False))
 
 
 def _check_variant(variant, q, width: int, bias: bool) -> None:
-    """Raise ValueError unless ``variant`` is None or a bf16 variant that
-    takes q's shape (:func:`bf16_variants`)."""
+    """Raise ValueError unless ``variant`` is None or a variant of q's
+    dtype that takes q's shape (:func:`bf16_variants`,
+    :func:`f32_variants`)."""
     if variant is None:
         return
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"variant {variant!r} is a bf16 variant; q is "
+    bf16 = q.dtype == torch.bfloat16
+    if variant not in (_BF16_NAMES if bf16 else _F32_NAMES) and \
+            variant in (_F32_NAMES if bf16 else _BF16_NAMES):
+        raise ValueError(f"variant {variant!r} is "
+                         f"{'an f32' if bf16 else 'a bf16'} variant; q is "
                          f"{q.dtype}")
-    takes = bf16_variants(q.shape[2], width, bias) if width else ()
+    takes = (bf16_variants if bf16 else f32_variants)(
+        q.shape[2], width, bias) if width else ()
     if variant not in takes:
         raise ValueError(f"variant {variant!r} does not take T = "
-                         f"{q.shape[2]} at head width {width} (the shape "
-                         f"takes {', '.join(takes) or 'none'})")
+                         f"{q.shape[2]} at head width {width} in {q.dtype} "
+                         f"(the shape takes {', '.join(takes) or 'none'})")
 
 
 def _kernel_strides(x: torch.Tensor, name: str = "x") -> tuple:
@@ -407,10 +441,14 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (and grad mode is on), the call goes through :class:`_Attention`, so
     the gradients are the plain version's.
 
-    ``variant`` (bf16 only; for measurement) launches that variant of
-    :func:`bf16_variants` instead of the rule's, e.g. ``"held"`` at T =
-    197 beside the rule's ``"wg"``; one that does not take the shape
-    raises ValueError."""
+    ``variant`` (for measurement) launches that variant of
+    :func:`bf16_variants` or :func:`f32_variants` (by q's dtype) instead of
+    the rule's, e.g. ``"held"`` at T = 197 in bf16 beside the rule's
+    ``"wg"``, or ``"simt"`` (the CUDA-core kernel) in f32 at dh = 64
+    beside the rule's ``"wg"``; one that does not take the shape or the
+    dtype raises ValueError. On a CUDA tensor the variant launches or
+    raises: nothing falls back to another variant or to the plain
+    version."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one (B, H, T, dh) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -431,6 +469,6 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 multi_head_attention.launches = 0
 multi_head_attention.padded_launches = 0
 #: the same launches by instantiation and variant (:func:`kernel_name`),
-#: e.g. ``attn_bf16<96>``, ``attn_bf16<64>/wg``, ``attn_bf16<64>/held``,
-#: ``attn_bf16<64>/2pass``
+#: e.g. ``attn_f32<64>/wg``, ``attn_f32<96>``, ``attn_bf16<96>``,
+#: ``attn_bf16<64>/wg``, ``attn_bf16<64>/held``, ``attn_bf16<64>/2pass``
 multi_head_attention.launches_by_kernel = collections.Counter()
