@@ -38,7 +38,11 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      forced, is checked and timed beside it;
   3c. the attention kernel at the stage-1 chunk encoder's shapes (dh = 96,
      H = 8, B = 256, T = 9 and 25; f32 and bf16, contiguous and
-     projection order) against its plain version, SDPA and its bound, and
+     projection order) against its plain version, SDPA and its bound (in
+     f32 the rule's short variant, csrc/attention_short.cu, beside the
+     64-row tile forced, ``f32_pair``: both held to ATTN_BOUND, timed in
+     turns by CUDA events, each one's device time and host us a call; and
+     ptxas's registers and spills of csrc/attention_short.cu), and
      at T = 9 with large scores (max|S| >= 10), where f32 scores must fail
      the tie check; then
      the kernels' gradients: B's q/k/v and key-bias gradients through its
@@ -53,9 +57,10 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      and 256 at T = 5, B = 32 at T = 65 and 130; f32 and bf16, with and
      without a key bias, contiguous and projection order) against its
      plain version, the plain version's time, SDPA (with the bias as a
-     float mask) and its bound; with large scores at T = 5 and 21 (f32
-     scores must fail the bound) and the T > 64 residual at T = 65 and
-     130; gradients through its Function against
+     float mask) and its bound (at T = 5 in f32 the short variant beside
+     the 64-row tile forced, ``f32_pair``); with large scores at T = 5
+     and 21 (f32 scores must fail the bound) and the T > 64 residual at T
+     = 65 and 130; gradients through its Function against
      the plain VJP; ptxas's registers and spills of the dh = 192 kernels;
   3b. the fused LayerNorm + projection kernel, driven through its public
      entry ``ln_matmul`` at ViT-B shapes (M = 256*197, K = 768, N = 768
@@ -252,7 +257,8 @@ variant (forced) at T = 197, 149, 69 and 256 (``wg_beside_held``), bf16
 past one key tile at the
 backbone's and other shapes beside SDPA and the bound, a sweep over T by
 head width, the T <= 25 rows with host microseconds a call beside
-CUDA-event and device times (and the host cost by step), the bf16 forward
+CUDA-event and device times (and the host cost by step; in f32 the 64-row
+tile forced beside the short variant), the bf16 forward
 at B = 512 and the bf16 engine's frames/s, and last ToMe's biased blocks
 in f32 (both variants, in turns) and bf16, each within ATTN_BOUND or
 (bf16) accepted by a tie, or the run fails. Beside
@@ -274,12 +280,16 @@ other neighbour brings the whole row within the bound. The f32 checks
 stay strict.
 
 Host microseconds a call (``host_us``) stand beside the CUDA-event and
-device times of every T <= 25 row of phases 3c, 3d and 5g, and the
+device times of every T <= 25 row of phases 3c, 3d and 5g (in f32 for
+both the short variant and the 64-row tile), and the
 kernels line's attention entry carries ``launches_by_kernel``: kernel B's
 main-path launches by instantiation and variant; the patch_embed entry
 kernel A's by variant (``patch_embed_u8/wg`` on every main path; f32 B at
 dh = 64 by the rule only ``attn_f32<64>/wg``: a launch of
-``attn_f32<64>/simt`` on a main path fails the run), the
+``attn_f32<64>/simt`` on a main path fails the run; f32 at dh = 96, 128
+and 192 up to 32 keys by the rule only ``attn_f32<w>/short``: a launch of
+``attn_f32<w>/simt`` on a main path, or none of ``attn_f32<96>/short`` or
+``attn_f32<192>/short``, fails the run), the
 ln_matmul entry kernel C's in phase 3b (``ln_gemm/wg``, ``ln_gemm/mma``),
 and each of the three its ``variant_sources``.
 
@@ -792,8 +802,8 @@ def phase_card() -> str:
             f"{os.path.basename(s)} {_build.nvcc_seconds(s):.1f} s"
             for s in _build.sources()) + ")")
     for source in ("attention.cu", "attention_wg.cu", "attention_f32_wg.cu",
-                   "patch_embed.cu", "patch_embed_wg.cu", "fused_ln.cu",
-                   "fused_ln_wg.cu"):
+                   "attention_short.cu", "patch_embed.cu",
+                   "patch_embed_wg.cu", "fused_ln.cu", "fused_ln_wg.cu"):
         log_ptxas(source)
     return smi
 
@@ -1001,38 +1011,68 @@ def _conv_patch_embed_ms(images, wt, bias, a_vec, b_vec, p, smi,
 F32_WG, F32_SIMT = "attn_f32<64>/wg", "attn_f32<64>/simt"
 
 
-def f32_pair(q, k, v, want, key_bias=None) -> dict:
-    """f32 kernel B at dh = 64 in both variants on the same inputs: the
-    rule's TF32 wgmma variant and the CUDA-core kernel forced, each held
-    to ``want`` (the f32 plain version), timed in turns (wg, simt, simt,
-    wg); the names they counted under must be the two variants'."""
+def f32_pair(q, k, v, want, key_bias=None, device=False) -> dict:
+    """f32 kernel B in both variants on the same inputs: the rule's (at dh
+    = 64 the TF32 wgmma variant, csrc/attention_f32_wg.cu; at dh = 96, 128
+    and 192 up to 32 keys the short variant, csrc/attention_short.cu) and
+    the CUDA-core kernel's 64-row tile forced ("simt"), each held to
+    ``want`` (the f32 plain version), timed in turns (rule, simt, simt,
+    rule); with ``device`` also each one's device time (_device_ms) and
+    host microseconds a call (host_us). The names they counted under must
+    be the two variants'."""
+    width = attn.kernel_head_dim(q.shape[-1])
+    rule = attn.f32_variant(q.shape[2], width, key_bias is not None)
+
     def call(variant=None):
         return attn.multi_head_attention(q, k, v, key_bias=key_bias,
                                          variant=variant)
 
+    simt = functools.partial(call, "simt")
     errs, names = {}, {}
-    for v_name, variant in (("wg", None), ("simt", "simt")):
-        got, names[v_name] = b_variants(functools.partial(call, variant))
+    for v_name, fn in ((rule, call), ("simt", simt)):
+        got, names[v_name] = b_variants(fn)
         torch.cuda.synchronize()
         errs[v_name] = (got - want).abs().max().item()
         del got
-    if names != {"wg": F32_WG, "simt": F32_SIMT}:
-        raise AssertionError(f"f32 kernel B launched {names}")
-    times = turns({"wg": call, "simt": functools.partial(call, "simt")},
-                  order=("wg", "simt", "simt", "wg"))
-    return dict(max_abs_err=errs["wg"], simt_max_abs_err=errs["simt"],
-                ok=max(errs.values()) <= ATTN_BOUND[torch.float32],
-                ms=statistics.mean(times["wg"]),
-                simt_ms=statistics.mean(times["simt"]), turns_ms=times)
+    want_names = {v_name: f"attn_f32<{width}>/{v_name}"
+                  for v_name in (rule, "simt")}
+    if names != want_names:
+        raise AssertionError(f"f32 kernel B launched {names}, not "
+                             f"{want_names}")
+    times = turns({rule: call, "simt": simt},
+                  order=(rule, "simt", "simt", rule))
+    out = dict(variant=rule, max_abs_err=errs[rule],
+               simt_max_abs_err=errs["simt"],
+               ok=max(errs.values()) <= ATTN_BOUND[torch.float32],
+               ms=statistics.mean(times[rule]),
+               simt_ms=statistics.mean(times["simt"]), turns_ms=times)
+    if device:
+        out.update(device_ms=_device_ms(call), simt_device_ms=_device_ms(simt),
+                   host_us=host_us(call), simt_host_us=host_us(simt))
+    return out
 
 
 def f32_pair_text(r: dict) -> str:
-    return (f"max|err| wg {r['max_abs_err']:.3e}, simt "
+    rule = r["variant"]
+    text = (f"max|err| {rule} {r['max_abs_err']:.3e}, simt "
             f"{r['simt_max_abs_err']:.3e} (bound "
             f"{ATTN_BOUND[torch.float32]:.0e}{'' if r['ok'] else ': MISS'})"
-            f" | wg {_ms_text(r['turns_ms']['wg'])} ms, simt "
-            f"{_ms_text(r['turns_ms']['simt'])} ms (turns wg, simt, simt, "
-            f"wg)")
+            f" | {rule} {_ms_text(r['turns_ms'][rule])} ms, simt "
+            f"{_ms_text(r['turns_ms']['simt'])} ms (turns {rule}, simt, "
+            f"simt, {rule})")
+    if "device_ms" in r:
+        text += (f" | device {rule} {_ms(r['device_ms'])} ms, simt "
+                 f"{_ms(r['simt_device_ms'])} | host {rule} "
+                 f"{r['host_us']:.2f} us a call, simt "
+                 f"{r['simt_host_us']:.2f}")
+    return text
+
+
+def check_f32_pair(r: dict, what: str) -> None:
+    if not r["ok"]:
+        raise AssertionError(f"{what}: {r['variant']} {r['max_abs_err']}, "
+                             f"simt {r['simt_max_abs_err']} beyond "
+                             f"{ATTN_BOUND[torch.float32]}")
 
 
 def phase_attention(smi: str) -> dict:
@@ -1225,13 +1265,18 @@ def phase_attention_stage1(smi: str) -> dict:
     256 at T = 9 and 25, B = 32 at T = 9; f32 and bf16), on contiguous
     inputs and on
     projection-order views, each against the plain version of the same
-    values; timed against the plain version and SDPA. The 64-row query
-    tile holds T rows: at T = 9, 86% of it is idle."""
+    values; timed against the plain version and SDPA. In f32 the rule's
+    short variant beside the 64-row tile forced (f32_pair: both held to
+    ATTN_BOUND, CUDA-event, device and host times; the tile holds T rows:
+    at T = 9, 86% of it is idle), with SDPA's device time, and ptxas's
+    registers and spills of csrc/attention_short.cu."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     h, dh = STAGE1_HEADS, STAGE1_DH
+    for line in _ptxas_lines("attention_short.cu", ""):
+        log(f"[3c] ptxas attention_short.cu {line}")
     rows = {}
     for b, t in ((STAGE1_B, 9), (STAGE1_B, 25), (STAGE1_BATCH, 9)):
         q32, k32, v32 = (torch.randn(b, t, h, dh, generator=g).to(dev)
@@ -1288,8 +1333,8 @@ def phase_attention_stage1(smi: str) -> dict:
                 f"{host['host_us']:.2f} us a call) | "
                 f"plain {plain_ms:.4f} ms | SDPA {sdpa_ms:.4f} ms (host "
                 f"{host['library_host_us']:.2f} us) | "
-                f"{bound_text(lim)} | query tile {100 * idle:.0f}% idle | "
-                f"{smi}")
+                f"{bound_text(lim)} | the 64-row tile {100 * idle:.0f}% "
+                f"idle | {smi}")
             key = f"T{t}_" if b == STAGE1_B else f"B{b}_T{t}_"
             rows[key + name] = dict(
                 max_abs_err=max(e for e, _ in row.values()),
@@ -1297,6 +1342,24 @@ def phase_attention_stage1(smi: str) -> dict:
                 ms_projection_order=row["projection order"][1],
                 plain_ms=plain_ms, library_ms=sdpa_ms, launched=variant,
                 query_tile_idle=idle, **host, **lim)
+            if f32:
+                # the short variant beside the 64-row tile (forced) and
+                # SDPA, each layout; the device times of calls queued
+                # back to back (a call's host work can outlast its kernel)
+                want = attn.attention_plain(*contig)
+                pairs = {}
+                for layout, xs in (("contiguous", contig),
+                                   ("projection_order", views)):
+                    pairs[layout] = r = f32_pair(*xs, want, device=True)
+                    log(f"[3c] attention B={b} H={h} T={t} dh={dh} f32 "
+                        f"{layout}: {f32_pair_text(r)} | {smi}")
+                    check_f32_pair(r, f"attention dh=96 B={b} T={t} "
+                                      f"{layout}")
+                rows[key + name].update(
+                    short_beside_simt=pairs,
+                    library_device_ms=_device_ms(
+                        lambda: F.scaled_dot_product_attention(q, k, v)))
+                del want
             if not f32:
                 rows[key + name].update(
                     max_abs_err_f32_scores=errs["f32_scores"],
@@ -1604,7 +1667,8 @@ def phase_attention_rag(smi: str) -> dict:
     bias, on contiguous inputs and on projection-order views, each against
     the plain version of the same values; timed against the plain version
     and SDPA (with the bias as a float mask) and its bound; at T = 5 also
-    the kernel's and SDPA's device time (_device_ms). Then the
+    the kernel's and SDPA's device time (_device_ms), and in f32 the rule's
+    short variant beside the 64-row tile forced (f32_pair). Then the
     gradients through ``_Attention`` against the plain VJP (T = 5 and
     130), and ptxas's registers and spills of the dh = 192 kernels."""
     import torch.nn.functional as F
@@ -1706,6 +1770,21 @@ def phase_attention_rag(smi: str) -> dict:
                     ms_projection_order=row["projection order"][1],
                     plain_ms=plain_ms, library_ms=sdpa_ms, launched=variant,
                     **device, **lim)
+                if f32 and t <= attn.SHORT_MAX_SEQ:
+                    # the short variant beside the 64-row tile (forced)
+                    want = attn.attention_plain(*contig, key_bias=kb)
+                    pairs = {}
+                    for layout, xs in (("contiguous", contig),
+                                       ("projection_order", views)):
+                        pairs[layout] = r = f32_pair(*xs, want, kb,
+                                                     device=True)
+                        log(f"[3d] attention B={b} H={h} T={t} dh={dh} f32"
+                            f"{' + key bias' if kb is not None else ''} "
+                            f"{layout}: {f32_pair_text(r)} | {smi}")
+                        check_f32_pair(r, f"attention dh=192 B={b} T={t} "
+                                        f"bias={kb is not None} {layout}")
+                    rows[key]["short_beside_simt"] = pairs
+                    del want
                 if not f32:
                     rows[key].update(
                         max_abs_err_f32_scores=errs["f32_scores"],
@@ -4448,7 +4527,8 @@ def _stage2_kernel_rows(smi: str) -> dict:
     (a 64-frame clip's chunks in one scoring batch), T = 9, f32, in
     projection order against the plain version, with the plain version's
     time, SDPA's and the bound; device times by _device_ms (the calls
-    are host-bound)."""
+    are host-bound); the rule's short variant beside the 64-row tile
+    forced (f32_pair)."""
     import torch.nn.functional as F
 
     g = torch.Generator().manual_seed(5)
@@ -4480,6 +4560,12 @@ def _stage2_kernel_rows(smi: str) -> dict:
             f"| plain {row['plain_ms']:.4f} ms | SDPA {row['library_ms']:.4f}"
             f" ms (device {_ms(row['library_device_ms'])}; host "
             f"{row['library_host_us']:.2f} us) | {bound_text(row)} | {smi}")
+        # the rule's short variant beside the 64-row tile (forced)
+        pair = f32_pair(q, k, v, want, device=True)
+        log(f"[5g] attention B={b} H=8 T=9 dh=96 f32 projection order: "
+            f"{f32_pair_text(pair)} | {smi}")
+        check_f32_pair(pair, f"attention dh=96 B={b} T=9")
+        row["short_beside_simt"] = pair
         rows[f"B{b}_T9_float32"] = row
     return rows
 
@@ -6959,6 +7045,14 @@ def measure_kernel_b(smi: str) -> dict:
                    **bound(4 * q.numel() * q.element_size(),
                            4 * b * h * t * t * dh,
                            "f32" if dtype == torch.float32 else "bf16"))
+        if attn.f32_variant(t, dh, False) == "short" and \
+                dtype == torch.float32:
+            # the 64-row tile forced beside the rule's short variant
+            pair = f32_pair(q, k, v, attn.attention_plain(qc, kc, vc),
+                            device=True)
+            log(f"[B] {what}: {f32_pair_text(pair)} | {smi}")
+            check_f32_pair(pair, what)
+            row["short_beside_simt"] = pair
         name = str(dtype).split(".")[-1]
         log(f"[B] {what}: B={b} H={h} T={t} dh={dh} {name} {variant}: host "
             f"{row['host_us']:.2f} us a call (SDPA "
@@ -7114,6 +7208,20 @@ def smoke(root: str) -> int:
         raise AssertionError(f"the main paths launched {F32_WG} "
                              f"{b_total.get(F32_WG, 0)} times and "
                              f"{F32_SIMT} {b_total.get(F32_SIMT, 0)}")
+    # f32 at dh = 96 (the chunk encoder) and 192 (the RAGHead), T <= 32,
+    # goes to the short variant by the rule; the 64-row tile runs there
+    # (attn_f32<w>/simt) only where phases 3c, 3d and 5g force it, and by
+    # the rule only past 32 keys (attn_f32<w>)
+    short_wrong = {name: n for name, n in b_total.items()
+                   if name in {f"attn_f32<{w}>/simt"
+                               for w in attn.SHORT_WIDTHS} and n}
+    short_none = [name for name in ("attn_f32<96>/short",
+                                    "attn_f32<192>/short")
+                  if not b_total.get(name)]
+    if short_wrong or short_none:
+        raise AssertionError(f"the main paths launched the 64-row f32 tile "
+                             f"at dh = 96, 128 or 192: {short_wrong}; never "
+                             f"launched: {short_none}")
     # kernel A's, by kernel and variant (ops/patch_embed.py::kernel_name)
     a_by_path = {path: getattr(counts, "pe_by_kernel", None)
                  for path, counts in by_path.items()}
@@ -7155,6 +7263,9 @@ def smoke(root: str) -> int:
                  "attn_bf16<64>/wg":
                      "vit_research_tpu_torch/csrc/attention_wg.cu",
                  F32_WG: "vit_research_tpu_torch/csrc/attention_f32_wg.cu",
+                 **{f"attn_f32<{w}>/short":
+                    "vit_research_tpu_torch/csrc/attention_short.cu"
+                    for w in attn.SHORT_WIDTHS},
                  "every other": "vit_research_tpu_torch/csrc/attention.cu"},
              **launches("attention"), **b_launches,
              library_call="F.scaled_dot_product_attention", **attn_summary,

@@ -1,13 +1,15 @@
 """Kernel B's launch path on the CPU, with no card: the bf16 variant rule
 (one pass, wgmma, held, two passes) against the shared memory a block may
-take, the f32 rule (the TF32 wgmma variant at dh = 64, the CUDA-core
-kernel forced beside it),
+take, the f32 rule (the TF32 wgmma variant at dh = 64; the short-sequence
+variant at dh = 96, 128 and 192 up to 32 keys, with its shared memory and
+heads an SM; the CUDA-core kernel forced beside either),
 and what ``ops/attention.py::_launch`` hands the C entry point, pinned
 against a stub library.
 
 The rules mirror ``launch_bf16_with`` and ``launch_f32`` in
 csrc/attention.cu, whose ``static_assert``s state the same limits
-(HeldLayout<DH, BIAS>::MAX_TILES).
+(HeldLayout<DH, BIAS>::MAX_TILES), and the short variant's layout mirrors
+csrc/attention_short.cu's (its ``static_assert``s pin the same bytes).
 """
 
 import ctypes
@@ -100,6 +102,10 @@ def test_the_paths_shapes_take_their_variants():
 @pytest.mark.parametrize("dtype,t,width,bias,name", [
     (torch.float32, 197, 64, False, "attn_f32<64>/wg"),
     (torch.float32, 1297, 192, True, "attn_f32<192>"),
+    (torch.float32, 9, 96, False, "attn_f32<96>/short"),
+    (torch.float32, 5, 192, True, "attn_f32<192>/short"),
+    (torch.float32, 32, 128, False, "attn_f32<128>/short"),
+    (torch.float32, 33, 96, True, "attn_f32<96>"),
     (torch.bfloat16, 9, 96, False, "attn_bf16<96>"),
     (torch.bfloat16, 197, 64, True, "attn_bf16<64>/wg"),
     (torch.bfloat16, 65, 64, False, "attn_bf16<64>/wg"),
@@ -118,9 +124,9 @@ def test_kernel_names_count_each_variant(dtype, t, width, bias, name):
         forced = attn.bf16_variants(t, width, bias)[-1]
         assert attn.kernel_name(dtype, t, width, bias, forced) == \
             f"attn_bf16<{width}>" + {"1pass": "", "2pass": "/2pass"}[forced]
-    elif width == 64:
+    elif attn.f32_variants(t, width, bias):
         assert attn.kernel_name(dtype, t, width, bias, "simt") == \
-            "attn_f32<64>/simt"
+            f"attn_f32<{width}>/simt"
 
 
 #: launch_f32's rule in csrc/attention.cu: (width, T) -> the f32 variants
@@ -130,15 +136,22 @@ F32_RULE = {(64, 1): ("wg", "simt"), (64, 21): ("wg", "simt"),
             (64, 197): ("wg", "simt"), (64, 313): ("wg", "simt"),
             (64, 1297): ("wg", "simt"), (64, 4096): ("wg", "simt"),
             **{(w, t): () for w in (16, 32, 96, 128, 192)
-               for t in (1, 9, 197, 1297)}}
+               for t in (1, 9, 197, 1297)},
+            # up to 32 keys the short variant (a query row a lane, or 2-4)
+            **{(w, t): ("short", "simt") for w in (96, 128, 192)
+               for t in (1, 9, 25, 32)},
+            **{(w, 33): () for w in (96, 128, 192)},
+            **{(w, t): () for w in (16, 32) for t in (25, 32)}}
 
 
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("width,t", sorted(F32_RULE))
 def test_f32_variants_follow_the_c_rule(width, t, bias):
     """At width 64 every T takes the TF32 wgmma variant by the rule and the
-    CUDA-core kernel when forced, with or without a key bias; other widths
-    have no variant to choose (their one kernel, named without one)."""
+    CUDA-core kernel when forced, with or without a key bias; at widths 96,
+    128 and 192 up to 32 keys the short variant by the rule and the
+    CUDA-core kernel when forced; elsewhere there is no variant to choose
+    (the one kernel, named without one)."""
     assert attn.f32_variants(t, width, bias) == F32_RULE[width, t]
     want = F32_RULE[width, t][0] if F32_RULE[width, t] else None
     assert attn.f32_variant(t, width, bias) == want
@@ -147,15 +160,22 @@ def test_f32_variants_follow_the_c_rule(width, t, bias):
 
 
 def test_f32_variant_names_and_codes():
-    """Both f32 variants at dh = 64 have names of their own and reach the C
-    entry point as its Variant codes (WG = 4, SIMT = 5); the other widths'
-    f32 kernels keep their names."""
+    """The f32 variants have names of their own and reach the C entry point
+    as its Variant codes (WG = 4, SIMT = 5, SHORT = 6); the tiled kernel
+    past 32 keys and the other widths' f32 kernels keep their names."""
     assert attn.kernel_name(torch.float32, 197, 64, True, "wg") == \
         "attn_f32<64>/wg"
     assert attn.kernel_name(torch.float32, 197, 64, True, "simt") == \
         "attn_f32<64>/simt"
     assert attn.VARIANT_CODES["wg"] == 4 and attn.VARIANT_CODES["simt"] == 5
-    assert attn.kernel_name(torch.float32, 9, 96, False) == "attn_f32<96>"
+    assert attn.VARIANT_CODES["short"] == 6
+    assert attn.SHORT_WIDTHS == (96, 128, 192) and attn.SHORT_MAX_SEQ == 32
+    assert attn.kernel_name(torch.float32, 9, 96, False) == \
+        "attn_f32<96>/short"
+    assert attn.kernel_name(torch.float32, 9, 96, False, "simt") == \
+        "attn_f32<96>/simt"
+    assert attn.kernel_name(torch.float32, 33, 96, False) == "attn_f32<96>"
+    assert attn.kernel_name(torch.float32, 9, 32, False) == "attn_f32<32>"
     assert "attn_f32<64>" not in attn._KERNEL_NAMES.values()
 
 
@@ -378,7 +398,12 @@ def test_launch_marshals_a_forced_variant(stub, variant, t, code):
     ("held", 197, 64, torch.float32, "bf16 variant"),
     ("fast", 197, 64, torch.bfloat16, "does not take"),
     ("wg", 197, 96, torch.float32, "head width 96 in torch.float32"),
-    ("simt", 9, 96, torch.float32, "takes none"),
+    ("simt", 33, 96, torch.float32, "takes none"),
+    ("short", 33, 192, torch.float32, "takes none"),
+    ("short", 9, 64, torch.float32, "takes wg, simt"),
+    ("short", 9, 32, torch.float32, "takes none"),
+    ("short", 9, 96, torch.bfloat16, "an f32 variant"),
+    ("wg", 9, 96, torch.float32, "takes short, simt"),
     ("wg", 9, 32, torch.float32, "head width 32"),
     ("1pass", 21, 64, torch.float32, "bf16 variant"),
     ("2pass", 1297, 64, torch.float32, "bf16 variant"),
@@ -433,7 +458,7 @@ def test_an_f32_variant_runs_the_plain_version_on_the_cpu(variant,
     with pytest.raises(ValueError, match="bf16 variant"):
         attn.multi_head_attention(q, k, v, variant="held")
     q96 = torch.zeros(1, 2, 9, 96)
-    with pytest.raises(ValueError, match="takes none"):
+    with pytest.raises(ValueError, match="takes short, simt"):
         attn.multi_head_attention(q96, q96, q96, variant="wg")
 
 
@@ -478,3 +503,123 @@ def test_wg_shape_refuses_a_stride_tma_refuses(stub, case):
     with pytest.raises(ValueError, match=match):
         attn._launch(q, k, v, 0.125, None)
     assert stub.calls == [] and _counts() == before
+
+
+@pytest.mark.parametrize("variant,code", [("short", 6), ("simt", 5)])
+@pytest.mark.parametrize("width,heads", [(96, 8), (128, 6), (192, 4)])
+@pytest.mark.parametrize("t,with_bias", [(9, False), (5, True), (32, False),
+                                         (1, True)])
+def test_launch_marshals_a_forced_short_or_simt_variant(stub, variant, code,
+                                                        width, heads, t,
+                                                        with_bias):
+    """Up to 32 keys at widths 96, 128 and 192 the short variant and the
+    64-row tile (forced "simt") reach the C entry point as their codes, in
+    f32, and count under their own names; the rule's call (no variant)
+    hands code 0 and counts under the short variant."""
+    q, k, v = _projection_order(2, t, heads, width, torch.float32, t)
+    bias = torch.zeros(2, t) if with_bias else None
+    before = _counts()
+    attn._launch(q, k, v, width ** -0.5, bias, variant)
+    attn._launch(q, k, v, width ** -0.5, bias)
+    forced, rule = stub.calls
+    assert forced[4:8] == rule[4:8] == (2, heads, t, width)
+    assert forced[10] == rule[10] == 0  # f32
+    assert forced[13] == code and rule[13] == 0
+    assert (forced[11] is None) is (not with_bias)
+    by_kernel = _counts()[2]
+    short = f"attn_f32<{width}>/short"
+    assert by_kernel[short] == before[2].get(short, 0) + 1 + (
+        variant == "short")
+    if variant == "simt":
+        name = f"attn_f32<{width}>/simt"
+        assert by_kernel[name] == before[2].get(name, 0) + 1
+
+
+@pytest.mark.parametrize("d,width", [(80, 96), (100, 128), (150, 192)])
+def test_padded_widths_up_to_32_keys_take_the_short_variant(stub, d, width):
+    """A width between two compiled ones at T <= 32 runs the short variant
+    at the next width through the wrapper's zero padding (the rule, code
+    0), counted in padded_launches too."""
+    q, k, v = _projection_order(3, 9, 4, d, torch.float32, d)
+    before = _counts()
+    o = attn._launch(q, k, v, d ** -0.5, None)
+    (args,) = stub.calls
+    assert args[4:8] == (3, 4, 9, width) and args[13] == 0
+    assert o.shape == (3, 4, 9, d)
+    launches, padded, by_kernel = _counts()
+    assert (launches, padded) == (before[0] + 1, before[1] + 1)
+    name = f"attn_f32<{width}>/short"
+    assert by_kernel[name] == before[2].get(name, 0) + 1
+
+
+# csrc/attention_short.cu's layout: a head a warp, its shared memory the
+# barrier (16 bytes), T rows of Q padded by 4 P floats, NK rows of K, T
+# rows of V and NK floats of key bias; a block holds the 1-4 heads that fit
+# the most heads on an SM (the SM's 233,472 bytes less 1,024 a block).
+SHORT_MAX_WARPS = 4
+SM_SMEM, BLOCK_RESERVED = 233_472, 1024
+
+
+def short_keys(t):
+    """The keys the score loop computes for T keys (keys_for)."""
+    return 8 if t <= 8 else 12 if t <= 12 else 16 if t <= 16 else 32
+
+
+def short_lanes_a_row(t):
+    """The lanes that share a query row's dh (lanes_a_row)."""
+    nk = short_keys(t)
+    return 4 if nk <= 8 else 2 if nk <= 16 else 1
+
+
+def short_head_bytes(width, t, bias):
+    nk = short_keys(t)
+    return 16 + 4 * (t * (width + 4 * short_lanes_a_row(t)) + nk * width
+                     + t * width + (nk if bias else 0))
+
+
+def short_heads_per_sm(nbytes, warps):
+    if warps * nbytes > attn.MAX_SMEM:
+        return 0
+    return SM_SMEM // (warps * nbytes + BLOCK_RESERVED) * warps
+
+
+def short_heads_per_block(nbytes):
+    best = 1
+    for w in range(2, SHORT_MAX_WARPS + 1):
+        if short_heads_per_sm(nbytes, w) >= short_heads_per_sm(nbytes, best):
+            best = w
+    return best
+
+
+#: (width, T, bias) -> (a head's bytes, heads a block, heads an SM), as
+#: csrc/attention_short.cu's static_asserts state them
+SHORT_LAYOUTS = {(96, 9, False): (11_824, 3, 18),
+                 (96, 25, False): (31_904, 1, 7),
+                 (192, 5, False): (14_160, 4, 16),
+                 (192, 32, True): (74_384, 3, 3)}
+
+
+@pytest.mark.parametrize("width", attn.SHORT_WIDTHS)
+@pytest.mark.parametrize("bias", [False, True])
+def test_short_variant_fits_the_blocks_shared_memory(width, bias):
+    """At every T up to 32 a block of the short variant's heads stays
+    within the 232,448 bytes a block may opt into and at least three heads
+    share an SM; every lane of a row has a query row (T * P <= 32 lanes,
+    the row's float4 groups shared out evenly); Q's pitch keeps 16-byte
+    copies aligned; the paths' shapes take the asserted layouts, and B =
+    256 chunks of 8 heads at T = 9 fit in one wave on 132 SMs."""
+    for t in range(1, attn.SHORT_MAX_SEQ + 1):
+        nbytes = short_head_bytes(width, t, bias)
+        warps = short_heads_per_block(nbytes)
+        p = short_lanes_a_row(t)
+        assert nbytes % 16 == 0 and ((width + 4 * p) * 4) % 16 == 0
+        assert 1 <= warps <= SHORT_MAX_WARPS
+        assert warps * nbytes <= attn.MAX_SMEM
+        assert short_heads_per_sm(nbytes, warps) >= 3, t
+        assert t * p <= 32 and short_keys(t) >= t
+        assert (width // 4) % (2 * p) == 0  # the score loop's two groups
+    for (w, t, b), want in SHORT_LAYOUTS.items():
+        nbytes = short_head_bytes(w, t, b)
+        warps = short_heads_per_block(nbytes)
+        assert (nbytes, warps, short_heads_per_sm(nbytes, warps)) == want
+    assert 132 * SHORT_LAYOUTS[96, 9, False][2] >= 256 * 8

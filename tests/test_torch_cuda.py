@@ -1727,3 +1727,87 @@ def test_f32_wg_holds_float64_where_the_plain_version_drifts(cuda, b, h, t,
     want = attn.attention_plain(q.double(), k.double(), v.double(),
                                 scale=scale)
     assert (got.double() - want).abs().max().item() <= 1e-5
+
+
+# ---- f32 at dh = 96, 128, 192 up to 32 keys: the short variant
+
+
+#: the heads of each short width at 768 wide (the chunk encoder's 8 at
+#: dh = 96, the RAGHead's 4 at 192)
+SHORT_HEADS = {96: 8, 128: 6, 192: 4}
+
+
+@pytest.mark.parametrize("dh", [96, 128, 192])
+@pytest.mark.parametrize("t", [1, 5, 9, 25, 31, 32])
+@pytest.mark.parametrize("b", [1, 8, 29, 256])
+@pytest.mark.parametrize("layout", ["contiguous", "projection_order"])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_f32_short_and_simt_match_plain(cuda, dh, t, b, layout, with_bias):
+    """f32 up to 32 keys at widths 96, 128 and 192: the rule's short
+    variant (csrc/attention_short.cu) and the 64-row tile forced ("simt"),
+    each within 1e-5 of the f32 plain version, each counted under its own
+    name: one key, the RAGHead's 5, the chunk encoder's 9 and 25, and the
+    variant's last two key counts, at stage 2's B = 1, the RAGHead's 8,
+    scoring's 29 and the encoder's 256, with and without a key bias."""
+    h = SHORT_HEADS[dh]
+    q, k, v = _attention_inputs(b, h, t, dh, torch.float32, layout, cuda,
+                                t + b + dh)
+    bias = _key_bias(b, t, t + b).to(cuda) if with_bias else None
+    counts = attn.multi_head_attention.launches_by_kernel
+    before = counts.copy()
+    short = attn.multi_head_attention(q, k, v, key_bias=bias)
+    simt = attn.multi_head_attention(q, k, v, key_bias=bias, variant="simt")
+    assert counts - before == {f"attn_f32<{dh}>/short": 1,
+                               f"attn_f32<{dh}>/simt": 1}
+    assert short.shape == simt.shape == (b, h, t, dh)
+    assert short.transpose(1, 2).is_contiguous()
+    for got in (short, simt):
+        _assert_close(got, q, k, v, torch.float32, 1e-5, key_bias=bias)
+
+
+@pytest.mark.parametrize("dh", [96, 128, 192])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_f32_past_32_keys_takes_the_tiled_kernel(cuda, dh, with_bias):
+    """At T = 33 the rule launches the 64-row tile (attn_f32<dh>), within
+    1e-5 of the plain version; forcing the short variant there raises
+    before anything launches."""
+    q, k, v = _attention_inputs(4, SHORT_HEADS[dh], 33, dh, torch.float32,
+                                "projection_order", cuda, dh)
+    bias = _key_bias(4, 33, dh).to(cuda) if with_bias else None
+    counts = attn.multi_head_attention.launches_by_kernel
+    before = counts.copy()
+    got = attn.multi_head_attention(q, k, v, key_bias=bias)
+    assert counts - before == {f"attn_f32<{dh}>": 1}
+    _assert_close(got, q, k, v, torch.float32, 1e-5, key_bias=bias)
+    launches = attn.multi_head_attention.launches
+    for variant in ("short", "simt"):
+        with pytest.raises(ValueError, match="takes none"):
+            attn.multi_head_attention(q, k, v, key_bias=bias,
+                                      variant=variant)
+    assert attn.multi_head_attention.launches == launches
+
+
+@pytest.mark.parametrize("variant", [None, "simt"])
+@pytest.mark.parametrize("dh,t", [(96, 9), (96, 25), (128, 17), (192, 5)])
+def test_f32_short_grads_are_the_plain_vjp(cuda, variant, dh, t):
+    """Through the autograd Function the short variant (or the forced
+    64-row tile) launches once under its name, and the q/k/v and key-bias
+    gradients are the plain VJP's."""
+    g = torch.Generator(device=cuda).manual_seed(dh + t)
+    h = SHORT_HEADS[dh]
+    leaves = [torch.randn(3, h, t, dh, generator=g, device=cuda)
+              .requires_grad_(True) for _ in range(3)]
+    bias = torch.randn(3, t, generator=g, device=cuda).requires_grad_(True)
+    gout = torch.randn(3, h, t, dh, generator=g, device=cuda)
+    counts = attn.multi_head_attention.launches_by_kernel
+    before = counts.copy()
+    got = attn.multi_head_attention(*leaves, key_bias=bias, variant=variant)
+    assert counts - before == {f"attn_f32<{dh}>/{variant or 'short'}": 1}
+    assert got.grad_fn is not None
+    grads = torch.autograd.grad(got, [*leaves, bias], gout)
+    ref = [x.detach().clone().requires_grad_(True) for x in (*leaves, bias)]
+    want = torch.autograd.grad(
+        attn.attention_plain(*ref[:3], key_bias=ref[3]), ref, gout)
+    for x, y in zip(grads, want):
+        torch.testing.assert_close(x, y, rtol=0,
+                                   atol=1e-5 * y.abs().max().item())

@@ -180,7 +180,10 @@ def test_cpu_tensors_never_count_a_launch():
 # -------------------------------------------------------------- attention
 
 
-@pytest.mark.parametrize("t,dh", [(17, 16), (65, 32), (197, 64)])
+# (9, 96), (25, 96), (5, 192): the chunk encoder's and the RAGHead's f32
+# shapes, which the short variant takes on the card
+@pytest.mark.parametrize("t,dh", [(17, 16), (65, 32), (197, 64), (9, 96),
+                                  (25, 96), (5, 192)])
 def test_attention_matches_pallas_interpret(t, dh):
     rng = np.random.default_rng(t)
     q, k, v = (rng.standard_normal((2, 3, t, dh)).astype(np.float32)
@@ -193,7 +196,8 @@ def test_attention_matches_pallas_interpret(t, dh):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("t,dh", [(17, 16), (65, 32), (197, 64)])
+@pytest.mark.parametrize("t,dh", [(17, 16), (65, 32), (197, 64), (9, 96),
+                                  (25, 96), (5, 192)])
 def test_attention_projection_order_views_match_pallas_interpret(t, dh):
     # The backbone passes q/k/v as (B, H, T, dh) views of the projections'
     # (B, T, H, dh) tensors; the JAX side gets the same values contiguous.
@@ -207,6 +211,33 @@ def test_attention_projection_order_views_match_pallas_interpret(t, dh):
     assert not any(x.is_contiguous() for x in views)
     got = attn.multi_head_attention(*views)
     assert got.shape == (2, 3, t, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("t,dh", [(9, 96), (5, 192)])
+@pytest.mark.parametrize("layout", ["contiguous", "projection_order"])
+def test_attention_key_bias_matches_jax_einsum(t, dh, layout):
+    """f32 with a key bias at the chunk encoder's and the RAGHead's shapes
+    (the short variant's on the card) against the JAX package's einsum
+    attention with the bias added to the scores (its ToMe path; the Pallas
+    kernel takes no bias)."""
+    rng = np.random.default_rng(t + dh)
+    shape = (2, 4, t, dh) if layout == "contiguous" else (2, t, 4, dh)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    log_size = np.log(rng.integers(1, 9, (2, t))).astype(np.float32)
+    if layout == "contiguous":
+        qj, kj, vj = (jnp.asarray(a) for a in (q, k, v))
+        views = [torch.from_numpy(a) for a in (q, k, v)]
+    else:
+        qj, kj, vj = (jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v))
+        views = [torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)]
+    s = jnp.einsum("bhqd,bhkd->bhqk", qj, kj) * dh ** -0.5 \
+        + jnp.asarray(log_size)[:, None, None, :]
+    want = jnp.einsum("bhqk,bhkd->bhqd", jax.nn.softmax(s, axis=-1), vj)
+    got = attn.multi_head_attention(*views,
+                                    key_bias=torch.from_numpy(log_size))
+    assert got.shape == (2, 4, t, dh)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

@@ -15,7 +15,8 @@
 // dh in {16, 32, 64, 96, 128, 192} (96: the stage-1 chunk encoder, 768
 // wide with 8 heads, at T = 9 to 25; 128: 768 wide with 6 heads or 1,024
 // with 8; 192: the RAG/RATT heads, 768 wide with 4 heads, at T = 5; a
-// 64-row query tile is then mostly idle). The wrapper runs a width
+// 64-row query tile is then mostly idle, so f32 there takes
+// attn_f32_short). The wrapper runs a width
 // between two of these zero-padded to the next (ops/attention.py).
 //
 // Optional key bias (ToMe's proportional attention, models/vit.py's
@@ -40,6 +41,9 @@
 // launch_f32 routes f32 to attn_f32_wg instead (csrc/attention_f32_wg.cu:
 // TF32 wgmma on split operands, f32 accuracy on the tensor cores, bound by
 // the bytes and three TF32 passes: 0.185 ms each), and attn_f32<64> stays
+// to be forced beside it (SIMT); at dh = 96, 128 and 192 up to 32 keys
+// launch_f32 routes f32 to attn_f32_short (csrc/attention_short.cu: a
+// warp a head, bulk copies, bound by the bytes), and attn_f32<DH> stays
 // to be forced beside it (SIMT). At T <= 25 (the heads,
 // the chunk encoder at B = 1 to 32) a call's host work outlasts its
 // kernel: the wrapper (ops/attention.py::_launch) takes the strides in
@@ -98,8 +102,10 @@
 //   skips the math but takes part in the copies and barriers. Rows are
 //   padded by 16 bytes in shared memory so that ldmatrix reads are free of
 //   bank conflicts.
-// - f32 (attn_f32; at dh = 64 only when forced): register-tiled on the
-//   CUDA cores. 128 threads; thread
+// - f32 (attn_f32; at dh = 64, and at dh = 96, 128 and 192 up to 32 keys,
+//   only when forced: launch_f32 routes those shapes to attn_f32_wg and
+//   to attn_f32_short, csrc/attention_short.cu, a warp a head):
+//   register-tiled on the CUDA cores. 128 threads; thread
 //   (ty, tx) owns rows ty + 16i (i < 4) and keys tx + 8j (j < 8) of the
 //   64 x 64 score tile, and the same rows x dh/8 columns of O. Q and K sit
 //   in shared memory in their natural (row, dh) layout (cp.async copies 16
@@ -124,10 +130,10 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include <atomic>
 #include <type_traits>
 
 #include "attention_bf16.cuh"
+#include "hopper.cuh"
 
 // attn_f32_wg (csrc/attention_f32_wg.cu) at dh = 64, any seq, with the
 // arguments of vrt_attention_fwd; returns a cudaError_t.
@@ -136,6 +142,13 @@ int attention_f32_wg_launch(const void* q, const void* k, const void* v,
                             const long long* strides, float scale,
                             const float* bias, long long bias_stride,
                             cudaStream_t stream);
+// attn_f32_short (csrc/attention_short.cu) at dh = 96, 128 or 192 and seq
+// <= 32, with the arguments of vrt_attention_fwd; returns a cudaError_t.
+int attention_f32_short_launch(const void* q, const void* k, const void* v,
+                               void* o, int batch, int heads, int seq, int dh,
+                               const long long* strides, float scale,
+                               const float* bias, long long bias_stride,
+                               cudaStream_t stream);
 
 namespace {
 
@@ -1078,24 +1091,13 @@ Params<T> make_params(const void* q, const void* k, const void* v, void* o,
 }
 
 // One block per (b, h, query block), the query blocks of one (b, h)
-// adjacent. Above 48 KB of dynamic shared memory a kernel launches only
-// after cudaFuncSetAttribute for the current device: set once per kernel
-// and device (a bit a device, below 64; others set it every launch), to
-// the most the kernel ever takes (max_bytes).
+// adjacent; the dynamic shared-memory limit raised to the most the kernel
+// ever takes (max_bytes).
 template <auto Kernel, typename T>
 int launch(const Params<T>& p, int batch, int bytes, int max_bytes,
            cudaStream_t s) {
-  static std::atomic<unsigned long long> set_on{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (!(set_on.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(
-        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes);
-    if (err != cudaSuccess) return (int)err;
-    set_on.fetch_or(bit, std::memory_order_relaxed);
-  }
+  const int err = hop::raise_smem_limit<Kernel>(max_bytes);
+  if (err) return err;
   const unsigned blocks =
       (unsigned)((long long)batch * p.heads * p.n_qblocks);
   Kernel<<<blocks, THREADS, bytes, s>>>(p);
@@ -1108,28 +1110,40 @@ int launch(const Params<T>& p, int batch, int bytes, int max_bytes,
 // more while the held scores fit (HeldLayout<DH, BIAS>::MAX_TILES) the held
 // variant; beyond, the two-pass kernel. f32 (f32_variant): at dh = 64
 // attn_f32_wg (csrc/attention_f32_wg.cu, TF32 wgmma on split operands, any
-// T), SIMT forcing attn_f32<64> on the CUDA cores; other widths take only
-// the rule (attn_f32<DH>). Another code forces that variant where it
-// applies (the held variant at a wg shape, attn_f32<64> beside
-// attn_f32_wg, to time the two in one process) and is refused
-// (cudaErrorInvalidValue) where it does not.
+// T); at dh = 96, 128 and 192 up to SHORT_MAX_SEQ keys attn_f32_short
+// (csrc/attention_short.cu, a warp a head); SIMT forces attn_f32<DH> on
+// its 64-row tile at either; elsewhere only the rule (attn_f32<DH>).
+// Another code forces that variant where it applies (the held variant at
+// a wg shape, attn_f32<DH> beside attn_f32_wg or attn_f32_short, to time
+// the two in one process) and is refused (cudaErrorInvalidValue) where it
+// does not.
 enum Variant {
   RULE = 0,
   ONE_PASS = 1,
   HELD = 2,
   TWO_PASS = 3,
   WG = 4,
-  SIMT = 5
+  SIMT = 5,
+  SHORT = 6
 };
+
+// The most keys attn_f32_short takes (a lane or more a query row).
+constexpr int SHORT_MAX_SEQ = 32;
 
 template <int DH>
 int launch_f32(Params<float> p, int batch, int variant, const long long* st,
                cudaStream_t s) {
   using L = F32Layout<DH>;
+  const bool short_seq =
+      (DH == 96 || DH == 128 || DH == 192) && p.seq <= SHORT_MAX_SEQ;
+  if (short_seq && (variant == RULE || variant == SHORT))
+    return attention_f32_short_launch(p.q, p.k, p.v, p.o, batch, p.heads,
+                                      p.seq, DH, st, p.scale, p.bias,
+                                      p.sbias, s);
   if (DH == 64 && (variant == RULE || variant == WG))
     return attention_f32_wg_launch(p.q, p.k, p.v, p.o, batch, p.heads,
                                    p.seq, st, p.scale, p.bias, p.sbias, s);
-  if (variant != RULE && !(DH == 64 && variant == SIMT))
+  if (variant != RULE && !((DH == 64 || short_seq) && variant == SIMT))
     return (int)cudaErrorInvalidValue;
   p.n_qblocks = (p.seq + L::ROWS - 1) / L::ROWS;
   if (p.bias)
@@ -1185,8 +1199,9 @@ int launch_bf16(const Params<__nv_bfloat16>& p, int batch, int variant,
 // stride 1; base pointers and strides are multiples of 16 bytes. dh in
 // {16, 32, 64, 96, 128, 192}. bias: null, or a (batch, seq) f32 key bias whose
 // rows are bias_stride elements apart (stride 1 along seq). variant: 0 (the
-// rule), or a variant to force (Variant: bf16's, or WG and SIMT for f32 at
-// dh = 64). Returns cudaGetLastError() after the launch.
+// rule), or a variant to force (Variant: bf16's; WG and SIMT for f32 at
+// dh = 64, SHORT and SIMT at dh = 96, 128 and 192 up to 32 keys). Returns
+// cudaGetLastError() after the launch.
 extern "C" int vrt_attention_fwd(const void* q, const void* k, const void* v,
                                  void* o, int batch, int heads, int seq,
                                  int dh, const long long* strides,

@@ -1,9 +1,11 @@
 // Hopper's own units, as the port's sm_90a kernels use them: mbarriers,
-// TMA loads, wgmma's shared-memory descriptors and fences, and the host's
-// tensor-map encoder.
+// TMA loads (tensor and 1-D bulk), wgmma's shared-memory descriptors and
+// fences, and on the host the tensor-map encoder and a kernel's shared-
+// memory limit.
 // One home for what kernel B's wgmma variants (csrc/attention_wg.cu in
-// bf16, csrc/attention_f32_wg.cu in f32 on split TF32 operands) and the
-// wgmma GEMM mainloop of kernels A and C (csrc/wg_gemm.cuh) share.
+// bf16, csrc/attention_f32_wg.cu in f32 on split TF32 operands), its
+// short-sequence f32 variant (csrc/attention_short.cu) and the wgmma GEMM
+// mainloop of kernels A and C (csrc/wg_gemm.cuh) share.
 //
 // Everything is in namespace hop; nothing here launches or allocates.
 
@@ -13,6 +15,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hop {
 
@@ -90,6 +94,18 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 }
 
 // --------------------------------------------------------------------- TMA
+
+// `bytes` contiguous bytes of global memory at src into dst by one 1-D
+// bulk copy, counted on bar's transaction bytes. src, dst and bytes are
+// multiples of 16; no tensor map, so the host encodes nothing per call.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 // A box of `map` at coordinates (c0, ...) into dst, counted on bar's
 // transaction bytes.
@@ -205,6 +221,26 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 }
 
 // -------------------------------------------------------------------- host
+
+// Above 48 KB of dynamic shared memory a kernel launches only after
+// cudaFuncSetAttribute on the current device: raises Kernel's limit to
+// `bytes` (the most it ever takes) once a kernel and device (a bit a
+// device below 64; others set it every call). Returns a cudaError_t.
+template <auto Kernel>
+inline int raise_smem_limit(int bytes) {
+  static std::atomic<unsigned long long> set_on{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(set_on.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    set_on.fetch_or(bit, std::memory_order_relaxed);
+  }
+  return 0;
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,

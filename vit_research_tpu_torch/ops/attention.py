@@ -14,11 +14,14 @@ fit, the two-pass kernel beyond. f32 at dh = 64 takes the Hopper kernel of
 ``csrc/attention_f32_wg.cu`` by the rule :func:`f32_variant` mirrors (TF32
 wgmma on operands split into two TF32 pieces, three products each, so f32
 accuracy whatever ``torch.backends.cuda.matmul.allow_tf32`` says; TMA
-loads; any T), with the CUDA-core kernel (``"simt"``) to be forced beside
-it. The kernel reads q, k and v
-through their strides, so the backbone hands it the projections'
-(B, T, H, dh) order as ``transpose(1, 2)`` views without a copy, and it
-writes the output in that order too. On a CPU tensor it runs
+loads; any T), and f32 at dh = 96, 128 and 192 up to 32 keys (the chunk
+encoder, the RAGHead) the short-sequence kernel of
+``csrc/attention_short.cu`` (a warp a head, a query row on one to four
+lanes, Q, K and V by 1-D bulk copies); at both the CUDA-core kernel with
+its 64-row tile (``"simt"``) is to be forced beside it. The kernel reads
+q, k and v through their strides, so the backbone hands it the
+projections' (B, T, H, dh) order as ``transpose(1, 2)`` views without a
+copy, and it writes the output in that order too. On a CPU tensor it runs
 :func:`attention_plain`, the explicit einsum/softmax of the reference's
 ``xla_attention``.
 
@@ -55,6 +58,10 @@ _BQ = _BK = 64  # query rows a block, keys a shared-memory tile
 #: the keys the wgmma variant takes at dh = 64 (WG_MIN_SEQ, WG_MAX_SEQ in
 #: csrc/attention_bf16.cuh)
 WG_KEYS = (65, 256)
+#: the f32 widths the short-sequence variant takes, up to SHORT_MAX_SEQ
+#: keys (SHORT_MAX_SEQ in csrc/attention.cu: a lane or more a query row)
+SHORT_WIDTHS = (96, 128, 192)
+SHORT_MAX_SEQ = 32
 #: the shared memory a block may opt into on the H100
 MAX_SMEM = 232_448
 #: the shared memory of two blocks an SM (the SM's 233,472 bytes less
@@ -165,9 +172,15 @@ def f32_variants(t: int, width: int, bias: bool) -> tuple:
     with or without a key bias, the rule's first (csrc/attention.cu's
     ``launch_f32``): at width 64 ``"wg"`` (csrc/attention_f32_wg.cu: TF32
     wgmma on split operands, TMA loads; every T >= 1), then ``"simt"``
-    (``attn_f32<64>`` on the CUDA cores); none elsewhere, where the one
-    f32 kernel of that width runs."""
-    return ("wg", "simt") if width == 64 else ()
+    (``attn_f32<64>`` on the CUDA cores); at widths 96, 128 and 192 up to
+    :data:`SHORT_MAX_SEQ` keys ``"short"`` (csrc/attention_short.cu: a
+    warp a head), then ``"simt"`` (``attn_f32<width>``'s 64-row tile); none
+    elsewhere, where the one f32 kernel of that width runs."""
+    if width == 64:
+        return ("wg", "simt")
+    if width in SHORT_WIDTHS and t <= SHORT_MAX_SEQ:
+        return ("short", "simt")
+    return ()
 
 
 def f32_variant(t: int, width: int, bias: bool) -> str | None:
@@ -178,15 +191,18 @@ def f32_variant(t: int, width: int, bias: bool) -> str | None:
 
 #: the code of each variant at the C entry point (csrc/attention.cu's
 #: Variant); 0 is the rule. "wg" is bf16's and f32's wgmma variant alike.
-VARIANT_CODES = {"1pass": 1, "held": 2, "2pass": 3, "wg": 4, "simt": 5}
+VARIANT_CODES = {"1pass": 1, "held": 2, "2pass": 3, "wg": 4, "simt": 5,
+                 "short": 6}
 _VARIANT_SUFFIX = {"1pass": "", "held": "/held", "2pass": "/2pass",
                    "wg": "/wg"}
-# launches_by_kernel's names, e.g. attn_f32<96>, attn_f32<64>/wg,
-# attn_bf16<64>/held
+# launches_by_kernel's names, e.g. attn_f32<96>/short, attn_f32<96>/simt
+# (the 64-row tile forced at T <= 32), attn_f32<96> (the same kernel by
+# the rule past 32 keys), attn_f32<64>/wg, attn_bf16<64>/held
 _KERNEL_NAMES = {**{(False, w, None): f"attn_f32<{w}>"
                     for w in KERNEL_HEAD_DIMS if w != 64},
-                 **{(False, 64, v): f"attn_f32<64>/{v}"
-                    for v in f32_variants(1, 64, False)},
+                 **{(False, w, v): f"attn_f32<{w}>/{v}"
+                    for w in (64, *SHORT_WIDTHS)
+                    for v in f32_variants(1, w, False)},
                  **{(True, w, v): f"attn_bf16<{w}>{sfx}"
                     for w in KERNEL_HEAD_DIMS
                     for v, sfx in _VARIANT_SUFFIX.items()}}
@@ -197,7 +213,8 @@ def kernel_name(dtype: torch.dtype, t: int, width: int, bias: bool,
                 variant: str | None = None) -> str:
     """The name a launch counts under in
     ``multi_head_attention.launches_by_kernel``: ``attn_f32<width>``, at
-    width 64 with ``/wg`` or ``/simt``, or ``attn_bf16<width>`` with
+    width 64 with ``/wg`` or ``/simt``, at widths 96, 128 and 192 up to 32
+    keys with ``/short`` or ``/simt``, or ``attn_bf16<width>`` with
     ``/wg``, ``/held`` or ``/2pass`` past one key tile: the rule's variant
     (:func:`f32_variant`, :func:`bf16_variant`), or ``variant``."""
     bf16 = dtype == torch.bfloat16
@@ -207,7 +224,8 @@ def kernel_name(dtype: torch.dtype, t: int, width: int, bias: bool,
 
 
 _BF16_NAMES = frozenset(_VARIANT_SUFFIX)
-_F32_NAMES = frozenset(f32_variants(1, 64, False))
+_F32_NAMES = frozenset(f32_variants(1, 64, False)
+                       + f32_variants(1, SHORT_WIDTHS[0], False))
 
 
 def _check_variant(variant, q, width: int, bias: bool) -> None:
@@ -445,7 +463,8 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`bf16_variants` or :func:`f32_variants` (by q's dtype) instead of
     the rule's, e.g. ``"held"`` at T = 197 in bf16 beside the rule's
     ``"wg"``, or ``"simt"`` (the CUDA-core kernel) in f32 at dh = 64
-    beside the rule's ``"wg"``; one that does not take the shape or the
+    beside the rule's ``"wg"`` and at dh = 96, 128 and 192 up to 32 keys
+    beside the rule's ``"short"``; one that does not take the shape or the
     dtype raises ValueError. On a CUDA tensor the variant launches or
     raises: nothing falls back to another variant or to the plain
     version."""
@@ -469,6 +488,6 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 multi_head_attention.launches = 0
 multi_head_attention.padded_launches = 0
 #: the same launches by instantiation and variant (:func:`kernel_name`),
-#: e.g. ``attn_f32<64>/wg``, ``attn_f32<96>``, ``attn_bf16<96>``,
+#: e.g. ``attn_f32<64>/wg``, ``attn_f32<96>/short``, ``attn_bf16<96>``,
 #: ``attn_bf16<64>/wg``, ``attn_bf16<64>/held``, ``attn_bf16<64>/2pass``
 multi_head_attention.launches_by_kernel = collections.Counter()
