@@ -24,6 +24,7 @@ from vit_research_tpu.store import ivf as jax_ivf
 from vit_research_tpu.store import vector_store as jax_vs
 from vit_research_tpu_torch.ops import topk
 from vit_research_tpu_torch.store import ivf, vector_store as vs
+from vit_research_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -201,6 +202,38 @@ def test_query_device_route_int8_matches_jax(tmp_path, where):
     # int8 scores are exact integers rescaled identically on both sides;
     # only the L2 normalisation before quantizing differs by an ulp.
     assert_same_neighbours(got, want, tol=1e-5)
+
+
+@pytest.mark.parametrize("rows,route", [(600, "device"), (60, "numpy"),
+                                        (400, "ivf")])
+def test_query_records_its_spans(rows, route):
+    """Under a torch.profiler session a query records ``store.query``
+    (its route) over ``store.topk``, ``store.readback`` and
+    ``store.assemble`` (utils/profiling.py)."""
+    ids, embs, metas = _rows(rows)
+    col = vs.Collection("spans", space="cosine", device="cpu")
+    col.upsert(ids, embs, metas)
+    if route == "ivf":
+        col.ivf_threshold = 100
+    q = np.random.default_rng(13).standard_normal((32, 24)).astype(
+        np.float32)
+    profiling.take_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = col.query(q, n_results=5)
+    spans = profiling.take_spans()
+    assert [s.name for s in spans] == ["store.topk", "store.readback",
+                                       "store.assemble", "store.query"]
+    topk, back, assemble, top = spans
+    assert top.counts == {"queries": 32, "k": 5, "route": route}
+    assert top.parent is None
+    assert {s.parent for s in spans[:3]} == {top.id}
+    assert topk.end_ns <= back.start_ns and back.end_ns <= assemble.start_ns
+    assert topk.counts == {"rows_scored": rows * 32}
+    # f32 scores and int64 ids come back from the device route
+    assert back.counts == {"bytes": 32 * 5 * 12 if route == "device" else 0}
+    assert assemble.counts == {"answers": sum(map(len, got["ids"]))} \
+        == {"answers": 32 * 5}
 
 
 def test_query_ivf_route_matches_jax(tmp_path):

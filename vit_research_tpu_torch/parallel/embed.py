@@ -12,6 +12,14 @@ embedding main path:
   chosen endpoint, optionally L2-normalised;
 - one batch stays in flight while the next is decoded and dispatched.
 
+Spans (utils/profiling.py, recorded while a ``torch.profiler`` session
+runs or aggregated under ``VRT_PROFILE``): ``engine.embed`` around a
+call, with ``engine.slot_wait``, ``engine.stage`` (the host's copy into
+a pinned buffer), ``engine.h2d``, ``engine.dispatch`` and
+``engine.readback`` under it; ``engine.decode`` and
+``engine.queue_wait`` in ``embed_paths``. ``batch`` counts the engine's
+batches, so the spans of one batch share it.
+
 Ragged tails run at their true size. The reference pads them to
 power-of-two transfer buckets (``_transfer_bucket``) only to bound jit
 retraces; eager PyTorch traces nothing, so the port has no buckets.
@@ -53,6 +61,7 @@ from vit_research_tpu_torch.models.hf_import import HF_VIT_B16_224
 from vit_research_tpu_torch.ops.patch_embed import fused_patch_embed
 from vit_research_tpu_torch.ops.tome import merged_token_counts
 from vit_research_tpu_torch.parallel import mesh as mesh_lib
+from vit_research_tpu_torch.utils import profiling
 
 
 def grayscale_u8(images: torch.Tensor) -> torch.Tensor:
@@ -122,6 +131,8 @@ class EmbeddingEngine:
         self._pinned: list[torch.Tensor] = []
         self._copied: list = []
         self._slot = 0
+        #: batches dispatched so far (the ``batch`` count of the spans)
+        self._batches = 0
 
     def _out_trailing(self, c: ViTConfig) -> tuple:
         n = self.grid[0] * self.grid[1] + 1
@@ -168,42 +179,52 @@ class EmbeddingEngine:
                 emb, dim=-1, keepdim=True).clamp_min(1e-12)
         return emb
 
-    def _to_device(self, batch_u8: np.ndarray) -> torch.Tensor:
+    def _to_device(self, batch_u8: np.ndarray, batch: int) -> torch.Tensor:
         """Host uint8 batch -> device tensor. On CUDA it goes through one
         of two pinned buffers with a non-blocking copy; a buffer is reused
         only after its previous copy has completed."""
-        host = torch.from_numpy(np.ascontiguousarray(batch_u8, np.uint8))
         if self.device.type != "cuda":
-            return host
-        n = host.shape[0]
+            return torch.from_numpy(np.ascontiguousarray(batch_u8, np.uint8))
+        n = len(batch_u8)
         if not self._pinned or self._pinned[0].shape[0] < n:
-            shape = (max(n, self.batch_size), *host.shape[1:])
+            shape = (max(n, self.batch_size), *batch_u8.shape[1:])
             self._pinned = [torch.empty(shape, dtype=torch.uint8,
                                         pin_memory=True) for _ in range(2)]
             self._copied = [torch.cuda.Event(), torch.cuda.Event()]
         slot = self._slot
         self._slot ^= 1
-        self._copied[slot].synchronize()
+        with profiling.span("engine.slot_wait"):
+            self._copied[slot].synchronize()
         buf = self._pinned[slot][:n]
-        buf.copy_(host)
-        dev = buf.to(self.device, non_blocking=True)
-        self._copied[slot].record(torch.cuda.current_stream(self.device))
+        with profiling.span("engine.stage", bytes=buf.nbytes, batch=batch):
+            buf.copy_(torch.from_numpy(
+                np.ascontiguousarray(batch_u8, np.uint8)))
+        with profiling.span("engine.h2d", bytes=buf.nbytes, batch=batch):
+            dev = buf.to(self.device, non_blocking=True)
+            self._copied[slot].record(torch.cuda.current_stream(self.device))
         return dev
 
     def _dispatch(self, batch_u8: np.ndarray):
+        """Enqueue one batch: (its device output, its frames, its
+        ``batch`` number)."""
         if tuple(batch_u8.shape[1:]) != (*self.spec.size, 3):
             raise ValueError(f"frames must be {(*self.spec.size, 3)}, got "
                              f"{tuple(batch_u8.shape[1:])}")
+        n, batch = len(batch_u8), self._batches
+        self._batches += 1
         if self.mesh is None:
-            return self._forward(self._to_device(batch_u8)), len(batch_u8)
+            dev = self._to_device(batch_u8, batch)
+            with profiling.span("engine.dispatch", frames=n, batch=batch):
+                return self._forward(dev), n, batch
         # one contiguous share a data-axis device, each embedded on its
         # device, gathered in order on the first
-        outs = [self._forward(torch.from_numpy(
-                    np.ascontiguousarray(share, np.uint8)).to(dev))
-                for share, dev in zip(
-                    np.array_split(batch_u8, len(self.devices)),
-                    self.devices) if len(share)]
-        return torch.cat([o.to(self.device) for o in outs]), len(batch_u8)
+        with profiling.span("engine.dispatch", frames=n, batch=batch):
+            outs = [self._forward(torch.from_numpy(
+                        np.ascontiguousarray(share, np.uint8)).to(dev))
+                    for share, dev in zip(
+                        np.array_split(batch_u8, len(self.devices)),
+                        self.devices) if len(share)]
+            return torch.cat([o.to(self.device) for o in outs]), n, batch
 
     # --------------------------------------------------------------- entry
 
@@ -217,8 +238,10 @@ class EmbeddingEngine:
     def embed_batch(self, batch_u8: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) uint8 -> (B, ...) float32. B can exceed the engine
         batch size; sub-batches keep one batch in flight."""
-        return self._drain(batch_u8[s:s + self.batch_size]
-                           for s in range(0, len(batch_u8), self.batch_size))
+        with profiling.span("engine.embed", frames=len(batch_u8)):
+            return self._drain(
+                batch_u8[s:s + self.batch_size]
+                for s in range(0, len(batch_u8), self.batch_size))
 
     def embed_paths(self, paths, num_workers: int = 8,
                     use_native: bool = False,
@@ -231,11 +254,16 @@ class EmbeddingEngine:
         ``prefetch=0`` decodes inline."""
         if len(paths) == 0:
             return np.zeros((0, *self.out_trailing), np.float32)
+        with profiling.span("engine.embed", frames=len(paths)):
+            return self._embed_paths(paths, num_workers, use_native,
+                                     prefetch)
 
+    def _embed_paths(self, paths, num_workers, use_native, prefetch):
         def load(s):
-            return load_frames(paths[s:s + self.batch_size], self.spec,
-                               num_workers=num_workers,
-                               use_native=use_native)
+            chunk = paths[s:s + self.batch_size]
+            with profiling.span("engine.decode", frames=len(chunk)):
+                return load_frames(chunk, self.spec, num_workers=num_workers,
+                                   use_native=use_native)
 
         starts = range(0, len(paths), self.batch_size)
         if prefetch <= 0:
@@ -269,7 +297,10 @@ class EmbeddingEngine:
 
         def consume():
             while True:
-                item = q.get()
+                with profiling.span("engine.queue_wait") as wait:
+                    item = q.get()
+                    if isinstance(item, np.ndarray):
+                        wait.set(frames=len(item))
                 if item is done:
                     return
                 if isinstance(item, BaseException):
@@ -290,17 +321,26 @@ class EmbeddingEngine:
 
     def _drain(self, batches) -> np.ndarray:
         """Dispatch uint8 batches, reading back batch i only after batch
-        i+1 has been dispatched (the device never waits on the host)."""
+        i+1 has been dispatched. The copy back is queued behind batch
+        i+1's kernels, so ``engine.readback`` waits until batch i+1 is
+        done, and the card then idles while the host stages the next
+        batch (``engine.stage``): of a call's batches only the second is
+        staged while the card works."""
         outs, pending = [], None
         for batch in batches:
             nxt = self._dispatch(batch)
             if pending is not None:
-                outs.append(pending[0].cpu().numpy()[:pending[1]])
+                outs.append(self._read_back(*pending))
             pending = nxt
         if pending is not None:
-            outs.append(pending[0].cpu().numpy()[:pending[1]])
+            outs.append(self._read_back(*pending))
         return (np.concatenate(outs, axis=0) if outs
                 else np.zeros((0, *self.out_trailing), np.float32))
+
+    @staticmethod
+    def _read_back(out: torch.Tensor, n: int, batch: int) -> np.ndarray:
+        with profiling.span("engine.readback", bytes=out.nbytes, batch=batch):
+            return out.cpu().numpy()[:n]
 
 
 # Default novelty gate for refined strided embedding: the cosine distance

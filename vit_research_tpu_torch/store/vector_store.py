@@ -893,8 +893,15 @@ class Collection:
 
     def query(self, query_embeddings, n_results: int = 10, where=None,
               include=("metadatas", "distances")) -> dict:
-        """Exact top-k. Returns Chroma-shaped dict of per-query lists."""
-        with self._lock, profiling.span("store.query"):
+        """Exact top-k. Returns Chroma-shaped dict of per-query lists.
+
+        Spans (utils/profiling.py): ``store.query`` under the lock
+        (counts ``queries``, ``k`` and ``route``: ``device``,
+        ``sharded``, ``ivf`` or ``numpy``) over ``store.topk`` (the route
+        up to its results: upload, normalisation, the top-k),
+        ``store.readback`` (the wait for a device route's sort and the
+        copies back) and ``store.assemble`` (the answer lists)."""
+        with self._lock, profiling.span("store.query") as query_span:
             q = np.asarray(query_embeddings, dtype=np.float32)
             if q.ndim == 1:
                 q = q[None]
@@ -911,40 +918,58 @@ class Collection:
 
             if self._device_mesh is not None:
                 # the corpus lives on the mesh: answer there, exactly
-                scores, idx = self._query_device(q, mask, k)
+                route = "sharded"
             elif (self.ivf_threshold is not None and not where
                     and self.space == "cosine"
                     # device_quant exists precisely to keep huge corpora
                     # on the exact device path — IVF must not override it.
                     and self.device_quant is None
                     and n >= self.ivf_threshold):
-                scores, idx = self._query_ivf(q, k)
+                route = "ivf"
             elif n * q.shape[0] >= 1 << 14:
+                route = "device"
+            else:
+                route = "numpy"
+            query_span.set(queries=q.shape[0], k=k, route=route)
+            if route in ("sharded", "device"):
                 scores, idx = self._query_device(q, mask, k)
             else:
-                scores, idx = self._query_numpy(q, mask, k)
+                with profiling.span("store.topk", rows_scored=n * q.shape[0]):
+                    scores, idx = (self._query_ivf(q, k) if route == "ivf"
+                                   else self._query_numpy(q, mask, k))
+                scores, idx = _read_back(scores, idx)
 
-            # Similarity -> Chroma distance convention.
-            if self.space == "l2":
-                dist = -scores  # squared L2
-            else:
-                dist = 1.0 - scores
-            valid = scores > -1e29
-            out = {"ids": [[self._ids[j] for j, ok in zip(row, vrow) if ok]
-                           for row, vrow in zip(idx, valid)]}
-            if "distances" in include:
-                out["distances"] = [[float(d) for d, ok in zip(drow, vrow) if ok]
-                                    for drow, vrow in zip(dist, valid)]
-            if "metadatas" in include:
-                out["metadatas"] = [[self._metadatas[j]
-                                     for j, ok in zip(row, vrow) if ok]
-                                    for row, vrow in zip(idx, valid)]
-            if "embeddings" in include:
-                out["embeddings"] = [self._embeddings[row[vrow]]
-                                     for row, vrow in zip(idx, valid)]
-            return out
+            with profiling.span("store.assemble") as assemble:
+                # Similarity -> Chroma distance convention.
+                if self.space == "l2":
+                    dist = -scores  # squared L2
+                else:
+                    dist = 1.0 - scores
+                valid = scores > -1e29
+                assemble.set(answers=int(valid.sum()))
+                out = {"ids": [[self._ids[j] for j, ok in zip(row, vrow) if ok]
+                               for row, vrow in zip(idx, valid)]}
+                if "distances" in include:
+                    out["distances"] = [
+                        [float(d) for d, ok in zip(drow, vrow) if ok]
+                        for drow, vrow in zip(dist, valid)]
+                if "metadatas" in include:
+                    out["metadatas"] = [[self._metadatas[j]
+                                         for j, ok in zip(row, vrow) if ok]
+                                        for row, vrow in zip(idx, valid)]
+                if "embeddings" in include:
+                    out["embeddings"] = [self._embeddings[row[vrow]]
+                                         for row, vrow in zip(idx, valid)]
+                return out
 
     def _query_device(self, q, mask, k):
+        """The device routes (the mesh's when the corpus lives there):
+        host (scores, idx)."""
+        with profiling.span("store.topk", rows_scored=len(self._ids) * len(q)):
+            scores, idx = self._topk_device(q, mask, k)
+        return _read_back(scores, idx)
+
+    def _topk_device(self, q, mask, k):
         corpus = self._device_corpus()
         if self._device_mesh is not None:
             return self._query_sharded(corpus, q, mask, k)
@@ -962,10 +987,10 @@ class Collection:
         else:
             metric = "ip" if self.space == "cosine" else self.space
             scores, idx = masked_topk(qd, corpus, m, k=k, metric=metric)
-        return scores.cpu().numpy(), idx.cpu().numpy()
+        return scores, idx
 
     def _query_sharded(self, corpus, q, mask, k):
-        """``_query_device`` on the mesh: the queries normalised (and
+        """``_topk_device`` on the mesh: the queries normalised (and
         quantized) on the mesh's first device, each shard's slice of the
         mask sent to its device; an unfiltered query ships no mask, the
         padding rows are rejected by ``n_valid`` inside the shards."""
@@ -988,7 +1013,7 @@ class Collection:
             scores, idx = sharded_masked_topk(
                 qd, corpus, m, k=k, mesh=mesh, axis=axis, metric=metric,
                 n_valid=n)
-        return scores.cpu().numpy(), idx.cpu().numpy()
+        return scores, idx
 
     #: persisted-fit filename beside the snapshot (see prewarm_index)
     _IVF_META = "ivf_meta.npz"
@@ -1126,6 +1151,18 @@ class Collection:
         order = np.argsort(-part, axis=1, kind="stable")
         idx = np.take_along_axis(idx, order, axis=1)
         return np.take_along_axis(s, idx, axis=1), idx
+
+
+def _read_back(scores, idx):
+    """A route's (scores, idx) as host arrays, in ``store.readback``: a
+    device route's wait for its sort and the two copies back; a host
+    route's arrays pass through (0 bytes)."""
+    on_device = isinstance(scores, torch.Tensor)
+    with profiling.span("store.readback", bytes=(
+            scores.nbytes + idx.nbytes if on_device else 0)):
+        if not on_device:
+            return scores, idx
+        return scores.cpu().numpy(), idx.cpu().numpy()
 
 
 class PersistentClient:
