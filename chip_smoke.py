@@ -72,6 +72,14 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      F.linear (+ F.gelu), with TF32 off; with a bf16 W the rule's wgmma
      variant (csrc/fused_ln_wg.cu) and the mma.sync variant forced are
      both held and timed in turns (mma, wg, wg, mma);
+  3e. the encoder linears' split-operand GEMM (``ops/linear.py``,
+     csrc/gemm_f32_wg.cu, ``gemm_f32_wg``) at the six main-path shapes
+     (M = 256*197 and 256*313; (K, N) = (768, 768), (768, 3072), (3072,
+     768)) against the float64 product (no worse than twice cuBLAS's f32
+     gap) and timed beside its plain version and cuBLAS f32 (F.linear,
+     TF32 off) in turns (library, kernel, kernel, library), with its
+     bound; ptxas's registers and spills; then one f32 engine batch of
+     ViT-B/16 at B = 256 must launch it at all 72 products;
   4. the main path: two synthetic games of 224x224 JPEG frames (written,
      with phase 5b's CPU reference forward, on a thread while phase 1
      builds the kernels and phases 2-3b run), one
@@ -233,6 +241,10 @@ design's tensor-core passes: 3 for A, 3 for C with f32 W, 3 for f32 B)
 and ``f32_cuda_core_bound_ms`` (the operations at 67 TFLOP/s, the bound
 of earlier versions, kept for comparison).
 
+    python3 -c "import chip_smoke as cs; cs.phase_linear(cs.phase_card())"
+
+builds the kernels and runs phase 3e alone.
+
     python3 chip_smoke.py --profile
 
 builds the kernels, then profiles the engine's forward (torch.profiler
@@ -336,6 +348,7 @@ from vit_research_tpu_torch.models import vit as vit_mod
 from vit_research_tpu_torch.ops import _build
 from vit_research_tpu_torch.ops import attention as attn
 from vit_research_tpu_torch.ops import fused_ln
+from vit_research_tpu_torch.ops import linear as lin
 from vit_research_tpu_torch.ops import patch_embed as pe
 from vit_research_tpu_torch.ops import quant, tome
 from vit_research_tpu_torch.ops import topk
@@ -347,7 +360,8 @@ from vit_research_tpu_torch.store.vector_store import (Collection,
                                                        PersistentClient)
 from vit_research_tpu_torch.train import checkpoint
 from vit_research_tpu_torch.train import train_chunk_encoder as tce
-from vit_research_tpu_torch.utils.configs import ChunkEncoderConfig
+from vit_research_tpu_torch.utils.configs import (VIT_B16_224,
+                                                 ChunkEncoderConfig)
 from vit_research_tpu_torch.utils.metrics import read_metrics
 
 SPEC = embed.HF_VIT_SPEC
@@ -2094,6 +2108,12 @@ def phase_main_path(smi: str, root: str, pre: dict) -> dict:
     if launches != {"patch_embed": batches, "attention": 12 * batches}:
         raise AssertionError(f"unexpected kernel launches {launches}, "
                              f"want {batches} and {12 * batches}")
+    # every batch holds at least lin.MIN_ROWS rows: the 72 products of
+    # each on the encoder linears' GEMM
+    if launches.linear_by_kernel != {lin.KERNEL_NAME: 72 * batches}:
+        raise AssertionError(f"the f32 main path launched the linears' "
+                             f"GEMM {launches.linear_by_kernel}, want "
+                             f"{72 * batches} {lin.KERNEL_NAME}")
 
     _, col, corpus = common.load_corpus(db, "corpus", "cuda")
     embs = corpus["embeddings"]
@@ -2312,10 +2332,83 @@ def _socket_path(root: str) -> str:
 
 class _Counts(dict):
     """The kernels' launches since the counts were zeroed, with kernel B's
-    by instantiation and variant in ``by_kernel`` and kernel A's by kernel
-    and variant in ``pe_by_kernel``."""
+    by instantiation and variant in ``by_kernel``, kernel A's by kernel
+    and variant in ``pe_by_kernel`` and the encoder linears' GEMM's in
+    ``linear_by_kernel``."""
     by_kernel: dict = {}
     pe_by_kernel: dict = {}
+    linear_by_kernel: dict = {}
+
+
+# The encoder linears' six main-path shapes: both embed cells' rows at q,
+# k, v and out (768, 768), fc1 (768, 3072) and fc2 (3072, 768).
+LINEAR_SHAPES = [(m, k, n) for m in (BATCH * 197, BATCH * 313)
+                 for k, n in ((768, 768), (768, 3072), (3072, 768))]
+
+
+def phase_linear(smi: str) -> dict:
+    """Phase 3e: the encoder linears' split-operand GEMM at the main-path
+    shapes against the float64 product and cuBLAS f32, timed beside its
+    plain version and F.linear; then one f32 engine batch through it."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    log_ptxas("gemm_f32_wg.cu")
+    log(f"[3e] gemm_f32_wg.cu nvcc {_build.nvcc_seconds('gemm_f32_wg.cu'):.1f}"
+        f" s from the build's start")
+    g = torch.Generator().manual_seed(11)
+    rows = {}
+    for m, k, n in LINEAR_SHAPES:
+        x = torch.randn(m, k, generator=g).to(dev)
+        w = (torch.randn(n, k, generator=g) * k ** -0.5).to(dev)
+        b = torch.randn(n, generator=g).to(dev)
+        with torch.inference_mode():
+            want = x.double() @ w.double().t() + b.double()
+            err = (lin.linear(x, w, b).double() - want).abs().max().item()
+            lib_err = (F.linear(x, w, b).double() - want).abs().max() \
+                .item()
+            del want
+            times = turns({"kernel": lambda: lin.linear(x, w, b),
+                           "library": lambda: F.linear(x, w, b)},
+                          order=("library", "kernel", "kernel", "library"))
+            plain_ms = cuda_ms(lambda: lin.linear_plain(x, w, b))
+        ms, lib_ms = (statistics.mean(times[v]) for v in ("kernel",
+                                                          "library"))
+        lim = bound((m * k + n * k + n + m * n) * 4, 2 * m * k * n, "tf32",
+                    passes=3)
+        tflops = 2 * m * k * n / ms / 1e9
+        log(f"[3e] linear M={m} K={k} N={n}: max|err| vs float64 "
+            f"{err:.3e} (cuBLAS f32 {lib_err:.3e}) | kernel "
+            f"{_ms_text(times['kernel'])} ms ({tflops:.1f} TFLOP/s), "
+            f"cuBLAS f32 {_ms_text(times['library'])} ms ({lib_ms / ms:.2f}"
+            f"x), plain {plain_ms:.4f} ms; {bound_text(lim)} | {smi}")
+        if not err <= 2 * lib_err:
+            raise AssertionError(f"gemm_f32_wg at M={m} K={k} N={n}: "
+                                 f"{err:.3e} against cuBLAS's {lib_err:.3e}")
+        rows[f"M{m}_K{k}_N{n}"] = dict(
+            max_abs_err=err, library_max_abs_err=lib_err, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, tflops=tflops,
+            turns_ms=times, **lim)
+        del x, w, b
+
+    engine = embed.EmbeddingEngine(
+        vit_mod.init_vit(VIT_B16_224, seed=0, device=dev), SPEC,
+        device=dev, batch_size=BATCH)
+    frames = np.random.default_rng(12).integers(
+        0, 256, size=(BATCH, 224, 224, 3), dtype=np.uint8)
+    before = lin.linear.launches_by_kernel.copy()
+    engine.embed_batch(frames)
+    torch.cuda.synchronize()
+    got = dict(lin.linear.launches_by_kernel - before)
+    log(f"[3e] one f32 engine batch of ViT-B/16 at B={BATCH}: the linears' "
+        f"GEMM launches {got}")
+    if got != {lin.KERNEL_NAME: 72}:
+        raise AssertionError(f"the f32 engine launched {got}, want 72 "
+                             f"{lin.KERNEL_NAME}")
+    del engine
+    torch.cuda.empty_cache()
+    main = rows[f"M{BATCH * 197}_K768_N3072"]
+    return dict(main, rows=rows, engine_launches=got)
 
 
 def _zero_counts() -> None:
@@ -2324,6 +2417,8 @@ def _zero_counts() -> None:
     pe.fused_patch_embed.launches_by_kernel.clear()
     attn.multi_head_attention.launches = 0
     attn.multi_head_attention.launches_by_kernel.clear()
+    lin.linear.launches = 0
+    lin.linear.launches_by_kernel.clear()
 
 
 def _launch_counts() -> dict:
@@ -2331,6 +2426,7 @@ def _launch_counts() -> dict:
                   attention=attn.multi_head_attention.launches)
     out.by_kernel = dict(attn.multi_head_attention.launches_by_kernel)
     out.pe_by_kernel = dict(pe.fused_patch_embed.launches_by_kernel)
+    out.linear_by_kernel = dict(lin.linear.launches_by_kernel)
     return out
 
 
@@ -2343,6 +2439,8 @@ def _counts_minus(a: dict, b: dict) -> dict:
     out = _Counts({k: v - b[k] for k, v in a.items()})
     out.by_kernel = _by_name_minus(a.by_kernel, b.by_kernel)
     out.pe_by_kernel = _by_name_minus(a.pe_by_kernel, b.pe_by_kernel)
+    out.linear_by_kernel = _by_name_minus(a.linear_by_kernel,
+                                          b.linear_by_kernel)
     return out
 
 
@@ -7145,6 +7243,7 @@ def smoke(root: str) -> int:
         grads = phase_kernel_grads(smi)
         attn_rag = phase_attention_rag(smi)
         ln_summary = phase_ln_matmul(smi)
+        linear_summary = phase_linear(smi)
     finally:
         worker.join()  # before root can go
     if "error" in pre:
@@ -7239,6 +7338,19 @@ def smoke(root: str) -> int:
         raise AssertionError("the main paths never launched kernel A's "
                              "wgmma variant")
 
+    # the encoder linears' GEMM, by path (ops/linear.py's names)
+    l_by_path = {path: getattr(counts, "linear_by_kernel", None)
+                 for path, counts in by_path.items()}
+    l_total = collections.Counter()
+    for counts in l_by_path.values():
+        l_total.update(counts or {})
+    log(f"[7] the linears' GEMM main-path launches: {dict(l_total)} "
+        f"(paths without a count: "
+        f"{[p for p, c in l_by_path.items() if c is None]})")
+    if not (by_path["segment"].linear_by_kernel or {}).get(lin.KERNEL_NAME):
+        raise AssertionError("the f32 embed main path never launched "
+                             f"{lin.KERNEL_NAME}")
+
     smoke_row = attn_summary.pop("smoke_t313")
     kernels = [
         dict(name="patch_embed", route="cuda",
@@ -7303,6 +7415,15 @@ def smoke(root: str) -> int:
                  "ln_gemm/mma": "vit_research_tpu_torch/csrc/fused_ln.cu"},
              launches_by_path={"ln_matmul": ln_summary["launches"]},
              library_call="F.layer_norm + F.linear + F.gelu", **ln_summary),
+        dict(name="linear", route="cuda",
+             source="vit_research_tpu_torch/csrc/gemm_f32_wg.cu",
+             replaces="none (the JAX package leaves these products to XLA)",
+             launches=sum(l_total.values()),
+             launches_by_kernel=dict(l_total),
+             launches_by_path={p: sum((c or {}).values())
+                               for p, c in l_by_path.items()},
+             library_call="F.linear (cuBLAS f32, TF32 off)",
+             **linear_summary),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

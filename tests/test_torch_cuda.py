@@ -39,12 +39,13 @@ from vit_research_tpu_torch.data.preprocess import (PreprocessSpec,
 from vit_research_tpu_torch.models.vit import init_vit
 from vit_research_tpu_torch.ops import attention as attn
 from vit_research_tpu_torch.ops import fused_ln
+from vit_research_tpu_torch.ops import linear as lin
 from vit_research_tpu_torch.ops import patch_embed as pe
 from vit_research_tpu_torch.ops import topk
 from vit_research_tpu_torch.ops.tome import merged_token_counts
 from vit_research_tpu_torch.parallel import embed
 from vit_research_tpu_torch.store.vector_store import Collection
-from vit_research_tpu_torch.utils.configs import ViTConfig
+from vit_research_tpu_torch.utils.configs import VIT_B16_224, ViTConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -1811,3 +1812,114 @@ def test_f32_short_grads_are_the_plain_vjp(cuda, variant, dh, t):
     for x, y in zip(grads, want):
         torch.testing.assert_close(x, y, rtol=0,
                                    atol=1e-5 * y.abs().max().item())
+
+
+def _linear_inputs(m, k, n, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g).to(device)
+    w = (torch.randn(n, k, generator=g) * k ** -0.5).to(device)
+    b = torch.randn(n, generator=g).to(device)
+    return x, w, b
+
+
+def _gap_to_f64(got, x, w, b):
+    want = x.double() @ w.double().t()
+    if b is not None:
+        want = want + b.double()
+    return (got.double() - want).abs().max().item()
+
+
+@pytest.mark.parametrize("m,k,n,with_bias", [
+    # the six main-path shapes: both embed cells' rows at q/k/v/out, fc1,
+    # fc2
+    *((m, k, n, True) for m in (256 * 197, 256 * 313)
+      for k, n in ((768, 768), (768, 3072), (3072, 768))),
+    # ragged rows at K = 3072 (one frame, a part tile, past the cell's
+    # rows), and K off the 128-deep multiples, without the bias
+    (197, 3072, 768, True), (1000, 3072, 768, True),
+    (256 * 197 + 37, 3072, 768, True), (1000, 96, 256, False)])
+def test_linear_kernel_holds_f32s_own_error(cuda, m, k, n, with_bias):
+    """gemm_f32_wg against the float64 product: no worse than twice
+    cuBLAS's f32 GEMM's own gap (TF32 off), launched once, every row and
+    column written."""
+    x, w, b = _linear_inputs(m, k, n, cuda, seed=m + k + n)
+    b = b if with_bias else None
+    before = lin.linear.launches
+    with torch.inference_mode():
+        got = lin.linear(x, w, b)
+        library = torch.nn.functional.linear(x, w, b)
+    torch.cuda.synchronize()
+    assert lin.linear.launches == before + 1
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _gap_to_f64(got, x, w, b) <= 2 * _gap_to_f64(library, x, w, b)
+
+
+def test_linear_kernel_ignores_allow_tf32(cuda):
+    """The kernel splits its operands itself: the same bits whatever
+    torch.backends.cuda.matmul.allow_tf32 says."""
+    x, w, b = _linear_inputs(1000, 768, 3072, cuda, seed=5)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        with torch.inference_mode():
+            torch.backends.cuda.matmul.allow_tf32 = True
+            on = lin.linear(x, w, b)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            off = lin.linear(x, w, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    assert torch.equal(on, off)
+
+
+def test_linear_kernel_reads_the_weight_as_it_lies(cuda):
+    """No piece of W outlives a call: a weight changed in place (as
+    load_state_dict and serve's reload_weights change it) is read as it
+    is on the next call."""
+    x, w, b = _linear_inputs(2048, 768, 768, cuda, seed=6)
+    with torch.inference_mode():
+        first = lin.linear(x, w, b)
+        w.mul_(-2.0)
+        second = lin.linear(x, w, b)
+    torch.testing.assert_close(second - b, -2.0 * (first - b), rtol=0,
+                               atol=1e-5)
+    assert _gap_to_f64(second, x, w, b) < 1e-4
+
+
+def test_linear_kernel_refuses_what_it_does_not_take(cuda):
+    """Rows that are not contiguous or not 16-byte aligned, a transposed
+    weight, a bf16 input and a recorded graph raise before any launch:
+    no copy, no fallback."""
+    x, w, b = _linear_inputs(2048, 768, 768, cuda, seed=7)
+    before = lin.linear.launches
+    cases = [
+        (x.t().contiguous().t(), w, ValueError, "contiguous values"),
+        (torch.zeros(2048 * 768 + 1, device=cuda)[1:].view(2048, 768), w,
+         ValueError, "16-byte aligned"),
+        (x, w.t().contiguous().t(), ValueError, "weight must be"),
+        (x.to(torch.bfloat16), w, TypeError, "float32")]
+    with torch.inference_mode():
+        for xx, ww, exc, match in cases:
+            with pytest.raises(exc, match=match):
+                lin.linear(xx, ww, b)
+    with pytest.raises(ValueError, match="no backward"):
+        lin.linear(x, w.clone().requires_grad_(True), b)
+    assert lin.linear.launches == before
+
+
+def test_backbone_embeddings_through_the_linear_kernel(cuda, monkeypatch):
+    """ViT-B/16 at 224 through the engine, B = 32 (6,304 rows a product):
+    the kernel takes all 72 products, and the L2-normalised embeddings are
+    within 2e-6 of the same engine with every product on cuBLAS f32."""
+    frames = np.random.default_rng(8).integers(0, 256,
+                                               size=(32, 224, 224, 3),
+                                               dtype=np.uint8)
+    engine = embed.EmbeddingEngine(init_vit(VIT_B16_224, seed=0,
+                                            device=cuda),
+                                   PreprocessSpec(size=(224, 224)),
+                                   device=cuda, batch_size=32)
+    before = lin.linear.launches
+    got = engine.embed_batch(frames)
+    assert lin.linear.launches - before == 12 * 6
+    monkeypatch.setattr(lin, "route", lambda *a, **kw: "library")
+    want = engine.embed_batch(frames)
+    assert lin.linear.launches - before == 12 * 6
+    assert np.abs(got - want).max() <= 2e-6

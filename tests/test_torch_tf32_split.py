@@ -18,6 +18,15 @@ tests (tests/test_torch_cuda.py) hold the kernel itself.
 One TF32 pass (hi hi alone, what torch.backends.cuda.matmul.allow_tf32
 would give) misses the f32 bound at the backbone's shape, so a split that
 silently lost its lo pieces fails here.
+
+The encoder linears' GEMM (csrc/gemm_f32_wg.cu, ops/linear.py) splits x
+and W the same way and takes each stage of 32 k as 12 TF32 wgmma (lo hi,
+hi lo, hi hi over four k-steps of 8) summed from 0, then adds that to its
+f32 accumulator with a rounded add. Its model takes each k-step's 8
+products exactly and adds them to the running sum truncated toward zero,
+as the tensor cores' accumulator adds truncate (the drift that made kernel
+C flush, csrc/tc_gemm.cuh); without the per-stage flush the same model
+drifts past f32's own error at the backbone's K.
 """
 
 import math
@@ -181,3 +190,69 @@ def test_stages_rescale_as_one_softmax():
     p = torch.softmax(s.double() + kb.double()[:, None, None, :], -1)
     want = (p @ v.double()).float()
     assert (got - want).abs().max().item() <= BOUND
+
+
+GEMM_STAGE = 32  # k a stage of csrc/gemm_f32_wg.cu (ops/linear.py's BK)
+GEMM_KSTEP = 8   # k of one TF32 wgmma
+
+
+def _truncated_add(acc: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """acc + d (d exact in float64) rounded toward zero to f32."""
+    s = acc.double() + d
+    f = s.float()
+    over = f.double().abs() > s.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def model_gemm(x, w, *, passes=3, flush=True):
+    """x (M, K) @ w (N, K)^T as gemm_f32_wg forms it: split operands, each
+    k-step's products exact and added truncated, a stage's 12 products from
+    0 and added to the f32 accumulator rounded (flush), or every product
+    truncated into the accumulator (flush=False); passes=1: hi hi alone."""
+    xh, xl = split(x)
+    wh, wl = split(w)
+    terms = [(xh, wh)] if passes == 1 else [(xl, wh), (xh, wl), (xh, wh)]
+    acc = torch.zeros(x.shape[0], w.shape[0])
+    for k0 in range(0, x.shape[1], GEMM_STAGE):
+        part = torch.zeros_like(acc) if flush else acc
+        for a, b in terms:
+            for kk in range(k0, k0 + GEMM_STAGE, GEMM_KSTEP):
+                ks = slice(kk, kk + GEMM_KSTEP)
+                part = _truncated_add(part, a[:, ks].double()
+                                      @ b[:, ks].double().t())
+        acc = acc + part if flush else part
+    return acc
+
+
+def _gemm_errors(k, seed, **kw):
+    """(model's, plain f32 product's) largest gap to the float64 product,
+    on x (32, K) and an nn.Linear-scaled W (64, K)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((32, k)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((64, k)) * k ** -0.5).astype(
+        np.float32))
+    want = x.double() @ w.double().t()
+    got = (model_gemm(x, w, **kw).double() - want).abs().max().item()
+    f32 = ((x @ w.t()).double() - want).abs().max().item()
+    return got, f32
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("k", [768, 3072])
+def test_gemm_model_holds_f32s_own_error(k, seed):
+    """At the backbone's K (q/k/v/out and fc1: 768; fc2: 3072) split
+    operands with a per-stage flush sit within twice the plain f32
+    product's own gap to the float64 product."""
+    got, f32 = _gemm_errors(k, seed)
+    assert got <= 2 * f32
+
+
+@pytest.mark.parametrize("k", [768, 3072])
+@pytest.mark.parametrize("kw", [dict(passes=1), dict(flush=False)],
+                         ids=["one_tf32_pass", "no_flush"])
+def test_gemm_model_fails_without_the_split_or_the_flush(k, kw):
+    """One TF32 pass misses f32's own error by far (over 100x); the three
+    passes with every product truncated into one accumulator drift past
+    it (over 5x): the lo pieces and the flush are both needed."""
+    got, f32 = _gemm_errors(k, seed=2, **kw)
+    assert got > (100 if kw.get("passes") == 1 else 5) * f32

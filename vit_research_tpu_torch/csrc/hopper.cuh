@@ -5,7 +5,8 @@
 // One home for what kernel B's wgmma variants (csrc/attention_wg.cu in
 // bf16, csrc/attention_f32_wg.cu in f32 on split TF32 operands), its
 // short-sequence f32 variant (csrc/attention_short.cu) and the wgmma GEMM
-// mainloop of kernels A and C (csrc/wg_gemm.cuh) share.
+// mainloop of kernels A and C (csrc/wg_gemm.cuh) and the encoder linears'
+// split-operand GEMM (csrc/gemm_f32_wg.cu) share.
 //
 // Everything is in namespace hop; nothing here launches or allocates.
 
@@ -109,6 +110,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 
 // A box of `map` at coordinates (c0, ...) into dst, counted on bar's
 // transaction bytes.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {

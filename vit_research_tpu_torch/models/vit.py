@@ -64,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 
 from vit_research_tpu_torch.utils.configs import ViTConfig
 from vit_research_tpu_torch.ops import attention as attn_ops
+from vit_research_tpu_torch.ops import linear as linear_ops
 from vit_research_tpu_torch.ops import quant
 from vit_research_tpu_torch.ops.patch_embed import patchify
 from vit_research_tpu_torch.ops.tome import bipartite_merge
@@ -123,7 +124,12 @@ def _dense(lin: nn.Linear, x: torch.Tensor, qdg=None,
     bias (the reference injects its int8 ``dot_general`` into the same
     Dense layers, which add the bias after the product); or, with a
     compute ``dtype``, flax's ``Dense(dtype=...)``: input, weight and bias
-    cast to ``dtype``, the product rounded to it, then the bias added."""
+    cast to ``dtype``, the product rounded to it, then the bias added. An
+    f32 inference product on the card that ``ops/linear.py::route`` sends
+    to the kernel runs on the tensor cores (3xTF32, f32 accuracy)."""
+    if linear_ops.route(x, lin.weight, lin.bias, qdg=qdg,
+                        dtype=dtype) == "kernel":
+        return linear_ops.linear(x, lin.weight, lin.bias)
     if qdg is not None:
         return qdg(x, lin.weight) + lin.bias
     if dtype is None:

@@ -58,6 +58,9 @@ _SIGNATURES = {
     # w_bf16, out_bf16, variant (0: the rule), stream
     "vrt_ln_matmul": ([_P] * 7 + [ctypes.c_longlong, _I, _I, _I,
                                   ctypes.c_float] + [_I] * 5 + [_P], _I),
+    # x, w, bias (or null), out, M, K, N, lda, stream
+    "vrt_linear_f32": ([_P] * 4 + [ctypes.c_longlong, _I, _I,
+                                   ctypes.c_longlong, _P], _I),
     "vrt_error_string": ([_I], ctypes.c_char_p),
 }
 
