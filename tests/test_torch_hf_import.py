@@ -52,8 +52,8 @@ def _images(seed=1, n=3, size=32):
 
 
 def test_hf_vit_b16_config_is_the_jax_packages():
-    assert dataclasses.asdict(hf_import.HF_VIT_B16_224) == \
-        dataclasses.asdict(jax_hf.HF_VIT_B16_224)
+    assert hf_import.HF_VIT_B16_224.to_dict() == \
+        jax_hf.HF_VIT_B16_224.to_dict()
     assert embed.HF_VIT_B16_224 is hf_import.HF_VIT_B16_224
 
 
@@ -61,8 +61,8 @@ def test_hf_vit_b16_config_is_the_jax_packages():
 def test_config_and_params_equal_the_jax_mapping(pooler):
     hf = _hf_model(pooler)
     cfg = hf_import.hf_config_to_vit_config(hf.config)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(
-        jax_hf.hf_config_to_vit_config(hf.config))
+    assert cfg.to_dict() == \
+        jax_hf.hf_config_to_vit_config(hf.config).to_dict()
     if pooler:
         cfg = dataclasses.replace(cfg, representation_size=cfg.hidden_size)
     sd = hf.state_dict()
@@ -95,7 +95,7 @@ def test_transplanted_forward_matches_hf_and_jax(pooler):
         np.testing.assert_allclose(out["pre_logits"].numpy(),
                                    ref.pooler_output.numpy(), **TOL)
     jmodel, jparams, jcfg = jax_hf.vit_from_torch_model(hf)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    assert jcfg.to_dict() == cfg.to_dict()
     jout = jmodel.apply(jparams, jnp.asarray(x))
     for key in ("pooled", "pre_logits"):
         np.testing.assert_allclose(out[key].numpy(), np.asarray(jout[key]),

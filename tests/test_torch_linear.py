@@ -109,6 +109,32 @@ def test_route_table(case, want):
     assert _route(**case) == want
 
 
+@pytest.mark.parametrize("case,counted", [
+    (dict(k=1152, n=4304), True),                 # SigLIP's fc1: N off
+    (dict(k=4304, n=1152), True),                 # its fc2: K off
+    (dict(k=1152, n=1152), False),                # on the tiles: kernel
+    (dict(m=lin.MIN_ROWS - 1, n=200), False),     # short: not the shape
+    (dict(n=200, grad=True), False),              # a training step
+    (dict(n=200, tensors=torch.bfloat16), False),
+    (dict(n=200, qdg=object()), False),
+    (dict(n=200, device="cpu"), False),
+])
+def test_library_shape_counter(case, counted):
+    """A product that the kernel would take but for K or N (f32
+    inference, at least MIN_ROWS rows) counts in route.declined_shape;
+    linear's launch counters do not move."""
+    before = lin.route.declined_shape
+    launches = lin.linear.launches
+    by_kernel = dict(lin.linear.launches_by_kernel)
+    got = _route(**case)
+    assert lin.route.declined_shape - before == int(counted)
+    assert got == ("plain" if case.get("device") == "cpu" else
+                   "kernel" if case.get("n", 768) == 1152
+                   and case.get("k", 768) == 1152 else "library")
+    assert lin.linear.launches == launches
+    assert dict(lin.linear.launches_by_kernel) == by_kernel
+
+
 def test_route_reads_autograd_state():
     """Grad-requiring weights take cuBLAS while a graph is recorded, the
     kernel under no_grad and inference_mode (the engine's forward)."""

@@ -242,8 +242,8 @@ def test_unported_options_are_refused():
 
 def test_hf_config_matches_reference():
     # the port keeps its own ViTConfig class, with the reference's fields
-    assert dataclasses.asdict(tembed.HF_VIT_B16_224) == \
-        dataclasses.asdict(hf_import.HF_VIT_B16_224)
+    assert tembed.HF_VIT_B16_224.to_dict() == \
+        hf_import.HF_VIT_B16_224.to_dict()
 
 
 # ---------------------------------------------------------------- engine

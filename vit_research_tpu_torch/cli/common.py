@@ -20,6 +20,19 @@ import sys
 import numpy as np
 
 PROFILE_PREFIX = "torch|"
+#: the backbones ``VRT_BACKBONE`` selects (unset: the first)
+BACKBONES = ("vit-b16-224", "siglip-so400m-p14-384")
+
+
+def backbone() -> str:
+    """The backbone of ``VRT_BACKBONE``: ``vit-b16-224`` (the default,
+    ViT-B/16 at 224, 768-wide embeddings) or ``siglip-so400m-p14-384``
+    (SigLIP's vision tower, 1,152-wide)."""
+    name = os.environ.get("VRT_BACKBONE", "").strip() or BACKBONES[0]
+    if name not in BACKBONES:
+        raise SystemExit(f"VRT_BACKBONE must be one of "
+                         f"{', '.join(BACKBONES)}, got {name!r}")
+    return name
 
 
 def _engine_env(require_scales: bool = True) -> dict:
@@ -84,7 +97,10 @@ def _tiny_vit_config(env: dict):
 
 def _engine(batch_size: int, device):
     """The frame embedder for the current env on ``device``: the
-    ViT-B/16 @224 engine, or the tiny test ViT under ``VRT_TINY=1``.
+    ViT-B/16 @224 engine, SigLIP so400m/14 @384's under
+    ``VRT_BACKBONE=siglip-so400m-p14-384`` (parity f32 only: the fast
+    profile's toggles are refused there), or the tiny test ViT under
+    ``VRT_TINY=1``.
     ``VRT_TOME_R=<r>`` merges r tokens a layer (ops/tome.py),
     ``VRT_GEMM_QUANT=int8`` runs the encoder GEMMs in dynamic int8 and
     ``int8-static`` with the scales of ``VRT_GEMM_SCALES``
@@ -92,15 +108,24 @@ def _engine(batch_size: int, device):
     must come from the same settings (engine_profile fences them)."""
     from vit_research_tpu_torch.data.preprocess import PreprocessSpec
     from vit_research_tpu_torch.models.vit import init_vit
-    from vit_research_tpu_torch.parallel.embed import (EmbeddingEngine,
-                                                       make_hf_frame_embedder)
+    from vit_research_tpu_torch.parallel.embed import (
+        EmbeddingEngine, make_hf_frame_embedder, make_siglip_frame_embedder)
 
     env = _engine_env()
+    name = backbone()
     if os.environ.get("VRT_TINY"):
         model = init_vit(_tiny_vit_config(env), seed=0, device="cpu")
         return EmbeddingEngine(
             model, PreprocessSpec(size=(32, 32), grayscale=env["grayscale"]),
             device=device, batch_size=min(batch_size, 16))
+    if name == "siglip-so400m-p14-384":
+        if env["tome_r"] or env["gemm_quant"]:
+            raise SystemExit("VRT_BACKBONE=siglip-so400m-p14-384 runs the "
+                             "f32 parity path: unset VRT_TOME_R and "
+                             "VRT_GEMM_QUANT")
+        return make_siglip_frame_embedder(device=device,
+                                          batch_size=batch_size,
+                                          grayscale=env["grayscale"])
     return make_hf_frame_embedder(device=device, batch_size=batch_size,
                                   grayscale=env["grayscale"],
                                   tome_r=env["tome_r"],
@@ -112,8 +137,13 @@ def engine_profile() -> str:
     """Canonical string for the current embedding settings, ``torch|`` +
     the reference's (e.g. ``torch|tome0|quant-none|gray0``): collections
     and frame stores stamp it at write time and read-side commands warn
-    when querying across profiles."""
+    when querying across profiles. A backbone other than the default
+    stamps its name after the prefix (``torch|siglip-so400m-p14-384|...``;
+    not under ``VRT_TINY``, whose engine is the tiny ViT whatever the
+    backbone), so 1,152- and 768-wide embeddings never share a collection
+    unannounced; the default's profile is the reference's."""
     env = _engine_env()
+    name = backbone()
     quant = env["gemm_quant"] or "none"
     if env["gemm_quant"] == "int8-static":
         # two calibrations are two embedding spaces: the scale values go
@@ -124,7 +154,9 @@ def engine_profile() -> str:
         quant = f"int8-static:{digest}"
     gray = "1" if env["grayscale"] else "0"
     tiny = "tiny|" if os.environ.get("VRT_TINY") else ""
-    return (f"{PROFILE_PREFIX}{tiny}tome{env['tome_r']}|quant-{quant}"
+    # the tiny test ViT is the engine under VRT_TINY, whatever the backbone
+    net = "" if name == BACKBONES[0] or tiny else f"{name}|"
+    return (f"{PROFILE_PREFIX}{tiny}{net}tome{env['tome_r']}|quant-{quant}"
             f"|gray{gray}")
 
 

@@ -65,6 +65,10 @@ RANDOM_VIT_SPEC_RAW = PreprocessSpec(
 RANDOM_VIT_SPEC_UNIT = PreprocessSpec(
     size=FRAME_SIZE, rescale=1.0 / 255.0, mean=(0, 0, 0), std=(1, 1, 1),
     interpolation="area")
+# SigLIP's processor (google/siglip-so400m-patch14-384): 384x384, rescale
+# 1/255, mean and std 0.5 (HF_VIT_SPEC's constants). Its resize is bicubic;
+# the host resize here is bilinear (frames of another size only).
+SIGLIP_SPEC = PreprocessSpec(size=(384, 384))
 
 
 def decode_image(path: str) -> np.ndarray:

@@ -107,8 +107,22 @@ def _block_to_tree(t, pre: str, d: int, h: int) -> dict:
                     "fc2": dense(pre + "mlp.fc2")}}
 
 
+def _check_jax_expressible(config: ViTConfig) -> None:
+    """The JAX package's ViT has a class token and no ``map`` pooler: a
+    configuration without the one or with the other (SigLIP's) has no
+    parameter tree there to convert to or from. ``config`` may be either
+    package's ``ViTConfig`` (the JAX package's has no ``class_token``)."""
+    if not getattr(config, "class_token", True) or config.pooler == "map":
+        raise ValueError(
+            "the JAX package has no ViT without a class token or with the "
+            "'map' pooler (SigLIP's vision tower): its weights come from "
+            "models/hf_import.py::siglip_state_dict_to_port, not through "
+            "models/convert.py")
+
+
 def params_to_state_dict(params, config: ViTConfig) -> dict:
     """Flax ViT params -> torch ``state_dict`` (float32 CPU tensors)."""
+    _check_jax_expressible(config)
     p = params.get("params", params)
     d = config.hidden_size
     flat: dict[str, np.ndarray] = {
@@ -130,6 +144,7 @@ def params_to_state_dict(params, config: ViTConfig) -> dict:
 def state_dict_to_params(state_dict, config: ViTConfig) -> dict:
     """torch ``state_dict`` -> Flax ViT params ``{"params": {...}}`` of
     float32 numpy arrays (the inverse of :func:`params_to_state_dict`)."""
+    _check_jax_expressible(config)
     t = _getter(state_dict)
     d = config.hidden_size
     ps = config.patch_size

@@ -12,6 +12,12 @@ into the port's modules, not two. Nothing here downloads:
 :func:`load_hf_vit` returns None without transformers or cached weights,
 and an offline caller passes a locally built ``ViTModel`` to
 :func:`vit_from_torch_model`.
+
+SigLIP's vision tower (``transformers.SiglipVisionModel``, e.g.
+``google/siglip-so400m-patch14-384``) has no counterpart in the JAX
+package: :func:`siglip_state_dict_to_port` maps its state dict straight
+onto the port's keys, the attention-pooling head's packed in-projection
+split into the port's separate q/k/v.
 """
 
 from __future__ import annotations
@@ -27,6 +33,17 @@ HF_VIT_B16_224 = ViTConfig(
     image_size=(224, 224), patch_size=16, hidden_size=768, num_layers=12,
     num_heads=12, mlp_dim=3072, layer_norm_eps=1e-12, gelu_approximate=False,
     pooler="token",
+)
+
+
+#: google/siglip-so400m-patch14-384's vision tower as a ViTConfig: 27
+#: layers of 1,152 wide, 16 heads of 72, a tanh-GELU MLP of 4,304, patch
+#: 14 at 384 (a 27 x 27 grid, T = 729, no class token), LayerNorm eps
+#: 1e-6, the attention-pooling head.
+SIGLIP_SO400M_P14_384 = ViTConfig(
+    image_size=(384, 384), patch_size=14, hidden_size=1152, num_layers=27,
+    num_heads=16, mlp_dim=4304, layer_norm_eps=1e-6, gelu_approximate=True,
+    pooler="map", class_token=False,
 )
 
 
@@ -146,3 +163,57 @@ def load_hf_vit(model_name: str = "google/vit-base-patch16-224", **kwargs):
     except Exception:
         return None
     return vit_from_torch_model(hf)
+
+
+def siglip_state_dict_to_port(state_dict, config: ViTConfig) -> dict:
+    """``SiglipVisionModel`` state dict (keys with or without the
+    ``vision_model.`` prefix; torch tensors or numpy arrays) -> the port's
+    ``state_dict`` for models/vit.py::VisionTransformer with
+    ``config`` (float32 CPU tensors): the conv patch kernel (D, C, P, P)
+    as (P*P*C, D) rows in (py, px, c) order, the position table as
+    (1, N, D), the head's packed in-projection (3D, D) split into q, k, v
+    in that order (``nn.MultiheadAttention``'s)."""
+    import torch
+
+    def t(name):
+        v = state_dict.get(name, state_dict.get("vision_model." + name))
+        if v is None:
+            raise KeyError(f"{name!r} is not in the SigLIP state dict")
+        return torch.as_tensor(np.asarray(
+            v.detach().cpu().numpy() if hasattr(v, "detach") else v,
+            np.float32))
+
+    d = config.hidden_size
+    out = {
+        "patch_embed.weight": t("embeddings.patch_embedding.weight")
+        .permute(2, 3, 1, 0).reshape(-1, d),
+        "patch_embed.bias": t("embeddings.patch_embedding.bias"),
+        "pos_embedding": t("embeddings.position_embedding.weight")[None],
+        "encoder_norm.weight": t("post_layernorm.weight"),
+        "encoder_norm.bias": t("post_layernorm.bias"),
+        "head.probe": t("head.probe"),
+        "head.norm.weight": t("head.layernorm.weight"),
+        "head.norm.bias": t("head.layernorm.bias"),
+        "head.out.weight": t("head.attention.out_proj.weight"),
+        "head.out.bias": t("head.attention.out_proj.bias"),
+    }
+    w_in = t("head.attention.in_proj_weight")
+    b_in = t("head.attention.in_proj_bias")
+    for j, name in enumerate(("query", "key", "value")):
+        out[f"head.{name}.weight"] = w_in[j * d:(j + 1) * d]
+        out[f"head.{name}.bias"] = b_in[j * d:(j + 1) * d]
+    for fc in ("fc1", "fc2"):
+        for k in ("weight", "bias"):
+            out[f"head.mlp.{fc}.{k}"] = t(f"head.mlp.{fc}.{k}")
+    names = {"ln1": "layer_norm1", "ln2": "layer_norm2",
+             "attn.query": "self_attn.q_proj", "attn.key": "self_attn.k_proj",
+             "attn.value": "self_attn.v_proj",
+             "attn.out": "self_attn.out_proj", "mlp.fc1": "mlp.fc1",
+             "mlp.fc2": "mlp.fc2"}
+    for i in range(config.num_layers):
+        for port, hf in names.items():
+            for k in ("weight", "bias"):
+                out[f"blocks.{i}.{port}.{k}"] = t(
+                    f"encoder.layers.{i}.{hf}.{k}")
+    return {k: v.contiguous() for k, v in out.items()}
+

@@ -13,6 +13,13 @@ between them), so imported or converted weights give the same function:
 - ``encoder_norm``, the ``token`` / ``gap`` / ``none`` poolers and the
   optional tanh ``pre_logits``; ``forward`` returns the endpoints dict.
 
+Beyond the reference, the backbone takes SigLIP's vision tower (its
+configuration: models/hf_import.py::SIGLIP_SO400M_P14_384): no class
+token (``class_token=False``: the position table has one row a patch),
+tanh GELU, and the ``map`` pooler, a multihead attention-pooling head
+(:class:`MAPHead`) after ``encoder_norm``. The JAX package has no such
+model, so models/convert.py refuses both settings.
+
 Attention runs through ops/attention.py (the hand-written CUDA kernel on
 a CUDA device) by default; the plain path serves attention-score outputs,
 attention dropout in training and a non-f32 softmax, the same split as
@@ -68,6 +75,7 @@ from vit_research_tpu_torch.ops import linear as linear_ops
 from vit_research_tpu_torch.ops import quant
 from vit_research_tpu_torch.ops.patch_embed import patchify
 from vit_research_tpu_torch.ops.tome import bipartite_merge
+from vit_research_tpu_torch.utils import profiling
 
 # flax's lecun_normal / variance_scaling draws from a standard normal
 # truncated to [-2, 2], rescaled by this constant so the variance is 1/fan_in.
@@ -341,6 +349,54 @@ class ToMeEncoderBlock(EncoderBlock):
         return x + self.mlp(self.ln2(x)), sizes
 
 
+class MAPHead(nn.Module):
+    """Multihead attention pooling (SigLIP's
+    ``SiglipMultiheadAttentionPoolingHead``): a learned probe (1, 1, D)
+    is the one query of multihead attention over the tokens, then
+    ``y = a + MLP(LayerNorm(a))`` on the attention output ``a``; the
+    pooled vector is that one row.
+
+    q/k/v/out are separate ``nn.Linear``s (a packed in-projection is split
+    at import, models/hf_import.py), applied through :func:`_dense`, so
+    the keys and values over B x T rows take ops/linear.py's kernel where
+    its rule admits them. The probe's query does not depend on the batch:
+    it is projected once. The one-query softmax runs in plain torch
+    (kernel B is self-attention; this product is 4 T D operations a
+    frame), in f32."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_dim: int, *,
+                 layer_norm_eps: float = 1e-6,
+                 gelu_approximate: bool = False):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"width {dim} is not divisible by {num_heads} "
+                             "heads")
+        self.num_heads = num_heads
+        self.probe = nn.Parameter(torch.zeros(1, 1, dim))
+        self.query = nn.Linear(dim, dim)
+        self.key = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.out = nn.Linear(dim, dim)
+        self.norm = nn.LayerNorm(dim, eps=layer_norm_eps)
+        self.mlp = MlpBlock(dim, mlp_dim, gelu_approximate=gelu_approximate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, D) tokens -> (B, D) pooled."""
+        b, t, d = x.shape
+        h = self.num_heads
+        dh = d // h
+        with profiling.span("vit.map_pool", rows=b):
+            q = _dense(self.query, self.probe[0].to(x.dtype)).reshape(h, dh)
+            k = _dense(self.key, x).reshape(b, t, h, dh)
+            v = _dense(self.value, x).reshape(b, t, h, dh)
+            s = torch.einsum("hd,bthd->bht", q, k) * attn_ops.weak_scalar(
+                dh ** -0.5, x.dtype)
+            p = torch.softmax(s.to(torch.float32), dim=-1).to(x.dtype)
+            a = _dense(self.out, torch.einsum("bht,bthd->bhd", p,
+                                              v).reshape(b, d))
+            return a + self.mlp(self.norm(a))
+
+
 class VisionTransformer(nn.Module):
     """ViT backbone configured by a ``ViTConfig`` (utils/configs.py, the
     reference's fields). Parameters
@@ -356,8 +412,16 @@ class VisionTransformer(nn.Module):
                 "tome_r is incompatible with remat (an inference-speed "
                 "knob) and with output_attention_scores (per-layer "
                 "score shapes differ once tokens merge)")
-        if c.pooler not in ("token", "gap", "none"):
+        if c.pooler not in ("token", "gap", "map", "none"):
             raise ValueError(f"unknown pooler {c.pooler!r}")
+        #: the config's ``class_token`` (the JAX package's ViTConfig, which
+        #: the tests hand the port too, has none: a class token)
+        self.class_token = getattr(c, "class_token", True)
+        if not self.class_token and (c.pooler == "token" or c.tome_r):
+            raise ValueError(
+                "class_token=False takes the 'gap', 'map' or 'none' pooler "
+                "and no tome_r (the token pooler and ToMe's protected "
+                "first token are the class token)")
         self.config = c
         self.compute_dtype = _dtype(c.dtype)
         sm_dtype = _dtype(c.softmax_dtype)
@@ -365,8 +429,10 @@ class VisionTransformer(nn.Module):
         self.dot_general = _quant_dot_general(c)
         d = c.hidden_size
         self.patch_embed = PatchEmbed(c.patch_size, 3, d)
-        self.cls = nn.Parameter(torch.zeros(1, 1, d))
-        self.pos_embedding = nn.Parameter(torch.empty(1, c.num_patches + 1, d))
+        self.cls = (nn.Parameter(torch.zeros(1, 1, d)) if self.class_token
+                    else None)
+        self.pos_embedding = nn.Parameter(
+            torch.empty(1, c.num_patches + int(self.class_token), d))
         block_kw = dict(dropout_rate=c.dropout_rate,
                         attention_dropout_rate=c.attention_dropout_rate,
                         layer_norm_eps=c.layer_norm_eps,
@@ -380,6 +446,10 @@ class VisionTransformer(nn.Module):
                                           **block_kw)
             for _ in range(c.num_layers))
         self.encoder_norm = nn.LayerNorm(d, eps=c.layer_norm_eps)
+        self.head = (MAPHead(d, c.num_heads, c.mlp_dim,
+                             layer_norm_eps=c.layer_norm_eps,
+                             gelu_approximate=c.gelu_approximate)
+                     if c.pooler == "map" else None)
         self.pre_logits = (nn.Linear(d, c.representation_size)
                            if c.representation_size is not None else None)
         self.input_dropout = Dropout(c.dropout_rate)
@@ -388,13 +458,17 @@ class VisionTransformer(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Seeded init with the reference's initialisers: cls zeros, pos
-        trunc-normal(0.02), dense and patch kernels lecun-normal with zero
+        (and the MAP head's probe) trunc-normal(0.02), dense and patch kernels lecun-normal with zero
         bias, LayerNorm ones/zeros. ``torch.Generator`` and ``jax.random``
         draw different numbers, so equal weights across the two packages
         come from models/convert.py, not from a shared seed."""
-        nn.init.zeros_(self.cls)
+        if self.cls is not None:
+            nn.init.zeros_(self.cls)
         nn.init.trunc_normal_(self.pos_embedding, std=0.02, a=-0.04, b=0.04,
                               generator=generator)
+        if self.head is not None:
+            nn.init.trunc_normal_(self.head.probe, std=0.02, a=-0.04, b=0.04,
+                                  generator=generator)
         _lecun_normal_(self.patch_embed.weight,
                        self.patch_embed.weight.shape[0], generator)
         nn.init.zeros_(self.patch_embed.bias)
@@ -423,9 +497,10 @@ class VisionTransformer(nn.Module):
         if isinstance(self.dot_general, quant.StaticInt8DotGeneral):
             self.dot_general.reset()  # one scale per site, per forward
         x = x.to(dtype)
-        x = torch.cat([self.cls.to(dtype).expand(b, -1, -1), x], dim=1)
+        if self.class_token:
+            x = torch.cat([self.cls.to(dtype).expand(b, -1, -1), x], dim=1)
         pos = interpolate_pos_embedding(self.pos_embedding, c.grid,
-                                        tuple(grid), has_cls=True)
+                                        tuple(grid), has_cls=self.class_token)
         x = self.input_dropout(x + pos.to(dtype))
 
         endpoints = {"tokens_before_encoder": x}
@@ -452,9 +527,11 @@ class VisionTransformer(nn.Module):
 
         if c.pooler == "token":
             pooled = x[:, 0]
+        elif c.pooler == "map":
+            pooled = self.head(x)
         elif c.pooler == "gap":
             if sizes is None:
-                pooled = x[:, 1:].mean(dim=1)
+                pooled = x[:, int(self.class_token):].mean(dim=1)
             else:  # a merged token stands for several: weight by size
                 w = sizes[:, 1:, None].to(x.dtype)
                 pooled = (x[:, 1:] * w).sum(dim=1) / w.sum(dim=1)

@@ -50,18 +50,31 @@ def route(x: torch.Tensor, weight: torch.Tensor, bias=None, *, qdg=None,
     ``"kernel"`` where every one of these holds: x, weight and bias f32,
     no int8 product (``qdg``) and no compute ``dtype``, no autograd graph
     recorded, K % :data:`BK` == 0 and N % :data:`BN` == 0, and at least
-    :data:`MIN_ROWS` rows; else ``"library"`` (``F.linear``, cuBLAS)."""
+    :data:`MIN_ROWS` rows; else ``"library"`` (``F.linear``, cuBLAS). A
+    library product that only its K or N kept off the kernel counts in
+    ``route.declined_shape``: the program asks once a product
+    (``models/vit.py::_dense``)."""
     if x.device.type != "cuda":
         return "plain"
     k = x.shape[-1]
     n = weight.shape[0]
-    takes = (qdg is None and dtype is None
-             and x.dtype == weight.dtype == torch.float32
-             and (bias is None or bias.dtype == torch.float32)
-             and not _records_grad(x, weight, bias)
-             and weight.dim() == 2 and k > 0 and k % BK == 0
-             and n % BN == 0 and x.numel() // k >= MIN_ROWS)
-    return "kernel" if takes else "library"
+    eligible = (qdg is None and dtype is None
+                and x.dtype == weight.dtype == torch.float32
+                and (bias is None or bias.dtype == torch.float32)
+                and not _records_grad(x, weight, bias)
+                and weight.dim() == 2 and k > 0
+                and x.numel() // k >= MIN_ROWS)
+    if eligible and k % BK == 0 and n % BN == 0:
+        return "kernel"
+    if eligible:
+        route.declined_shape += 1
+    return "library"
+
+
+#: f32 inference products of at least :data:`MIN_ROWS` rows that
+#: :func:`route` sent to the library for their K or N alone (off the
+#: kernel's tiles: SigLIP's MLP at 4,304); no launch of :func:`linear`
+route.declined_shape = 0
 
 
 def linear_plain(x: torch.Tensor, weight: torch.Tensor,

@@ -53,11 +53,15 @@ import torch
 from vit_research_tpu_torch.data.preprocess import (
     HF_VIT_SPEC,
     LUMA_WEIGHTS,
+    SIGLIP_SPEC,
     PreprocessSpec,
     load_frames,
 )
 from vit_research_tpu_torch.utils.configs import ViTConfig
-from vit_research_tpu_torch.models.hf_import import HF_VIT_B16_224
+from vit_research_tpu_torch.models.hf_import import (
+    HF_VIT_B16_224,
+    SIGLIP_SO400M_P14_384,
+)
 from vit_research_tpu_torch.ops.patch_embed import fused_patch_embed
 from vit_research_tpu_torch.ops.tome import merged_token_counts
 from vit_research_tpu_torch.parallel import mesh as mesh_lib
@@ -135,7 +139,7 @@ class EmbeddingEngine:
         self._batches = 0
 
     def _out_trailing(self, c: ViTConfig) -> tuple:
-        n = self.grid[0] * self.grid[1] + 1
+        n = self.grid[0] * self.grid[1] + int(self.model.class_token)
         tokens = (n, c.hidden_size)
         if self.endpoint == "encoded_tokens" and c.tome_r:
             tokens = (merged_token_counts(n, c.tome_r, c.num_layers)[-1],
@@ -516,3 +520,22 @@ def make_hf_frame_embedder(state_dict=None, *, device, spec=None,
     return EmbeddingEngine(model, spec or HF_VIT_SPEC, device=device,
                            batch_size=batch_size, endpoint="pooled",
                            l2_normalize=True)
+
+
+def make_siglip_frame_embedder(state_dict=None, *, device,
+                               batch_size: int = 64, grayscale: bool = False
+                               ) -> EmbeddingEngine:
+    """SigLIP so400m/14 at 384's vision tower (no class token, the
+    attention-pooling head), its pooled output L2-normalised: 1,152-wide
+    rows. Kernel A runs at P = 14, then the encoder. Loads ``state_dict``
+    (a ``transformers.SiglipVisionModel``'s after
+    models/hf_import.py::siglip_state_dict_to_port) when given, else the
+    port's seeded init."""
+    from vit_research_tpu_torch.models.vit import init_vit
+
+    spec = dataclasses.replace(SIGLIP_SPEC, grayscale=grayscale)
+    model = init_vit(SIGLIP_SO400M_P14_384, device="cpu")
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    return EmbeddingEngine(model, spec, device=device, batch_size=batch_size,
+                           endpoint="pooled", l2_normalize=True)

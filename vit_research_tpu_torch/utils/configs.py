@@ -7,7 +7,11 @@ port's backbone refuses the ``ViTConfig`` fields it does not implement
 (``remat``, ``attn_layout='bthd'``) and does not read
 ``use_flash_attention``: its attention kernel is the default
 (models/vit.py). ``tome_r``, ``gemm_quant`` and ``gemm_quant_scales``
-are the fast profile's (ops/tome.py, ops/quant.py).
+are the fast profile's (ops/tome.py, ops/quant.py). ``ViTConfig`` has
+fields the reference lacks (``class_token``, for the SigLIP-class
+backbone); such a field is marked ``port_only`` and is left out of the
+dict and JSON forms while it holds its default, so every configuration
+the reference can express reads and writes as the reference's does.
 """
 
 from __future__ import annotations
@@ -21,9 +25,13 @@ from typing import Any
 
 
 def _asdict(obj: Any) -> Any:
-    """Dataclasses to dicts, tuples to lists (JSON's form)."""
+    """Dataclasses to dicts, tuples to lists (JSON's form); a
+    ``port_only`` field at its default is left out."""
     if dataclasses.is_dataclass(obj):
-        obj = dataclasses.asdict(obj)
+        return {f.name: _asdict(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)
+                if not (f.metadata.get("port_only")
+                        and getattr(obj, f.name) == f.default)}
     if isinstance(obj, dict):
         return {k: _asdict(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -70,7 +78,8 @@ def _is_tuple_field(f: dataclasses.Field) -> bool:
 class ViTConfig(_Serializable):
     """Vision Transformer backbone hyperparameters: the random-init
     patch-32 model at 432x768 and google/vit-base-patch16-224 at 224x224
-    are both instances."""
+    are both instances, and so is SigLIP's vision tower (no class token,
+    the ``map`` pooler: models/vit.py::MAPHead)."""
 
     image_size: tuple = (224, 224)  # (H, W)
     patch_size: int = 16
@@ -80,7 +89,7 @@ class ViTConfig(_Serializable):
     mlp_dim: int = 3072
     dropout_rate: float = 0.0
     attention_dropout_rate: float = 0.0
-    pooler: str = "token"  # 'token' | 'gap' | 'none'
+    pooler: str = "token"  # 'token' | 'gap' | 'map' | 'none'
     representation_size: int | None = None  # pre_logits dense, None = identity
     layer_norm_eps: float = 1e-6
     # 'exact' matches HF ViT (erf GELU); 'tanh' is the cheaper approximation.
@@ -95,6 +104,9 @@ class ViTConfig(_Serializable):
     tome_r: int = 0
     gemm_quant_scales: tuple = ()
     gemm_quant: str | None = None
+    # a learned class token before the patch tokens (the position table
+    # then has num_patches + 1 rows); SigLIP has none
+    class_token: bool = field(default=True, metadata={"port_only": True})
 
     @property
     def grid(self) -> tuple:
